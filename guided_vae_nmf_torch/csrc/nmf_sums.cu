@@ -1,0 +1,147 @@
+// One-pass NMF M-step sums over the MH sample buffer (K2).
+//
+// Replaces guided_vae_nmf_tpu/mcem/pallas_engine.py: nmf_sums_pallas (body
+// _make_sums_kernel), modes 'h' and 'g' with the NMF factors (WH=).
+//
+// With Vb = H^T Wt and inv_r = 1 / max(g Vs_r + Vb, 1e-10) over the R
+// samples of a frame:
+//   'h': numH[k] = sum_f X2 (sum_r inv_r^2) Wt[k, f],
+//        denH[k] = sum_f (sum_r inv_r) Wt[k, f]            -> (B, N, K) x2
+//   'g': num = sum_f X2 sum_r Vs_r inv_r^2,
+//        den = sum_{r, f} Vs_r inv_r                         -> (B, N) x2
+//
+// What bounds it on an H100: bytes. Each frame reads R F float32 samples
+// plus F of X2 once (20 KB at R = 10, F = 513) for ~10 flops a sample. The
+// TPU design kept a (R, 128, F) sample tile in VMEM and reduced over R
+// vectorised. Here one warp owns one frame: its lanes walk F in coalesced
+// 128-byte rows, every lane keeps its R-sums and its K partial H-update
+// sums in registers, and a butterfly shuffle reduces them at the end. A
+// frame's Wt column and H row are read once from L1/L2. No shared memory,
+// no atomics; the order of every sum is fixed, so a run is reproducible.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int KMAX = 16;          // largest NMF rank
+constexpr int WARPS = 8;          // frames per block
+constexpr float VX_FLOOR = 1e-10f;
+constexpr unsigned FULL = 0xffffffffu;
+
+enum { MODE_H = 0, MODE_G = 1 };
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off >= 1; off >>= 1)
+    v = __fadd_rn(v, __shfl_xor_sync(FULL, v, off));
+  return v;
+}
+
+template <int MODE>
+__global__ void __launch_bounds__(WARPS * 32)
+    nmf_sums_kernel(const float* __restrict__ samples,
+                    const float* __restrict__ wt, const float* __restrict__ h,
+                    const float* __restrict__ g, const float* __restrict__ x2,
+                    float* __restrict__ o1, float* __restrict__ o2, int B,
+                    int R, int N, int F, int K) {
+  const int lane = threadIdx.x & 31;
+  const long long row = (long long)blockIdx.x * WARPS + (threadIdx.x >> 5);
+  if (row >= (long long)B * N) return;
+  const int b = (int)(row / N), n = (int)(row % N);
+  float hk[KMAX];
+#pragma unroll
+  for (int k = 0; k < KMAX; ++k)
+    hk[k] = k < K ? __ldg(h + ((size_t)b * K + k) * N + n) : 0.0f;
+  const float gn = __ldg(g + row);
+  const float* wtb = wt + (size_t)b * K * F;
+  const float* x2r = x2 + (size_t)row * F;
+  const size_t rstride = (size_t)N * F;   // between samples of one frame
+  const float* s0 = samples + ((size_t)b * R * N + n) * F;
+
+  float num[KMAX], den[KMAX];
+#pragma unroll
+  for (int k = 0; k < KMAX; ++k) num[k] = den[k] = 0.0f;
+
+  for (int c = lane; c < F; c += 32) {
+    float wk[KMAX];
+    float vb = 0.0f;
+#pragma unroll
+    for (int k = 0; k < KMAX; ++k) {
+      wk[k] = k < K ? __ldg(wtb + (size_t)k * F + c) : 0.0f;
+      if (k < K) vb = fmaf(hk[k], wk[k], vb);
+    }
+    const float xv = __ldg(x2r + c);
+    float a = 0.0f, d = 0.0f;
+    for (int r = 0; r < R; ++r) {
+      const float vs = __ldg(s0 + r * rstride + c);
+      const float vx = fmaxf(__fadd_rn(__fmul_rn(gn, vs), vb), VX_FLOOR);
+      const float inv = 1.0f / vx;
+      if (MODE == MODE_H) {
+        d = __fadd_rn(d, inv);                          // s1
+        a = __fadd_rn(a, __fmul_rn(inv, inv));          // s2
+      } else {
+        const float vi = __fmul_rn(vs, inv);
+        a = __fadd_rn(a, __fmul_rn(vi, inv));           // sum_r Vs inv^2
+        d = __fadd_rn(d, vi);                           // sum_r Vs inv
+      }
+    }
+    if (MODE == MODE_H) {
+      const float xs2 = __fmul_rn(xv, a);
+#pragma unroll
+      for (int k = 0; k < KMAX; ++k) {
+        num[k] = fmaf(xs2, wk[k], num[k]);
+        den[k] = fmaf(d, wk[k], den[k]);
+      }
+    } else {
+      num[0] = fmaf(xv, a, num[0]);
+      den[0] = __fadd_rn(den[0], d);
+    }
+  }
+
+  if (MODE == MODE_H) {
+#pragma unroll
+    for (int k = 0; k < KMAX; ++k) {
+      if (k >= K) break;
+      const float sn = warp_sum(num[k]), sd = warp_sum(den[k]);
+      if (lane == 0) {
+        o1[(size_t)row * K + k] = sn;
+        o2[(size_t)row * K + k] = sd;
+      }
+    }
+  } else {
+    const float sn = warp_sum(num[0]), sd = warp_sum(den[0]);
+    if (lane == 0) {
+      o1[row] = sn;
+      o2[row] = sd;
+    }
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+int gvnmf_nmf_sums_kmax() { return KMAX; }
+
+// mode 0 = 'h' (o1 / o2 = numH / denH, (B, N, K)), mode 1 = 'g' (o1 / o2 =
+// num / den, (B, N)). Returns the cudaError_t of the launch.
+int gvnmf_nmf_sums(const float* samples, const float* wt, const float* h,
+                   const float* g, const float* x2, float* o1, float* o2,
+                   int B, int R, int N, int F, int K, int mode,
+                   void* stream) {
+  if (K < 1 || K > KMAX || (mode != MODE_H && mode != MODE_G))
+    return (int)cudaErrorInvalidValue;
+  const long long rows = (long long)B * N;
+  const unsigned grid = (unsigned)((rows + WARPS - 1) / WARPS);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (mode == MODE_H)
+    nmf_sums_kernel<MODE_H><<<grid, WARPS * 32, 0, st>>>(
+        samples, wt, h, g, x2, o1, o2, B, R, N, F, K);
+  else
+    nmf_sums_kernel<MODE_G><<<grid, WARPS * 32, 0, st>>>(
+        samples, wt, h, g, x2, o1, o2, B, R, N, F, K);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -1,0 +1,255 @@
+"""K1: the fused Metropolis-Hastings chain over the VAE latent.
+
+Counterpart of `mh_chain_pallas` in `guided_vae_nmf_tpu/mcem/pallas_engine.py`
+(E-mode and WF-mode with the NMF factors `WH=`, exact math, float32 sample
+dumps). The kernel is `csrc/mh_chain.cu`; :func:`mh_chain_ref` is its plain
+PyTorch version, step by step the same function.
+
+:func:`mh_chain` launches the kernel for CUDA tensors and runs the plain
+version for CPU tensors; it has no other switch. Layouts are frames-major:
+X2, Vs (B, N, F); g, mask (B, N); ypre (B, N, H); Z (B, N, L); the NMF
+factors Wt (B, K, F) and H (B, K, N).
+"""
+
+import ctypes
+
+import numpy as np
+import torch
+
+from .. import _build
+from .engine import VX_FLOOR
+
+_VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_ARGTYPES = ([_VP] * 22 + [_I] * 9 + [_F, _I, ctypes.c_uint64, _VP])
+
+
+def _lib():
+    lib = _build.library("mh_chain")
+    if lib.gvnmf_mh_chain.argtypes is None:
+        lib.gvnmf_mh_chain.argtypes = _ARGTYPES
+        lib.gvnmf_mh_chain.restype = _I
+        lib.gvnmf_mh_chain_tile.argtypes = []
+        lib.gvnmf_mh_chain_tile.restype = _I
+        lib.gvnmf_mh_chain_smem.argtypes = [_I] * 4
+        lib.gvnmf_mh_chain_smem.restype = ctypes.c_longlong
+        lib.gvnmf_mh_chain_block.argtypes = [_I]
+        lib.gvnmf_mh_chain_block.restype = _I
+        lib.gvnmf_philox_streams.argtypes = [ctypes.c_uint64] + [_I] * 4 + [
+            _VP] * 3
+        lib.gvnmf_philox_streams.restype = _I
+    return lib
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _stream(device):
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def mh_chain_ref(dec_w, X2, WH, g, ypre, Z, Vs, mode="e", nsamples=10,
+                 burnin=30, var_RW=0.01, noise=None, mask=None,
+                 generator=None):
+    """Plain PyTorch version of the chain (also the CPU path).
+
+    noise: (Zn (B, n_steps, N, L), U (B, n_steps, N)) recorded streams;
+    without it they are drawn from `generator`. Returns (Z, Vs, extra):
+    extra = (samples (B, nsamples, N, F), numW (B, K, F), denW (B, K, F))
+    in 'e' mode, (WFs_sum, WFn_sum) (B, N, F) in 'wf' mode."""
+    B, N, F = X2.shape
+    L = Z.shape[-1]
+    n_steps = nsamples + burnin
+    if noise is None:
+        Zn = torch.randn((B, n_steps, N, L), generator=generator,
+                         device=X2.device)
+        U = torch.rand((B, n_steps, N), generator=generator,
+                       device=X2.device)
+    else:
+        Zn, U = noise
+    Wt, H = WH
+    Vb = torch.einsum("bkn,bkf->bnf", H, Wt)
+    G = g[..., None]
+    sqrt_var = float(np.sqrt(var_RW))
+
+    def decode(Zc):
+        h = torch.tanh(Zc @ dec_w["w1"] + ypre)
+        for w, b in dec_w["mid"]:
+            h = torch.tanh(h @ w + b)
+        return torch.exp(h @ dec_w["wo"] + dec_w["bo"])
+
+    def mix_var(Vs_):
+        return torch.clamp_min(G * Vs_ + Vb, VX_FLOOR)
+
+    def rowsum(Vx, inv):
+        return torch.sum(torch.log(Vx) + inv * X2, dim=-1)
+
+    def propose(m, Z, s):
+        Zp = Z + sqrt_var * Zn[:, m]
+        Vsp = decode(Zp)
+        Vxp = mix_var(Vsp)
+        invp = 1.0 / Vxp
+        sp = rowsum(Vxp, invp)
+        acc = (s - sp) + 0.5 * torch.sum(Z * Z - Zp * Zp, dim=-1)
+        return torch.log(U[:, m]) < acc, Zp, Vsp, invp, sp
+
+    Vx0 = mix_var(Vs)
+    s = rowsum(Vx0, 1.0 / Vx0)
+    for m in range(burnin):
+        accept, Zp, _, _, sp = propose(m, Z, s)
+        Z = torch.where(accept[..., None], Zp, Z)
+        s = torch.where(accept, sp, s)
+    Vs = decode(Z)
+    inv = 1.0 / mix_var(Vs)
+    acc1 = torch.zeros_like(X2)
+    acc2 = torch.zeros_like(X2)
+    samples = []
+    for m in range(nsamples):
+        accept, Zp, Vsp, invp, sp = propose(burnin + m, Z, s)
+        a = accept[..., None]
+        Z = torch.where(a, Zp, Z)
+        Vs = torch.where(a, Vsp, Vs)
+        inv = torch.where(a, invp, inv)
+        s = torch.where(accept, sp, s)
+        if mode == "wf":
+            t = Vb * inv
+            acc2 = acc2 + t              # WFn sum
+            acc1 = acc1 + (1.0 - t)      # WFs sum
+        else:
+            samples.append(Vs)
+            acc1 = acc1 + inv            # s1
+            acc2 = acc2 + inv * inv      # s2
+    if mode == "wf":
+        return Z, Vs, (acc1, acc2)
+    m3 = mask[..., None]
+    numW = torch.einsum("bkn,bnf->bkf", H, X2 * acc2 * m3)
+    denW = torch.einsum("bkn,bnf->bkf", H, acc1 * m3)
+    return Z, Vs, (torch.stack(samples, dim=1), numW, denW)
+
+
+def _check(name, t, shape, device):
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _mid_stacked(dec_w, Hd, device):
+    mid = dec_w["mid"]
+    if not mid:
+        z = torch.zeros((1,), device=device)
+        return z, z
+    for w, b in mid:
+        if tuple(w.shape) != (Hd, Hd):
+            raise NotImplementedError(
+                "the CUDA chain needs equal decoder hidden widths")
+    return (torch.stack([w for w, _ in mid]).contiguous(),
+            torch.stack([b for _, b in mid]).contiguous())
+
+
+def mh_chain(dec_w, X2, WH, g, ypre, Z, Vs, seed=0, mode="e", nsamples=10,
+             burnin=30, var_RW=0.01, noise=None, mask=None):
+    """Run the chain over a frames-major batch (see :func:`mh_chain_ref`
+    for the arguments and results). `Vs` must be decode(Z): the initial data
+    term comes from it and the kernel re-derives Vs at the burn-in boundary.
+
+    seed: keys the in-kernel Philox stream on CUDA (the CPU path seeds a
+    `torch.Generator` with it); ignored when `noise` is given."""
+    if mode not in ("e", "wf"):
+        raise ValueError(f"mode must be 'e' or 'wf', got {mode!r}")
+    if mode == "e" and mask is None:
+        raise ValueError("E-mode needs the frame mask")
+    if X2.device.type == "cpu":
+        gen = None
+        if noise is None:
+            gen = torch.Generator(device="cpu").manual_seed(int(seed))
+        return mh_chain_ref(dec_w, X2, WH, g, ypre, Z, Vs, mode=mode,
+                            nsamples=nsamples, burnin=burnin, var_RW=var_RW,
+                            noise=noise, mask=mask, generator=gen)
+    if X2.device.type != "cuda":
+        raise ValueError(f"unsupported device {X2.device}")
+    dev = X2.device
+    lib = _lib()
+    B, N, F = X2.shape
+    L = Z.shape[-1]
+    Wt, H = WH
+    K = Wt.shape[1]
+    Hd = ypre.shape[-1]
+    depth = 1 + len(dec_w["mid"])
+    n_steps = nsamples + burnin
+    tile = lib.gvnmf_mh_chain_tile()
+    if N % tile:
+        raise ValueError(f"N={N} must be a multiple of {tile}")
+    if lib.gvnmf_mh_chain_block(F) > 384:
+        raise ValueError(f"F={F} exceeds the kernel's 768 bins")
+    smem = lib.gvnmf_mh_chain_smem(F, L, Hd, K)
+    if smem > 232448:
+        raise ValueError(f"shapes need {smem} B of shared memory per CTA")
+    for name, t, shape in (
+            ("X2", X2, (B, N, F)), ("Wt", Wt, (B, K, F)), ("H", H, (B, K, N)),
+            ("g", g, (B, N)), ("ypre", ypre, (B, N, Hd)),
+            ("Z", Z, (B, N, L)), ("Vs", Vs, (B, N, F)),
+            ("w1", dec_w["w1"], (L, Hd)), ("wo", dec_w["wo"], (Hd, F)),
+            ("bo", dec_w["bo"], (F,))):
+        _check(name, t, shape, dev)
+    if mode == "e":
+        _check("mask", mask, (B, N), dev)
+    wmid, bmid = _mid_stacked(dec_w, Hd, dev)
+    zn = u = None
+    if noise is not None:
+        zn, u = noise
+        _check("Zn", zn, (B, n_steps, N, L), dev)
+        _check("U", u, (B, n_steps, N), dev)
+    z_out = torch.empty_like(Z)
+    vs_out = torch.empty_like(X2)
+    part1 = part2 = out3 = None
+    if mode == "e":
+        out1 = torch.empty((B, nsamples, N, F), device=dev)
+        out2 = torch.empty((B, K, F), device=dev)
+        out3 = torch.empty((B, K, F), device=dev)
+        part1 = torch.empty((B, N // tile, K, F), device=dev)
+        part2 = torch.empty_like(part1)
+    else:
+        out1 = torch.empty_like(X2)
+        out2 = torch.empty_like(X2)
+    with torch.cuda.device(dev):
+        status = lib.gvnmf_mh_chain(
+            _ptr(X2), _ptr(Wt), _ptr(H), _ptr(mask if mode == "e" else None),
+            _ptr(g), _ptr(ypre), _ptr(Z), _ptr(Vs), _ptr(zn), _ptr(u),
+            _ptr(dec_w["w1"]), _ptr(wmid), _ptr(bmid), _ptr(dec_w["wo"]),
+            _ptr(dec_w["bo"]), _ptr(z_out), _ptr(vs_out), _ptr(out1),
+            _ptr(out2), _ptr(out3), _ptr(part1), _ptr(part2),
+            B, N, F, L, Hd, K, depth, n_steps, burnin,
+            float(np.sqrt(var_RW)), 0 if mode == "e" else 1,
+            int(seed) & (2**64 - 1), _stream(dev))
+    _build.check(status, "mh_chain kernel")
+    mh_chain.launches += 1
+    if mode == "wf":
+        return z_out, vs_out, (out1, out2)
+    return z_out, vs_out, (out1, out2, out3)
+
+
+mh_chain.launches = 0
+
+
+def philox_streams(seed, B, N, L, n_steps, device):
+    """The (Zn, U) streams the CUDA chain draws in-kernel for `seed`, in the
+    `noise=` layout: running the chain with them reproduces its Philox run.
+    CUDA only (a diagnostic of the kernel's generator)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError("the in-kernel Philox stream exists only on CUDA")
+    lib = _lib()
+    zn = torch.empty((B, n_steps, N, L), device=device)
+    u = torch.empty((B, n_steps, N), device=device)
+    with torch.cuda.device(device):
+        status = lib.gvnmf_philox_streams(int(seed) & (2**64 - 1), B, N, L,
+                                          n_steps, zn.data_ptr(),
+                                          u.data_ptr(), _stream(device))
+    _build.check(status, "philox_streams kernel")
+    return zn, u

@@ -1,0 +1,397 @@
+"""End-to-end enhancement: int16 waveforms -> batched STFT -> guidance
+labels -> batched MCEM (K1 / K2 kernels) -> Wiener filtering -> masked ISTFT
+-> PCM16.
+
+Counterpart of `guided_vae_nmf_tpu/pipeline.py` for the NMF noise model in
+exact mode: :func:`enhance_waveform` is `_enhance_waveform_jit`,
+:func:`enhance_to_audio` is `enhance_to_audio` and :func:`enhance_files` is
+the file sweep. Label sources: 'dnn' (classifier on standardized power
+frames, > threshold), 'host' (caller's labels), 'ones', 'zeros' and 'none'
+(M1). 'oracle' and 'timo', the other noise models, PEEM and the fast modes
+are not ported yet and raise NotImplementedError.
+
+Entry points run on the GPU unless `device` names another device.
+"""
+
+import os
+import time
+from collections import defaultdict, deque
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+import torch
+import torch.nn.functional as Fn
+
+from ._device import resolve_device
+from .data import read_wav_int16, wav_num_samples, write_wav
+from .dsp import frame_count, istft_masked, pad_signal_for_stft
+from .dsp import stft_batch_padded
+from .mcem.engine import MCEMConfig
+from .mcem.fused_engine import mcem_batch_fused
+from .models.nets import classifier_features
+
+FS = 16000
+NFFT = 1024
+HOP = 256
+BINS = 513
+
+LABEL_MODES = ("none", "host", "dnn", "ones", "zeros")
+
+
+def bucket_frames(n_frames, bucket_multiple=128):
+    """Padded frame count of an utterance."""
+    return ((n_frames + bucket_multiple - 1) // bucket_multiple) * \
+        bucket_multiple
+
+
+def _pad_batch(X_tfs, ys, n_pad):
+    """Stack per-utterance (F, N_i) complex spectrograms (and optional
+    labels) into padded (B, F, n_pad) arrays + masks. Pad power frames carry
+    the benign value 1.0."""
+    B = len(X_tfs)
+    F = X_tfs[0].shape[0]
+    X_c = np.zeros((B, F, n_pad), np.complex64)
+    X_p = np.ones((B, F, n_pad), np.float32)
+    mask = np.zeros((B, n_pad), np.float32)
+    y_b = None
+    if ys is not None:
+        y_dim = ys[0].shape[0]
+        y_b = np.zeros((B, y_dim, n_pad), np.float32)
+    for i, X in enumerate(X_tfs):
+        n = X.shape[1]
+        X_c[i, :, :n] = X
+        X_p[i, :, :n] = np.abs(X) ** 2
+        mask[i, :n] = 1.0
+        if ys is not None:
+            y_b[i, :, : ys[i].shape[1]] = ys[i]
+    return X_c, X_p, mask, y_b
+
+
+def _packbits_bands(y):
+    """(B, y_dim, N) 0/1 floats -> (B, ceil(y_dim/8), N) uint8, MSB-first
+    per byte (np.unpackbits(..., axis=1) inverts it)."""
+    B, d, N = y.shape
+    yp = Fn.pad(y, (0, 0, 0, (-d) % 8)).reshape(B, -1, 8, N)
+    weights = torch.tensor([128, 64, 32, 16, 8, 4, 2, 1],
+                           dtype=torch.float32, device=y.device)
+    return torch.einsum("bkwn,w->bkn", yp, weights).to(torch.uint8)
+
+
+def _check_supported(noise_model, fast, cfg):
+    if noise_model != "nmf":
+        raise NotImplementedError(
+            f"noise_model {noise_model!r} is not ported yet (ROADMAP "
+            "Queue 1, item 6); the port runs 'nmf'")
+    if fast:
+        raise NotImplementedError(
+            "fast mode needs the K1c kernel options (ROADMAP Queue 2, K1c)")
+    if not isinstance(cfg, MCEMConfig):
+        raise NotImplementedError(
+            f"{type(cfg).__name__} (PEEM / hybrid) is not ported yet "
+            "(ROADMAP Queue 1, item 7)")
+
+
+def _mcem_wf_istft(model, X_re, X_im, X_p, mask, y, generator, cfg,
+                   noise_model="nmf", fast=False, init=None):
+    """MCEM -> Wiener filtering -> masked batched ISTFT. Returns (s_est,
+    n_est) padded float32 waveforms and the (B, F, N) Wiener gains."""
+    _check_supported(noise_model, fast, cfg)
+    out = mcem_batch_fused(model, X_p, mask, y, generator, cfg, init=init)
+    X = torch.complex(X_re, X_im)
+    s_est = istft_masked(out["WFs"] * X, mask)
+    n_est = istft_masked(out["WFn"] * X, mask)
+    return s_est, n_est, out["WFs"], out["WFn"]
+
+
+def _to_pcm16(w):
+    return torch.clamp(torch.round(w * 32768.0), -32768, 32767).to(
+        torch.int16)
+
+
+def _as_device(a, device, dtype=None):
+    return None if a is None else torch.as_tensor(a, device=device,
+                                                  dtype=dtype)
+
+
+@torch.no_grad()
+def enhance_waveform(model, x_pad, mask, cfg: MCEMConfig = MCEMConfig(), *,
+                     classifier=None, mean=None, std=None, y_in=None,
+                     generator=None, label_mode="none",
+                     noise_model="nmf", fast=False, target="ibm",
+                     return_noise=True, soft_guidance=False,
+                     features="power", dnn_threshold=0.5, init=None,
+                     device=None):
+    """Whole pipeline on RAW WAVEFORMS: batched STFT -> labels -> MCEM ->
+    Wiener filtering -> masked ISTFT -> PCM16.
+
+    x_pad: (B, L) host-pre-padded waveforms (:func:`pad_signal_for_stft`),
+    int16 (scaled by 1/32768 on the device) or float32; mask (B, N) frame
+    validity with N = 1 + (L - 1024) // 256. `generator` (a torch.Generator
+    on `device`, default seeded with 0) drives the NMF init and the chain
+    seeds. init: optional warm start passed to the MCEM engine (see
+    `mcem_batch_fused`).
+
+    Returns (s_i16, n_i16 | None, y_soft f16 | None, y_hard packed u8 |
+    None, finite_ok (B,) bool), all on `device`."""
+    if label_mode not in LABEL_MODES:
+        if label_mode in ("oracle", "timo"):
+            raise NotImplementedError(
+                f"label_mode {label_mode!r} is not ported yet (ROADMAP "
+                "Queue 1, items 2 and 6)")
+        raise ValueError(f"unknown label_mode {label_mode!r}")
+    dev = resolve_device(device)
+    x = _as_device(x_pad, dev)
+    if x.dtype != torch.float32:
+        x = x.to(torch.float32) / 32768.0
+    mask = _as_device(mask, dev, torch.float32)
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+
+    X = stft_batch_padded(x)
+    X_re, X_im = X.real.contiguous(), X.imag.contiguous()
+    X_p = torch.where(mask[:, None, :] > 0, X_re**2 + X_im**2, 1.0)
+
+    y = y_soft = y_hard = None
+    if label_mode == "host":
+        y = _as_device(y_in, dev, torch.float32)
+    elif label_mode == "dnn":
+        # pad frames carry benign X_p = 1; the masked engine ignores their
+        # labels
+        xn = classifier_features(X_p.transpose(1, 2), features)
+        if mean is not None:
+            mean_d = _as_device(mean, dev, torch.float32)
+            std_d = _as_device(std, dev, torch.float32)
+            xn = (xn - mean_d.reshape(1, 1, -1)) / (
+                std_d.reshape(1, 1, -1) + 1e-8)
+        flat = classifier(xn.reshape(-1, xn.shape[-1]))
+        y_soft = flat.reshape(xn.shape[0], xn.shape[1], -1).transpose(1, 2)
+        y_hard = (y_soft > dnn_threshold).to(torch.float32)
+        y = y_soft if soft_guidance else y_hard
+    elif label_mode in ("ones", "zeros"):
+        y_dim = 1 if target == "vad" else X_p.shape[1]
+        fill = torch.ones if label_mode == "ones" else torch.zeros
+        y = fill((X_p.shape[0], y_dim, X_p.shape[2]), device=dev)
+        y_soft = y_hard = y
+
+    s_est, n_est, _, _ = _mcem_wf_istft(model, X_re, X_im, X_p, mask, y,
+                                        generator, cfg, noise_model, fast,
+                                        init=init)
+    # per-row flags: one row's numeric failure must not fail its batch-mates
+    finite_ok = torch.all(torch.isfinite(s_est), dim=-1)
+    if return_noise:
+        finite_ok = finite_ok & torch.all(torch.isfinite(n_est), dim=-1)
+    out_soft = y_soft.to(torch.float16) if label_mode == "dnn" else None
+    out_hard = None if y_hard is None else _packbits_bands(y_hard)
+    out_n = _to_pcm16(n_est) if return_noise else None
+    return _to_pcm16(s_est), out_n, out_soft, out_hard, finite_ok
+
+
+@torch.no_grad()
+def enhance_to_audio(model, X_tfs, t_origs, ys=None, generator=None,
+                     cfg: MCEMConfig = MCEMConfig(), bucket_multiple=128,
+                     noise_model="nmf", fast=False, device=None):
+    """Complex spectrograms (F, N_i) in, trimmed float32 (s_est, n_est)
+    waveform lists out."""
+    dev = resolve_device(device)
+    n_pad = bucket_frames(max(X.shape[1] for X in X_tfs), bucket_multiple)
+    X_c, X_p, mask, y_b = _pad_batch(X_tfs, ys, n_pad)
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    s_est, n_est, _, _ = _mcem_wf_istft(
+        model,
+        torch.as_tensor(np.ascontiguousarray(np.real(X_c)), device=dev),
+        torch.as_tensor(np.ascontiguousarray(np.imag(X_c)), device=dev),
+        torch.as_tensor(X_p, device=dev), torch.as_tensor(mask, device=dev),
+        None if ys is None else torch.as_tensor(y_b, device=dev),
+        generator, cfg, noise_model, fast)
+    s_est = s_est.cpu().numpy()
+    n_est = n_est.cpu().numpy()
+    return ([s_est[i][:t] for i, t in enumerate(t_origs)],
+            [n_est[i][:t] for i, t in enumerate(t_origs)])
+
+
+def plan_batches(file_paths, n_frames_all, batch_size=16,
+                 bucket_multiple=128, seed=0):
+    """Bucket utterances by padded frame count and cut batches; returns
+    [(paths, n_pad, seeds)]. Batch sizes scale inversely with bucket length
+    (the (B, R, N, F) sample buffer must fit device memory). Per-utterance
+    seeds derive from the utterance's list index; a batch's generator is
+    seeded from its first member's seed."""
+    groups = defaultdict(list)
+    for i, nf in enumerate(n_frames_all):
+        groups[bucket_frames(nf, bucket_multiple)].append(i)
+    seeds_all = np.random.default_rng(seed).integers(
+        0, 2**62, size=max(len(file_paths), 1))
+    batches = []
+    for n_pad, idxs in sorted(groups.items()):
+        eff_batch = max(1, batch_size * 512 // max(n_pad, 512))
+        for lo in range(0, len(idxs), eff_batch):
+            sel = idxs[lo: lo + eff_batch]
+            batches.append(([file_paths[i] for i in sel], n_pad,
+                            seeds_all[np.asarray(sel)]))
+    return batches
+
+
+class SweepResult(float):
+    """Wall-clock seconds of a sweep (a plain float), annotated with the
+    numbers of processed and skipped utterances."""
+
+    __slots__ = ("n_processed", "n_skipped")
+
+    def __new__(cls, seconds, n_processed, n_skipped=0):
+        r = super().__new__(cls, seconds)
+        r.n_processed = n_processed
+        r.n_skipped = n_skipped
+        return r
+
+
+def enhance_files(file_paths, processed_dir, output_dir, model,
+                  model_type="m2", classif_type="dnn", target="ibm",
+                  classifier=None, mean=None, std=None,
+                  cfg: MCEMConfig = MCEMConfig(), batch_size=16,
+                  bucket_multiple=128, seed=0, verbose=False,
+                  noise_model="nmf", fast=False, soft_guidance=False,
+                  skip_existing=False, features="power", dnn_threshold=0.5,
+                  device=None):
+    """Sweep over a file list: reads `<utt>_x.wav`, writes
+    `<utt>_s_est.wav`, `<utt>_n_est.wav` and, for M2, the soft/hard label
+    arrays `_ibm_soft_est.npy` / `_ibm_hard_est.npy`.
+
+    Wav decode and padding run in a prefetch pool ahead of the device;
+    each batch runs :func:`enhance_waveform` with `return_noise=False` (the
+    Wiener gains sum to one, so n = x - s is formed on the host); a writer
+    pool writes the outputs. A failed batch is retried one utterance at a
+    time, and an utterance that still fails is written as mixture
+    passthrough. Returns a :class:`SweepResult`."""
+    label_mode = classif_type if model_type == "m2" else "none"
+    if label_mode not in ("none", "dnn", "ones", "zeros"):
+        if label_mode in ("oracle", "timo"):
+            raise NotImplementedError(
+                f"classif_type {classif_type!r} is not ported yet (ROADMAP "
+                "Queue 1, items 2 and 6)")
+        raise ValueError(f"unknown classif_type: {classif_type!r}")
+    _check_supported(noise_model, fast, cfg)
+    dev = resolve_device(device)
+    n_listed = len(file_paths)
+    if skip_existing:
+        file_paths = [
+            p for p in file_paths
+            if not os.path.exists(os.path.join(
+                output_dir, os.path.splitext(p)[0] + "_s_est.wav"))
+        ]
+        if not file_paths:
+            return SweepResult(0.0, 0, n_listed)
+    n_skipped = n_listed - len(file_paths)
+    t_start = time.perf_counter()
+    PREFETCH = 3
+
+    def base_in(path):
+        return os.path.join(processed_dir, os.path.splitext(path)[0])
+
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        n_frames_all = list(pool.map(
+            lambda p: frame_count(wav_num_samples(base_in(p) + "_x.wav")),
+            file_paths))
+    batches = plan_batches(file_paths, n_frames_all, batch_size,
+                           bucket_multiple, seed)
+
+    def assemble(paths, n_pad):
+        L = (n_pad - 1) * HOP + NFFT
+        x_b = np.zeros((len(paths), L), np.int16)
+        mask_b = np.zeros((len(paths), n_pad), np.float32)
+        t_origs = []
+        for j, path in enumerate(paths):
+            x_t, fs = read_wav_int16(base_in(path) + "_x.wav")
+            if fs != FS:
+                raise ValueError(f"{path}: sample rate {fs}, expected {FS}")
+            xp, nf = pad_signal_for_stft(x_t)
+            # samples past (n_pad-1)*hop + nfft belong to no frame
+            x_b[j, : min(len(xp), L)] = xp[:L]
+            mask_b[j, :nf] = 1.0
+            t_origs.append(len(x_t))
+        return {"paths": paths, "t_origs": t_origs, "x": x_b,
+                "mask": mask_b, "n_frames": [frame_count(t) for t in t_origs]}
+
+    def run(x, mask, seeds):
+        gen = torch.Generator(device=dev).manual_seed(int(seeds[0]))
+        out = enhance_waveform(
+            model, x, mask, cfg, classifier=classifier, mean=mean, std=std,
+            generator=gen, label_mode=label_mode, target=target,
+            return_noise=False, soft_guidance=soft_guidance,
+            features=features, dnn_threshold=dnn_threshold, device=dev)
+        s, _, y_soft, y_hard, ok = (None if o is None else o.cpu().numpy()
+                                    for o in out)
+        if not np.all(ok):
+            raise FloatingPointError("non-finite enhancement output")
+        return s, y_soft, y_hard
+
+    y_dim = 1 if target == "vad" else BINS
+
+    def labels_host(y_soft, y_hard, j, nf):
+        if y_hard is None:
+            return None, None
+        yh = np.unpackbits(y_hard[j:j + 1], axis=1)[0, :y_dim, :nf]
+        ys = y_soft[j][:, :nf] if y_soft is not None else yh.astype(
+            np.float16)
+        return ys, yh
+
+    def write_utt(path, s, n, y_soft, y_hard):
+        # _s_est.wav marks completion for skip_existing: staged under a
+        # temporary name and renamed after every side-car is written
+        base_out = os.path.join(output_dir, os.path.splitext(path)[0])
+        os.makedirs(os.path.dirname(base_out), exist_ok=True)
+        tmp = base_out + "_s_est.wav.tmp"
+        write_wav(tmp, s, FS)
+        write_wav(base_out + "_n_est.wav", n, FS)
+        if y_soft is not None:
+            np.save(base_out + "_ibm_soft_est.npy", y_soft)
+            np.save(base_out + "_ibm_hard_est.npy", y_hard)
+        os.replace(tmp, base_out + "_s_est.wav")
+
+    write_futs = []
+    off = NFFT // 2     # the mixture starts after the reflect lead-in
+    with ThreadPoolExecutor(max_workers=PREFETCH) as loader, \
+            ThreadPoolExecutor(max_workers=4) as writer:
+        pending = deque(loader.submit(assemble, p, n)
+                        for p, n, _ in batches[:PREFETCH])
+        for i, (paths, n_pad, seeds) in enumerate(batches):
+            a = pending.popleft().result()
+            if i + PREFETCH < len(batches):
+                nxt = batches[i + PREFETCH]
+                pending.append(loader.submit(assemble, nxt[0], nxt[1]))
+            rows = []
+            try:
+                s_b, ys_b, yh_b = run(a["x"], a["mask"], seeds)
+                for j, t in enumerate(a["t_origs"]):
+                    rows.append((s_b[j][:t],) + labels_host(
+                        ys_b, yh_b, j, a["n_frames"][j]))
+            except (RuntimeError, FloatingPointError) as exc:
+                print(f"batch of {len(paths)} failed ({exc!r}); retrying "
+                      "per-utterance")
+                for j, t in enumerate(a["t_origs"]):
+                    try:
+                        s1, ys1, yh1 = run(a["x"][j:j + 1],
+                                           a["mask"][j:j + 1], seeds[j:j + 1])
+                        rows.append((s1[0][:t],) + labels_host(
+                            ys1, yh1, 0, a["n_frames"][j]))
+                    except (RuntimeError, FloatingPointError) as exc2:
+                        print(f"utterance {paths[j]} failed ({exc2!r}); "
+                              "writing passthrough")
+                        nf = a["n_frames"][j]
+                        zeros = (None, None) if label_mode == "none" else (
+                            np.zeros((y_dim, nf), np.float16),
+                            np.zeros((y_dim, nf), np.uint8))
+                        rows.append((a["x"][j][off:off + t].copy(),) + zeros)
+            for j, (s, ys, yh) in enumerate(rows):
+                t = a["t_origs"][j]
+                n = np.clip(a["x"][j][off:off + t].astype(np.int32)
+                            - s.astype(np.int32), -32768, 32767).astype(
+                                np.int16)
+                write_futs.append(writer.submit(write_utt, paths[j], s, n,
+                                                ys, yh))
+            if verbose:
+                print(f"batch {i}: enhanced {len(paths)} utterances")
+        for f in write_futs:
+            f.result()
+    return SweepResult(time.perf_counter() - t_start, len(file_paths),
+                       n_skipped)

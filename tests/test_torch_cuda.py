@@ -1,0 +1,254 @@
+"""The CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here needs an NVIDIA GPU and skips without one. The file
+imports neither JAX nor the JAX package, so it also runs on a GPU machine
+without JAX:
+
+    python -m pytest --noconftest -q tests/test_torch_cuda.py
+
+Tolerance: atol 2e-5 / rtol 2e-4 (float32; the kernels sum in another
+order than PyTorch). Chains run on accept/reject noise whose decisions
+cannot flip on rounding (see `decisive_noise`).
+"""
+
+import numpy as np
+import pytest
+import torch
+from numpy.testing import assert_allclose
+
+from guided_vae_nmf_torch import launch_counts, reset_launch_counts
+from guided_vae_nmf_torch.mcem import (
+    MCEMConfig,
+    mcem_batch_fused,
+    mh_chain,
+    mh_chain_ref,
+    nmf_sums,
+    nmf_sums_ref,
+)
+from guided_vae_nmf_torch.mcem.fused_engine import _dec_parts
+from guided_vae_nmf_torch.mcem.mh_chain import philox_streams
+from guided_vae_nmf_torch.models import module_from_params
+
+TOL = dict(atol=2e-5, rtol=2e-4)
+SMALL = dict(B=2, F=65, N=128, L=8, H=16, K=3, Y=10)
+FULL = dict(B=2, F=513, N=256, L=32, H=128, K=10, Y=513)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    return torch.device("cuda")
+
+
+def _linear(rng, n_in, n_out):
+    return {"w": (rng.randn(n_in, n_out) * np.sqrt(2.0 / (n_in + n_out)))
+            .astype(np.float32),
+            "b": (0.1 * rng.randn(n_out)).astype(np.float32)}
+
+
+def random_dgm(rng, F, Y, L, H, depth=2):
+    """A seeded M2 parameter tree: encoder (F+Y) -> H^depth -> (mu, logvar)
+    of L, decoder (L+Y) -> H^depth -> F."""
+    def stack(n_in):
+        return [_linear(rng, n_in, H)] + [_linear(rng, H, H)
+                                          for _ in range(depth - 1)]
+
+    return {
+        "encoder": {"hidden": stack(F + Y), "mu": _linear(rng, H, L),
+                    "log_var": _linear(rng, H, L)},
+        "decoder": {"hidden": stack(L + Y), "out": _linear(rng, H, F)},
+        "y_dim": Y,
+    }
+
+
+def chain_case(device, seed, B, F, N, L, H, K, Y, depth=2):
+    """Chain inputs on `device`: decoder parts, X2, (Wt, H), g, ypre, Z,
+    Vs = decode(Z), mask."""
+    rng = np.random.RandomState(seed)
+    model = module_from_params(random_dgm(rng, F, Y, L, H, depth),
+                               device=device)
+    dec_w = _dec_parts(model.decoder, L)
+    t = lambda a: torch.tensor(a, device=device)  # noqa: E731
+    y = t((rng.uniform(size=(B, N, Y)) > 0.5).astype(np.float32))
+    l0 = model.decoder.hidden[0]
+    ypre = (y @ l0.w[L:] + l0.b).contiguous()
+    Z = t(rng.randn(B, N, L).astype(np.float32))
+    Vs = model.decoder(torch.cat([Z, y], dim=-1)).contiguous()
+    mask = t((np.arange(N)[None] < N - 37 * np.arange(B)[:, None]).astype(
+        np.float32))
+    return dict(
+        dec_w=dec_w, X2=t(rng.uniform(0.05, 1.05, (B, N, F)).astype(
+            np.float32)),
+        WH=(t(rng.uniform(0.05, 0.5, (B, K, F)).astype(np.float32)),
+            t(rng.uniform(0.05, 0.5, (B, K, N)).astype(np.float32))),
+        g=t(rng.uniform(0.5, 1.5, (B, N)).astype(np.float32)),
+        ypre=ypre, Z=Z, Vs=Vs, mask=mask)
+
+
+def decisive_noise(device, seed, B, N, L, n_steps):
+    """Proposal normals, and accept uniforms of 0 (log u = -inf: always
+    accept) or inf (always reject), so no decision can flip on the
+    rounding differences between the kernel and the plain version."""
+    rng = np.random.RandomState(seed)
+    zn = rng.randn(B, n_steps, N, L).astype(np.float32)
+    u = np.where(rng.uniform(size=(B, n_steps, N)) < 0.5, 0.0, np.inf)
+    return (torch.tensor(zn, device=device),
+            torch.tensor(u.astype(np.float32), device=device))
+
+
+def run_chain(fn, c, mode, nsamples, burnin, var_rw, **kw):
+    return fn(c["dec_w"], c["X2"], c["WH"], c["g"], c["ypre"], c["Z"],
+              c["Vs"], mode=mode, nsamples=nsamples, burnin=burnin,
+              var_RW=var_rw, mask=c["mask"] if mode == "e" else None, **kw)
+
+
+def _close(got, ref):
+    assert_allclose(got.cpu().numpy(), ref.cpu().numpy(), **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["small", "full"])
+@pytest.mark.parametrize("mode", ["e", "wf"])
+def test_chain_kernel_matches_plain(cuda, mode, shape):
+    dims = SMALL if shape == "small" else FULL
+    c = chain_case(cuda, 1, **dims)
+    nsamples, burnin = 4, 3
+    noise = decisive_noise(cuda, 2, dims["B"], dims["N"], dims["L"],
+                           nsamples + burnin)
+    ref = run_chain(mh_chain_ref, c, mode, nsamples, burnin, 0.01,
+                    noise=noise)
+    got = run_chain(mh_chain, c, mode, nsamples, burnin, 0.01, noise=noise)
+    torch.cuda.synchronize()
+    _close(got[0], ref[0])
+    _close(got[1], ref[1])
+    for a, b in zip(got[2], ref[2]):
+        _close(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth,L,F,K", [(1, 7, 100, 1), (3, 5, 257, 4),
+                                         (2, 32, 768, 16)])
+def test_chain_kernel_other_shapes(cuda, depth, L, F, K):
+    """Decoder depths 1 and 3, latent widths that are not multiples of 4,
+    ragged bin counts, and the largest F and K the kernels take."""
+    dims = dict(B=2, F=F, N=32, L=L, H=24, K=K, Y=3)
+    c = chain_case(cuda, 9, depth=depth, **dims)
+    noise = decisive_noise(cuda, 10, 2, 32, L, 6)
+    for mode in ("e", "wf"):
+        ref = run_chain(mh_chain_ref, c, mode, 3, 3, 0.01, noise=noise)
+        got = run_chain(mh_chain, c, mode, 3, 3, 0.01, noise=noise)
+        for a, b in zip((got[0], got[1]) + got[2], (ref[0], ref[1]) + ref[2]):
+            _close(a, b)
+    samples = torch.rand((2, 3, 32, F), device=cuda) + 0.01
+    for mode in ("h", "g"):
+        args = (samples, c["WH"], c["g"], c["X2"])
+        for a, b in zip(nmf_sums(*args, mode=mode),
+                        nmf_sums_ref(*args, mode=mode)):
+            _close(a, b)
+
+
+@pytest.mark.cuda
+def test_kernel_wrappers_reject_bad_input(cuda):
+    c = chain_case(cuda, 11, **SMALL)
+    with pytest.raises(ValueError):           # N not a multiple of 16
+        mh_chain(c["dec_w"], c["X2"][:, :120].contiguous(),
+                 (c["WH"][0], c["WH"][1][:, :, :120].contiguous()),
+                 c["g"][:, :120].contiguous(),
+                 c["ypre"][:, :120].contiguous(),
+                 c["Z"][:, :120].contiguous(),
+                 c["Vs"][:, :120].contiguous(), mode="wf")
+    with pytest.raises(ValueError):           # not contiguous
+        strided = c["X2"].transpose(1, 2).contiguous().transpose(1, 2)
+        mh_chain(c["dec_w"], strided, c["WH"], c["g"], c["ypre"], c["Z"],
+                 c["Vs"], mode="wf")
+    with pytest.raises(ValueError):           # rank above the kernel's 16
+        wt = torch.rand((2, 17, 65), device=cuda)
+        h = torch.rand((2, 17, 128), device=cuda)
+        nmf_sums(torch.rand((2, 2, 128, 65), device=cuda), (wt, h), c["g"],
+                 c["X2"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["e", "wf"])
+def test_chain_kernel_var0_matches_plain(cuda, mode):
+    c = chain_case(cuda, 3, **FULL)
+    ref = run_chain(mh_chain_ref, c, mode, 3, 2, 0.0,
+                    generator=torch.Generator(device=cuda).manual_seed(0))
+    got = run_chain(mh_chain, c, mode, 3, 2, 0.0, seed=7)
+    for a, b in zip((got[0], got[1]) + got[2], (ref[0], ref[1]) + ref[2]):
+        _close(a, b)
+
+
+@pytest.mark.cuda
+def test_chain_philox_stream(cuda):
+    """In-kernel Philox: reproducible per seed, standard normal proposals,
+    and exactly the streams `philox_streams` reports."""
+    dims = FULL
+    c = chain_case(cuda, 4, **dims)
+    nsamples, burnin = 10, 30
+    a = run_chain(mh_chain, c, "e", nsamples, burnin, 0.01, seed=11)
+    b = run_chain(mh_chain, c, "e", nsamples, burnin, 0.01, seed=11)
+    d = run_chain(mh_chain, c, "e", nsamples, burnin, 0.01, seed=12)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[2][0], b[2][0])
+    assert not torch.equal(a[0], d[0])
+    samples = a[2][0]
+    moved = torch.any(samples[:, 1:] != samples[:, :-1], dim=-1)
+    assert 0.0 < moved.float().mean().item() < 1.0
+    zn, u = philox_streams(11, dims["B"], dims["N"], dims["L"],
+                           nsamples + burnin, cuda)
+    assert abs(zn.mean().item()) < 0.01 and abs(zn.var().item() - 1) < 0.01
+    assert 0.0 < u.min().item() and u.max().item() < 1.0
+    assert abs(u.mean().item() - 0.5) < 0.01
+    inj = run_chain(mh_chain, c, "e", nsamples, burnin, 0.01, noise=(zn, u))
+    assert torch.equal(a[0], inj[0])
+    assert all(torch.equal(x, y) for x, y in zip(a[2], inj[2]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["small", "full"])
+@pytest.mark.parametrize("mode", ["h", "g"])
+def test_sums_kernel_matches_plain(cuda, mode, shape):
+    dims = SMALL if shape == "small" else FULL
+    c = chain_case(cuda, 5, **dims)
+    rng = np.random.RandomState(6)
+    samples = torch.tensor(rng.uniform(
+        0.01, 2.0, (dims["B"], 10, dims["N"], dims["F"])).astype(np.float32),
+        device=cuda)
+    args = (samples, c["WH"], c["g"], c["X2"])
+    for a, b in zip(nmf_sums(*args, mode=mode),
+                    nmf_sums_ref(*args, mode=mode)):
+        _close(a, b)
+
+
+@pytest.mark.cuda
+def test_fused_engine_var0_matches_cpu(cuda):
+    """At var_RW = 0 the chains are deterministic, so the fused engine on the
+    card (kernels) and on the CPU (plain versions) agree; the launch
+    counts show one E chain and two sums passes per EM iteration plus the
+    WF chain."""
+    dims = SMALL
+    rng = np.random.RandomState(8)
+    tree = random_dgm(rng, dims["F"], dims["Y"], dims["L"], dims["H"])
+    B, F, N = dims["B"], dims["F"], dims["N"]
+    X = rng.uniform(0.05, 1.05, (B, F, N)).astype(np.float32)
+    y = (rng.uniform(size=(B, dims["Y"], N)) > 0.5).astype(np.float32)
+    mask = np.ones((B, N), np.float32)
+    init = {"W": rng.uniform(0.05, 1, (B, F, dims["K"])).astype(np.float32),
+            "H": rng.uniform(0.05, 1, (B, dims["K"], N)).astype(np.float32)}
+    cfg = MCEMConfig(niter=3, nsamples_E_step=2, burnin_E_step=1,
+                     nsamples_WF=2, burnin_WF=1, var_RW=0.0,
+                     nmf_rank=dims["K"])
+    outs = {}
+    for dev in ("cpu", cuda):
+        t = lambda a: torch.tensor(a, device=dev)  # noqa: E731
+        reset_launch_counts()
+        outs[str(dev)] = mcem_batch_fused(
+            module_from_params(tree, device=dev), t(X), t(mask), t(y),
+            torch.Generator(device=dev).manual_seed(0), cfg,
+            init={k: t(v) for k, v in init.items()})
+    assert launch_counts() == {"mh_chain": 4, "nmf_sums": 6}
+    for k in ("WFs", "WFn", "W", "H", "g", "Z", "cost"):
+        assert_allclose(outs["cuda"][k].cpu().numpy(),
+                        outs["cpu"][k].numpy(), rtol=1e-3, atol=1e-5,
+                        err_msg=k)
