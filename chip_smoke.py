@@ -1,5 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's M2-IBM enhancement main path on one NVIDIA GPU.
+"""Drive the PyTorch port's enhancement paths on one NVIDIA GPU: the M2-IBM
+main path (NMF noise model) and the fixed-noise path (the real-noise and
+impulse-noise profiles).
 
     python3 chip_smoke.py [--seed 0] [--out build/chip_smoke.json]
 
@@ -9,18 +11,27 @@ Phases, in order; any failure exits nonzero without a result line:
 2. build: compiles `guided_vae_nmf_torch/csrc/*.cu` for sm_90a (timed).
 3. kernels vs plain versions, on the card, at full width (F=513, L=32,
    H=128, K=10, the shipped M2-IBM decoder, seeded inputs) at B=2, N=256
-   and at the main path's B=4, N=384: the MH chain (K1) in E- and WF-mode
-   under injected accept/reject noise and at var_RW=0, and the M-step sums
-   (K2) in 'h' and 'g' mode; then, at B=2, N=256, the accept rule under
-   real uniforms and the in-kernel Philox stream.
+   and at the paths' B=4, N=384: the MH chain in E- and WF-mode with the
+   NMF factors (K1a) and with a given noise variance (K1b), under injected
+   accept/reject noise and at var_RW=0, and the M-step sums in 'h' and 'g'
+   mode in both forms (K2a, K2b); then, at B=2, N=256, the accept rule
+   under real uniforms and the in-kernel Philox stream.
 4. main path: four synthetic speech-like mixtures (2-5 s, 5 dB SNR, int16)
    through `enhance_waveform(label_mode="dnn")` with the shipped M2-IBM and
    classifier weights and the default MCEMConfig (100 EM iterations), with
    the launch counters reset before and read after each run; the same
    mixtures as wav files through `enhance_files`; and one short utterance
    on the card against the CPU path at var_RW=0.
-5. kernel times at the main-path shapes (CUDA events) beside their bounds
-   and their plain versions' times.
+5. fixed-noise path: the same wav files through
+   `enhance_files(profile="real-noise")` (spp2, noise gain, soft
+   guidance; 125 K1b E / 2 K1b WF / 125 K2b h / 125 K2b g launches a
+   batch), the real-noise settings through `enhance_waveform` (timed), the
+   impulse-noise settings (spp, 2-band gain) on mixtures with 20 ms noise
+   bursts (100 / 1 / 100 / 100), one short utterance with the real-noise
+   settings on the card against the CPU path at var_RW=0, and a profiled
+   real-noise batch with the time of the SPP tracker and of `_ema_time`.
+6. kernel times at the paths' shapes (CUDA events), every variant, beside
+   their bounds and their plain versions' times.
 
 Prints the card's name and power limit, a `{"kernels": [...]}` line, and
 as its last line `{"ok": true, "device": {...}}`.
@@ -44,6 +55,24 @@ TOL = dict(atol=2e-5, rtol=2e-4)
 # Lengths of the main path's synthetic mixtures: 2-5 s, so padding and
 # frame masks are exercised (they pad to 384 frames).
 MAIN_SECONDS = (2.1, 3.3, 4.2, 4.9)
+# Launches a batch at the default MCEMConfig (100 EM iterations,
+# spp2_pass1_niter 25): K1 E / WF chains and K2 'h' / 'g' passes, all in
+# one form ('wh': NMF factors, K1a / K2a; 'vb': given noise variance,
+# K1b / K2b).
+MAIN_LAUNCHES = dict(form="wh", e=100, wf=1, h=100, g=100)
+REAL_NOISE_LAUNCHES = dict(form="vb", e=125, wf=2, h=125, g=125)
+IMPULSE_LAUNCHES = dict(form="vb", e=100, wf=1, h=100, g=100)
+
+
+def expected_launches(form, e, wf, h, g, n_batches=1):
+    """The launch counts (`launch_counts()` layout) of a path that runs
+    the given launches a batch, over `n_batches` batches."""
+    out = {"mh_chain": {"e_wh": 0, "wf_wh": 0, "e_vb": 0, "wf_vb": 0},
+           "nmf_sums": {"h_wh": 0, "g_wh": 0, "h_vb": 0, "g_vb": 0}}
+    for kern, mode, n in (("mh_chain", "e", e), ("mh_chain", "wf", wf),
+                          ("nmf_sums", "h", h), ("nmf_sums", "g", g)):
+        out[kern][f"{mode}_{form}"] = n * n_batches
+    return out
 
 
 class SmokeFailure(RuntimeError):
@@ -110,8 +139,9 @@ def time_cuda(fn, launches=10, reps=5):
 
 def chain_inputs(torch, model, B, N, K, seed, device):
     """Seeded chain inputs at full width on the shipped decoder: X2 power
-    frames, NMF factors, gains, binary labels -> ypre, Z ~ N(0, 1),
-    Vs = decode(Z), and a mask whose last row ends 37 frames early."""
+    frames, NMF factors, a given noise variance Vb, gains, binary labels ->
+    ypre, Z ~ N(0, 1), Vs = decode(Z), and a mask whose last row ends 37
+    frames early."""
     from guided_vae_nmf_torch.mcem.fused_engine import _dec_parts
 
     rng = np.random.RandomState(seed)
@@ -131,7 +161,8 @@ def chain_inputs(torch, model, B, N, K, seed, device):
             t(rng.uniform(0.01, 1.0, (B, K, N)).astype(np.float32))),
         g=t(rng.uniform(0.5, 1.5, (B, N)).astype(np.float32)),
         ypre=(y @ l0.w[L:] + l0.b).contiguous(), Z=Z,
-        Vs=dec(torch.cat([Z, y], dim=-1)).contiguous(), mask=t(mask), L=L)
+        Vs=dec(torch.cat([Z, y], dim=-1)).contiguous(), mask=t(mask), L=L,
+        Vb=t(rng.uniform(0.05, 1.5, (B, N, F)).astype(np.float32)))
 
 
 def decisive_noise(torch, seed, B, N, L, n_steps, device):
@@ -144,10 +175,12 @@ def decisive_noise(torch, seed, B, N, L, n_steps, device):
             torch.tensor(u.astype(np.float32), device=device))
 
 
-def speech_like_mixtures(seed, seconds, fs=16000, snr_db=5.0):
+def speech_like_mixtures(seed, seconds, fs=16000, snr_db=5.0, bursts=0):
     """int16 (clean, mixture) pairs: harmonic voiced tones with a gliding
     f0, formant-like spectral tilt and syllable-rate (~4 Hz) on/off
-    amplitude modulation, plus low-passed noise at `snr_db`."""
+    amplitude modulation, plus low-passed noise at `snr_db`; `bursts`
+    adds that many 20 ms white-noise bursts (8x the noise level) to each
+    utterance's noise."""
     rng = np.random.RandomState(seed)
     out = []
     for sec in seconds:
@@ -167,6 +200,10 @@ def speech_like_mixtures(seed, seconds, fs=16000, snr_db=5.0):
         noise = np.convolve(rng.randn(n), np.ones(4) / 4, mode="same")
         noise *= np.sqrt(np.mean(s**2) / np.mean(noise**2)
                          / 10 ** (snr_db / 10))
+        level = noise.std()
+        for _ in range(bursts):
+            at = rng.randint(0, n - fs // 50)
+            noise[at:at + fs // 50] += 8 * level * rng.randn(fs // 50)
         x = s + noise
         scale = 0.5 / np.max(np.abs(x))
         out.append((np.round(s * scale * 32767).astype(np.int16),
@@ -187,38 +224,58 @@ def si_sdr(ref, est):
 # ---------------------------------------------------------------------------
 
 
-def chain_bound(B, N, F, L, Hd, K, R, n_steps, mode):
+def chain_bound(B, N, F, L, Hd, K, R, n_steps, mode, vb=False):
     """(bound_ms, bound_by, flops, bytes) of one K1 launch. Operations per
     frame and step: the decoder's 2 (L Hd + Hd Hd + Hd F) multiply-adds,
     Hd (depth 2: 2 Hd) tanh and F exp, and per bin 8 more (g Vs + Vb,
-    floor, reciprocal, log, X2 / Vx, two sums), plus 2 K F per frame to
-    form Vb; transcendentals count as one operation. Bytes: every input
-    read once and every output written once."""
+    floor, reciprocal, log, X2 / Vx, two sums), plus, with the NMF factors
+    (K1a), 2 K F per frame to form Vb; transcendentals count as one
+    operation. Bytes: every input read once and every output written once;
+    the Vb form (K1b) reads Vb (B, N, F) in place of Wt, H and the mask,
+    and in E-mode writes s1, s2 (B, N, F) in place of numW, denW."""
     per_step = (2 * (L * Hd + Hd * Hd + Hd * F) + 2 * Hd + F + 8 * F
                 + 6 * L)
-    flops = B * N * (n_steps * per_step + 2 * K * F)
+    flops = B * N * n_steps * per_step
+    if vb:
+        in_noise = B * N * F
+        e_out = 2 * B * N * F                        # s1, s2
+    else:
+        flops += B * N * 2 * K * F
+        in_noise = B * K * F + B * K * N + (B * N if mode == "e" else 0)
+        e_out = 2 * B * K * F                        # numW, denW
+        if mode == "e":
+            flops += 2 * 2 * B * K * N * F           # numW / denW
     if mode == "e":
-        flops += 2 * 2 * B * K * N * F               # numW / denW
-        out_bytes = 4 * (B * N * L + B * N * F + B * R * N * F
-                         + 2 * B * K * F)
+        out_bytes = 4 * (B * N * L + B * N * F + B * R * N * F + e_out)
     else:
         out_bytes = 4 * (B * N * L + 3 * B * N * F)
-    in_bytes = 4 * (2 * B * N * F + B * K * F + B * K * N + 2 * B * N
-                    + B * N * Hd + B * N * L + L * Hd + Hd * Hd + Hd
-                    + Hd * F + F)
+    in_bytes = 4 * (2 * B * N * F + in_noise + B * N + B * N * Hd
+                    + B * N * L + L * Hd + Hd * Hd + Hd + Hd * F + F)
     nbytes = in_bytes + out_bytes
     t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
 
 
-def sums_bound(B, R, N, F, K, mode):
-    """(bound_ms, bound_by, flops, bytes) of one K2 launch. Operations: 2 K
-    per bin to form Vb, 6 per sample (g Vs + Vb, floor, reciprocal and two
-    sums), and in 'h' mode 4 K per bin for the H-update contraction."""
-    flops = B * N * F * (2 * K + 6 * R + (4 * K if mode == "h" else 2))
-    in_bytes = 4 * (B * R * N * F + B * N * F + B * K * F + B * K * N + B * N)
-    out_bytes = 4 * 2 * B * N * (K if mode == "h" else 1)
+def sums_bound(B, R, N, F, K, mode, vb=False):
+    """(bound_ms, bound_by, flops, bytes) of one K2 launch. Operations: 6
+    per sample (g Vs + Vb, floor, reciprocal and two sums), 2 per bin in
+    'g' mode for the X2 product, and with the NMF factors (K2a) 2 K per bin
+    to form Vb plus, in 'h' mode, 4 K per bin for the H-update contraction
+    (in place of the 2). Bytes: the samples, g and Vb (K2b) or Wt and H
+    (K2a) read once, X2 read where the mode uses it ('g', and 'h' with WH),
+    the outputs written once: (B, N, F) x2 for 'h' with Vb, (B, N, K) x2
+    for 'h' with WH, (B, N) x2 for 'g'."""
+    if vb:
+        flops = B * N * F * (6 * R + (2 if mode == "g" else 0))
+        in_bytes = 4 * (B * R * N * F + B * N * F + B * N
+                        + (B * N * F if mode == "g" else 0))
+        out_bytes = 4 * 2 * (B * N * F if mode == "h" else B * N)
+    else:
+        flops = B * N * F * (2 * K + 6 * R + (4 * K if mode == "h" else 2))
+        in_bytes = 4 * (B * R * N * F + B * N * F + B * K * F + B * K * N
+                        + B * N)
+        out_bytes = 4 * 2 * B * N * (K if mode == "h" else 1)
     nbytes = in_bytes + out_bytes
     t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
     return (1e3 * max(t_ops, t_bytes),
@@ -230,69 +287,90 @@ def sums_bound(B, R, N, F, K, mode):
 # ---------------------------------------------------------------------------
 
 
+VARIANTS = ("mh_chain_e_wh", "mh_chain_wf_wh", "mh_chain_e_vb",
+            "mh_chain_wf_vb", "nmf_sums_h_wh", "nmf_sums_g_wh",
+            "nmf_sums_h_vb", "nmf_sums_g_vb")
+
+
+def run_chain(c, fn, mode, nsamples, burnin, var_rw, vb=False, **kw):
+    """One chain over the inputs `c`: with the NMF factors (K1a) or, with
+    `vb`, at the given noise variance (K1b)."""
+    return fn(c["dec_w"], c["X2"], None if vb else c["WH"], c["g"],
+              c["ypre"], c["Z"], c["Vs"], mode=mode, nsamples=nsamples,
+              burnin=burnin, var_RW=var_rw,
+              mask=c["mask"] if mode == "e" and not vb else None,
+              Vb=c["Vb"] if vb else None, **kw)
+
+
+def run_sums(c, fn, samples, mode, vb=False):
+    if vb:
+        return fn(samples, None, c["g"], c["X2"], mode=mode, Vb=c["Vb"])
+    return fn(samples, c["WH"], c["g"], c["X2"], mode=mode)
+
+
 def phase_kernels(torch, model, dev, shapes):
-    """Kernel vs plain version at full width, at each (B, N) of `shapes`;
-    the Philox and accept-rule checks run at the first. Returns max abs
-    errors."""
+    """Kernel vs plain version at full width, at each (B, N) of `shapes`,
+    every variant; the Philox and accept-rule checks run at the first.
+    Returns the largest absolute error per variant."""
     from guided_vae_nmf_torch.mcem import (
         mh_chain, mh_chain_ref, nmf_sums, nmf_sums_ref)
     from guided_vae_nmf_torch.mcem.mh_chain import philox_streams
 
     K = 10
-    err = {"mh_chain": 0.0, "nmf_sums": 0.0}
-
-    def chain(c, fn, mode, nsamples, burnin, var_rw, **kw):
-        return fn(c["dec_w"], c["X2"], c["WH"], c["g"], c["ypre"], c["Z"],
-                  c["Vs"], mode=mode, nsamples=nsamples, burnin=burnin,
-                  var_RW=var_rw, mask=c["mask"] if mode == "e" else None,
-                  **kw)
+    err = dict.fromkeys(VARIANTS, 0.0)
 
     for B, N in shapes:
         c = chain_inputs(torch, model, B, N, K, 1, dev)
         L = c["L"]
-        for mode, nsamples, burnin in (("e", 10, 30), ("wf", 25, 75)):
-            names = (["Z", "Vs", "samples", "numW", "denW"] if mode == "e"
-                     else ["Z", "Vs", "WFs_sum", "WFn_sum"])
-            for var_rw, label in ((0.01, "injected"), (0.0, "var_RW=0")):
-                if var_rw:
-                    kw = dict(noise=decisive_noise(torch, 2, B, N, L,
-                                                   nsamples + burnin, dev))
-                    kw_ref = kw
-                else:
-                    kw = dict(seed=3)
-                    kw_ref = dict(generator=torch.Generator(
-                        device=dev).manual_seed(3))
-                got = chain(c, mh_chain, mode, nsamples, burnin, var_rw,
-                            **kw)
-                ref = chain(c, mh_chain_ref, mode, nsamples, burnin, var_rw,
-                            **kw_ref)
-                torch.cuda.synchronize()
-                log(f" K1 {mode}-mode, {label}, B={B} N={N}:")
-                for name, a, b in zip(names, (got[0], got[1]) + got[2],
-                                      (ref[0], ref[1]) + ref[2]):
-                    err["mh_chain"] = max(err["mh_chain"],
-                                          compare(name, a, b))
-                if mode == "wf":
-                    unity = (got[2][0] + got[2][1]) / nsamples
-                    check(torch.allclose(unity, torch.ones_like(unity),
-                                         atol=1e-5), "WFs + WFn != 1")
-        rng = np.random.RandomState(6)
-        samples = torch.tensor(rng.gamma(0.5, 2.0, (B, 10, N, 513)).astype(
-            np.float32) + 1e-3, device=dev)
-        for mode in ("h", "g"):
-            args = (samples, c["WH"], c["g"], c["X2"])
-            got = nmf_sums(*args, mode=mode)
-            ref = nmf_sums_ref(*args, mode=mode)
-            log(f" K2 {mode}-mode, B={B} N={N}:")
-            for name, x, y in zip(("num", "den"), got, ref):
-                err["nmf_sums"] = max(err["nmf_sums"], compare(name, x, y))
+        for vb, form in ((False, "wh"), (True, "vb")):
+            for mode, nsamples, burnin in (("e", 10, 30), ("wf", 25, 75)):
+                names = (["Z", "Vs", "samples"]
+                         + (["s1", "s2"] if vb else ["numW", "denW"])
+                         if mode == "e" else ["Z", "Vs", "WFs_sum",
+                                              "WFn_sum"])
+                key = f"mh_chain_{mode}_{form}"
+                for var_rw, label in ((0.01, "injected"), (0.0, "var_RW=0")):
+                    if var_rw:
+                        kw = dict(noise=decisive_noise(
+                            torch, 2, B, N, L, nsamples + burnin, dev))
+                        kw_ref = kw
+                    else:
+                        kw = dict(seed=3)
+                        kw_ref = dict(generator=torch.Generator(
+                            device=dev).manual_seed(3))
+                    got = run_chain(c, mh_chain, mode, nsamples, burnin,
+                                    var_rw, vb=vb, **kw)
+                    ref = run_chain(c, mh_chain_ref, mode, nsamples, burnin,
+                                    var_rw, vb=vb, **kw_ref)
+                    torch.cuda.synchronize()
+                    log(f" K1{'b' if vb else 'a'} {mode}-mode, {label}, "
+                        f"B={B} N={N}:")
+                    for name, x, y in zip(names, (got[0], got[1]) + got[2],
+                                          (ref[0], ref[1]) + ref[2]):
+                        err[key] = max(err[key], compare(name, x, y))
+                    if mode == "wf":
+                        unity = (got[2][0] + got[2][1]) / nsamples
+                        check(torch.allclose(unity, torch.ones_like(unity),
+                                             atol=1e-5), "WFs + WFn != 1")
+            rng = np.random.RandomState(6)
+            samples = torch.tensor(rng.gamma(0.5, 2.0, (B, 10, N, 513))
+                                   .astype(np.float32) + 1e-3, device=dev)
+            for mode in ("h", "g"):
+                got = run_sums(c, nmf_sums, samples, mode, vb)
+                ref = run_sums(c, nmf_sums_ref, samples, mode, vb)
+                names = ("s1", "s2") if vb and mode == "h" else ("num",
+                                                                 "den")
+                log(f" K2{'b' if vb else 'a'} {mode}-mode, B={B} N={N}:")
+                for name, x, y in zip(names, got, ref):
+                    key = f"nmf_sums_{mode}_{form}"
+                    err[key] = max(err[key], compare(name, x, y))
 
     # the accept rule itself under real uniforms: a decision whose margin
     # is below rounding may flip between the two, so count frames
     B, N = shapes[0]
     c = chain_inputs(torch, model, B, N, K, 1, dev)
     L = c["L"]
-    chain_c = lambda *a, **kw: chain(c, *a, **kw)  # noqa: E731
+    chain_c = lambda *a, **kw: run_chain(c, *a, **kw)  # noqa: E731
     nsamples, burnin = 10, 30
     gen = np.random.RandomState(9)
     noise = (torch.tensor(gen.randn(B, 40, N, L).astype(np.float32),
@@ -329,13 +407,13 @@ def phase_kernels(torch, model, dev, shapes):
     return err
 
 
-def main_batch(seed):
+def main_batch(seed, bursts=0):
     """The main path's batch: (clean, mixture) int16 pairs of MAIN_SECONDS,
     the host-padded mixtures (B, L) and their frame masks (B, n_pad)."""
     from guided_vae_nmf_torch.dsp import pad_signal_for_stft
     from guided_vae_nmf_torch.pipeline import HOP, NFFT, bucket_frames
 
-    pairs = speech_like_mixtures(seed, MAIN_SECONDS)
+    pairs = speech_like_mixtures(seed, MAIN_SECONDS, bursts=bursts)
     padded = [pad_signal_for_stft(x) for _, x in pairs]
     n_pad = bucket_frames(max(nf for _, nf in padded))
     Lw = (n_pad - 1) * HOP + NFFT
@@ -348,9 +426,11 @@ def main_batch(seed):
 
 
 def phase_main(torch, model, classifier, mean, std, cfg, batch, seed, dev,
-               gpu):
-    """The main path through enhance_waveform; returns its shapes, times
-    and launch counts."""
+               gpu, launches=MAIN_LAUNCHES, label="main path", **settings):
+    """A path through enhance_waveform (dnn labels; `settings` such as
+    noise_model and soft_guidance, `cfg` with its noise gain): three runs,
+    each with the launch counters reset before and checked against
+    `launches` after. Returns its shapes, times and launch counts."""
     import guided_vae_nmf_torch as port
     from guided_vae_nmf_torch.pipeline import NFFT, enhance_waveform
 
@@ -368,14 +448,14 @@ def phase_main(torch, model, classifier, mean, std, cfg, batch, seed, dev,
         s16, n16, y_soft, y_hard, ok = enhance_waveform(
             model, x_b, mask, cfg, classifier=classifier, mean=mean, std=std,
             label_mode="dnn", return_noise=True, device=dev,
-            generator=torch.Generator(device=dev).manual_seed(seed + rep))
+            generator=torch.Generator(device=dev).manual_seed(seed + rep),
+            **settings)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
         counts = port.launch_counts()
         log(f"  run {rep}: {walls[-1]:.3f} s wall, launches {counts}")
-        check(counts == {"mh_chain": cfg.niter + 1,
-                         "nmf_sums": 2 * cfg.niter},
-              f"main path launches {counts}, expected 101 K1 and 200 K2")
+        check(counts == expected_launches(**launches),
+              f"{label} launches {counts}, expected {launches}")
     s16, n16, ok = (a.cpu().numpy() for a in (s16, n16, ok))
     check(bool(ok.all()), "non-finite enhancement output")
     check(s16.shape == (len(pairs), x_b.shape[1] - NFFT),
@@ -394,7 +474,7 @@ def phase_main(torch, model, classifier, mean, std, cfg, batch, seed, dev,
     log(f"  |s + n - x| max {worst} LSB (needs <= 2: WFs + WFn = 1)")
     check(worst <= 2, "Wiener gains do not sum to one")
     wall = float(np.median(walls[1:]))
-    log(f" main path: {wall:.3f} s wall for {audio_s:.1f} s of audio = "
+    log(f" {label}: {wall:.3f} s wall for {audio_s:.1f} s of audio = "
         f"{audio_s / wall:.2f}x realtime (median of runs 1-2; {gpu})")
     return {"n_pad": n_pad, "B": len(pairs), "wall_s": wall,
             "walls_s": walls, "audio_s": audio_s,
@@ -403,8 +483,10 @@ def phase_main(torch, model, classifier, mean, std, cfg, batch, seed, dev,
 
 
 def phase_files(torch, model, classifier, mean, std, pairs, cfg, seed,
-                dev):
-    """The same mixtures as wav files through enhance_files."""
+                dev, launches, profile=None):
+    """The same mixtures as wav files through enhance_files (with
+    `profile`, if given); `launches` are the expected counts per batch.
+    Returns the sweep's wall seconds."""
     import guided_vae_nmf_torch as port
     from guided_vae_nmf_torch.data import read_wav_int16, write_wav
     from guided_vae_nmf_torch.pipeline import enhance_files, plan_batches
@@ -419,17 +501,18 @@ def phase_files(torch, model, classifier, mean, std, pairs, cfg, seed,
         port.reset_launch_counts()
         res = enhance_files(files, src, dst, model, classif_type="dnn",
                             classifier=classifier, mean=mean, std=std,
-                            cfg=cfg, seed=seed, device=dev)
+                            cfg=cfg, seed=seed, device=dev, profile=profile)
         counts = port.launch_counts()
         from guided_vae_nmf_torch.dsp import frame_count
 
         n_batches = len(plan_batches(
             files, [frame_count(len(x)) for _, x in pairs]))
-        log(f" enhance_files: {res.n_processed} files in {float(res):.3f} s, "
-            f"{n_batches} batches, launches {counts}")
-        check(counts == {"mh_chain": (cfg.niter + 1) * n_batches,
-                         "nmf_sums": 2 * cfg.niter * n_batches},
-              "enhance_files did not run 101 K1 / 200 K2 launches a batch")
+        audio_s = sum(len(x) for _, x in pairs) / 16000
+        log(f" enhance_files(profile={profile!r}): {res.n_processed} files "
+            f"in {float(res):.3f} s ({audio_s / float(res):.2f}x realtime, "
+            f"wav I/O included), {n_batches} batches, launches {counts}")
+        check(counts == expected_launches(n_batches=n_batches, **launches),
+              f"enhance_files did not run {launches} launches a batch")
         for j, (_, x) in enumerate(pairs):
             s, _ = read_wav_int16(os.path.join(dst, f"utt{j}_s_est.wav"))
             n, _ = read_wav_int16(os.path.join(dst, f"utt{j}_n_est.wav"))
@@ -440,11 +523,14 @@ def phase_files(torch, model, classifier, mean, std, pairs, cfg, seed,
                 "n_est != x - s_est")
             check(yh.shape[0] == 513, "hard label shape")
             check(np.any(s != x), "enhance_files wrote passthrough")
+    return float(res)
 
 
 def phase_reference(torch, model, classifier, mean, std, pairs, dev):
     """One short utterance on the card against the CPU path (plain
-    versions) at var_RW=0, where the chains are deterministic."""
+    versions) at var_RW=0, where the chains are deterministic: the main
+    path's settings (NMF from a shared init) and the real-noise profile's
+    (spp2, noise gain, soft guidance)."""
     from guided_vae_nmf_torch.dsp import pad_signal_for_stft
     from guided_vae_nmf_torch.mcem import MCEMConfig
     from guided_vae_nmf_torch.pipeline import (
@@ -458,50 +544,97 @@ def phase_reference(torch, model, classifier, mean, std, pairs, dev):
     x_b[0, : min(len(xp), Lw)] = xp[:Lw]
     mask = np.zeros((1, n_pad), np.float32)
     mask[0, :nf] = 1
-    cfg = MCEMConfig(niter=3, nsamples_E_step=3, burnin_E_step=2,
-                     nsamples_WF=3, burnin_WF=2, var_RW=0.0)
+    small = dict(niter=3, nsamples_E_step=3, burnin_E_step=2,
+                 nsamples_WF=3, burnin_WF=2, var_RW=0.0)
     rng = np.random.RandomState(5)
     init = {"W": rng.uniform(0.05, 1, (1, 513, 10)).astype(np.float32),
             "H": rng.uniform(0.05, 1, (1, 10, n_pad)).astype(np.float32)}
-    outs = {}
-    for d in ("cpu", dev):
-        mods = [m.to(d) for m in (model, classifier)]
-        outs[str(d)] = [a if a is None else a.cpu().numpy()
-                        for a in enhance_waveform(
-            mods[0], x_b, mask, cfg, classifier=mods[1], mean=mean, std=std,
-            label_mode="dnn", device=d,
-            init={k: torch.tensor(v, device=d) for k, v in init.items()})]
-    for m in (model, classifier):
-        m.to(dev)
-    g, r = outs[str(dev)], outs["cpu"]
-    diff = int(np.abs(g[0].astype(np.int32) - r[0].astype(np.int32)).max())
-    log(f" card vs CPU path, 1 s at var_RW=0: max |s16 diff| {diff} LSB "
-        f"(needs <= 2); hard labels equal: {np.array_equal(g[3], r[3])}")
-    check(diff <= 2, "card and CPU paths disagree")
-    check(np.array_equal(g[3], r[3]), "card and CPU labels disagree")
+    cases = (("nmf", MCEMConfig(**small), {}, init),
+             ("real-noise", MCEMConfig(**small, noise_gain=True),
+              dict(noise_model="spp2", soft_guidance=True), None))
+    for name, cfg, settings, init_np in cases:
+        outs = {}
+        for d in ("cpu", dev):
+            mods = [m.to(d) for m in (model, classifier)]
+            init_d = None if init_np is None else {
+                k: torch.tensor(v, device=d) for k, v in init_np.items()}
+            outs[str(d)] = [a if a is None else a.cpu().numpy()
+                            for a in enhance_waveform(
+                mods[0], x_b, mask, cfg, classifier=mods[1], mean=mean,
+                std=std, label_mode="dnn", device=d, init=init_d,
+                **settings)]
+        for m in (model, classifier):
+            m.to(dev)
+        g, r = outs[str(dev)], outs["cpu"]
+        diff = int(np.abs(g[0].astype(np.int32)
+                          - r[0].astype(np.int32)).max())
+        log(f" card vs CPU path ({name}), 1 s at var_RW=0: max |s16 diff| "
+            f"{diff} LSB (needs <= 2); hard labels equal: "
+            f"{np.array_equal(g[3], r[3])}")
+        check(diff <= 2, f"card and CPU paths disagree ({name})")
+        check(np.array_equal(g[3], r[3]),
+              f"card and CPU labels disagree ({name})")
 
 
 def phase_profile(torch, model, classifier, mean, std, x_b, mask, cfg,
-                  dev, gpu):
-    """One main-path batch under torch.profiler: device time by kernel
-    group and the device's busy share of the wall time. Informational: the
-    profiler's own cost inflates the wall time it is divided by."""
+                  dev, gpu, label="main path", **settings):
+    """One batch of a path under torch.profiler: device time by kernel
+    group and the device's busy share of the wall time, and, where the
+    path runs them, the wall time, device span (CUDA events) and kernel
+    time of the SPP tracker and of `_ema_time`, the two loops over frames
+    that the host paces. Informational: the profiler's own cost and the
+    synchronisation around the two loops inflate the wall time."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
-    from guided_vae_nmf_torch.pipeline import enhance_waveform
+    import guided_vae_nmf_torch.pipeline as pl
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        enhance_waveform(model, x_b, mask, cfg, classifier=classifier,
-                         mean=mean, std=std, label_mode="dnn", device=dev)
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
+    loops = {}
+
+    def instrumented(name, fn):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            t0 = time.perf_counter()
+            ev[0].record()
+            with record_function(name):
+                out = fn(*a, **kw)
+            ev[1].record()
+            torch.cuda.synchronize()
+            st = loops.setdefault(name, dict(calls=0, wall_ms=0.0,
+                                             span_ms=0.0))
+            st["calls"] += 1
+            st["wall_ms"] += 1e3 * (time.perf_counter() - t0)
+            st["span_ms"] += ev[0].elapsed_time(ev[1])
+            return out
+        return run
+
+    saved = pl.spp_track, pl._ema_time
+    pl.spp_track = instrumented("spp_track", pl.spp_track)
+    pl._ema_time = instrumented("_ema_time", pl._ema_time)
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pl.enhance_waveform(model, x_b, mask, cfg, classifier=classifier,
+                                mean=mean, std=std, label_mode="dnn",
+                                device=dev, **settings)
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+    finally:
+        pl.spp_track, pl._ema_time = saved
     groups = {"mh_chain": 0.0, "nmf_sums": 0.0, "other": 0.0}
     other = {}
-    for evt in prof.key_averages():
+    averages = prof.key_averages()
+    for evt in averages:
+        if evt.key in loops:
+            # the range's kernels; its device-side annotation event spans
+            # the range and is no kernel, so it stays out of the groups
+            if evt.device_type != DeviceType.CUDA:
+                loops[evt.key]["kernel_ms"] = getattr(
+                    evt, "device_time_total", 0.0) / 1e3
+            continue
         if evt.device_type != DeviceType.CUDA:
             continue     # host ops: their device time is their kernels'
         us = evt.self_device_time_total
@@ -509,103 +642,90 @@ def phase_profile(torch, model, classifier, mean, std, x_b, mask, cfg,
             continue
         if "mh_chain_kernel" in evt.key or "sum_tiles_kernel" in evt.key:
             groups["mh_chain"] += us / 1e3
-        elif "nmf_sums_kernel" in evt.key:
+        elif "nmf_sums_kernel" in evt.key or "sums_h_vb_kernel" in evt.key:
             groups["nmf_sums"] += us / 1e3
         else:
             groups["other"] += us / 1e3
             other[evt.key[:60]] = other.get(evt.key[:60], 0.0) + us / 1e3
+    for name, st in loops.items():
+        log(f" profile ({label}): {name}: {st['calls']} call(s), wall "
+            f"{st['wall_ms']:.2f} ms, device span {st['span_ms']:.2f} ms, "
+            f"kernel time {st.get('kernel_ms', float('nan')):.2f} ms; {gpu}")
     busy = sum(groups.values())
     if busy == 0.0:
-        log(" profile: the profiler saw no device time (not measured)")
-        return None
+        log(f" profile ({label}): the profiler saw no device time (not "
+            "measured)")
+        return {"wall_ms": wall_ms, "loops": loops}
     top = sorted(other.items(), key=lambda kv: -kv[1])[:5]
-    log(f" profile: device busy {busy:.2f} ms of {wall_ms:.2f} ms wall "
-        f"({100 * busy / wall_ms:.1f}%); K1 {groups['mh_chain']:.2f} ms, "
+    log(f" profile ({label}): device busy {busy:.2f} ms of {wall_ms:.2f} ms "
+        f"wall ({100 * busy / wall_ms:.1f}%); K1 {groups['mh_chain']:.2f} ms, "
         f"K2 {groups['nmf_sums']:.2f} ms, other kernels "
         f"{groups['other']:.2f} ms; {gpu}")
     for name, ms in top:
         log(f"   other: {ms:8.3f} ms  {name}")
     return {"wall_ms": wall_ms, "device_ms": groups, "busy_ms": busy,
-            "top_other": top}
+            "top_other": top, "loops": loops}
+
+
+SOURCES = {
+    "mh_chain": ("guided_vae_nmf_torch/csrc/mh_chain.cu",
+                 "guided_vae_nmf_tpu/mcem/pallas_engine.py:494"),
+    "nmf_sums": ("guided_vae_nmf_torch/csrc/nmf_sums.cu",
+                 "guided_vae_nmf_tpu/mcem/pallas_engine.py:651"),
+}
 
 
 def phase_times(torch, model, cfg, B, N, dev, gpu, err, launches):
-    """Per-launch kernel times at the main-path shapes, beside bounds and
-    the plain versions' times; returns the `kernels` entries."""
+    """Per-launch times of every kernel variant at the paths' shapes,
+    beside bounds and the plain versions' times; returns the `kernels`
+    entries. `launches` holds each variant's count on its path."""
     from guided_vae_nmf_torch.mcem import (
         mh_chain, mh_chain_ref, nmf_sums, nmf_sums_ref)
 
     K = cfg.nmf_rank
+    R = cfg.nsamples_E_step
     c = chain_inputs(torch, model, B, N, K, 7, dev)
     L, F, Hd = c["L"], c["X2"].shape[-1], c["ypre"].shape[-1]
-
-    def chain(fn, mode, nsamples, burnin, **kw):
-        return lambda: fn(c["dec_w"], c["X2"], c["WH"], c["g"], c["ypre"],
-                          c["Z"], c["Vs"], mode=mode, nsamples=nsamples,
-                          burnin=burnin, var_RW=cfg.var_RW,
-                          mask=c["mask"] if mode == "e" else None, **kw)
-
     gen = torch.Generator(device=dev).manual_seed(0)
-    modes = {}
-    for mode, ns, bi in (("e", cfg.nsamples_E_step, cfg.burnin_E_step),
-                         ("wf", cfg.nsamples_WF, cfg.burnin_WF)):
-        bound, by, flops, nbytes = chain_bound(B, N, F, L, Hd, K, ns,
-                                               ns + bi, mode)
-        modes[mode] = dict(ms=time_cuda(chain(mh_chain, mode, ns, bi,
-                                              seed=1)),
-                           plain_ms=time_cuda(chain(mh_chain_ref, mode, ns,
-                                                    bi, generator=gen),
-                                              launches=2, reps=3),
-                           bound_ms=bound, bound_by=by, flops=flops,
-                           bytes=nbytes)
-    R = cfg.nsamples_E_step
-    samples = chain(mh_chain, "e", R, cfg.burnin_E_step, seed=2)()[2][0]
-    smodes = {}
-    for mode in ("h", "g"):
-        args = (samples, c["WH"], c["g"], c["X2"])
-        bound, by, flops, nbytes = sums_bound(B, R, N, F, K, mode)
-        smodes[mode] = dict(
-            ms=time_cuda(lambda: nmf_sums(*args, mode=mode)),
-            plain_ms=time_cuda(lambda: nmf_sums_ref(*args, mode=mode)),
-            bound_ms=bound, bound_by=by, flops=flops, bytes=nbytes)
-
-    def mix(ms, weights):
-        """Per-launch averages over the main path's launch mix; bound_by
-        is that of the mode with the largest share of the bound."""
-        tot = sum(weights.values())
-        out = {k: sum(weights[m] * ms[m][k] for m in ms) / tot
-               for k in ("ms", "plain_ms", "bound_ms")}
-        top = max(ms, key=lambda m: weights[m] * ms[m]["bound_ms"])
-        out["bound_by"] = ms[top]["bound_by"]
-        return out
-
-    k1 = mix(modes, {"e": cfg.niter, "wf": 1})
-    k2 = mix(smodes, {"h": 1, "g": 1})
-    for name, m in (("K1 mh_chain", modes), ("K2 nmf_sums", smodes)):
-        for mode, v in m.items():
-            log(f"  {name} {mode:>2s}: {v['ms']:.4f} ms (plain "
-                f"{v['plain_ms']:.3f} ms), bound {v['bound_ms']:.4f} ms by "
-                f"{v['bound_by']} ({v['flops'] / 1e9:.3f} GFLOP, "
-                f"{v['bytes'] / 1e6:.2f} MB) = "
-                f"{100 * v['bound_ms'] / v['ms']:.1f}% of bound; {gpu}")
-    kernels = [
-        dict(name="mh_chain", route="cuda",
-             source="guided_vae_nmf_torch/csrc/mh_chain.cu",
-             replaces="guided_vae_nmf_tpu/mcem/pallas_engine.py:494",
-             launches=launches["mh_chain"], max_abs_err=err["mh_chain"],
-             ms=k1["ms"], plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"],
-             bound_by=k1["bound_by"], library_ms=None,
-             shape=dict(B=B, N=N, F=F, L=L, H=Hd, K=K),
-             modes=modes),
-        dict(name="nmf_sums", route="cuda",
-             source="guided_vae_nmf_torch/csrc/nmf_sums.cu",
-             replaces="guided_vae_nmf_tpu/mcem/pallas_engine.py:651",
-             launches=launches["nmf_sums"], max_abs_err=err["nmf_sums"],
-             ms=k2["ms"], plain_ms=k2["plain_ms"], bound_ms=k2["bound_ms"],
-             bound_by=k2["bound_by"], library_ms=None,
-             shape=dict(B=B, R=R, N=N, F=F, K=K),
-             modes=smodes),
-    ]
+    timed = {}
+    for vb, form in ((False, "wh"), (True, "vb")):
+        for mode, ns, bi in (("e", R, cfg.burnin_E_step),
+                             ("wf", cfg.nsamples_WF, cfg.burnin_WF)):
+            bound, by, flops, nbytes = chain_bound(B, N, F, L, Hd, K, ns,
+                                                   ns + bi, mode, vb=vb)
+            timed[f"mh_chain_{mode}_{form}"] = dict(
+                ms=time_cuda(lambda: run_chain(
+                    c, mh_chain, mode, ns, bi, cfg.var_RW, vb=vb, seed=1)),
+                plain_ms=time_cuda(lambda: run_chain(
+                    c, mh_chain_ref, mode, ns, bi, cfg.var_RW, vb=vb,
+                    generator=gen), launches=2, reps=3),
+                bound_ms=bound, bound_by=by, flops=flops, bytes=nbytes)
+        samples = run_chain(c, mh_chain, "e", R, cfg.burnin_E_step,
+                            cfg.var_RW, vb=vb, seed=2)[2][0]
+        for mode in ("h", "g"):
+            bound, by, flops, nbytes = sums_bound(B, R, N, F, K, mode, vb=vb)
+            timed[f"nmf_sums_{mode}_{form}"] = dict(
+                ms=time_cuda(lambda: run_sums(c, nmf_sums, samples, mode,
+                                              vb)),
+                plain_ms=time_cuda(lambda: run_sums(c, nmf_sums_ref, samples,
+                                                    mode, vb)),
+                bound_ms=bound, bound_by=by, flops=flops, bytes=nbytes)
+    kernels = []
+    for key in VARIANTS:
+        v = timed[key]
+        kern, mode, form = key.rsplit("_", 2)
+        log(f"  {key:<16s}: {v['ms']:.4f} ms (plain {v['plain_ms']:.3f} "
+            f"ms), bound {v['bound_ms']:.4f} ms by {v['bound_by']} "
+            f"({v['flops'] / 1e9:.3f} GFLOP, {v['bytes'] / 1e6:.2f} MB) = "
+            f"{100 * v['bound_ms'] / v['ms']:.1f}% of bound; {gpu}")
+        source, replaces = SOURCES[kern]
+        kernels.append(dict(
+            name=key, route="cuda", source=source, replaces=replaces,
+            launches=launches[kern][f"{mode}_{form}"],
+            max_abs_err=err[key], ms=v["ms"], plain_ms=v["plain_ms"],
+            bound_ms=v["bound_ms"], bound_by=v["bound_by"], library_ms=None,
+            detail=dict(B=B, N=N, F=F, L=L, H=Hd, K=K, R=R,
+                        flops=v["flops"], bytes=v["bytes"])))
     return kernels
 
 
@@ -662,18 +782,51 @@ def main(argv=None):
     main_res = phase_main(torch, model, classifier, mean, std, cfg, batch,
                           args.seed, dev, gpu)
     phase_files(torch, model, classifier, mean, std, pairs, cfg, args.seed,
-                dev)
+                dev, MAIN_LAUNCHES)
     phase_reference(torch, model, classifier, mean, std, pairs, dev)
     prof = phase_profile(torch, model, classifier, mean, std, x_b, mask, cfg,
                          dev, gpu)
-    log("kernel times at the main-path shapes:")
+
+    log("fixed-noise path, real-noise profile (spp2, noise gain, soft "
+        "guidance):")
+    from guided_vae_nmf_torch.profiles import (
+        apply_profile_cfg, offline_settings)
+
+    paths = {}
+    real_files_s = phase_files(torch, model, classifier, mean, std, pairs,
+                               cfg, args.seed, dev, REAL_NOISE_LAUNCHES,
+                               profile="real-noise")
+    for name, launches, bursts in (("real-noise", REAL_NOISE_LAUNCHES, 0),
+                                   ("impulse-noise", IMPULSE_LAUNCHES, 3)):
+        noise_model, soft = offline_settings(name)
+        settings = dict(noise_model=noise_model, soft_guidance=soft)
+        pcfg = apply_profile_cfg(cfg, name)
+        pbatch = main_batch(args.seed + 1, bursts) if bursts else batch
+        log(f"{name} path (enhance_waveform, label_mode='dnn', "
+            f"{settings}, noise_gain_bands={pcfg.noise_gain_bands}, "
+            f"{bursts} noise bursts of 20 ms an utterance):")
+        paths[name] = phase_main(torch, model, classifier, mean, std, pcfg,
+                                 pbatch, args.seed, dev, gpu,
+                                 launches=launches, label=f"{name} path",
+                                 **settings)
+        if name == "real-noise":
+            paths[name]["enhance_files_s"] = real_files_s
+            paths[name]["profile"] = phase_profile(
+                torch, model, classifier, mean, std, x_b, mask, pcfg, dev,
+                gpu, label="real-noise path", **settings)
+
+    log("kernel times at the paths' shapes:")
+    launches = {k: {**main_res["launches"][k],
+                    **{v: n for v, n in paths["real-noise"]["launches"][k]
+                       .items() if v.endswith("_vb")}}
+                for k in main_res["launches"]}
     kernels = phase_times(torch, model, cfg, *mask.shape, dev, gpu, err,
-                          main_res["launches"])
+                          launches)
 
     record = {
         "gpu": gpu, "torch": torch.__version__, "build_s": build_s,
-        "main_path": main_res, "profile": prof, "kernels": kernels,
-        "seconds": time.perf_counter() - t_start,
+        "main_path": main_res, "profile": prof, "paths": paths,
+        "kernels": kernels, "seconds": time.perf_counter() - t_start,
     }
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
@@ -681,7 +834,7 @@ def main(argv=None):
     log(f"total {record['seconds']:.1f} s; record in {args.out}")
     print(gpu)
     print(json.dumps({"kernels": [
-        {k: v for k, v in kern.items() if k not in ("shape", "modes")}
+        {k: v for k, v in kern.items() if k != "detail"}
         for kern in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

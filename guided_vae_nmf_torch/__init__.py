@@ -1,8 +1,10 @@
 """PyTorch + CUDA port of guided_vae_nmf_tpu for NVIDIA Hopper.
 
 The JAX package `guided_vae_nmf_tpu` is the reference; this package runs
-the same M2-IBM enhancement main path in PyTorch, with hand-written CUDA
-kernels (`csrc/`) for the MH chain (K1) and the NMF M-step sums (K2).
+the M2-IBM enhancement main path and the fixed-noise path (spp / spp2
+noise models, noise gain, the real-noise and impulse-noise profiles, timo
+labels) in PyTorch, with hand-written CUDA kernels (`csrc/`) for the MH
+chain (K1) and the NMF M-step sums (K2).
 
 Float32 matrix products run in full float32, as the JAX path does.
 """
@@ -13,17 +15,21 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 
-def reset_launch_counts():
-    """Set every kernel wrapper's launch count to 0."""
+def _wrappers():
     from .mcem.mh_chain import mh_chain
     from .mcem.nmf_sums import nmf_sums
 
-    mh_chain.launches = 0
-    nmf_sums.launches = 0
+    return {"mh_chain": mh_chain, "nmf_sums": nmf_sums}
+
+
+def reset_launch_counts():
+    """Set every kernel wrapper's launch counts to 0."""
+    for fn in _wrappers().values():
+        fn.launches = dict.fromkeys(fn.launches, 0)
 
 
 def launch_counts():
-    from .mcem.mh_chain import mh_chain
-    from .mcem.nmf_sums import nmf_sums
-
-    return {"mh_chain": mh_chain.launches, "nmf_sums": nmf_sums.launches}
+    """Kernel launches per wrapper and variant since the last reset, e.g.
+    {"mh_chain": {"e_wh": 100, "wf_wh": 1, "e_vb": 0, "wf_vb": 0},
+    "nmf_sums": {"h_wh": 100, "g_wh": 100, "h_vb": 0, "g_vb": 0}}."""
+    return {name: dict(fn.launches) for name, fn in _wrappers().items()}

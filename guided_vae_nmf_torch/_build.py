@@ -28,6 +28,13 @@ _lock = threading.Lock()
 _libs = {}
 
 
+class KernelError(RuntimeError):
+    """A kernel could not be built (nvcc missing or failing) or a launch
+    returned a CUDA error. Callers that retry or degrade on other runtime
+    errors let this one through: a card whose kernels do not work must not
+    produce output."""
+
+
 def build_dir():
     env = os.environ.get("GVNMF_TORCH_BUILD_DIR")
     if env:
@@ -41,8 +48,8 @@ def _nvcc():
             return os.path.join(cand, "bin", "nvcc")
     found = shutil.which("nvcc")
     if found is None:
-        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
-                           "toolkit (set CUDA_HOME)")
+        raise KernelError("nvcc not found: the CUDA kernels need the CUDA "
+                          "toolkit (set CUDA_HOME)")
     return found
 
 
@@ -79,7 +86,7 @@ def build_all():
                 else:
                     os.replace(tmp, out)
             if failed:
-                raise RuntimeError("nvcc failed for " + "\n".join(failed))
+                raise KernelError("nvcc failed for " + "\n".join(failed))
         for src in sorted(CSRC.glob("*.cu")):
             if src.stem not in _libs:
                 _libs[src.stem] = ctypes.CDLL(str(_lib_path(src)))
@@ -94,6 +101,7 @@ def library(name):
 
 
 def check(status, what):
-    """Raise on a nonzero cudaError_t returned by a C entry point."""
+    """Raise KernelError on a nonzero cudaError_t returned by a C entry
+    point."""
     if status != 0:
-        raise RuntimeError(f"{what}: CUDA error {status}")
+        raise KernelError(f"{what}: CUDA error {status}")

@@ -1,18 +1,22 @@
 // Fused random-walk Metropolis-Hastings chain over the VAE latent (K1).
 //
 // Replaces guided_vae_nmf_tpu/mcem/pallas_engine.py: mh_chain_pallas (body
-// _make_chain_kernel), E-mode and WF-mode with the NMF factors (WH=), exact
-// math and float32 sample dumps.
+// _make_chain_kernel), E-mode and WF-mode, with the NMF factors (WH=, K1a)
+// or a given noise variance (Vb=, K1b), exact math and float32 sample
+// dumps.
 //
 // Per frame and step the chain proposes Zp = Z + sqrt(var_RW) * n, decodes
 // Vsp = exp(Wo tanh(W2 tanh(Zp W1 + ypre) + b2) + bo), forms
-// Vxp = max(g Vsp + Vb, 1e-10) with Vb = H^T Wt, and accepts when
+// Vxp = max(g Vsp + Vb, 1e-10) with Vb = H^T Wt (K1a) or read from the
+// (B, N, F) input (K1b), and accepts when
 // log u < s - sp + 0.5 sum_l (Z^2 - Zp^2), s = sum_f (log Vx + X2 / Vx).
 // Burn-in carries only (Z, s); Vs is re-derived from Z at the boundary.
 // E-mode dumps the R accepted Vs and accumulates s1 = sum 1/Vx and
-// s2 = sum 1/Vx^2, contracted with H into the W-update numW / denW.
-// WF-mode accumulates acc_n += Vb/Vx and acc_s += 1 - Vb/Vx, so
-// WFs + WFn = 1 by construction.
+// s2 = sum 1/Vx^2: K1a contracts them with H into the W-update numW /
+// denW, K1b writes them out per (frame, bin), unmasked. WF-mode accumulates
+// acc_n += Vb/Vx and acc_s += 1 - Vb/Vx, so WFs + WFn = 1 by construction.
+// The two forms differ only in where a tile's Vb rows come from and in the
+// E-mode epilogue; the chain itself (mh_step) is shared.
 //
 // What bounds it on an H100: float32 arithmetic. Per frame and step the
 // decoder costs 2 (L H + H H + H F) ~ 172 kFLOP (L=32, H=128, F=513) plus
@@ -64,9 +68,10 @@ enum { MODE_E = 0, MODE_WF = 1 };
 
 struct Params {
   const float* x2;    // (B, N, F)
-  const float* wt;    // (B, K, F)
-  const float* h;     // (B, K, N)
-  const float* mask;  // (B, N), E-mode
+  const float* vb;    // (B, N, F), Vb form
+  const float* wt;    // (B, K, F), WH form
+  const float* h;     // (B, K, N), WH form
+  const float* mask;  // (B, N), E-mode of the WH form
   const float* g;     // (B, N)
   const float* ypre;  // (B, N, Hd)
   const float* z;     // (B, N, L)
@@ -81,9 +86,10 @@ struct Params {
   float* z_out;       // (B, N, L)
   float* vs_out;      // (B, N, F)
   float* out1;        // E: samples (B, R, N, F); WF: acc_s (B, N, F)
-  float* out2;        // WF: acc_n (B, N, F)
-  float* part1;       // E: numW partials (B, n_tiles, K, F)
-  float* part2;       // E: denW partials (B, n_tiles, K, F)
+  float* out2;        // WF: acc_n (B, N, F); E, Vb form: s1 (B, N, F)
+  float* out3;        // E, Vb form: s2 (B, N, F)
+  float* part1;       // E, WH form: numW partials (B, n_tiles, K, F)
+  float* part2;       // E, WH form: denW partials (B, n_tiles, K, F)
   int B, N, F, L, Hd, K, depth, n_steps, burnin;
   float sqrt_var;
   uint32_t seed_lo, seed_hi;
@@ -403,7 +409,9 @@ __device__ __forceinline__ void mh_step(const Params& p, const Smem& sm,
   __syncthreads();
 }
 
-template <int MODE, bool INJECT>
+// VB selects the Vb form (K1b): Vb rows are read from p.vb, and E-mode
+// writes s1 / s2 per (frame, bin) instead of the H-contracted partials.
+template <int MODE, bool INJECT, bool VB>
 __global__ void __launch_bounds__(MAX_NT, 1) mh_chain_kernel(Params p) {
   extern __shared__ float4 smem_raw[];
   const int tid = threadIdx.x, NT = blockDim.x, n_warps = NT >> 5;
@@ -415,10 +423,11 @@ __global__ void __launch_bounds__(MAX_NT, 1) mh_chain_kernel(Params p) {
 
   if (tid < T) {
     sm.g[tid] = p.g[row0 + tid];
-    sm.mask[tid] = MODE == MODE_E ? p.mask[row0 + tid] : 0.0f;
+    sm.mask[tid] = (MODE == MODE_E && !VB) ? p.mask[row0 + tid] : 0.0f;
   }
-  for (int i = tid; i < p.K * T; i += NT)
-    sm.hk[i] = p.h[((size_t)b * p.K + i / T) * p.N + n0 + i % T];
+  if (!VB)
+    for (int i = tid; i < p.K * T; i += NT)
+      sm.hk[i] = p.h[((size_t)b * p.K + i / T) * p.N + n0 + i % T];
   for (int i = tid; i < T * p.L; i += NT)
     sm.z[(i % p.L) * T + i / p.L] = p.z[row0 * p.L + i];
   for (int i = tid; i < T * p.Hd; i += NT)
@@ -428,8 +437,12 @@ __global__ void __launch_bounds__(MAX_NT, 1) mh_chain_kernel(Params p) {
     const int t = i / p.F, c = i % p.F;
     sm.x2[i] = p.x2[row0 * p.F + i];
     float vb = 0.0f;
-    for (int k = 0; k < p.K; ++k)
-      vb = fmaf(sm.hk[k * T + t], __ldg(p.wt + ((size_t)b * p.K + k) * p.F + c), vb);
+    if (VB) {
+      vb = p.vb[row0 * p.F + i];
+    } else {
+      for (int k = 0; k < p.K; ++k)
+        vb = fmaf(sm.hk[k * T + t], __ldg(p.wt + ((size_t)b * p.K + k) * p.F + c), vb);
+    }
     sm.vb[i] = vb;
     sm.a1[i] = 0.0f;
     sm.a2[i] = 0.0f;
@@ -484,11 +497,14 @@ __global__ void __launch_bounds__(MAX_NT, 1) mh_chain_kernel(Params p) {
     if (c >= p.F) continue;
 #pragma unroll
     for (int t = 0; t < T; ++t) p.vs_out[(row0 + t) * p.F + c] = vs[i][t];
-    if (MODE == MODE_WF) {
+    if (MODE == MODE_WF || VB) {
+      // WF: acc_s / acc_n; E, Vb form: s1 / s2
+      float* o1 = MODE == MODE_WF ? p.out1 : p.out2;
+      float* o2 = MODE == MODE_WF ? p.out2 : p.out3;
 #pragma unroll
       for (int t = 0; t < T; ++t) {
-        p.out1[(row0 + t) * p.F + c] = sm.a1[t * p.F + c];
-        p.out2[(row0 + t) * p.F + c] = sm.a2[t * p.F + c];
+        o1[(row0 + t) * p.F + c] = sm.a1[t * p.F + c];
+        o2[(row0 + t) * p.F + c] = sm.a2[t * p.F + c];
       }
     } else {
       // this tile's share of numW = H (X2 s2 mask), denW = H (s1 mask)
@@ -544,9 +560,9 @@ __global__ void philox_streams_kernel(uint32_t k0, uint32_t k1, int B, int N,
   u[idx] = accept_uniform(k0, k1, b, n, m);
 }
 
-template <int MODE, bool INJECT>
+template <int MODE, bool INJECT, bool VB>
 cudaError_t launch(const Params& p, int nt, size_t smem, cudaStream_t st) {
-  auto kern = mh_chain_kernel<MODE, INJECT>;
+  auto kern = mh_chain_kernel<MODE, INJECT, VB>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
@@ -572,12 +588,15 @@ long long gvnmf_mh_chain_smem(int F, int L, int Hd, int K) {
   return (long long)smem_floats(F, L, Hd, K, nt / 32) * sizeof(float);
 }
 
-// mode 0 = E (out1 = samples, out2 / out3 = numW / denW, part1 / part2 =
-// per-tile scratch), mode 1 = WF (out1 = acc_s, out2 = acc_n). zn / u null
-// selects the in-kernel Philox stream keyed on `seed`. Returns the
+// mode 0 = E (out1 = samples; WH form: out2 / out3 = numW / denW (B, K, F),
+// part1 / part2 = per-tile scratch; Vb form: out2 / out3 = s1 / s2
+// (B, N, F)), mode 1 = WF (out1 = acc_s, out2 = acc_n). A non-null vb
+// selects the Vb form (K = 0; wt, h, mask and the partials unused). zn / u
+// null selects the in-kernel Philox stream keyed on `seed`. Returns the
 // cudaError_t of the launches.
-int gvnmf_mh_chain(const float* x2, const float* wt, const float* h,
-                   const float* mask, const float* g, const float* ypre,
+int gvnmf_mh_chain(const float* x2, const float* vb, const float* wt,
+                   const float* h, const float* mask, const float* g,
+                   const float* ypre,
                    const float* z, const float* vs, const float* zn,
                    const float* u, const float* w1, const float* wmid,
                    const float* bmid, const float* wo, const float* bo,
@@ -590,21 +609,32 @@ int gvnmf_mh_chain(const float* x2, const float* wt, const float* h,
   if (N % T != 0 || nt > MAX_NT || depth < 1 || burnin < 0 ||
       burnin > n_steps || (mode != MODE_E && mode != MODE_WF))
     return (int)cudaErrorInvalidValue;
-  Params p{x2, wt, h, mask, g, ypre, z, vs, zn, u, w1, wmid, bmid, wo, bo,
-           z_out, vs_out, out1, mode == MODE_E ? nullptr : out2,
+  const bool vbf = vb != nullptr;
+  if (vbf) K = 0;
+  Params p{x2, vb, wt, h, mask, g, ypre, z, vs, zn, u, w1, wmid, bmid, wo, bo,
+           z_out, vs_out, out1, out2, out3,
            part1, part2, B, N, F, L, Hd, K, depth, n_steps, burnin, sqrt_var,
            (uint32_t)(seed & 0xffffffffull), (uint32_t)(seed >> 32)};
   const size_t smem = (size_t)gvnmf_mh_chain_smem(F, L, Hd, K);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool inject = zn != nullptr;
   cudaError_t e;
-  if (mode == MODE_E)
-    e = inject ? launch<MODE_E, true>(p, nt, smem, st)
-               : launch<MODE_E, false>(p, nt, smem, st);
-  else
-    e = inject ? launch<MODE_WF, true>(p, nt, smem, st)
-               : launch<MODE_WF, false>(p, nt, smem, st);
-  if (e != cudaSuccess || mode != MODE_E) return (int)e;
+  if (mode == MODE_E) {
+    if (vbf)
+      e = inject ? launch<MODE_E, true, true>(p, nt, smem, st)
+                 : launch<MODE_E, false, true>(p, nt, smem, st);
+    else
+      e = inject ? launch<MODE_E, true, false>(p, nt, smem, st)
+                 : launch<MODE_E, false, false>(p, nt, smem, st);
+  } else {
+    if (vbf)
+      e = inject ? launch<MODE_WF, true, true>(p, nt, smem, st)
+                 : launch<MODE_WF, false, true>(p, nt, smem, st);
+    else
+      e = inject ? launch<MODE_WF, true, false>(p, nt, smem, st)
+                 : launch<MODE_WF, false, false>(p, nt, smem, st);
+  }
+  if (e != cudaSuccess || mode != MODE_E || vbf) return (int)e;
   const int KF = K * F;
   sum_tiles_kernel<<<dim3((KF + 255) / 256, B), 256, 0, st>>>(
       part1, part2, out2, out3, N / T, KF);

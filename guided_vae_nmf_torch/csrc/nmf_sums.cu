@@ -1,14 +1,16 @@
 // One-pass NMF M-step sums over the MH sample buffer (K2).
 //
 // Replaces guided_vae_nmf_tpu/mcem/pallas_engine.py: nmf_sums_pallas (body
-// _make_sums_kernel), modes 'h' and 'g' with the NMF factors (WH=).
+// _make_sums_kernel), modes 'h' and 'g', with the NMF factors (WH=, K2a) or
+// a given noise variance (Vb=, K2b).
 //
-// With Vb = H^T Wt and inv_r = 1 / max(g Vs_r + Vb, 1e-10) over the R
-// samples of a frame:
-//   'h': numH[k] = sum_f X2 (sum_r inv_r^2) Wt[k, f],
-//        denH[k] = sum_f (sum_r inv_r) Wt[k, f]            -> (B, N, K) x2
-//   'g': num = sum_f X2 sum_r Vs_r inv_r^2,
-//        den = sum_{r, f} Vs_r inv_r                         -> (B, N) x2
+// With Vb = H^T Wt (K2a) or the (B, N, F) input (K2b) and
+// inv_r = 1 / max(g Vs_r + Vb, 1e-10) over the R samples of a frame:
+//   'h', WH: numH[k] = sum_f X2 (sum_r inv_r^2) Wt[k, f],
+//            denH[k] = sum_f (sum_r inv_r) Wt[k, f]        -> (B, N, K) x2
+//   'h', Vb: s1 = sum_r inv_r, s2 = sum_r inv_r^2           -> (B, N, F) x2
+//   'g':     num = sum_f X2 sum_r Vs_r inv_r^2,
+//            den = sum_{r, f} Vs_r inv_r                     -> (B, N) x2
 //
 // What bounds it on an H100: bytes. Each frame reads R F float32 samples
 // plus F of X2 once (20 KB at R = 10, F = 513) for ~10 flops a sample. The
@@ -18,6 +20,10 @@
 // sums in registers, and a butterfly shuffle reduces them at the end. A
 // frame's Wt column and H row are read once from L1/L2. No shared memory,
 // no atomics; the order of every sum is fixed, so a run is reproducible.
+// 'g' with Vb is the same warp-per-frame pass with each bin's Vb read from
+// the input. 'h' with Vb reduces over R only: a pure stream in which each
+// thread owns (frame, bin) elements, reads R samples and Vb, and writes s1
+// and s2 with coalesced stores (R + 1 arrays in, 2 out).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -38,9 +44,11 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-template <int MODE>
+// One warp per frame. VB reads each bin's Vb from `vbp` (only with 'g').
+template <int MODE, bool VB>
 __global__ void __launch_bounds__(WARPS * 32)
     nmf_sums_kernel(const float* __restrict__ samples,
+                    const float* __restrict__ vbp,
                     const float* __restrict__ wt, const float* __restrict__ h,
                     const float* __restrict__ g, const float* __restrict__ x2,
                     float* __restrict__ o1, float* __restrict__ o2, int B,
@@ -52,7 +60,7 @@ __global__ void __launch_bounds__(WARPS * 32)
   float hk[KMAX];
 #pragma unroll
   for (int k = 0; k < KMAX; ++k)
-    hk[k] = k < K ? __ldg(h + ((size_t)b * K + k) * N + n) : 0.0f;
+    hk[k] = (!VB && k < K) ? __ldg(h + ((size_t)b * K + k) * N + n) : 0.0f;
   const float gn = __ldg(g + row);
   const float* wtb = wt + (size_t)b * K * F;
   const float* x2r = x2 + (size_t)row * F;
@@ -66,10 +74,14 @@ __global__ void __launch_bounds__(WARPS * 32)
   for (int c = lane; c < F; c += 32) {
     float wk[KMAX];
     float vb = 0.0f;
+    if (VB) {
+      vb = __ldg(vbp + (size_t)row * F + c);
+    } else {
 #pragma unroll
-    for (int k = 0; k < KMAX; ++k) {
-      wk[k] = k < K ? __ldg(wtb + (size_t)k * F + c) : 0.0f;
-      if (k < K) vb = fmaf(hk[k], wk[k], vb);
+      for (int k = 0; k < KMAX; ++k) {
+        wk[k] = k < K ? __ldg(wtb + (size_t)k * F + c) : 0.0f;
+        if (k < K) vb = fmaf(hk[k], wk[k], vb);
+      }
     }
     const float xv = __ldg(x2r + c);
     float a = 0.0f, d = 0.0f;
@@ -118,29 +130,68 @@ __global__ void __launch_bounds__(WARPS * 32)
   }
 }
 
+// 'h' with Vb: s1 = sum_r inv_r, s2 = sum_r inv_r^2 per (frame, bin), one
+// element per thread and grid-stride, samples read r-slab by r-slab.
+__global__ void __launch_bounds__(256)
+    sums_h_vb_kernel(const float* __restrict__ samples,
+                     const float* __restrict__ vb,
+                     const float* __restrict__ g, float* __restrict__ s1,
+                     float* __restrict__ s2, int B, int R, int N, int F) {
+  const size_t NF = (size_t)N * F, total = (size_t)B * NF;
+  for (size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+       idx < total; idx += (size_t)gridDim.x * blockDim.x) {
+    const size_t b = idx / NF, rem = idx - b * NF;
+    const float gn = __ldg(g + idx / F);
+    const float v = __ldg(vb + idx);
+    const float* sp = samples + b * R * NF + rem;
+    float d = 0.0f, a = 0.0f;
+    for (int r = 0; r < R; ++r) {
+      const float vx = fmaxf(__fadd_rn(__fmul_rn(gn, __ldg(sp + r * NF)), v),
+                             VX_FLOOR);
+      const float inv = 1.0f / vx;
+      d = __fadd_rn(d, inv);
+      a = __fadd_rn(a, __fmul_rn(inv, inv));
+    }
+    s1[idx] = d;
+    s2[idx] = a;
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
 int gvnmf_nmf_sums_kmax() { return KMAX; }
 
-// mode 0 = 'h' (o1 / o2 = numH / denH, (B, N, K)), mode 1 = 'g' (o1 / o2 =
-// num / den, (B, N)). Returns the cudaError_t of the launch.
-int gvnmf_nmf_sums(const float* samples, const float* wt, const float* h,
-                   const float* g, const float* x2, float* o1, float* o2,
-                   int B, int R, int N, int F, int K, int mode,
-                   void* stream) {
-  if (K < 1 || K > KMAX || (mode != MODE_H && mode != MODE_G))
+// mode 0 = 'h', mode 1 = 'g'. With WH (vb null): 'h' -> o1 / o2 =
+// numH / denH (B, N, K), 'g' -> o1 / o2 = num / den (B, N). With vb
+// (wt, h unused, K ignored): 'h' -> o1 / o2 = s1 / s2 (B, N, F), 'g' ->
+// num / den (B, N). Returns the cudaError_t of the launch.
+int gvnmf_nmf_sums(const float* samples, const float* vb, const float* wt,
+                   const float* h, const float* g, const float* x2,
+                   float* o1, float* o2, int B, int R, int N, int F, int K,
+                   int mode, void* stream) {
+  if ((mode != MODE_H && mode != MODE_G) ||
+      (vb == nullptr && (K < 1 || K > KMAX)))
     return (int)cudaErrorInvalidValue;
   const long long rows = (long long)B * N;
   const unsigned grid = (unsigned)((rows + WARPS - 1) / WARPS);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (mode == MODE_H)
-    nmf_sums_kernel<MODE_H><<<grid, WARPS * 32, 0, st>>>(
-        samples, wt, h, g, x2, o1, o2, B, R, N, F, K);
-  else
-    nmf_sums_kernel<MODE_G><<<grid, WARPS * 32, 0, st>>>(
-        samples, wt, h, g, x2, o1, o2, B, R, N, F, K);
+  if (vb != nullptr && mode == MODE_H) {
+    const size_t total = (size_t)B * N * F;
+    const unsigned blocks = (unsigned)((total + 255) / 256);
+    sums_h_vb_kernel<<<blocks, 256, 0, st>>>(samples, vb, g, o1, o2, B, R,
+                                            N, F);
+  } else if (vb != nullptr) {
+    nmf_sums_kernel<MODE_G, true><<<grid, WARPS * 32, 0, st>>>(
+        samples, vb, wt, h, g, x2, o1, o2, B, R, N, F, 0);
+  } else if (mode == MODE_H) {
+    nmf_sums_kernel<MODE_H, false><<<grid, WARPS * 32, 0, st>>>(
+        samples, vb, wt, h, g, x2, o1, o2, B, R, N, F, K);
+  } else {
+    nmf_sums_kernel<MODE_G, false><<<grid, WARPS * 32, 0, st>>>(
+        samples, vb, wt, h, g, x2, o1, o2, B, R, N, F, K);
+  }
   return (int)cudaGetLastError();
 }
 

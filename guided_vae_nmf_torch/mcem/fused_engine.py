@@ -1,19 +1,23 @@
 """Batched MCEM around the fused chain (K1) and M-step sums (K2) kernels.
 
-Counterpart of `_dec_parts`, `_masked_cost_batched` and `mcem_batch_fused`
-in `guided_vae_nmf_tpu/mcem/pallas_engine.py`, for the NMF noise model in
-exact mode. Per EM iteration: one E-mode chain (which also emits the
-W-update num/den), the W update, one 'h' sums pass at the post-W noise
-variance, the H update, L1 normalisation, one 'g' sums pass and the gain
-update. A last WF-mode chain gives the Wiener filters. Frames-major
-(B, N, F) inside; the result dict is in the reference (F, N) orientation.
+Counterpart of `_dec_parts`, `_nmf_m_step_batched`, `_masked_cost_batched`
+and `mcem_batch_fused` in `guided_vae_nmf_tpu/mcem/pallas_engine.py`, in
+exact mode. Per EM iteration with the NMF noise model: one E-mode chain
+with WH (K1a, which also emits the W-update num/den), the W update, one 'h'
+sums pass at the post-W noise variance (K2a), the H update, L1
+normalisation, one 'g' sums pass (K2a) and the gain update. With a fixed
+noise variance (update_nmf=False): one E-mode chain with Vb (K1b) and the
+gain update on a 'g' sums pass (K2b); with the noise gain on, also an 'h'
+sums pass (K2b) for the gain b between them. A last WF-mode chain gives the
+Wiener filters. Frames-major (B, N, F) inside; the result dict is in the
+reference (F, N) orientation.
 
 CUDA tensors launch the kernels; CPU tensors run their plain versions.
 """
 
 import torch
 
-from .engine import VX_FLOOR, MCEMConfig
+from .engine import VX_FLOOR, MCEMConfig, noise_gain_state
 from .mh_chain import mh_chain
 from .nmf_sums import nmf_sums
 
@@ -30,6 +34,50 @@ def _dec_parts(decoder, L):
     }
 
 
+def _nmf_m_step_batched(X2, mask, W, H, g, Vs, s1=None, s2=None,
+                        update_nmf=True, Vb_fixed=None):
+    """Batched NMF M-step, frames-major (X2 (B, N, F), Vs (B, R, N, F),
+    W (B, F, K), H (B, K, N), g (B, N)) in the reference order W -> H ->
+    L1 normalisation -> g. s1 / s2 (B, N, F), the W-update sums at the
+    chain's Vb, skip the first pass over the samples when given. Every
+    sample-buffer reduction runs on K2 with a given Vb: 'h' for the W and H
+    updates, 'g' for the gain. With update_nmf=False only g updates, at
+    Vb_fixed (B, N, F). Returns (W, H, g)."""
+    m3 = mask[..., None]
+
+    def vb():
+        if update_nmf:
+            return torch.einsum("bfk,bkn->bnf", W, H).contiguous()
+        return Vb_fixed
+
+    def sums(Vb):
+        a, b = nmf_sums(Vs, None, g, mode="h", Vb=Vb)
+        return b, a
+
+    Vb = vb()
+    if update_nmf:
+        if s1 is None:
+            s2, s1 = sums(Vb)
+        num = torch.einsum("bnf,bkn->bfk", X2 * s2 * m3, H)
+        den = torch.einsum("bnf,bkn->bfk", s1 * m3, H)
+        W = W * torch.sqrt(num / den)
+
+        Vb = vb()
+        s2, s1 = sums(Vb)
+        num = torch.einsum("bnf,bfk->bkn", X2 * s2, W)
+        den = torch.einsum("bnf,bfk->bkn", s1, W)
+        H = H * torch.sqrt(num / den)
+
+        norm_col = torch.sum(torch.abs(W), dim=1)          # (B, K)
+        W = W / norm_col[:, None, :]
+        H = H * norm_col[:, :, None]
+        Vb = vb()
+
+    num, den = nmf_sums(Vs, None, g, X2, mode="g", Vb=Vb)
+    g = g * torch.sqrt(num / den)
+    return W, H, g
+
+
 def _masked_cost_batched(X2, mask, Vb, g, Vs):
     """(B,) masked expected negative log-likelihood; Vs (B, R, N, F)."""
     Vx = torch.clamp_min(g[:, None, :, None] * Vs + Vb[:, None], VX_FLOOR)
@@ -42,22 +90,27 @@ def _masked_cost_batched(X2, mask, Vb, g, Vs):
 @torch.no_grad()
 def mcem_batch_fused(model, X_abs2, mask, y, generator,
                      cfg: MCEMConfig = MCEMConfig(), update_nmf=True,
-                     compute_cost=True, init=None):
+                     Vb_fixed=None, compute_cost=True, init=None):
     """Full batched MCEM. X_abs2 (B, F, N) with benign pad frames, mask
     (B, N), y (B, y_dim, N) or None (M1), `generator` a torch.Generator on
     the tensors' device. Returns {"WFs", "WFn" (B, F, N), "cost" (B, niter),
-    "W" (B, F, K), "H" (B, K, N), "g" (B, N), "Z" (B, L, N)}.
+    "W" (B, F, K), "H" (B, K, N), "g" (B, N), "Z" (B, L, N)}, and "b"
+    ((B, N) or (B, n_bands, N)) when the noise gain is on.
+
+    update_nmf=False keeps the noise variance at Vb_fixed (B, F, N) (the
+    fixed-noise models spp / spp2) and draws no NMF init: W = ones
+    (B, F, 1), H = zeros (B, 1, N). cfg.noise_gain then also learns a
+    per-frame (or per-band) gain b on it.
 
     init: optional warm start in the result orientation: "W" and "H"
-    replace the random NMF init, "g" the unit gain and "Z" the encoder's
-    posterior mean; each key is optional."""
-    if not update_nmf:
-        raise NotImplementedError(
-            "fixed-noise models (update_nmf=False) need the Vb-input kernel "
-            "variants K1b/K2b (ROADMAP Queue 1, item 6)")
-    if cfg.noise_gain:
-        raise NotImplementedError(
-            "noise_gain needs a fixed noise model (ROADMAP Queue 1, item 6)")
+    replace the NMF init, "g" the unit gain and "Z" the encoder's posterior
+    mean; each key is optional."""
+    if cfg.noise_gain and update_nmf:
+        raise ValueError(
+            "MCEMConfig.noise_gain requires a fixed noise model "
+            "(update_nmf=False, i.e. noise_model 'spp'/'spp2')")
+    if not update_nmf and Vb_fixed is None:
+        raise ValueError("update_nmf=False needs Vb_fixed (B, F, N)")
     init = init or {}
     enc, dec = model.encoder, model.decoder
     B, F, N = X_abs2.shape
@@ -90,47 +143,94 @@ def mcem_batch_fused(model, X_abs2, mask, y, generator,
     if "W" in init:
         Wt = init["W"].transpose(1, 2).contiguous()          # (B, K, F)
         H = init["H"].contiguous()
-    else:
+    elif update_nmf:
         W0 = torch.clamp_min(torch.rand((B, F, K), generator=generator,
                                         device=dev), cfg.eps)
         Wt = W0.transpose(1, 2).contiguous()
         H = torch.clamp_min(torch.rand((B, K, N), generator=generator,
                                        device=dev), cfg.eps)
+    else:
+        Wt = torch.ones((B, 1, F), device=dev)
+        H = torch.zeros((B, 1, N), device=dev)
+    Vbf = None if update_nmf else Vb_fixed.transpose(1, 2).contiguous()
     g = init["g"].contiguous() if "g" in init else torch.ones((B, N),
                                                              device=dev)
+    b = eff_vb = band_map = None
+    if cfg.noise_gain:
+        b, eff_vb, band_map = noise_gain_state(F, N, cfg.noise_gain_bands,
+                                               Vbf, batch=B)
     # one chain seed per EM iteration and one for the WF chain, fetched to
     # the host in a single transfer
     seeds = torch.randint(0, 2**62, (cfg.niter + 1,), generator=generator,
                           device=dev).tolist()
+    chain_kw = dict(nsamples=cfg.nsamples_E_step, burnin=cfg.burnin_E_step,
+                    var_RW=cfg.var_RW)
 
     costs = []
     for it in range(cfg.niter):
-        Z, Vs, (samples, numW, denW) = mh_chain(
-            dec_w, X2, (Wt, H), g, ypre, Z, Vs, seeds[it], mode="e",
-            nsamples=cfg.nsamples_E_step, burnin=cfg.burnin_E_step,
-            var_RW=cfg.var_RW, mask=mask)
-        Wt2 = Wt * torch.sqrt(numW / denW)
-        numH, denH = nmf_sums(samples, (Wt2, H), g, X2, mode="h")
-        H2 = H * torch.sqrt(numH / denH).transpose(1, 2)
-        norm_col = torch.sum(torch.abs(Wt2), dim=2)           # (B, K)
-        Wt2 = (Wt2 / norm_col[..., None]).contiguous()
-        H2 = (H2 * norm_col[:, :, None]).contiguous()
-        num_g, den_g = nmf_sums(samples, (Wt2, H2), g, X2, mode="g")
-        g = g * torch.sqrt(num_g / den_g)
+        if update_nmf:
+            Z, Vs, (samples, numW, denW) = mh_chain(
+                dec_w, X2, (Wt, H), g, ypre, Z, Vs, seeds[it], mode="e",
+                mask=mask, **chain_kw)
+            Wt2 = Wt * torch.sqrt(numW / denW)
+            numH, denH = nmf_sums(samples, (Wt2, H), g, X2, mode="h")
+            H2 = H * torch.sqrt(numH / denH).transpose(1, 2)
+            norm_col = torch.sum(torch.abs(Wt2), dim=2)       # (B, K)
+            Wt = (Wt2 / norm_col[..., None]).contiguous()
+            H = (H2 * norm_col[:, :, None]).contiguous()
+            num_g, den_g = nmf_sums(samples, (Wt, H), g, X2, mode="g")
+            g = g * torch.sqrt(num_g / den_g)
+            Vb2 = (torch.einsum("bkf,bkn->bnf", Wt, H) if compute_cost
+                   else None)
+        elif cfg.noise_gain:
+            # the chain and the 'h' sums run at the scaled Vb; the b update
+            # splits the gradient with the unscaled Vbf (band-restricted
+            # f-sums with several bands); g updates at the new b
+            Vb_eff = eff_vb(b)
+            Z, Vs, (samples, _, _) = mh_chain(
+                dec_w, X2, None, g, ypre, Z, Vs, seeds[it], mode="e",
+                Vb=Vb_eff, **chain_kw)
+            s1, s2 = nmf_sums(samples, None, g, mode="h", Vb=Vb_eff)
+            if band_map is None:
+                num_b = torch.sum(X2 * Vbf * s2, dim=-1)      # (B, N)
+                den_b = torch.sum(Vbf * s1, dim=-1)
+            else:
+                num_b = torch.einsum("bnf,kf->bkn", X2 * Vbf * s2, band_map)
+                den_b = torch.einsum("bnf,kf->bkn", Vbf * s1, band_map)
+            b = b * torch.sqrt(num_b / den_b)
+            Vb2 = eff_vb(b)
+            num_g, den_g = nmf_sums(samples, None, g, X2, mode="g", Vb=Vb2)
+            g = g * torch.sqrt(num_g / den_g)
+        else:
+            Z, Vs, (samples, _, _) = mh_chain(
+                dec_w, X2, None, g, ypre, Z, Vs, seeds[it], mode="e",
+                Vb=Vbf, **chain_kw)
+            _, _, g = _nmf_m_step_batched(X2, mask, None, None, g, samples,
+                                          update_nmf=False, Vb_fixed=Vbf)
+            Vb2 = Vbf
         if compute_cost:
-            Vb2 = torch.einsum("bkf,bkn->bnf", Wt2, H2)
             costs.append(_masked_cost_batched(X2, mask, Vb2, g, samples))
-        Wt, H = Wt2, H2
 
-    Z, Vs, (ws, wn) = mh_chain(
-        dec_w, X2, (Wt, H), g, ypre, Z, Vs, seeds[cfg.niter], mode="wf",
-        nsamples=cfg.nsamples_WF, burnin=cfg.burnin_WF, var_RW=cfg.var_RW)
+    wf_kw = dict(nsamples=cfg.nsamples_WF, burnin=cfg.burnin_WF,
+                 var_RW=cfg.var_RW)
+    if update_nmf:
+        Z, Vs, (ws, wn) = mh_chain(dec_w, X2, (Wt, H), g, ypre, Z, Vs,
+                                   seeds[cfg.niter], mode="wf", **wf_kw)
+    else:
+        # the WF chain runs at the learned gain
+        Vb_wf = eff_vb(b) if cfg.noise_gain else Vbf
+        Z, Vs, (ws, wn) = mh_chain(dec_w, X2, None, g, ypre, Z, Vs,
+                                   seeds[cfg.niter], mode="wf", Vb=Vb_wf,
+                                   **wf_kw)
     cost = (torch.stack(costs, dim=1) if costs
             else torch.zeros((B, cfg.niter), device=dev))
-    return {
+    out = {
         "WFs": (ws / cfg.nsamples_WF).transpose(1, 2),
         "WFn": (wn / cfg.nsamples_WF).transpose(1, 2),
         "cost": cost,
         "W": Wt.transpose(1, 2), "H": H, "g": g,
         "Z": Z.transpose(1, 2),
     }
+    if cfg.noise_gain:
+        out["b"] = b
+    return out

@@ -1,14 +1,16 @@
 """K1: the fused Metropolis-Hastings chain over the VAE latent.
 
 Counterpart of `mh_chain_pallas` in `guided_vae_nmf_tpu/mcem/pallas_engine.py`
-(E-mode and WF-mode with the NMF factors `WH=`, exact math, float32 sample
-dumps). The kernel is `csrc/mh_chain.cu`; :func:`mh_chain_ref` is its plain
-PyTorch version, step by step the same function.
+(E-mode and WF-mode, exact math, float32 sample dumps), in two forms: with
+the NMF factors `WH=` (K1a) or with a given noise variance `Vb=` (K1b, the
+fixed-noise models). The kernel is `csrc/mh_chain.cu`; :func:`mh_chain_ref`
+is its plain PyTorch version, step by step the same function.
 
 :func:`mh_chain` launches the kernel for CUDA tensors and runs the plain
 version for CPU tensors; it has no other switch. Layouts are frames-major:
-X2, Vs (B, N, F); g, mask (B, N); ypre (B, N, H); Z (B, N, L); the NMF
-factors Wt (B, K, F) and H (B, K, N).
+X2, Vs, Vb (B, N, F); g, mask (B, N); ypre (B, N, H); Z (B, N, L); the NMF
+factors Wt (B, K, F) and H (B, K, N). `mh_chain.launches` counts kernel
+launches per variant: "e_wh", "wf_wh", "e_vb", "wf_vb".
 """
 
 import ctypes
@@ -20,7 +22,7 @@ from .. import _build
 from .engine import VX_FLOOR
 
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = ([_VP] * 22 + [_I] * 9 + [_F, _I, ctypes.c_uint64, _VP])
+_ARGTYPES = ([_VP] * 23 + [_I] * 9 + [_F, _I, ctypes.c_uint64, _VP])
 
 
 def _lib():
@@ -48,15 +50,24 @@ def _stream(device):
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def _one_of(WH, Vb):
+    if (WH is None) == (Vb is None):
+        raise ValueError("pass exactly one of Vb / WH")
+
+
 def mh_chain_ref(dec_w, X2, WH, g, ypre, Z, Vs, mode="e", nsamples=10,
                  burnin=30, var_RW=0.01, noise=None, mask=None,
-                 generator=None):
+                 generator=None, Vb=None):
     """Plain PyTorch version of the chain (also the CPU path).
 
+    Exactly one of WH = (Wt, H) and Vb (B, N, F) gives the noise variance.
     noise: (Zn (B, n_steps, N, L), U (B, n_steps, N)) recorded streams;
     without it they are drawn from `generator`. Returns (Z, Vs, extra):
     extra = (samples (B, nsamples, N, F), numW (B, K, F), denW (B, K, F))
-    in 'e' mode, (WFs_sum, WFn_sum) (B, N, F) in 'wf' mode."""
+    in 'e' mode with WH, (samples, s1, s2) with s1 = sum 1/Vx and
+    s2 = sum 1/Vx^2 (B, N, F) in 'e' mode with Vb, and (WFs_sum, WFn_sum)
+    (B, N, F) in 'wf' mode."""
+    _one_of(WH, Vb)
     B, N, F = X2.shape
     L = Z.shape[-1]
     n_steps = nsamples + burnin
@@ -67,8 +78,9 @@ def mh_chain_ref(dec_w, X2, WH, g, ypre, Z, Vs, mode="e", nsamples=10,
                        device=X2.device)
     else:
         Zn, U = noise
-    Wt, H = WH
-    Vb = torch.einsum("bkn,bkf->bnf", H, Wt)
+    if WH is not None:
+        Wt, H = WH
+        Vb = torch.einsum("bkn,bkf->bnf", H, Wt)
     G = g[..., None]
     sqrt_var = float(np.sqrt(var_RW))
 
@@ -121,6 +133,8 @@ def mh_chain_ref(dec_w, X2, WH, g, ypre, Z, Vs, mode="e", nsamples=10,
             acc2 = acc2 + inv * inv      # s2
     if mode == "wf":
         return Z, Vs, (acc1, acc2)
+    if WH is None:
+        return Z, Vs, (torch.stack(samples, dim=1), acc1, acc2)
     m3 = mask[..., None]
     numW = torch.einsum("bkn,bnf->bkf", H, X2 * acc2 * m3)
     denW = torch.einsum("bkn,bnf->bkf", H, acc1 * m3)
@@ -153,32 +167,34 @@ def _mid_stacked(dec_w, Hd, device):
 
 
 def mh_chain(dec_w, X2, WH, g, ypre, Z, Vs, seed=0, mode="e", nsamples=10,
-             burnin=30, var_RW=0.01, noise=None, mask=None):
+             burnin=30, var_RW=0.01, noise=None, mask=None, Vb=None):
     """Run the chain over a frames-major batch (see :func:`mh_chain_ref`
     for the arguments and results). `Vs` must be decode(Z): the initial data
     term comes from it and the kernel re-derives Vs at the burn-in boundary.
+    E-mode with WH needs the frame mask; the Vb form is unmasked.
 
     seed: keys the in-kernel Philox stream on CUDA (the CPU path seeds a
     `torch.Generator` with it); ignored when `noise` is given."""
     if mode not in ("e", "wf"):
         raise ValueError(f"mode must be 'e' or 'wf', got {mode!r}")
-    if mode == "e" and mask is None:
-        raise ValueError("E-mode needs the frame mask")
+    _one_of(WH, Vb)
+    if mode == "e" and WH is not None and mask is None:
+        raise ValueError("E-mode with WH needs the frame mask")
     if X2.device.type == "cpu":
         gen = None
         if noise is None:
             gen = torch.Generator(device="cpu").manual_seed(int(seed))
         return mh_chain_ref(dec_w, X2, WH, g, ypre, Z, Vs, mode=mode,
                             nsamples=nsamples, burnin=burnin, var_RW=var_RW,
-                            noise=noise, mask=mask, generator=gen)
+                            noise=noise, mask=mask, generator=gen, Vb=Vb)
     if X2.device.type != "cuda":
         raise ValueError(f"unsupported device {X2.device}")
     dev = X2.device
     lib = _lib()
     B, N, F = X2.shape
     L = Z.shape[-1]
-    Wt, H = WH
-    K = Wt.shape[1]
+    Wt, H = WH if WH is not None else (None, None)
+    K = 0 if WH is None else Wt.shape[1]
     Hd = ypre.shape[-1]
     depth = 1 + len(dec_w["mid"])
     n_steps = nsamples + burnin
@@ -190,14 +206,17 @@ def mh_chain(dec_w, X2, WH, g, ypre, Z, Vs, seed=0, mode="e", nsamples=10,
     smem = lib.gvnmf_mh_chain_smem(F, L, Hd, K)
     if smem > 232448:
         raise ValueError(f"shapes need {smem} B of shared memory per CTA")
+    noise_in = (("Vb", Vb, (B, N, F)),) if WH is None else (
+        ("Wt", Wt, (B, K, F)), ("H", H, (B, K, N)))
     for name, t, shape in (
-            ("X2", X2, (B, N, F)), ("Wt", Wt, (B, K, F)), ("H", H, (B, K, N)),
+            ("X2", X2, (B, N, F)), *noise_in,
             ("g", g, (B, N)), ("ypre", ypre, (B, N, Hd)),
             ("Z", Z, (B, N, L)), ("Vs", Vs, (B, N, F)),
             ("w1", dec_w["w1"], (L, Hd)), ("wo", dec_w["wo"], (Hd, F)),
             ("bo", dec_w["bo"], (F,))):
         _check(name, t, shape, dev)
-    if mode == "e":
+    use_mask = mode == "e" and WH is not None
+    if use_mask:
         _check("mask", mask, (B, N), dev)
     wmid, bmid = _mid_stacked(dec_w, Hd, dev)
     zn = u = None
@@ -208,18 +227,23 @@ def mh_chain(dec_w, X2, WH, g, ypre, Z, Vs, seed=0, mode="e", nsamples=10,
     z_out = torch.empty_like(Z)
     vs_out = torch.empty_like(X2)
     part1 = part2 = out3 = None
-    if mode == "e":
+    if mode == "wf":
+        out1 = torch.empty_like(X2)
+        out2 = torch.empty_like(X2)
+    elif WH is None:
+        out1 = torch.empty((B, nsamples, N, F), device=dev)
+        out2 = torch.empty_like(X2)
+        out3 = torch.empty_like(X2)
+    else:
         out1 = torch.empty((B, nsamples, N, F), device=dev)
         out2 = torch.empty((B, K, F), device=dev)
         out3 = torch.empty((B, K, F), device=dev)
         part1 = torch.empty((B, N // tile, K, F), device=dev)
         part2 = torch.empty_like(part1)
-    else:
-        out1 = torch.empty_like(X2)
-        out2 = torch.empty_like(X2)
     with torch.cuda.device(dev):
         status = lib.gvnmf_mh_chain(
-            _ptr(X2), _ptr(Wt), _ptr(H), _ptr(mask if mode == "e" else None),
+            _ptr(X2), _ptr(Vb), _ptr(Wt), _ptr(H),
+            _ptr(mask if use_mask else None),
             _ptr(g), _ptr(ypre), _ptr(Z), _ptr(Vs), _ptr(zn), _ptr(u),
             _ptr(dec_w["w1"]), _ptr(wmid), _ptr(bmid), _ptr(dec_w["wo"]),
             _ptr(dec_w["bo"]), _ptr(z_out), _ptr(vs_out), _ptr(out1),
@@ -228,13 +252,13 @@ def mh_chain(dec_w, X2, WH, g, ypre, Z, Vs, seed=0, mode="e", nsamples=10,
             float(np.sqrt(var_RW)), 0 if mode == "e" else 1,
             int(seed) & (2**64 - 1), _stream(dev))
     _build.check(status, "mh_chain kernel")
-    mh_chain.launches += 1
+    mh_chain.launches[f"{mode}_{'wh' if WH is not None else 'vb'}"] += 1
     if mode == "wf":
         return z_out, vs_out, (out1, out2)
     return z_out, vs_out, (out1, out2, out3)
 
 
-mh_chain.launches = 0
+mh_chain.launches = dict.fromkeys(("e_wh", "wf_wh", "e_vb", "wf_vb"), 0)
 
 
 def philox_streams(seed, B, N, L, n_steps, device):

@@ -1,10 +1,12 @@
 """K2: one-pass NMF M-step sums over the MH sample buffer.
 
 Counterpart of `nmf_sums_pallas` in `guided_vae_nmf_tpu/mcem/pallas_engine.py`
-(modes 'h' and 'g' with the NMF factors `WH=`). The kernel is
+(modes 'h' and 'g'), in two forms: with the NMF factors `WH=` (K2a) or with
+a given noise variance `Vb=` (K2b, the fixed-noise models). The kernel is
 `csrc/nmf_sums.cu`; :func:`nmf_sums_ref` is its plain PyTorch version.
 :func:`nmf_sums` launches the kernel for CUDA tensors and runs the plain
-version for CPU tensors.
+version for CPU tensors. `nmf_sums.launches` counts kernel launches per
+variant: "h_wh", "g_wh", "h_vb", "g_vb".
 """
 
 import ctypes
@@ -20,26 +22,43 @@ _VP, _I = ctypes.c_void_p, ctypes.c_int
 def _lib():
     lib = _build.library("nmf_sums")
     if lib.gvnmf_nmf_sums.argtypes is None:
-        lib.gvnmf_nmf_sums.argtypes = [_VP] * 7 + [_I] * 6 + [_VP]
+        lib.gvnmf_nmf_sums.argtypes = [_VP] * 8 + [_I] * 6 + [_VP]
         lib.gvnmf_nmf_sums.restype = _I
         lib.gvnmf_nmf_sums_kmax.argtypes = []
         lib.gvnmf_nmf_sums_kmax.restype = _I
     return lib
 
 
-def nmf_sums_ref(samples, WH, g, X2, mode="h"):
-    """Plain PyTorch version (also the CPU path). samples (B, R, N, F),
-    WH = (Wt (B, K, F), H (B, K, N)), g (B, N), X2 (B, N, F).
+def _check_args(WH, X2, mode, Vb):
+    if mode not in ("h", "g"):
+        raise ValueError(f"mode must be 'h' or 'g', got {mode!r}")
+    if (WH is None) == (Vb is None):
+        raise ValueError("pass exactly one of Vb / WH")
+    if X2 is None and (mode == "g" or WH is not None):
+        raise ValueError(f"mode {mode!r} with "
+                         f"{'Vb' if WH is None else 'WH'} needs X2")
 
-    'h' -> (numH, denH) (B, N, K): (X2 sum_r Vx^-2) W and (sum_r Vx^-1) W;
-    'g' -> (num, den) (B, N): sum_f X2 sum_r Vs Vx^-2, sum_{r,f} Vs Vx^-1."""
-    Wt, H = WH
-    Vb = torch.einsum("bkn,bkf->bnf", H, Wt)
+
+def nmf_sums_ref(samples, WH, g, X2=None, mode="h", Vb=None):
+    """Plain PyTorch version (also the CPU path). samples (B, R, N, F),
+    exactly one of WH = (Wt (B, K, F), H (B, K, N)) and Vb (B, N, F),
+    g (B, N), X2 (B, N, F) (not needed in 'h' mode with Vb).
+
+    'h' with WH -> (numH, denH) (B, N, K): (X2 sum_r Vx^-2) W and
+    (sum_r Vx^-1) W; 'h' with Vb -> (s1, s2) (B, N, F): sum_r Vx^-1 and
+    sum_r Vx^-2; 'g' -> (num, den) (B, N): sum_f X2 sum_r Vs Vx^-2,
+    sum_{r,f} Vs Vx^-1."""
+    _check_args(WH, X2, mode, Vb)
+    if WH is not None:
+        Wt, H = WH
+        Vb = torch.einsum("bkn,bkf->bnf", H, Wt)
     inv = 1.0 / torch.clamp_min(g[:, None, :, None] * samples + Vb[:, None],
                                 VX_FLOOR)
     if mode == "h":
         s1 = torch.sum(inv, dim=1)
         s2 = torch.sum(inv * inv, dim=1)
+        if WH is None:
+            return s1, s2
         return (torch.einsum("bnf,bkf->bnk", X2 * s2, Wt),
                 torch.einsum("bnf,bkf->bnk", s1, Wt))
     num = torch.sum(X2 * torch.sum(samples * inv * inv, dim=1), dim=-1)
@@ -47,42 +66,52 @@ def nmf_sums_ref(samples, WH, g, X2, mode="h"):
     return num, den
 
 
-def nmf_sums(samples, WH, g, X2, mode="h"):
+def nmf_sums(samples, WH, g, X2=None, mode="h", Vb=None):
     """M-step sums (see :func:`nmf_sums_ref`)."""
-    if mode not in ("h", "g"):
-        raise ValueError(f"mode must be 'h' or 'g', got {mode!r}")
+    _check_args(WH, X2, mode, Vb)
     if samples.device.type == "cpu":
-        return nmf_sums_ref(samples, WH, g, X2, mode=mode)
+        return nmf_sums_ref(samples, WH, g, X2, mode=mode, Vb=Vb)
     if samples.device.type != "cuda":
         raise ValueError(f"unsupported device {samples.device}")
     dev = samples.device
     lib = _lib()
-    Wt, H = WH
     B, R, N, F = samples.shape
-    K = Wt.shape[1]
+    Wt, H = WH if WH is not None else (None, None)
+    K = 0 if WH is None else Wt.shape[1]
     if K > lib.gvnmf_nmf_sums_kmax():
         raise ValueError(f"NMF rank {K} exceeds the kernel's "
                          f"{lib.gvnmf_nmf_sums_kmax()}")
-    for name, t, shape in (("samples", samples, (B, R, N, F)),
-                           ("Wt", Wt, (B, K, F)), ("H", H, (B, K, N)),
-                           ("g", g, (B, N)), ("X2", X2, (B, N, F))):
+    need = [("samples", samples, (B, R, N, F)), ("g", g, (B, N))]
+    if WH is None:
+        need.append(("Vb", Vb, (B, N, F)))
+    else:
+        need += [("Wt", Wt, (B, K, F)), ("H", H, (B, K, N))]
+    if X2 is not None:
+        need.append(("X2", X2, (B, N, F)))
+    for name, t, shape in need:
         if t.dtype != torch.float32 or t.device != dev or not \
                 t.is_contiguous() or tuple(t.shape) != shape:
             raise ValueError(
                 f"{name}: need contiguous float32 {shape} on {dev}, got "
                 f"{t.dtype} {tuple(t.shape)} on {t.device}")
-    out_shape = (B, N, K) if mode == "h" else (B, N)
+    if mode == "g":
+        out_shape = (B, N)
+    else:
+        out_shape = (B, N, K) if WH is not None else (B, N, F)
     o1 = torch.empty(out_shape, device=dev)
     o2 = torch.empty(out_shape, device=dev)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
     with torch.cuda.device(dev):
         status = lib.gvnmf_nmf_sums(
-            samples.data_ptr(), Wt.data_ptr(), H.data_ptr(), g.data_ptr(),
-            X2.data_ptr(), o1.data_ptr(), o2.data_ptr(), B, R, N, F, K,
-            0 if mode == "h" else 1,
+            ptr(samples), ptr(Vb), ptr(Wt), ptr(H), ptr(g), ptr(X2),
+            ptr(o1), ptr(o2), B, R, N, F, K, 0 if mode == "h" else 1,
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(status, "nmf_sums kernel")
-    nmf_sums.launches += 1
+    nmf_sums.launches[f"{mode}_{'wh' if WH is not None else 'vb'}"] += 1
     return o1, o2
 
 
-nmf_sums.launches = 0
+nmf_sums.launches = dict.fromkeys(("h_wh", "g_wh", "h_vb", "g_vb"), 0)

@@ -2,17 +2,23 @@
 labels -> batched MCEM (K1 / K2 kernels) -> Wiener filtering -> masked ISTFT
 -> PCM16.
 
-Counterpart of `guided_vae_nmf_tpu/pipeline.py` for the NMF noise model in
-exact mode: :func:`enhance_waveform` is `_enhance_waveform_jit`,
-:func:`enhance_to_audio` is `enhance_to_audio` and :func:`enhance_files` is
-the file sweep. Label sources: 'dnn' (classifier on standardized power
-frames, > threshold), 'host' (caller's labels), 'ones', 'zeros' and 'none'
-(M1). 'oracle' and 'timo', the other noise models, PEEM and the fast modes
-are not ported yet and raise NotImplementedError.
+Counterpart of `guided_vae_nmf_tpu/pipeline.py` in exact mode:
+:func:`enhance_waveform` is `_enhance_waveform_jit`, :func:`enhance_to_audio`
+is `enhance_to_audio` and :func:`enhance_files` is the file sweep. Noise
+models: 'nmf' (the reference protocol), 'spp' (a fixed noise variance from
+the SPP tracker, only the gains updated) and 'spp2' (two passes: the first
+pass's residual power, EMA-smoothed and floored at the SPP PSD, is the
+second pass's fixed noise variance), with the optional noise gain.
+Label sources: 'dnn' (classifier on standardized power frames,
+> threshold), 'timo' (SPP soft mask, > 0.5), 'host' (caller's labels),
+'ones', 'zeros' and 'none' (M1). The 'hybrid' noise model, 'oracle'
+labels, PEEM and the fast modes are not ported yet and raise
+NotImplementedError.
 
 Entry points run on the GPU unless `device` names another device.
 """
 
+import dataclasses
 import os
 import time
 from collections import defaultdict, deque
@@ -22,20 +28,24 @@ import numpy as np
 import torch
 import torch.nn.functional as Fn
 
+from ._build import KernelError, build_all
 from ._device import resolve_device
 from .data import read_wav_int16, wav_num_samples, write_wav
 from .dsp import frame_count, istft_masked, pad_signal_for_stft
 from .dsp import stft_batch_padded
 from .mcem.engine import MCEMConfig
 from .mcem.fused_engine import mcem_batch_fused
+from .mcem.spp import spp_track, timo_mask, timo_vad
 from .models.nets import classifier_features
+from .profiles import apply_profile_cfg, offline_settings
 
 FS = 16000
 NFFT = 1024
 HOP = 256
 BINS = 513
 
-LABEL_MODES = ("none", "host", "dnn", "ones", "zeros")
+LABEL_MODES = ("none", "host", "dnn", "timo", "ones", "zeros")
+NOISE_MODELS = ("nmf", "spp", "hybrid", "spp2")
 
 
 def bucket_frames(n_frames, bucket_multiple=128):
@@ -77,26 +87,96 @@ def _packbits_bands(y):
     return torch.einsum("bkwn,w->bkn", yp, weights).to(torch.uint8)
 
 
+def validate_noise_model(noise_model, cfg=None):
+    """The one whitelist of noise models: a misspelt name raises instead of
+    running 'nmf'; the noise gain needs a fixed noise model."""
+    if noise_model not in NOISE_MODELS:
+        raise ValueError(f"noise_model must be one of {NOISE_MODELS}, "
+                         f"got {noise_model!r}")
+    if getattr(cfg, "noise_gain", False) and noise_model not in (
+            "spp", "spp2"):
+        raise ValueError("MCEMConfig.noise_gain requires a fixed noise "
+                         "model (noise_model 'spp' or 'spp2'), got "
+                         f"{noise_model!r}")
+
+
 def _check_supported(noise_model, fast, cfg):
-    if noise_model != "nmf":
+    validate_noise_model(noise_model, cfg)
+    if noise_model == "hybrid":
         raise NotImplementedError(
-            f"noise_model {noise_model!r} is not ported yet (ROADMAP "
-            "Queue 1, item 6); the port runs 'nmf'")
+            "noise_model 'hybrid' runs on the eager engine, which is not "
+            "ported yet (ROADMAP Queue 1, item 3)")
     if fast:
         raise NotImplementedError(
-            "fast mode needs the K1c kernel options (ROADMAP Queue 2, K1c)")
+            "fast mode needs the K1c/K2c kernel options (ROADMAP Queue 2)")
     if not isinstance(cfg, MCEMConfig):
         raise NotImplementedError(
             f"{type(cfg).__name__} (PEEM / hybrid) is not ported yet "
             "(ROADMAP Queue 1, item 7)")
 
 
+def _ema_time(P, alpha):
+    """First-order IIR smoothing along the frame axis of (B, F, N)."""
+    v = P[..., 0]
+    out = []
+    for n in range(P.shape[-1]):
+        v = alpha * v + (1.0 - alpha) * P[..., n]
+        out.append(v)
+    return torch.stack(out, dim=-1)
+
+
+def _spp2_pass1_cfg(cfg):
+    """Reduced-iteration copy of an MCEMConfig for spp2's first pass."""
+    p1 = cfg.spp2_pass1_niter
+    if not p1 or p1 >= cfg.niter:
+        return cfg
+    return dataclasses.replace(cfg, niter=p1)
+
+
+def _fold_in(generator, data):
+    """A new generator on the same device whose seed is a function of
+    `generator`'s seed and `data` only (the counterpart of JAX's
+    `fold_in`): it does not depend on how far `generator` has advanced."""
+    seed = np.random.SeedSequence(
+        [generator.initial_seed(), data]).generate_state(1, np.uint64)[0]
+    return torch.Generator(device=generator.device).manual_seed(
+        int(seed) >> 1)
+
+
+def _spp2_two_pass(run_engine, Vb_spp, X_p, generator, cfg):
+    """Two-pass noise model ('spp2'): pass 1 runs the engine at the SPP
+    noise variance with cfg.spp2_pass1_niter EM iterations; pass 2 re-runs
+    it with Vb = max(Vb_spp, ema((1 - WFs1)^2 |X|^2)), the energy the first
+    Wiener filter removed, floored at the SPP PSD."""
+    out = run_engine(Vb_spp, generator, cfg=_spp2_pass1_cfg(cfg))
+    res = torch.square(1.0 - out["WFs"]) * X_p
+    Vb2 = torch.maximum(Vb_spp, _ema_time(res, 0.5))
+    return run_engine(Vb2, _fold_in(generator, 2))
+
+
 def _mcem_wf_istft(model, X_re, X_im, X_p, mask, y, generator, cfg,
                    noise_model="nmf", fast=False, init=None):
-    """MCEM -> Wiener filtering -> masked batched ISTFT. Returns (s_est,
-    n_est) padded float32 waveforms and the (B, F, N) Wiener gains."""
+    """Noise model -> MCEM -> Wiener filtering -> masked batched ISTFT.
+    Returns (s_est, n_est) padded float32 waveforms and the (B, F, N)
+    Wiener gains. The SPP tracker runs over the whole padded X_p, as in the
+    JAX package (its recurrence is causal, so pad frames cannot perturb the
+    valid prefix)."""
     _check_supported(noise_model, fast, cfg)
-    out = mcem_batch_fused(model, X_p, mask, y, generator, cfg, init=init)
+    update_nmf = noise_model == "nmf"
+    Vb_spp = None
+    if not update_nmf:
+        psd, _ = spp_track(X_p)
+        Vb_spp = torch.clamp_min(psd, 1e-6)
+
+    def run_engine(Vb_fixed, gen, cfg=cfg):
+        return mcem_batch_fused(model, X_p, mask, y, gen, cfg,
+                                update_nmf=update_nmf, Vb_fixed=Vb_fixed,
+                                init=init)
+
+    if noise_model == "spp2":
+        out = _spp2_two_pass(run_engine, Vb_spp, X_p, generator, cfg)
+    else:
+        out = run_engine(Vb_spp, generator)
     X = torch.complex(X_re, X_im)
     s_est = istft_masked(out["WFs"] * X, mask)
     n_est = istft_masked(out["WFn"] * X, mask)
@@ -122,7 +202,8 @@ def enhance_waveform(model, x_pad, mask, cfg: MCEMConfig = MCEMConfig(), *,
                      features="power", dnn_threshold=0.5, init=None,
                      device=None):
     """Whole pipeline on RAW WAVEFORMS: batched STFT -> labels -> MCEM ->
-    Wiener filtering -> masked ISTFT -> PCM16.
+    Wiener filtering -> masked ISTFT -> PCM16. noise_model: 'nmf', 'spp' or
+    'spp2' (see the module docstring).
 
     x_pad: (B, L) host-pre-padded waveforms (:func:`pad_signal_for_stft`),
     int16 (scaled by 1/32768 on the device) or float32; mask (B, N) frame
@@ -134,10 +215,10 @@ def enhance_waveform(model, x_pad, mask, cfg: MCEMConfig = MCEMConfig(), *,
     Returns (s_i16, n_i16 | None, y_soft f16 | None, y_hard packed u8 |
     None, finite_ok (B,) bool), all on `device`."""
     if label_mode not in LABEL_MODES:
-        if label_mode in ("oracle", "timo"):
+        if label_mode == "oracle":
             raise NotImplementedError(
-                f"label_mode {label_mode!r} is not ported yet (ROADMAP "
-                "Queue 1, items 2 and 6)")
+                "label_mode 'oracle' is not ported yet (ROADMAP Queue 1, "
+                "item 2)")
         raise ValueError(f"unknown label_mode {label_mode!r}")
     dev = resolve_device(device)
     x = _as_device(x_pad, dev)
@@ -167,6 +248,15 @@ def enhance_waveform(model, x_pad, mask, cfg: MCEMConfig = MCEMConfig(), *,
         y_soft = flat.reshape(xn.shape[0], xn.shape[1], -1).transpose(1, 2)
         y_hard = (y_soft > dnn_threshold).to(torch.float32)
         y = y_soft if soft_guidance else y_hard
+    elif label_mode == "timo":
+        # SPP recurrence is causal over frames, so trailing pad frames
+        # (benign X_p = 1) cannot perturb the valid prefix
+        if target == "vad":
+            y_soft = timo_vad(X_p)[:, None, :]
+        else:
+            y_soft = timo_mask(X_p)
+        y_hard = (y_soft > 0.5).to(torch.float32)
+        y = y_soft if soft_guidance else y_hard
     elif label_mode in ("ones", "zeros"):
         y_dim = 1 if target == "vad" else X_p.shape[1]
         fill = torch.ones if label_mode == "ones" else torch.zeros
@@ -180,7 +270,8 @@ def enhance_waveform(model, x_pad, mask, cfg: MCEMConfig = MCEMConfig(), *,
     finite_ok = torch.all(torch.isfinite(s_est), dim=-1)
     if return_noise:
         finite_ok = finite_ok & torch.all(torch.isfinite(n_est), dim=-1)
-    out_soft = y_soft.to(torch.float16) if label_mode == "dnn" else None
+    out_soft = (y_soft.to(torch.float16) if label_mode in ("dnn", "timo")
+                else None)
     out_hard = None if y_hard is None else _packbits_bands(y_hard)
     out_n = _to_pcm16(n_est) if return_noise else None
     return _to_pcm16(s_est), out_n, out_soft, out_hard, finite_ok
@@ -251,8 +342,8 @@ def enhance_files(file_paths, processed_dir, output_dir, model,
                   cfg: MCEMConfig = MCEMConfig(), batch_size=16,
                   bucket_multiple=128, seed=0, verbose=False,
                   noise_model="nmf", fast=False, soft_guidance=False,
-                  skip_existing=False, features="power", dnn_threshold=0.5,
-                  device=None):
+                  skip_existing=False, profile=None, features="power",
+                  dnn_threshold=0.5, device=None):
     """Sweep over a file list: reads `<utt>_x.wav`, writes
     `<utt>_s_est.wav`, `<utt>_n_est.wav` and, for M2, the soft/hard label
     arrays `_ibm_soft_est.npy` / `_ibm_hard_est.npy`.
@@ -262,13 +353,22 @@ def enhance_files(file_paths, processed_dir, output_dir, model,
     Wiener gains sum to one, so n = x - s is formed on the host); a writer
     pool writes the outputs. A failed batch is retried one utterance at a
     time, and an utterance that still fails is written as mixture
-    passthrough. Returns a :class:`SweepResult`."""
+    passthrough; a :class:`KernelError` (a kernel that does not build or
+    launch) is not retried but raised. On a CUDA device the kernels are
+    built before the sweep starts. Returns a :class:`SweepResult`.
+
+    profile: name of a validated operating point (:mod:`.profiles`),
+    authoritative for noise_model, soft_guidance and the cfg's noise_gain /
+    noise_gain_bands; every other argument keeps its value."""
+    if profile is not None:
+        noise_model, soft_guidance = offline_settings(profile)
+        cfg = apply_profile_cfg(cfg, profile)
     label_mode = classif_type if model_type == "m2" else "none"
-    if label_mode not in ("none", "dnn", "ones", "zeros"):
-        if label_mode in ("oracle", "timo"):
+    if label_mode not in ("none", "dnn", "timo", "ones", "zeros"):
+        if label_mode == "oracle":
             raise NotImplementedError(
-                f"classif_type {classif_type!r} is not ported yet (ROADMAP "
-                "Queue 1, items 2 and 6)")
+                "classif_type 'oracle' is not ported yet (ROADMAP Queue 1, "
+                "item 2)")
         raise ValueError(f"unknown classif_type: {classif_type!r}")
     _check_supported(noise_model, fast, cfg)
     dev = resolve_device(device)
@@ -283,6 +383,8 @@ def enhance_files(file_paths, processed_dir, output_dir, model,
             return SweepResult(0.0, 0, n_listed)
     n_skipped = n_listed - len(file_paths)
     t_start = time.perf_counter()
+    if dev.type == "cuda":
+        build_all()     # a toolchain fault fails here, not once per batch
     PREFETCH = 3
 
     def base_in(path):
@@ -316,9 +418,10 @@ def enhance_files(file_paths, processed_dir, output_dir, model,
         gen = torch.Generator(device=dev).manual_seed(int(seeds[0]))
         out = enhance_waveform(
             model, x, mask, cfg, classifier=classifier, mean=mean, std=std,
-            generator=gen, label_mode=label_mode, target=target,
-            return_noise=False, soft_guidance=soft_guidance,
-            features=features, dnn_threshold=dnn_threshold, device=dev)
+            generator=gen, label_mode=label_mode, noise_model=noise_model,
+            fast=fast, target=target, return_noise=False,
+            soft_guidance=soft_guidance, features=features,
+            dnn_threshold=dnn_threshold, device=dev)
         s, _, y_soft, y_hard, ok = (None if o is None else o.cpu().numpy()
                                     for o in out)
         if not np.all(ok):
@@ -365,6 +468,8 @@ def enhance_files(file_paths, processed_dir, output_dir, model,
                 for j, t in enumerate(a["t_origs"]):
                     rows.append((s_b[j][:t],) + labels_host(
                         ys_b, yh_b, j, a["n_frames"][j]))
+            except KernelError:
+                raise
             except (RuntimeError, FloatingPointError) as exc:
                 print(f"batch of {len(paths)} failed ({exc!r}); retrying "
                       "per-utterance")
@@ -374,6 +479,8 @@ def enhance_files(file_paths, processed_dir, output_dir, model,
                                            a["mask"][j:j + 1], seeds[j:j + 1])
                         rows.append((s1[0][:t],) + labels_host(
                             ys1, yh1, 0, a["n_frames"][j]))
+                    except KernelError:
+                        raise
                     except (RuntimeError, FloatingPointError) as exc2:
                         print(f"utterance {paths[j]} failed ({exc2!r}); "
                               "writing passthrough")

@@ -1,4 +1,6 @@
-"""The CUDA kernels against their plain PyTorch versions, on the card.
+"""The CUDA kernels against their plain PyTorch versions, on the card, in
+both forms: with the NMF factors (WH=, K1a / K2a) and with a given noise
+variance (Vb=, K1b / K2b).
 
 Every test here needs an NVIDIA GPU and skips without one. The file
 imports neither JAX nor the JAX package, so it also runs on a GPU machine
@@ -63,8 +65,8 @@ def random_dgm(rng, F, Y, L, H, depth=2):
 
 
 def chain_case(device, seed, B, F, N, L, H, K, Y, depth=2):
-    """Chain inputs on `device`: decoder parts, X2, (Wt, H), g, ypre, Z,
-    Vs = decode(Z), mask."""
+    """Chain inputs on `device`: decoder parts, X2, (Wt, H), Vb, g, ypre,
+    Z, Vs = decode(Z), mask."""
     rng = np.random.RandomState(seed)
     model = module_from_params(random_dgm(rng, F, Y, L, H, depth),
                                device=device)
@@ -83,7 +85,8 @@ def chain_case(device, seed, B, F, N, L, H, K, Y, depth=2):
         WH=(t(rng.uniform(0.05, 0.5, (B, K, F)).astype(np.float32)),
             t(rng.uniform(0.05, 0.5, (B, K, N)).astype(np.float32))),
         g=t(rng.uniform(0.5, 1.5, (B, N)).astype(np.float32)),
-        ypre=ypre, Z=Z, Vs=Vs, mask=mask)
+        ypre=ypre, Z=Z, Vs=Vs, mask=mask,
+        Vb=t(rng.uniform(0.01, 0.3, (B, N, F)).astype(np.float32)))
 
 
 def decisive_noise(device, seed, B, N, L, n_steps):
@@ -97,10 +100,12 @@ def decisive_noise(device, seed, B, N, L, n_steps):
             torch.tensor(u.astype(np.float32), device=device))
 
 
-def run_chain(fn, c, mode, nsamples, burnin, var_rw, **kw):
-    return fn(c["dec_w"], c["X2"], c["WH"], c["g"], c["ypre"], c["Z"],
-              c["Vs"], mode=mode, nsamples=nsamples, burnin=burnin,
-              var_RW=var_rw, mask=c["mask"] if mode == "e" else None, **kw)
+def run_chain(fn, c, mode, nsamples, burnin, var_rw, vb=False, **kw):
+    return fn(c["dec_w"], c["X2"], None if vb else c["WH"], c["g"],
+              c["ypre"], c["Z"], c["Vs"], mode=mode, nsamples=nsamples,
+              burnin=burnin, var_RW=var_rw,
+              mask=c["mask"] if mode == "e" and not vb else None,
+              Vb=c["Vb"] if vb else None, **kw)
 
 
 def _close(got, ref):
@@ -247,8 +252,116 @@ def test_fused_engine_var0_matches_cpu(cuda):
             module_from_params(tree, device=dev), t(X), t(mask), t(y),
             torch.Generator(device=dev).manual_seed(0), cfg,
             init={k: t(v) for k, v in init.items()})
-    assert launch_counts() == {"mh_chain": 4, "nmf_sums": 6}
+    assert launch_counts() == {
+        "mh_chain": {"e_wh": 3, "wf_wh": 1, "e_vb": 0, "wf_vb": 0},
+        "nmf_sums": {"h_wh": 3, "g_wh": 3, "h_vb": 0, "g_vb": 0}}
     for k in ("WFs", "WFn", "W", "H", "g", "Z", "cost"):
+        assert_allclose(outs["cuda"][k].cpu().numpy(),
+                        outs["cpu"][k].numpy(), rtol=1e-3, atol=1e-5,
+                        err_msg=k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["small", "full"])
+@pytest.mark.parametrize("mode", ["e", "wf"])
+def test_chain_vb_kernel_matches_plain(cuda, mode, shape):
+    """K1b under decisive injected noise and at var_RW = 0; E-mode returns
+    (samples, s1, s2)."""
+    dims = SMALL if shape == "small" else FULL
+    c = chain_case(cuda, 12, **dims)
+    nsamples, burnin = 4, 3
+    noise = decisive_noise(cuda, 13, dims["B"], dims["N"], dims["L"],
+                           nsamples + burnin)
+    runs = [(dict(noise=noise), dict(noise=noise), 0.01),
+            (dict(seed=7), dict(generator=torch.Generator(
+                device=cuda).manual_seed(0)), 0.0)]
+    for kw, kw_ref, var_rw in runs:
+        reset_launch_counts()
+        got = run_chain(mh_chain, c, mode, nsamples, burnin, var_rw,
+                        vb=True, **kw)
+        assert launch_counts()["mh_chain"][f"{mode}_vb"] == 1
+        ref = run_chain(mh_chain_ref, c, mode, nsamples, burnin, var_rw,
+                        vb=True, **kw_ref)
+        torch.cuda.synchronize()
+        assert len(got[2]) == (3 if mode == "e" else 2)
+        if mode == "e":
+            assert got[2][1].shape == c["X2"].shape == got[2][2].shape
+        for a, b in zip((got[0], got[1]) + got[2],
+                        (ref[0], ref[1]) + ref[2]):
+            _close(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["small", "full"])
+@pytest.mark.parametrize("mode", ["h", "g"])
+def test_sums_vb_kernel_matches_plain(cuda, mode, shape):
+    dims = SMALL if shape == "small" else FULL
+    c = chain_case(cuda, 14, **dims)
+    rng = np.random.RandomState(15)
+    samples = torch.tensor(rng.uniform(
+        0.01, 2.0, (dims["B"], 10, dims["N"], dims["F"])).astype(np.float32),
+        device=cuda)
+    args = (samples, None, c["g"], c["X2"])
+    reset_launch_counts()
+    got = nmf_sums(*args, mode=mode, Vb=c["Vb"])
+    assert launch_counts()["nmf_sums"][f"{mode}_vb"] == 1
+    ref = nmf_sums_ref(*args, mode=mode, Vb=c["Vb"])
+    want = c["X2"].shape if mode == "h" else c["g"].shape
+    for a, b in zip(got, ref):
+        assert a.shape == want
+        _close(a, b)
+
+
+@pytest.mark.cuda
+def test_vb_wrappers_reject_bad_input(cuda):
+    c = chain_case(cuda, 16, **SMALL)
+    bad = {"shape": c["Vb"][:, :, :-1].contiguous(),
+           "dtype": c["Vb"].double(),
+           "strides": c["Vb"].transpose(1, 2).contiguous().transpose(1, 2)}
+    samples = torch.rand((2, 2, 128, 65), device=cuda) + 0.01
+    for name, vb in bad.items():
+        with pytest.raises((ValueError, TypeError)):
+            mh_chain(c["dec_w"], c["X2"], None, c["g"], c["ypre"], c["Z"],
+                     c["Vs"], mode="wf", Vb=vb)
+        with pytest.raises(ValueError):
+            nmf_sums(samples, None, c["g"], c["X2"], mode="h", Vb=vb)
+    with pytest.raises(ValueError, match="exactly one"):
+        mh_chain(c["dec_w"], c["X2"], c["WH"], c["g"], c["ypre"], c["Z"],
+                 c["Vs"], mode="wf", Vb=c["Vb"])
+    with pytest.raises(ValueError, match="exactly one"):
+        nmf_sums(samples, c["WH"], c["g"], c["X2"], mode="g", Vb=c["Vb"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bands", [1, 2])
+def test_fixed_noise_engine_var0_matches_cpu(cuda, bands):
+    """The spp fused engine (update_nmf=False, noise gain on) at var_RW = 0
+    on the card equals the CPU run; per EM iteration one K1b E chain, one
+    K2b 'h' and one K2b 'g' pass, plus the K1b WF chain."""
+    dims = SMALL
+    rng = np.random.RandomState(17)
+    tree = random_dgm(rng, dims["F"], dims["Y"], dims["L"], dims["H"])
+    B, F, N = dims["B"], dims["F"], dims["N"]
+    X = rng.uniform(0.05, 1.05, (B, F, N)).astype(np.float32)
+    X[:, :, 30:33] *= 50.0
+    y = (rng.uniform(size=(B, dims["Y"], N)) > 0.5).astype(np.float32)
+    mask = np.ones((B, N), np.float32)
+    Vb = (rng.uniform(size=(B, F, N)) * 0.2 + 0.05).astype(np.float32)
+    cfg = MCEMConfig(niter=3, nsamples_E_step=2, burnin_E_step=1,
+                     nsamples_WF=2, burnin_WF=1, var_RW=0.0,
+                     noise_gain=True, noise_gain_bands=bands)
+    outs = {}
+    for dev in ("cpu", cuda):
+        t = lambda a: torch.tensor(a, device=dev)  # noqa: E731
+        reset_launch_counts()
+        outs[str(dev)] = mcem_batch_fused(
+            module_from_params(tree, device=dev), t(X), t(mask), t(y),
+            torch.Generator(device=dev).manual_seed(0), cfg,
+            update_nmf=False, Vb_fixed=t(Vb))
+    assert launch_counts() == {
+        "mh_chain": {"e_wh": 0, "wf_wh": 0, "e_vb": 3, "wf_vb": 1},
+        "nmf_sums": {"h_wh": 0, "g_wh": 0, "h_vb": 3, "g_vb": 3}}
+    for k in ("WFs", "WFn", "b", "g", "Z", "cost"):
         assert_allclose(outs["cuda"][k].cpu().numpy(),
                         outs["cpu"][k].numpy(), rtol=1e-3, atol=1e-5,
                         err_msg=k)

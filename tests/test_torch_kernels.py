@@ -1,5 +1,6 @@
-"""K1 (MH chain) and K2 (M-step sums): the port against the JAX Pallas
-kernels, and the CUDA kernels against their plain PyTorch versions.
+"""K1 (MH chain) and K2 (M-step sums), in the NMF-factor form (WH=, K1a /
+K2a) and the given-noise-variance form (Vb=, K1b / K2b): the port against
+the JAX Pallas kernels.
 
 On the CPU the JAX kernels run in the Pallas TPU interpreter, as
 tests/mcem/test_pallas.py runs them; the port's wrappers run their plain
@@ -55,6 +56,7 @@ def _case(seed=0):
         "Wt": rng.uniform(0.05, 0.5, (B, K, F)).astype(np.float32),
         "Hf": rng.uniform(0.05, 0.5, (B, K, N)).astype(np.float32),
         "g": rng.uniform(0.5, 1.5, (B, N)).astype(np.float32),
+        "Vb": rng.uniform(0.01, 0.3, (B, N, F)).astype(np.float32),
         "mask": (np.arange(N)[None] < np.array([[N], [N - 37]])).astype(
             np.float32),
     }
@@ -74,26 +76,29 @@ def _t(a, device="cpu"):
     return torch.tensor(np.asarray(a), device=device)
 
 
-def _jax_chain(c, mode, nsamples, burnin, var_rw, noise):
+def _jax_chain(c, mode, nsamples, burnin, var_rw, noise, vb=False):
     Zn, U = noise
     return mh_chain_pallas(
-        jax_dec_parts(c["dgm"]["decoder"], L), jnp.asarray(c["X2"]), None,
+        jax_dec_parts(c["dgm"]["decoder"], L), jnp.asarray(c["X2"]),
+        jnp.asarray(c["Vb"]) if vb else None,
         jnp.asarray(c["g"]), jnp.asarray(c["ypre"]), jnp.asarray(c["Z"]),
         jnp.asarray(c["Vs"]), jnp.zeros((B, 1), jnp.int32), mode=mode,
         nsamples=nsamples, burnin=burnin, var_RW=var_rw,
         noise=(jnp.asarray(Zn), jnp.asarray(U)),
-        WH=(jnp.asarray(c["Wt"]), jnp.asarray(c["Hf"])),
-        mask=jnp.asarray(c["mask"]) if mode == "e" else None)
+        WH=None if vb else (jnp.asarray(c["Wt"]), jnp.asarray(c["Hf"])),
+        mask=jnp.asarray(c["mask"]) if mode == "e" and not vb else None)
 
 
 def _torch_chain(fn, c, mode, nsamples, burnin, var_rw, noise,
-                 device="cpu"):
+                 device="cpu", vb=False):
     t = lambda k: _t(c[k], device)  # noqa: E731
-    return fn(_torch_dec_w(c["dgm"], device), t("X2"), (t("Wt"), t("Hf")),
+    return fn(_torch_dec_w(c["dgm"], device), t("X2"),
+              None if vb else (t("Wt"), t("Hf")),
               t("g"), t("ypre"), t("Z"), t("Vs"), mode=mode,
               nsamples=nsamples, burnin=burnin, var_RW=var_rw,
               noise=tuple(_t(a, device) for a in noise),
-              mask=t("mask") if mode == "e" else None)
+              mask=t("mask") if mode == "e" and not vb else None,
+              Vb=t("Vb") if vb else None)
 
 
 @pytest.mark.parametrize("var_rw", [0.0, 0.01])
@@ -154,18 +159,25 @@ def test_sums_match_pallas(mode):
 def test_wrappers_take_the_plain_version_on_cpu():
     c = _case(3)
     noise = _noise(4, 5)
-    ref = _torch_chain(mh_chain_ref, c, "e", 3, 2, 0.01, noise)
-    got = _torch_chain(mh_chain, c, "e", 3, 2, 0.01, noise)
-    assert torch.equal(ref[0], got[0])
-    assert all(torch.equal(a, b) for a, b in zip(ref[2], got[2]))
-    assert mh_chain.launches == 0
+    for vb in (False, True):
+        ref = _torch_chain(mh_chain_ref, c, "e", 3, 2, 0.01, noise, vb=vb)
+        got = _torch_chain(mh_chain, c, "e", 3, 2, 0.01, noise, vb=vb)
+        assert torch.equal(ref[0], got[0])
+        assert all(torch.equal(a, b) for a, b in zip(ref[2], got[2]))
+    assert not any(mh_chain.launches.values())
     samples = ref[2][0]
     args = (samples, (_t(c["Wt"]), _t(c["Hf"])), _t(c["g"]), _t(c["X2"]))
     for mode in ("h", "g"):
         for a, b in zip(nmf_sums(*args, mode=mode),
                         nmf_sums_ref(*args, mode=mode)):
             assert torch.equal(a, b)
-    assert nmf_sums.launches == 0
+        for a, b in zip(
+                nmf_sums(samples, None, _t(c["g"]), _t(c["X2"]), mode=mode,
+                         Vb=_t(c["Vb"])),
+                nmf_sums_ref(samples, None, _t(c["g"]), _t(c["X2"]),
+                             mode=mode, Vb=_t(c["Vb"]))):
+            assert torch.equal(a, b)
+    assert not any(nmf_sums.launches.values())
 
 
 def test_chain_without_noise_draws_from_the_seed_on_cpu():
@@ -180,3 +192,77 @@ def test_chain_without_noise_draws_from_the_seed_on_cpu():
     d = mh_chain(*args, seed=6, **kw)
     assert torch.equal(a[0], b[0])
     assert not torch.equal(a[0], d[0])
+
+
+@pytest.mark.parametrize("var_rw", [0.0, 0.01])
+def test_chain_vb_e_mode_matches_pallas(var_rw):
+    """K1b E-mode returns (samples, s1, s2) in the JAX order."""
+    c = _case(5)
+    nsamples, burnin = 3, 2
+    noise = _noise(6, nsamples + burnin)
+    Zj, Vsj, (sj, s1j, s2j) = _jax_chain(c, "e", nsamples, burnin, var_rw,
+                                         noise, vb=True)
+    Zt, Vst, (st, s1t, s2t) = _torch_chain(mh_chain_ref, c, "e", nsamples,
+                                           burnin, var_rw, noise, vb=True)
+    for got, want in ((Zt, Zj), (Vst, Vsj), (st, sj), (s1t, s1j),
+                      (s2t, s2j)):
+        assert tuple(got.shape) == tuple(np.shape(want))
+        assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    # s1 = sum 1/Vx and s2 = sum 1/Vx^2 over the dumped samples
+    Vx = np.maximum(c["g"][:, None, :, None] * st.numpy() + c["Vb"][:, None],
+                    1e-10)
+    assert_allclose(s1t.numpy(), np.sum(1 / Vx, axis=1), rtol=1e-5)
+    assert_allclose(s2t.numpy(), np.sum(Vx ** -2.0, axis=1), rtol=1e-5)
+    if var_rw:
+        moved = np.any(st.numpy()[:, 1:] != st.numpy()[:, :-1], axis=-1)
+        assert 0 < moved.mean() < 1
+
+
+@pytest.mark.parametrize("var_rw", [0.0, 0.01])
+def test_chain_vb_wf_mode_matches_pallas(var_rw):
+    c = _case(7)
+    nsamples, burnin = 4, 3
+    noise = _noise(8, nsamples + burnin)
+    Zj, Vsj, (wsj, wnj) = _jax_chain(c, "wf", nsamples, burnin, var_rw,
+                                     noise, vb=True)
+    Zt, Vst, (wst, wnt) = _torch_chain(mh_chain_ref, c, "wf", nsamples,
+                                       burnin, var_rw, noise, vb=True)
+    for got, want in ((Zt, Zj), (Vst, Vsj), (wst, wsj), (wnt, wnj)):
+        assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    assert_allclose((wst + wnt).numpy() / nsamples, 1.0, atol=1e-5)
+
+
+@pytest.mark.parametrize("mode", ["h", "g"])
+def test_sums_vb_match_pallas(mode):
+    """K2b: 'h' returns (s1, s2) (B, N, F) in the JAX order, 'g' (num, den)
+    (B, N)."""
+    c = _case(9)
+    R = 4
+    samples = np.random.RandomState(10).uniform(
+        0.01, 2.0, (B, R, N, F)).astype(np.float32)
+    oj = nmf_sums_pallas(jnp.asarray(samples), jnp.asarray(c["Vb"]),
+                         jnp.asarray(c["g"]), X2=jnp.asarray(c["X2"]),
+                         mode=mode)
+    ot = nmf_sums_ref(_t(samples), None, _t(c["g"]), _t(c["X2"]), mode=mode,
+                      Vb=_t(c["Vb"]))
+    for a, b in zip(ot, oj):
+        assert tuple(a.shape) == tuple(np.shape(b))
+        assert_allclose(a.numpy(), np.asarray(b), **TOL)
+    if mode == "h":
+        Vx = np.maximum(c["g"][:, None, :, None] * samples
+                        + c["Vb"][:, None], 1e-10)
+        assert_allclose(ot[0].numpy(), np.sum(1 / Vx, axis=1), rtol=1e-5)
+
+
+@pytest.mark.parametrize("which", ["both", "neither"])
+def test_wrappers_take_exactly_one_of_vb_and_wh(which):
+    c = _case(11)
+    t = _t
+    WH = (t(c["Wt"]), t(c["Hf"])) if which == "both" else None
+    Vb = t(c["Vb"]) if which == "both" else None
+    with pytest.raises(ValueError, match="exactly one"):
+        mh_chain(_torch_dec_w(c["dgm"]), t(c["X2"]), WH, t(c["g"]),
+                 t(c["ypre"]), t(c["Z"]), t(c["Vs"]), mode="wf", Vb=Vb)
+    samples = torch.rand((B, 2, N, F)) + 0.01
+    with pytest.raises(ValueError, match="exactly one"):
+        nmf_sums(samples, WH, t(c["g"]), t(c["X2"]), mode="g", Vb=Vb)

@@ -2,12 +2,16 @@
 JAX package's `_enhance_waveform_jit(use_fused=True)` on the CPU, at
 var_RW=0 and full frequency width (F=513) with a small random model.
 
-The port starts from JAX's own NMF init, reproduced from `keys[0]` as
-`mcem_batch_fused` draws it, through `init=`. Tolerance: PCM16 samples
-within 2 LSB (float32 STFT/ISTFT of two FFT libraries, then rounding),
-packed hard labels equal, soft labels within 1e-3 (float16)."""
+With the NMF noise model the port starts from JAX's own NMF init,
+reproduced from `keys[0]` as `mcem_batch_fused` draws it, through `init=`;
+the fixed-noise models (spp, spp2) draw no init, so at var_RW=0 they are
+deterministic. Tolerance: PCM16 samples within 2 LSB (float32 STFT/ISTFT
+of two FFT libraries, then rounding), packed hard labels equal, soft
+labels within 1e-3 (float16)."""
 
+import dataclasses
 import os
+import pathlib
 
 import jax
 import jax.numpy as jnp
@@ -15,9 +19,12 @@ import numpy as np
 import pytest
 import torch
 
+from guided_vae_nmf_tpu import profiles as jax_profiles
 from guided_vae_nmf_tpu.mcem import MCEMConfig as JaxConfig
 from guided_vae_nmf_tpu.models import classifier_init, dgm_init, vae_init
 from guided_vae_nmf_tpu.pipeline import _enhance_waveform_jit
+from guided_vae_nmf_torch import profiles
+from guided_vae_nmf_torch._build import KernelError
 from guided_vae_nmf_torch.data import read_wav_int16, write_wav
 from guided_vae_nmf_torch.dsp import frame_count, pad_signal_for_stft
 from guided_vae_nmf_torch.mcem import MCEMConfig
@@ -208,24 +215,40 @@ def test_enhance_files_retries_per_utterance(tmp_path, monkeypatch):
     assert not np.any(np.load(dst / "u1_ibm_hard_est.npy"))
 
 
-def test_enhance_to_audio_runs():
-    tree = dgm_init(jax.random.PRNGKey(7), [F, F, L, [H, H]])
+def _one_spectrogram(seed):
     from guided_vae_nmf_torch.dsp.stft import stft_batch_padded
 
-    x_b, mask = _batch(_mixtures(8, (0.9,)))
+    x_b, mask = _batch(_mixtures(seed, (0.9,)))
     X = stft_batch_padded(torch.tensor(x_b.astype(np.float32) / 32768))
-    nf = int(mask.sum())
-    X_tf = X[0, :, :nf].numpy()
-    y = (np.abs(X_tf) > 0.01).astype(np.float32)
+    X_tf = X[0, :, :int(mask.sum())].numpy()
+    return X_tf, (np.abs(X_tf) > 0.01).astype(np.float32)
+
+
+def test_enhance_to_audio_runs():
+    tree = dgm_init(jax.random.PRNGKey(7), [F, F, L, [H, H]])
+    X_tf, y = _one_spectrogram(8)
     s, n = enhance_to_audio(module_from_params(tree), [X_tf], [14400], [y],
                             cfg=MCEMConfig(**SMALL), device="cpu")
     assert s[0].shape == n[0].shape == (14400,)
     assert np.isfinite(s[0]).all() and np.isfinite(n[0]).all()
 
 
+def test_enhance_to_audio_passes_the_noise_model():
+    model = module_from_params(dgm_init(jax.random.PRNGKey(7),
+                                        [F, F, L, [H, H]]))
+    X_tf, y = _one_spectrogram(8)
+    s, n = enhance_to_audio(model, [X_tf], [14400], [y],
+                            cfg=MCEMConfig(**SMALL, noise_gain=True),
+                            noise_model="spp2", device="cpu")
+    assert np.isfinite(s[0]).all() and np.isfinite(n[0]).all()
+    s_nmf, _ = enhance_to_audio(model, [X_tf], [14400], [y],
+                                cfg=MCEMConfig(**SMALL), device="cpu")
+    assert not np.allclose(s[0], s_nmf[0])
+
+
 @pytest.mark.parametrize("kw", [dict(label_mode="oracle"),
-                                dict(label_mode="timo"),
-                                dict(noise_model="spp"),
+                                dict(noise_model="hybrid"),
+                                dict(fast="trans"),
                                 dict(fast=True)])
 def test_unported_options_raise(kw):
     tree = dgm_init(jax.random.PRNGKey(9), [F, F, L, [H, H]])
@@ -233,3 +256,145 @@ def test_unported_options_raise(kw):
     with pytest.raises(NotImplementedError):
         enhance_waveform(module_from_params(tree), x_b, mask,
                          MCEMConfig(**SMALL), device="cpu", **kw)
+
+
+def _compare(got, ref):
+    """PCM16 within 2 LSB, labels as the module docstring states."""
+    ref = [None if r is None else np.asarray(r) for r in ref]
+    got = [None if g is None else g.numpy() for g in got]
+    for i in (0, 1):     # s, n as PCM16
+        assert got[i].dtype == np.int16 and got[i].shape == ref[i].shape
+        diff = np.abs(got[i].astype(np.int32) - ref[i].astype(np.int32))
+        assert diff.max() <= 2, diff.max()
+    for i in (2, 3):
+        assert (got[i] is None) == (ref[i] is None)
+    if got[2] is not None:
+        np.testing.assert_allclose(got[2].astype(np.float32),
+                                   ref[2].astype(np.float32), atol=1e-3)
+    if got[3] is not None:
+        assert np.array_equal(got[3], ref[3])
+    assert got[4].all() and ref[4].all()
+    return got
+
+
+@pytest.mark.parametrize("noise_model,label_mode,gain,bands,soft", [
+    ("spp", "dnn", True, 2, True),       # the impulse-noise settings
+    ("spp2", "dnn", True, 1, True),      # the real-noise settings
+    ("spp", "timo", False, 1, False),
+    ("nmf", "timo", False, 1, True),
+])
+def test_fixed_noise_and_timo_match_jax(noise_model, label_mode, gain,
+                                        bands, soft):
+    x_b, mask = _batch(_mixtures(11, (1.6, 1.1)))
+    B, N = mask.shape
+    tree = dgm_init(jax.random.PRNGKey(0), [F, F, L, [H, H]])
+    cls = classifier_init(jax.random.PRNGKey(1), [F, [H, H], F])
+    mean, std = load_norm_stats(CLS_DIR)
+    keys = jax.random.split(jax.random.PRNGKey(2), B)
+    dnn = label_mode == "dnn"
+    over = dict(noise_gain=gain, noise_gain_bands=bands)
+    ref = _enhance_waveform_jit(
+        tree, jnp.asarray(x_b), None, None, cls if dnn else None,
+        jnp.asarray(mean, jnp.float32) if dnn else None,
+        jnp.asarray(std, jnp.float32) if dnn else None,
+        jnp.asarray(mask), keys, JaxConfig(**SMALL, **over), use_fused=True,
+        noise_model=noise_model, label_mode=label_mode, soft_guidance=soft)
+    init = None
+    if noise_model == "nmf":
+        init = {k: torch.tensor(v)
+                for k, v in _jax_nmf_init(keys, B, N).items()}
+    got = enhance_waveform(
+        module_from_params(tree), x_b, mask, MCEMConfig(**SMALL, **over),
+        classifier=module_from_params(cls) if dnn else None,
+        mean=mean if dnn else None, std=std if dnn else None,
+        label_mode=label_mode, noise_model=noise_model, soft_guidance=soft,
+        init=init, device="cpu")
+    got = _compare(got, ref)
+    if label_mode == "timo":
+        assert got[2].dtype == np.float16 and got[2].shape == (B, F, N)
+
+
+def _write_mixtures(src, seed, seconds):
+    src.mkdir()
+    xs = _mixtures(seed, seconds)
+    files = []
+    for j, x in enumerate(xs):
+        write_wav(str(src / f"u{j}_x.wav"), x, 16000)
+        files.append(f"u{j}.wav")
+    return xs, files
+
+
+def test_enhance_files_profile_equals_explicit_settings(tmp_path):
+    tree = module_from_params(dgm_init(jax.random.PRNGKey(4),
+                                       [F, F, L, [H, H]]))
+    cls = module_from_params(classifier_init(jax.random.PRNGKey(5),
+                                             [F, [H, H], F]))
+    mean, std = load_norm_stats(CLS_DIR)
+    _, files = _write_mixtures(tmp_path / "in", 12, (1.2, 0.7))
+    common = dict(classifier=cls, mean=mean, std=std, device="cpu")
+    cfg = MCEMConfig(**{**SMALL, "var_RW": 0.01})
+    enhance_files(files, str(tmp_path / "in"), str(tmp_path / "a"), tree,
+                  cfg=cfg, profile="impulse-noise", **common)
+    enhance_files(files, str(tmp_path / "in"), str(tmp_path / "b"), tree,
+                  cfg=MCEMConfig(**{**SMALL, "var_RW": 0.01,
+                                    "noise_gain": True,
+                                    "noise_gain_bands": 2}),
+                  noise_model="spp", soft_guidance=True, **common)
+    names = sorted(p.name for p in (tmp_path / "a").iterdir())
+    assert len(names) == 8            # s, n, soft and hard labels per file
+    for name in names:
+        assert (tmp_path / "a" / name).read_bytes() == \
+            (tmp_path / "b" / name).read_bytes(), name
+    # the profile's noise model really ran: it differs from 'nmf'
+    enhance_files(files, str(tmp_path / "in"), str(tmp_path / "c"), tree,
+                  cfg=cfg, **common)
+    assert (tmp_path / "a" / "u0_s_est.wav").read_bytes() != \
+        (tmp_path / "c" / "u0_s_est.wav").read_bytes()
+
+
+def test_profiles_equal_the_jax_package():
+    assert profiles.PROFILE_NAMES == jax_profiles.PROFILE_NAMES
+    for name, prof in jax_profiles.PROFILES.items():
+        assert dataclasses.asdict(profiles.PROFILES[name]) == \
+            dataclasses.asdict(prof)
+    assert profiles.offline_settings("real-noise") == ("spp2", True)
+    cfg = profiles.apply_profile_cfg(MCEMConfig(), "impulse-noise")
+    assert cfg.noise_gain and cfg.noise_gain_bands == 2
+    with pytest.raises(ValueError, match="streaming-only"):
+        profiles.offline_settings("streaming-192ms")
+    with pytest.raises(ValueError, match="unknown profile"):
+        profiles.get_profile("loud")
+
+
+def test_enhance_files_raises_kernel_errors(tmp_path, monkeypatch):
+    """A kernel that does not build or launch fails the sweep: no retry,
+    no passthrough files."""
+    import guided_vae_nmf_torch.pipeline as pl
+
+    tree = module_from_params(dgm_init(jax.random.PRNGKey(4),
+                                       [F, F, L, [H, H]]))
+    _, files = _write_mixtures(tmp_path / "in", 13, (1.0, 1.05))
+    calls = []
+
+    def broken(*a, **kw):
+        calls.append(1)
+        raise KernelError("mh_chain kernel: CUDA error 700")
+
+    monkeypatch.setattr(pl, "enhance_waveform", broken)
+    with pytest.raises(KernelError):
+        enhance_files(files, str(tmp_path / "in"), str(tmp_path / "out"),
+                      tree, classif_type="ones", cfg=MCEMConfig(**SMALL),
+                      device="cpu")
+    assert calls == [1]
+    assert not list(pathlib.Path(tmp_path).rglob("*_s_est.wav"))
+
+
+@pytest.mark.parametrize("kw", [dict(noise_model="spp3"),
+                                dict(noise_model="nmf", noise_gain=True)])
+def test_bad_noise_model_settings_raise(kw):
+    tree = dgm_init(jax.random.PRNGKey(9), [F, F, L, [H, H]])
+    x_b, mask = _batch(_mixtures(9, (0.5,)))
+    cfg = MCEMConfig(**SMALL, noise_gain=kw.pop("noise_gain", False))
+    with pytest.raises(ValueError):
+        enhance_waveform(module_from_params(tree), x_b, mask, cfg,
+                         device="cpu", **kw)
