@@ -1,20 +1,25 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's enhancement paths on one NVIDIA GPU: the M2-IBM
-main path (NMF noise model) and the fixed-noise path (the real-noise and
-impulse-noise profiles).
+main path (NMF noise model), the fixed-noise path (the real-noise and
+impulse-noise profiles), fast mode, and the online service with its HTTP
+front end.
 
     python3 chip_smoke.py [--seed 0] [--out build/chip_smoke.json]
 
 Phases, in order; any failure exits nonzero without a result line:
 
 1. device: CUDA is required; prints the card's name and power limit.
-2. build: compiles `guided_vae_nmf_torch/csrc/*.cu` for sm_90a (timed).
+2. build: compiles `guided_vae_nmf_torch/csrc/*.cu` for sm_90a (timed),
+   with each kernel's registers and spills from ptxas.
 3. kernels vs plain versions, on the card, at full width (F=513, L=32,
    H=128, K=10, the shipped M2-IBM decoder, seeded inputs) at B=2, N=256
    and at the paths' B=4, N=384: the MH chain in E- and WF-mode with the
    NMF factors (K1a) and with a given noise variance (K1b), under injected
    accept/reject noise and at var_RW=0, and the M-step sums in 'h' and 'g'
-   mode in both forms (K2a, K2b); then, at B=2, N=256, the accept rule
+   mode in both forms (K2a, K2b); the same chains in fast mode (K1c:
+   bfloat16 dumps and approximate reciprocal, and with the bit-arithmetic
+   exp / log) under injected noise, and the sums over bfloat16 samples with
+   the approximate reciprocal (K2c); then, at B=2, N=256, the accept rule
    under real uniforms and the in-kernel Philox stream.
 4. main path: four synthetic speech-like mixtures (2-5 s, 5 dB SNR, int16)
    through `enhance_waveform(label_mode="dnn")` with the shipped M2-IBM and
@@ -30,7 +35,18 @@ Phases, in order; any failure exits nonzero without a result line:
    bursts (100 / 1 / 100 / 100), one short utterance with the real-noise
    settings on the card against the CPU path at var_RW=0, and a profiled
    real-noise batch with the time of the SPP tracker and of `_ema_time`.
-6. kernel times at the paths' shapes (CUDA events), every variant, beside
+6. fast mode: the main batch through `enhance_waveform(fast=True)` and
+   `fast="trans"` (100 / 1 / 100 / 100 fast launches and no exact one),
+   x realtime beside the exact path's, |s + n - x| <= 2 LSB and SI-SDR
+   against the exact output (no quality claim); and the real-noise
+   settings with `fast="trans"` (125 / 2 / 125 / 125).
+7. serving: `EnhancementService(ServeConfig(fast=True))` (spp noise model,
+   dnn labels, shipped weights), warmed up, then 16 requests of 1-5 s from
+   4 producer threads (100 E / 1 WF / 0 h / 100 g fast Vb-form launches a
+   batch): requests/s, audio seconds per wall second, mean batch, p50 / p95
+   latency; then the HTTP front end on port 0 (/v1/enhance, /healthz,
+   /metrics).
+8. kernel times at the paths' shapes (CUDA events), every variant, beside
    their bounds and their plain versions' times.
 
 Prints the card's name and power limit, a `{"kernels": [...]}` line, and
@@ -40,6 +56,7 @@ as its last line `{"ok": true, "device": {...}}`.
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -58,21 +75,42 @@ MAIN_SECONDS = (2.1, 3.3, 4.2, 4.9)
 # Launches a batch at the default MCEMConfig (100 EM iterations,
 # spp2_pass1_niter 25): K1 E / WF chains and K2 'h' / 'g' passes, all in
 # one form ('wh': NMF factors, K1a / K2a; 'vb': given noise variance,
-# K1b / K2b).
+# K1b / K2b) and at one level ('': exact; '_fast': fast=True, K1c / K2c;
+# '_trans': fast="trans", whose sums passes are '_fast').
 MAIN_LAUNCHES = dict(form="wh", e=100, wf=1, h=100, g=100)
 REAL_NOISE_LAUNCHES = dict(form="vb", e=125, wf=2, h=125, g=125)
 IMPULSE_LAUNCHES = dict(form="vb", e=100, wf=1, h=100, g=100)
+SERVING_LAUNCHES = dict(form="vb", e=100, wf=1, h=0, g=100, level="_fast")
+CHAIN_VARIANTS = [f"{m}_{f}{lv}" for lv in ("", "_fast", "_trans")
+                  for m, f in (("e", "wh"), ("wf", "wh"), ("e", "vb"),
+                               ("wf", "vb"))]
+SUMS_VARIANTS = [f"{m}_{f}{lv}" for lv in ("", "_fast")
+                 for m, f in (("h", "wh"), ("g", "wh"), ("h", "vb"),
+                              ("g", "vb"))]
 
 
-def expected_launches(form, e, wf, h, g, n_batches=1):
+def expected_launches(form, e, wf, h, g, n_batches=1, level=""):
     """The launch counts (`launch_counts()` layout) of a path that runs
-    the given launches a batch, over `n_batches` batches."""
-    out = {"mh_chain": {"e_wh": 0, "wf_wh": 0, "e_vb": 0, "wf_vb": 0},
-           "nmf_sums": {"h_wh": 0, "g_wh": 0, "h_vb": 0, "g_vb": 0}}
-    for kern, mode, n in (("mh_chain", "e", e), ("mh_chain", "wf", wf),
-                          ("nmf_sums", "h", h), ("nmf_sums", "g", g)):
-        out[kern][f"{mode}_{form}"] = n * n_batches
+    the given launches a batch at `level`, over `n_batches` batches."""
+    out = {"mh_chain": dict.fromkeys(CHAIN_VARIANTS, 0),
+           "nmf_sums": dict.fromkeys(SUMS_VARIANTS, 0)}
+    sums_level = "_fast" if level else ""
+    for kern, mode, n, lv in (("mh_chain", "e", e, level),
+                              ("mh_chain", "wf", wf, level),
+                              ("nmf_sums", "h", h, sums_level),
+                              ("nmf_sums", "g", g, sums_level)):
+        out[kern][f"{mode}_{form}{lv}"] = n * n_batches
     return out
+
+
+def fast_kw(torch, level):
+    """The kernel options of a level ('', '_fast', '_trans')."""
+    if not level:
+        return {}
+    kw = dict(samples_dtype=torch.bfloat16, approx_recip=True)
+    if level == "_trans":
+        kw["approx_trans"] = True
+    return kw
 
 
 class SmokeFailure(RuntimeError):
@@ -224,7 +262,8 @@ def si_sdr(ref, est):
 # ---------------------------------------------------------------------------
 
 
-def chain_bound(B, N, F, L, Hd, K, R, n_steps, mode, vb=False):
+def chain_bound(B, N, F, L, Hd, K, R, n_steps, mode, vb=False,
+                sample_bytes=4):
     """(bound_ms, bound_by, flops, bytes) of one K1 launch. Operations per
     frame and step: the decoder's 2 (L Hd + Hd Hd + Hd F) multiply-adds,
     Hd (depth 2: 2 Hd) tanh and F exp, and per bin 8 more (g Vs + Vb,
@@ -232,7 +271,10 @@ def chain_bound(B, N, F, L, Hd, K, R, n_steps, mode, vb=False):
     (K1a), 2 K F per frame to form Vb; transcendentals count as one
     operation. Bytes: every input read once and every output written once;
     the Vb form (K1b) reads Vb (B, N, F) in place of Wt, H and the mask,
-    and in E-mode writes s1, s2 (B, N, F) in place of numW, denW."""
+    and in E-mode writes s1, s2 (B, N, F) in place of numW, denW; the
+    E-mode dumps take `sample_bytes` an element (2 for K1c's bfloat16).
+    Fast mode computes the same function, so its operation count is the
+    exact one's (an approximate exp or log counts as one operation)."""
     per_step = (2 * (L * Hd + Hd * Hd + Hd * F) + 2 * Hd + F + 8 * F
                 + 6 * L)
     flops = B * N * n_steps * per_step
@@ -246,7 +288,8 @@ def chain_bound(B, N, F, L, Hd, K, R, n_steps, mode, vb=False):
         if mode == "e":
             flops += 2 * 2 * B * K * N * F           # numW / denW
     if mode == "e":
-        out_bytes = 4 * (B * N * L + B * N * F + B * R * N * F + e_out)
+        out_bytes = (4 * (B * N * L + B * N * F + e_out)
+                     + sample_bytes * B * R * N * F)
     else:
         out_bytes = 4 * (B * N * L + 3 * B * N * F)
     in_bytes = 4 * (2 * B * N * F + in_noise + B * N + B * N * Hd
@@ -257,7 +300,7 @@ def chain_bound(B, N, F, L, Hd, K, R, n_steps, mode, vb=False):
             "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
 
 
-def sums_bound(B, R, N, F, K, mode, vb=False):
+def sums_bound(B, R, N, F, K, mode, vb=False, sample_bytes=4):
     """(bound_ms, bound_by, flops, bytes) of one K2 launch. Operations: 6
     per sample (g Vs + Vb, floor, reciprocal and two sums), 2 per bin in
     'g' mode for the X2 product, and with the NMF factors (K2a) 2 K per bin
@@ -265,16 +308,17 @@ def sums_bound(B, R, N, F, K, mode, vb=False):
     (in place of the 2). Bytes: the samples, g and Vb (K2b) or Wt and H
     (K2a) read once, X2 read where the mode uses it ('g', and 'h' with WH),
     the outputs written once: (B, N, F) x2 for 'h' with Vb, (B, N, K) x2
-    for 'h' with WH, (B, N) x2 for 'g'."""
+    for 'h' with WH, (B, N) x2 for 'g'. The samples take `sample_bytes` an
+    element (2 for K2c's bfloat16)."""
+    samples = sample_bytes * B * R * N * F
     if vb:
         flops = B * N * F * (6 * R + (2 if mode == "g" else 0))
-        in_bytes = 4 * (B * R * N * F + B * N * F + B * N
-                        + (B * N * F if mode == "g" else 0))
+        in_bytes = samples + 4 * (B * N * F + B * N
+                                  + (B * N * F if mode == "g" else 0))
         out_bytes = 4 * 2 * (B * N * F if mode == "h" else B * N)
     else:
         flops = B * N * F * (2 * K + 6 * R + (4 * K if mode == "h" else 2))
-        in_bytes = 4 * (B * R * N * F + B * N * F + B * K * F + B * K * N
-                        + B * N)
+        in_bytes = samples + 4 * (B * N * F + B * K * F + B * K * N + B * N)
         out_bytes = 4 * 2 * B * N * (K if mode == "h" else 1)
     nbytes = in_bytes + out_bytes
     t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
@@ -287,9 +331,8 @@ def sums_bound(B, R, N, F, K, mode, vb=False):
 # ---------------------------------------------------------------------------
 
 
-VARIANTS = ("mh_chain_e_wh", "mh_chain_wf_wh", "mh_chain_e_vb",
-            "mh_chain_wf_vb", "nmf_sums_h_wh", "nmf_sums_g_wh",
-            "nmf_sums_h_vb", "nmf_sums_g_vb")
+VARIANTS = ([f"mh_chain_{v}" for v in CHAIN_VARIANTS]
+            + [f"nmf_sums_{v}" for v in SUMS_VARIANTS])
 
 
 def run_chain(c, fn, mode, nsamples, burnin, var_rw, vb=False, **kw):
@@ -302,10 +345,11 @@ def run_chain(c, fn, mode, nsamples, burnin, var_rw, vb=False, **kw):
               Vb=c["Vb"] if vb else None, **kw)
 
 
-def run_sums(c, fn, samples, mode, vb=False):
+def run_sums(c, fn, samples, mode, vb=False, **kw):
     if vb:
-        return fn(samples, None, c["g"], c["X2"], mode=mode, Vb=c["Vb"])
-    return fn(samples, c["WH"], c["g"], c["X2"], mode=mode)
+        return fn(samples, None, c["g"], c["X2"], mode=mode, Vb=c["Vb"],
+                  **kw)
+    return fn(samples, c["WH"], c["g"], c["X2"], mode=mode, **kw)
 
 
 def phase_kernels(torch, model, dev, shapes):
@@ -352,18 +396,42 @@ def phase_kernels(torch, model, dev, shapes):
                         unity = (got[2][0] + got[2][1]) / nsamples
                         check(torch.allclose(unity, torch.ones_like(unity),
                                              atol=1e-5), "WFs + WFn != 1")
+            for level in ("_fast", "_trans"):
+                kw = fast_kw(torch, level)
+                noise = decisive_noise(torch, 4, B, N, L, 40, dev)
+                for mode in ("e", "wf"):
+                    got = run_chain(c, mh_chain, mode, 10, 30, 0.01, vb=vb,
+                                    noise=noise, **kw)
+                    ref = run_chain(c, mh_chain_ref, mode, 10, 30, 0.01,
+                                    vb=vb, noise=noise, **kw)
+                    torch.cuda.synchronize()
+                    log(f" K1c {mode}-mode, {form} form, {kw}, injected, "
+                        f"B={B} N={N}:")
+                    if mode == "e":
+                        log(f"  bfloat16 samples bit-equal to the plain "
+                            f"version's: {torch.equal(got[2][0], ref[2][0])}")
+                    key = f"mh_chain_{mode}_{form}{level}"
+                    for x, y in zip((got[0], got[1]) + got[2],
+                                    (ref[0], ref[1]) + ref[2]):
+                        err[key] = max(err[key], compare(
+                            "out", x.float(), y.float()))
             rng = np.random.RandomState(6)
             samples = torch.tensor(rng.gamma(0.5, 2.0, (B, 10, N, 513))
                                    .astype(np.float32) + 1e-3, device=dev)
-            for mode in ("h", "g"):
-                got = run_sums(c, nmf_sums, samples, mode, vb)
-                ref = run_sums(c, nmf_sums_ref, samples, mode, vb)
-                names = ("s1", "s2") if vb and mode == "h" else ("num",
-                                                                 "den")
-                log(f" K2{'b' if vb else 'a'} {mode}-mode, B={B} N={N}:")
-                for name, x, y in zip(names, got, ref):
-                    key = f"nmf_sums_{mode}_{form}"
-                    err[key] = max(err[key], compare(name, x, y))
+            for level, smp in (("", samples),
+                               ("_fast", samples.to(torch.bfloat16))):
+                kw = dict(approx_recip=True) if level else {}
+                for mode in ("h", "g"):
+                    got = run_sums(c, nmf_sums, smp, mode, vb, **kw)
+                    ref = run_sums(c, nmf_sums_ref, smp, mode, vb)
+                    names = (("s1", "s2") if vb and mode == "h"
+                             else ("num", "den"))
+                    log(f" K2{'c' if level else ('b' if vb else 'a')} "
+                        f"{mode}-mode, {form} form, {smp.dtype}, "
+                        f"B={B} N={N}:")
+                    for name, x, y in zip(names, got, ref):
+                        key = f"nmf_sums_{mode}_{form}{level}"
+                        err[key] = max(err[key], compare(name, x, y))
 
     # the accept rule itself under real uniforms: a decision whose margin
     # is below rounding may flip between the two, so count frames
@@ -479,7 +547,7 @@ def phase_main(torch, model, classifier, mean, std, cfg, batch, seed, dev,
     return {"n_pad": n_pad, "B": len(pairs), "wall_s": wall,
             "walls_s": walls, "audio_s": audio_s,
             "x_realtime": audio_s / wall,
-            "launches": port.launch_counts()}
+            "launches": port.launch_counts(), "s16": s16}
 
 
 def phase_files(torch, model, classifier, mean, std, pairs, cfg, seed,
@@ -667,6 +735,141 @@ def phase_profile(torch, model, classifier, mean, std, x_b, mask, cfg,
             "top_other": top, "loops": loops}
 
 
+def phase_fast(torch, model, classifier, mean, std, cfg, batch, seed, dev,
+               gpu, exact):
+    """The main batch in fast mode (fast=True and fast="trans", launch
+    counts checked per run) beside the exact path's run `exact`, with the
+    SI-SDR of each fast output against the exact one; then the real-noise
+    settings with fast="trans". Returns the paths' records."""
+    from guided_vae_nmf_torch.profiles import (
+        apply_profile_cfg, offline_settings)
+
+    pairs = batch[0]
+    out = {}
+    for fast, level in ((True, "_fast"), ("trans", "_trans")):
+        log(f"fast main path (enhance_waveform, fast={fast!r}):")
+        res = phase_main(torch, model, classifier, mean, std, cfg, batch,
+                         seed, dev, gpu,
+                         launches=dict(MAIN_LAUNCHES, level=level),
+                         label=f"fast={fast!r} main path", fast=fast)
+        sdr = [float(si_sdr(exact["s16"][j][:len(x)], res["s16"][j][:len(x)]))
+               for j, (_, x) in enumerate(pairs)]
+        log(f" fast={fast!r}: {res['x_realtime']:.2f}x realtime against "
+            f"the exact path's {exact['x_realtime']:.2f}x; SI-SDR against "
+            f"the exact output {', '.join(f'{v:.2f}' for v in sdr)} dB "
+            "(the chains diverge once a decision flips; no quality claim)")
+        res["si_sdr_vs_exact_db"] = sdr
+        out[f"fast={fast}"] = res
+    noise_model, soft = offline_settings("real-noise")
+    log("real-noise path with fast='trans':")
+    out["real-noise, fast=trans"] = phase_main(
+        torch, model, classifier, mean, std,
+        apply_profile_cfg(cfg, "real-noise"), batch, seed, dev, gpu,
+        launches=dict(REAL_NOISE_LAUNCHES, level="_trans"),
+        label="real-noise fast='trans' path", fast="trans",
+        noise_model=noise_model, soft_guidance=soft)
+    return out
+
+
+def phase_serving(torch, model, classifier, mean, std, cfg, seed, dev, gpu):
+    """EnhancementService(ServeConfig(fast=True)): warm-up, then 16 requests
+    of 1-5 s from 4 producer threads with the launch counters reset before
+    and read after. Returns (service, record); the service stays open for
+    the HTTP phase."""
+    import threading
+
+    import guided_vae_nmf_torch as port
+    from guided_vae_nmf_torch.serving import EnhancementService, ServeConfig
+
+    svc = EnhancementService(model, classifier=classifier, mean=mean,
+                             std=std, cfg=cfg, serve=ServeConfig(fast=True),
+                             device=dev)
+    warm_s = svc.warmup(buckets=(128, 256, 384))
+    log(f" warm-up over buckets 128 / 256 / 384 and batches 1-16: "
+        f"{warm_s:.2f} s")
+    seconds = np.random.RandomState(seed + 2).uniform(1.0, 5.0, 16)
+    xs = [x.astype(np.float32) / 32768.0
+          for _, x in speech_like_mixtures(seed + 2, seconds)]
+    results = [None] * len(xs)
+    errors = []
+
+    def producer(k):
+        try:
+            futs = [(i, svc.submit(xs[i])) for i in range(k, len(xs), 4)]
+            for i, f in futs:
+                results[i] = f.result(timeout=600)
+        except Exception as e:       # reported by the checks below
+            errors.append(repr(e))
+
+    svc.reset_stats()
+    port.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=producer, args=(k,))
+               for k in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(900)
+    wall = time.perf_counter() - t0
+    counts = port.launch_counts()
+    st = svc.stats()
+    check(not errors and not any(t.is_alive() for t in threads),
+          f"serving producers failed: {errors}")
+    check(all(r is not None for r in results), "a request did not resolve")
+    for x, r in zip(xs, results):
+        check(r["s"].shape == x.shape and np.all(np.isfinite(r["s"])),
+              "serving output not finite or of the wrong length")
+        check(np.abs(r["s"] + r["n"] - x).max() <= 1e-6, "s + n != x")
+    want = expected_launches(n_batches=st["batches"], **SERVING_LAUNCHES)
+    log(f" {len(xs)} requests ({sum(seconds):.1f} s of audio) in {wall:.3f} "
+        f"s: {len(xs) / wall:.2f} requests/s, {sum(seconds) / wall:.2f} "
+        f"audio s per wall s; {st['batches']} batches, mean batch "
+        f"{st['mean_batch']:.2f}, latency p50 {st['p50_s']:.3f} s, p95 "
+        f"{st['p95_s']:.3f} s; {gpu}")
+    log(f" launches {counts}")
+    check(counts == want, f"serving launches {counts}, expected {want}")
+    return svc, {"requests": len(xs), "audio_s": float(sum(seconds)),
+                 "wall_s": wall, "requests_per_s": len(xs) / wall,
+                 "audio_s_per_s": float(sum(seconds)) / wall,
+                 "warmup_s": warm_s, "stats": st, "launches": counts}
+
+
+def phase_http(svc, pair):
+    """The HTTP front end on port 0 over the serving phase's service: one
+    wav through /v1/enhance (200, its length), /healthz and /metrics."""
+    import io
+    import urllib.request
+
+    from guided_vae_nmf_torch.data import read_wav, write_wav
+    from guided_vae_nmf_torch.http_serving import EnhancementHTTPServer
+
+    srv = EnhancementHTTPServer(svc, port=0).start()
+    try:
+        url = f"http://127.0.0.1:{srv.port}"
+        buf = io.BytesIO()
+        write_wav(buf, pair[1], 16000)
+        req = urllib.request.Request(url + "/v1/enhance",
+                                     data=buf.getvalue(),
+                                     headers={"Content-Type": "audio/wav"})
+        with urllib.request.urlopen(req, timeout=300) as r:
+            status, lat = r.status, r.headers["X-Latency-S"]
+            s, fs = read_wav(io.BytesIO(r.read()))
+        check(status == 200 and fs == 16000 and len(s) == len(pair[1]),
+              f"/v1/enhance answered {status} with {len(s)} samples")
+        with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
+            health = json.loads(r.read())
+        with urllib.request.urlopen(url + "/metrics", timeout=60) as r:
+            metrics = r.read().decode()
+        check(health["status"] == "ok", f"/healthz {health}")
+        check("gvnmf_requests_total" in metrics, "/metrics lacks counters")
+        log(f" POST /v1/enhance: 200, {len(s)} samples, X-Latency-S {lat}; "
+            f"/healthz {health}; /metrics {len(metrics.splitlines())} lines")
+    finally:
+        srv.close_all()
+    return {"latency_s": float(lat), "health": health}
+
+
 SOURCES = {
     "mh_chain": ("guided_vae_nmf_torch/csrc/mh_chain.cu",
                  "guided_vae_nmf_tpu/mcem/pallas_engine.py:494"),
@@ -676,9 +879,10 @@ SOURCES = {
 
 
 def phase_times(torch, model, cfg, B, N, dev, gpu, err, launches):
-    """Per-launch times of every kernel variant at the paths' shapes,
-    beside bounds and the plain versions' times; returns the `kernels`
-    entries. `launches` holds each variant's count on its path."""
+    """Per-launch times of every kernel variant (exact, K1c / K2c fast and
+    trans levels) at the paths' shapes, beside bounds and the plain
+    versions' times; returns the `kernels` entries. `launches` holds each
+    variant's count on its path."""
     from guided_vae_nmf_torch.mcem import (
         mh_chain, mh_chain_ref, nmf_sums, nmf_sums_ref)
 
@@ -689,44 +893,72 @@ def phase_times(torch, model, cfg, B, N, dev, gpu, err, launches):
     gen = torch.Generator(device=dev).manual_seed(0)
     timed = {}
     for vb, form in ((False, "wh"), (True, "vb")):
-        for mode, ns, bi in (("e", R, cfg.burnin_E_step),
-                             ("wf", cfg.nsamples_WF, cfg.burnin_WF)):
-            bound, by, flops, nbytes = chain_bound(B, N, F, L, Hd, K, ns,
-                                                   ns + bi, mode, vb=vb)
-            timed[f"mh_chain_{mode}_{form}"] = dict(
-                ms=time_cuda(lambda: run_chain(
-                    c, mh_chain, mode, ns, bi, cfg.var_RW, vb=vb, seed=1)),
-                plain_ms=time_cuda(lambda: run_chain(
-                    c, mh_chain_ref, mode, ns, bi, cfg.var_RW, vb=vb,
-                    generator=gen), launches=2, reps=3),
-                bound_ms=bound, bound_by=by, flops=flops, bytes=nbytes)
-        samples = run_chain(c, mh_chain, "e", R, cfg.burnin_E_step,
-                            cfg.var_RW, vb=vb, seed=2)[2][0]
-        for mode in ("h", "g"):
-            bound, by, flops, nbytes = sums_bound(B, R, N, F, K, mode, vb=vb)
-            timed[f"nmf_sums_{mode}_{form}"] = dict(
-                ms=time_cuda(lambda: run_sums(c, nmf_sums, samples, mode,
-                                              vb)),
-                plain_ms=time_cuda(lambda: run_sums(c, nmf_sums_ref, samples,
-                                                    mode, vb)),
-                bound_ms=bound, bound_by=by, flops=flops, bytes=nbytes)
+        for level in ("", "_fast", "_trans"):
+            kw = fast_kw(torch, level)
+            for mode, ns, bi in (("e", R, cfg.burnin_E_step),
+                                 ("wf", cfg.nsamples_WF, cfg.burnin_WF)):
+                bound, by, flops, nbytes = chain_bound(
+                    B, N, F, L, Hd, K, ns, ns + bi, mode, vb=vb,
+                    sample_bytes=2 if level else 4)
+                timed[f"mh_chain_{mode}_{form}{level}"] = dict(
+                    ms=time_cuda(lambda: run_chain(
+                        c, mh_chain, mode, ns, bi, cfg.var_RW, vb=vb,
+                        seed=1, **kw)),
+                    plain_ms=time_cuda(lambda: run_chain(
+                        c, mh_chain_ref, mode, ns, bi, cfg.var_RW, vb=vb,
+                        generator=gen, **kw), launches=2, reps=3),
+                    bound_ms=bound, bound_by=by, flops=flops, bytes=nbytes)
+        for level in ("", "_fast"):
+            kw = fast_kw(torch, level)
+            samples = run_chain(c, mh_chain, "e", R, cfg.burnin_E_step,
+                                cfg.var_RW, vb=vb, seed=2, **kw)[2][0]
+            sums_kw = dict(approx_recip=True) if level else {}
+            for mode in ("h", "g"):
+                bound, by, flops, nbytes = sums_bound(
+                    B, R, N, F, K, mode, vb=vb,
+                    sample_bytes=samples.element_size())
+                timed[f"nmf_sums_{mode}_{form}{level}"] = dict(
+                    ms=time_cuda(lambda: run_sums(
+                        c, nmf_sums, samples, mode, vb, **sums_kw)),
+                    plain_ms=time_cuda(lambda: run_sums(
+                        c, nmf_sums_ref, samples, mode, vb)),
+                    bound_ms=bound, bound_by=by, flops=flops, bytes=nbytes)
     kernels = []
     for key in VARIANTS:
         v = timed[key]
-        kern, mode, form = key.rsplit("_", 2)
-        log(f"  {key:<16s}: {v['ms']:.4f} ms (plain {v['plain_ms']:.3f} "
+        kern = key[:8]                           # mh_chain / nmf_sums
+        log(f"  {key:<22s}: {v['ms']:.4f} ms (plain {v['plain_ms']:.3f} "
             f"ms), bound {v['bound_ms']:.4f} ms by {v['bound_by']} "
             f"({v['flops'] / 1e9:.3f} GFLOP, {v['bytes'] / 1e6:.2f} MB) = "
             f"{100 * v['bound_ms'] / v['ms']:.1f}% of bound; {gpu}")
         source, replaces = SOURCES[kern]
         kernels.append(dict(
             name=key, route="cuda", source=source, replaces=replaces,
-            launches=launches[kern][f"{mode}_{form}"],
+            launches=launches[kern][key[9:]],
             max_abs_err=err[key], ms=v["ms"], plain_ms=v["plain_ms"],
             bound_ms=v["bound_ms"], bound_by=v["bound_by"], library_ms=None,
             detail=dict(B=B, N=N, F=F, L=L, H=Hd, K=K, R=R,
                         flops=v["flops"], bytes=v["bytes"])))
     return kernels
+
+
+def ptxas_report(log_text):
+    """{kernel: (registers, spill store bytes, spill load bytes)} from a
+    `-Xptxas -v` build log."""
+    out, name = {}, None
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            out[name] = [0, 0, 0]
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            out[name][1:] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name][0] = int(m.group(1))
+    return {k: tuple(v) for k, v in out.items()}
 
 
 def main(argv=None):
@@ -762,6 +994,16 @@ def main(argv=None):
 
     build_s = _build.build_all()
     log(f"build: csrc/*.cu for sm_90a in {build_s:.1f} s")
+    ptxas = {}
+    for lib in ("mh_chain", "nmf_sums"):
+        for kern, (regs, st, ld) in ptxas_report(_build.build_log(lib)).items():
+            ptxas[kern] = dict(registers=regs, spill_stores=st, spill_loads=ld)
+            log(f"  ptxas {lib}: {regs} registers, {st} B spill stores, "
+                f"{ld} B spill loads: {kern[:90]}")
+    if ptxas:
+        log(f"  {len(ptxas)} kernels, largest {max(v['registers'] for v in ptxas.values())} "
+            f"registers, spills in "
+            f"{sum(1 for v in ptxas.values() if v['spill_stores'] or v['spill_loads'])}")
 
     art = os.path.join(root, "artifacts", "pretrained")
     model = load_model(os.path.join(art, "M2_ibm"), kind="dgm", y_dim=513,
@@ -815,17 +1057,34 @@ def main(argv=None):
                 torch, model, classifier, mean, std, x_b, mask, pcfg, dev,
                 gpu, label="real-noise path", **settings)
 
+    fast = phase_fast(torch, model, classifier, mean, std, cfg, batch,
+                      args.seed, dev, gpu, main_res)
+    log("serving (EnhancementService, ServeConfig(fast=True), spp noise "
+        "model, dnn labels):")
+    svc, serving = phase_serving(torch, model, classifier, mean, std, cfg,
+                                 args.seed, dev, gpu)
+    log("HTTP front end (EnhancementHTTPServer on port 0):")
+    serving["http"] = phase_http(svc, pairs[0])
+
     log("kernel times at the paths' shapes:")
-    launches = {k: {**main_res["launches"][k],
-                    **{v: n for v, n in paths["real-noise"]["launches"][k]
-                       .items() if v.endswith("_vb")}}
+    # each variant's launches on the first path that runs it
+    runs = [main_res, paths["real-noise"], *fast.values(), serving]
+    launches = {k: {v: next((r["launches"][k][v] for r in runs
+                             if r["launches"][k][v]), 0)
+                    for v in main_res["launches"][k]}
                 for k in main_res["launches"]}
+    idle = [f"{k}_{v}" for k, d in launches.items() for v, n in d.items()
+            if not n]
+    check(not idle, f"variants no path launched: {idle}")
     kernels = phase_times(torch, model, cfg, *mask.shape, dev, gpu, err,
                           launches)
 
+    for r in (main_res, *paths.values(), *fast.values()):
+        r.pop("s16")
     record = {
         "gpu": gpu, "torch": torch.__version__, "build_s": build_s,
-        "main_path": main_res, "profile": prof, "paths": paths,
+        "ptxas": ptxas, "main_path": main_res, "profile": prof,
+        "paths": paths, "fast": fast, "serving": serving,
         "kernels": kernels, "seconds": time.perf_counter() - t_start,
     }
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

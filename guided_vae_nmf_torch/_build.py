@@ -5,7 +5,9 @@ with a plain C interface, loaded with ctypes. The build happens at first
 use, all sources in parallel, into a git-ignored directory
 (`build/gvnmf_torch/` beside the package, or `$GVNMF_TORCH_BUILD_DIR`). A
 library's file name carries the hash of its source and flags, so an edited
-source is rebuilt and a current one is reused.
+source is rebuilt and a current one is reused. ptxas reports each kernel's
+registers, shared memory and spills (`-Xptxas -v`); the report is kept
+beside the library (:func:`build_log`).
 
 Nothing here runs at import: the CPU tests import every module on a
 machine without nvcc.
@@ -22,7 +24,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _libs = {}
@@ -84,6 +86,7 @@ def build_all():
                 if proc.returncode != 0:
                     failed.append(f"{src.name}:\n{log}")
                 else:
+                    out.with_suffix(".log").write_text(log)
                     os.replace(tmp, out)
             if failed:
                 raise KernelError("nvcc failed for " + "\n".join(failed))
@@ -91,6 +94,13 @@ def build_all():
             if src.stem not in _libs:
                 _libs[src.stem] = ctypes.CDLL(str(_lib_path(src)))
     return time.perf_counter() - t0
+
+
+def build_log(name):
+    """nvcc's output (the ptxas resource report) from building
+    `csrc/<name>.cu`, or '' if the library was not built here."""
+    path = _lib_path(CSRC / f"{name}.cu").with_suffix(".log")
+    return path.read_text() if path.exists() else ""
 
 
 def library(name):

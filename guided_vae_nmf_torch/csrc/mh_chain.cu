@@ -2,8 +2,19 @@
 //
 // Replaces guided_vae_nmf_tpu/mcem/pallas_engine.py: mh_chain_pallas (body
 // _make_chain_kernel), E-mode and WF-mode, with the NMF factors (WH=, K1a)
-// or a given noise variance (Vb=, K1b), exact math and float32 sample
-// dumps.
+// or a given noise variance (Vb=, K1b), in exact math with float32 sample
+// dumps or with the fast-mode options (K1c): bfloat16 sample dumps, the
+// hardware approximate reciprocal for every 1/Vx, and (approx_trans) the
+// bit-arithmetic log / exp of the TPU kernel's _fast_log / _fast_exp for
+// the decoder's output exp, the data term's log, the accept test's log u
+// and the Box-Muller logs. The template flag OPTS separates the main
+// path's exact kernel (in-kernel Philox, exact math, float32 dumps, and no
+// code for anything else: any added code path, even the once-a-launch
+// initial data term, measurably slowed its steps) from the kernel with
+// runtime options: the recorded streams and the fast-mode options are
+// fields of Params, uniform over the grid, and its data-term loop is
+// instantiated with and without approx_trans. Four kernels of each kind
+// keep the build under a minute.
 //
 // Per frame and step the chain proposes Zp = Z + sqrt(var_RW) * n, decodes
 // Vsp = exp(Wo tanh(W2 tanh(Zp W1 + ypre) + b2) + bo), forms
@@ -50,8 +61,13 @@
 //
 // Elementwise expressions use explicitly rounded multiplies and adds, as
 // the plain PyTorch version evaluates them; sums run in another order than
-// PyTorch's, which the tests cover with a stated tolerance.
+// PyTorch's, which the tests cover with a stated tolerance. fast_log /
+// fast_exp are evaluated op for op as the plain version evaluates them, so
+// the two agree bit for bit; the approximate reciprocal has no plain
+// counterpart (the plain version divides exactly) and differs by at most
+// 1 ulp.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -93,7 +109,68 @@ struct Params {
   int B, N, F, L, Hd, K, depth, n_steps, burnin;
   float sqrt_var;
   uint32_t seed_lo, seed_hi;
+  __nv_bfloat16* out1h;  // E: bfloat16 samples in place of out1, or null
+  int approx_recip, approx_trans;
 };
+
+constexpr double LN2 = 0.6931471805599453;
+constexpr double SQRT2 = 1.4142135623730951;
+
+// rcp.approx: at most 1 ulp from 1/x. Vx >= 1e-10 is a normal float, so
+// flushing subnormals changes nothing.
+__device__ __forceinline__ float rcp_approx(float x) {
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;
+}
+
+// 1/Vx: rcp.approx under approx_recip (OPTS kernel), else IEEE division.
+template <bool OPTS>
+__device__ __forceinline__ float recip(const Params& p, float x) {
+  return (OPTS && p.approx_recip) ? rcp_approx(x) : 1.0f / x;
+}
+
+// The TPU kernel's _fast_log: log x = e ln2 + 2s (1 + s^2/3 + s^4/5 +
+// s^6/7), s = (m - 1) / (m + 1), m in [sqrt(1/2), sqrt(2)). Constants are
+// the float32 roundings of the reference's double literals. x >= 1e-10.
+__device__ __forceinline__ float fast_log(float x) {
+  const int bits = __float_as_int(x);
+  const int e = ((bits >> 23) & 0xFF) - 127;
+  float m = __int_as_float((bits & 0x007FFFFF) | 0x3F800000);
+  const bool big = m > (float)SQRT2;
+  if (big) m = __fmul_rn(0.5f, m);
+  const float ef = (float)(e + (big ? 1 : 0));
+  const float s = __fdiv_rn(__fsub_rn(m, 1.0f), __fadd_rn(m, 1.0f));
+  const float s2 = __fmul_rn(s, s);
+  float q = __fadd_rn((float)0.2, __fmul_rn(s2, (float)0.14285714));
+  q = __fadd_rn((float)0.33333333, __fmul_rn(s2, q));
+  q = __fadd_rn(1.0f, __fmul_rn(s2, q));
+  return __fadd_rn(__fmul_rn(ef, (float)LN2), __fmul_rn(__fmul_rn(2.0f, s), q));
+}
+
+// The TPU kernel's _fast_exp: 2^zi (degree-6 Taylor of the Cody-Waite
+// residual r), zi = floor(x / ln2 + 0.5), x clamped to [-87, 88].
+__device__ __forceinline__ float fast_exp(float x) {
+  x = fminf(fmaxf(x, -87.0f), 88.0f);
+  const float zi = floorf(__fadd_rn(__fmul_rn(x, (float)(1.0 / LN2)), 0.5f));
+  const float r = __fadd_rn(__fsub_rn(x, __fmul_rn(zi, 0.693359375f)),
+                            __fmul_rn(zi, (float)2.12194440e-4));
+  float q = __fadd_rn((float)0.008333333333333333,
+                      __fmul_rn(r, (float)0.001388888888888889));
+  q = __fadd_rn((float)0.041666666666666664, __fmul_rn(r, q));
+  q = __fadd_rn((float)0.16666666666666666, __fmul_rn(r, q));
+  q = __fadd_rn(0.5f, __fmul_rn(r, q));
+  q = __fadd_rn(1.0f, __fmul_rn(r, q));
+  q = __fadd_rn(1.0f, __fmul_rn(r, q));
+  return __fmul_rn(__int_as_float(((int)zi + 127) << 23), q);
+}
+
+// log in the data term and the accept test: fast_log under approx_trans
+// (OPTS kernel), else logf.
+template <bool OPTS>
+__device__ __forceinline__ float log_k(const Params& p, float x) {
+  return (OPTS && p.approx_trans) ? fast_log(x) : logf(x);
+}
 
 __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t k0,
                                                uint32_t k1) {
@@ -115,13 +192,15 @@ __device__ __forceinline__ float uniform01(uint32_t x) {
   return (float)(x >> 8) * (1.0f / 16777216.0f) + (0.5f / 16777216.0f);
 }
 
-// Normals for draws 4q .. 4q+3 of frame n at step m: two Box-Muller pairs.
+// Normals for draws 4q .. 4q+3 of frame n at step m: two Box-Muller pairs
+// (their logs are fast_log's under approx_trans, as in the TPU kernel).
 __device__ __forceinline__ float4 normals4(uint32_t k0, uint32_t k1, int b,
-                                           int n, int m, int q) {
+                                           int n, int m, int q, bool trans) {
   const uint4 r = philox4x32_10(
       make_uint4((uint32_t)n, (uint32_t)m, (uint32_t)q, (uint32_t)b), k0, k1);
-  const float ra = sqrtf(-2.0f * logf(uniform01(r.x)));
-  const float rb = sqrtf(-2.0f * logf(uniform01(r.z)));
+  const float ua = uniform01(r.x), ub = uniform01(r.z);
+  const float ra = sqrtf(-2.0f * (trans ? fast_log(ua) : logf(ua)));
+  const float rb = sqrtf(-2.0f * (trans ? fast_log(ub) : logf(ub)));
   float sa, ca, sb, cb;
   sincospif(2.0f * uniform01(r.y), &sa, &ca);
   sincospif(2.0f * uniform01(r.w), &sb, &cb);
@@ -238,6 +317,7 @@ __device__ const float* hidden_layers(const Params& p, const Smem& sm,
 
 // Output layer for this thread's columns c = tid + i * blockDim.x:
 // v[i][t] = exp(h[t] . wo[:, c] + bo[c]). Columns >= F are left at 1.
+template <bool OPTS>
 __device__ __forceinline__ void out_layer(const Params& p, const float* hsrc,
                                           float (&v)[MAXC][T]) {
   int col[MAXC];
@@ -266,16 +346,59 @@ __device__ __forceinline__ void out_layer(const Params& p, const float* hsrc,
       }
     }
   }
+  if (OPTS && p.approx_trans) {
 #pragma unroll
-  for (int i = 0; i < MAXC; ++i) {
-    const float b = col[i] < p.F ? __ldg(p.bo + col[i]) : 0.0f;
+    for (int i = 0; i < MAXC; ++i) {
+      const float b = col[i] < p.F ? __ldg(p.bo + col[i]) : 0.0f;
 #pragma unroll
-    for (int t = 0; t < T; ++t) v[i][t] = expf(__fadd_rn(v[i][t], b));
+      for (int t = 0; t < T; ++t) v[i][t] = fast_exp(__fadd_rn(v[i][t], b));
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < MAXC; ++i) {
+      const float b = col[i] < p.F ? __ldg(p.bo + col[i]) : 0.0f;
+#pragma unroll
+      for (int t = 0; t < T; ++t) v[i][t] = expf(__fadd_rn(v[i][t], b));
+    }
   }
 }
 
 __device__ __forceinline__ float mix_var(float g, float vs, float vb) {
   return fmaxf(__fadd_rn(__fmul_rn(g, vs), vb), VX_FLOOR);
+}
+
+// This thread's share of the per-frame data terms
+// part[t] = sum_c log Vx + X2 / Vx, Vx = mix_var(g, v, Vb), over its columns.
+template <bool OPTS, bool TRANS>
+__device__ __forceinline__ void data_terms_t(const Params& p, const Smem& sm,
+                                             const float (&v)[MAXC][T],
+                                             float (&part)[T]) {
+#pragma unroll
+  for (int t = 0; t < T; ++t) part[t] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < MAXC; ++i) {
+    const int c = threadIdx.x + i * blockDim.x;
+    if (c < p.F) {
+#pragma unroll
+      for (int t = 0; t < T; ++t) {
+        const float vx = mix_var(sm.g[t], v[i][t], sm.vb[t * p.F + c]);
+        const float iv = recip<OPTS>(p, vx);
+        const float lv = TRANS ? fast_log(vx) : logf(vx);
+        part[t] = __fadd_rn(part[t], __fadd_rn(lv,
+                                               __fmul_rn(iv, sm.x2[t * p.F + c])));
+      }
+    }
+  }
+}
+
+template <bool OPTS>
+__device__ __forceinline__ void data_terms(const Params& p, const Smem& sm,
+                                           const float (&v)[MAXC][T],
+                                           float (&part)[T]) {
+  if (OPTS && p.approx_trans)
+    data_terms_t<OPTS, true>(p, sm, v, part);
+  else
+    data_terms_t<OPTS, false>(p, sm, v, part);
 }
 
 // Block-wide per-frame sums of part[t]; the result lands in out[t] for
@@ -312,14 +435,15 @@ __device__ __forceinline__ void frame_sums(float (&part)[T], float* red,
 // One MH step at global step index m. SAMPLE selects the sampling phase,
 // which also updates the accepted Vs / 1/Vx registers and the
 // accumulators. Ends with a barrier.
-template <int MODE, bool INJECT, bool SAMPLE>
+template <int MODE, bool OPTS, bool SAMPLE>
 __device__ __forceinline__ void mh_step(const Params& p, const Smem& sm,
                                        int b, int n0, int m, int r,
                                        float (&vs)[MAXC][T],
                                        float (&inv)[MAXC][T]) {
   const int tid = threadIdx.x, NT = blockDim.x;
   // proposal Zp = Z + sqrt(var) * n  ([L][T] tiles)
-  if (INJECT) {
+  const bool inject = OPTS && p.zn != nullptr;
+  if (inject) {
     const float* zn = p.zn + ((size_t)(b * p.n_steps + m) * p.N + n0) * p.L;
     for (int i = tid; i < T * p.L; i += NT) {
       const int t = i / p.L, l = i % p.L;
@@ -330,7 +454,8 @@ __device__ __forceinline__ void mh_step(const Params& p, const Smem& sm,
     const int nq = (p.L + 3) / 4;
     for (int i = tid; i < T * nq; i += NT) {
       const int t = i / nq, q = i % nq;
-      const float4 nz = normals4(p.seed_lo, p.seed_hi, b, n0 + t, m, q);
+      const float4 nz = normals4(p.seed_lo, p.seed_hi, b, n0 + t, m, q,
+                                 OPTS && p.approx_trans);
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int l = 4 * q + j;
@@ -342,24 +467,10 @@ __device__ __forceinline__ void mh_step(const Params& p, const Smem& sm,
   }
   __syncthreads();
   float v[MAXC][T];
-  out_layer(p, hidden_layers(p, sm, sm.zp), v);
+  out_layer<OPTS>(p, hidden_layers(p, sm, sm.zp), v);
   // proposal data term sp = sum_f log Vxp + X2 / Vxp
   float part[T];
-#pragma unroll
-  for (int t = 0; t < T; ++t) part[t] = 0.0f;
-#pragma unroll
-  for (int i = 0; i < MAXC; ++i) {
-    const int c = tid + i * NT;
-    if (c < p.F) {
-#pragma unroll
-      for (int t = 0; t < T; ++t) {
-        const float vx = mix_var(sm.g[t], v[i][t], sm.vb[t * p.F + c]);
-        const float iv = 1.0f / vx;
-        part[t] = __fadd_rn(part[t], __fadd_rn(logf(vx),
-                                               __fmul_rn(iv, sm.x2[t * p.F + c])));
-      }
-    }
-  }
+  data_terms<OPTS>(p, sm, v, part);
   frame_sums(part, sm.red, sm.sp);
   if (tid < T) {
     const int t = tid;
@@ -370,9 +481,9 @@ __device__ __forceinline__ void mh_step(const Params& p, const Smem& sm,
       dz = __fadd_rn(dz, __fsub_rn(__fmul_rn(z, z), __fmul_rn(zp, zp)));
     }
     const float a = __fadd_rn(__fsub_rn(sm.s[t], sp), __fmul_rn(0.5f, dz));
-    const float u = INJECT ? p.u[(size_t)(b * p.n_steps + m) * p.N + n0 + t]
+    const float u = inject ? p.u[(size_t)(b * p.n_steps + m) * p.N + n0 + t]
                            : accept_uniform(p.seed_lo, p.seed_hi, b, n0 + t, m);
-    const bool accept = logf(u) < a;
+    const bool accept = log_k<OPTS>(p, u) < a;
     sm.acc[t] = accept ? 1.0f : 0.0f;
     if (accept) sm.s[t] = sp;
   }
@@ -390,11 +501,16 @@ __device__ __forceinline__ void mh_step(const Params& p, const Smem& sm,
           const int o = t * p.F + c;
           if (sm.acc[t] != 0.0f) {
             vs[i][t] = v[i][t];
-            inv[i][t] = 1.0f / mix_var(sm.g[t], v[i][t], sm.vb[o]);
+            inv[i][t] = recip<OPTS>(p, mix_var(sm.g[t], v[i][t], sm.vb[o]));
           }
           if (MODE == MODE_E) {
-            p.out1[((size_t)(b * (p.n_steps - p.burnin) + r) * p.N + n0 + t) *
-                       p.F + c] = vs[i][t];
+            const size_t so =
+                ((size_t)(b * (p.n_steps - p.burnin) + r) * p.N + n0 + t) *
+                    p.F + c;
+            if (OPTS && p.out1h != nullptr)
+              p.out1h[so] = __float2bfloat16_rn(vs[i][t]);
+            else
+              p.out1[so] = vs[i][t];
             sm.a1[o] = __fadd_rn(sm.a1[o], inv[i][t]);
             sm.a2[o] = __fadd_rn(sm.a2[o], __fmul_rn(inv[i][t], inv[i][t]));
           } else {
@@ -411,7 +527,8 @@ __device__ __forceinline__ void mh_step(const Params& p, const Smem& sm,
 
 // VB selects the Vb form (K1b): Vb rows are read from p.vb, and E-mode
 // writes s1 / s2 per (frame, bin) instead of the H-contracted partials.
-template <int MODE, bool INJECT, bool VB>
+// OPTS: the kernel with runtime options (see the file comment).
+template <int MODE, bool VB, bool OPTS>
 __global__ void __launch_bounds__(MAX_NT, 1) mh_chain_kernel(Params p) {
   extern __shared__ float4 smem_raw[];
   const int tid = threadIdx.x, NT = blockDim.x, n_warps = NT >> 5;
@@ -450,7 +567,7 @@ __global__ void __launch_bounds__(MAX_NT, 1) mh_chain_kernel(Params p) {
   __syncthreads();
 
   // initial data term from the caller's Vs (= decode(Z))
-  {
+  if (!OPTS) {
     float part[T];
 #pragma unroll
     for (int t = 0; t < T; ++t) part[t] = 0.0f;
@@ -470,24 +587,53 @@ __global__ void __launch_bounds__(MAX_NT, 1) mh_chain_kernel(Params p) {
     }
     frame_sums(part, sm.red, sm.s);
     __syncthreads();
+  } else {
+    // once a launch, so a compact loop: per frame, this thread's columns,
+    // a butterfly warp sum (the same tree as frame_sums, so with every
+    // option off this kernel reproduces the exact one bit for bit), then
+    // a fixed-order sum over warps
+    const int lane = tid & 31, warp = tid >> 5;
+#pragma unroll 1
+    for (int t = 0; t < T; ++t) {
+      float part = 0.0f;
+      for (int c = tid; c < p.F; c += NT) {
+        const float vx = mix_var(sm.g[t], p.vs[(row0 + t) * p.F + c],
+                                 sm.vb[t * p.F + c]);
+        part = __fadd_rn(part, __fadd_rn(log_k<OPTS>(p, vx),
+                                         __fmul_rn(recip<OPTS>(p, vx),
+                                                   sm.x2[t * p.F + c])));
+      }
+#pragma unroll
+      for (int off = 16; off >= 1; off >>= 1)
+        part = __fadd_rn(part, __shfl_xor_sync(FULL, part, off));
+      if (lane == 0) sm.red[warp * T + t] = part;
+    }
+    __syncthreads();
+    if (tid < T) {
+      float s0 = 0.0f;
+      for (int w = 0; w < n_warps; ++w) s0 = __fadd_rn(s0, sm.red[w * T + tid]);
+      sm.s[tid] = s0;
+    }
+    __syncthreads();
   }
 
   float vs[MAXC][T], inv[MAXC][T];
   for (int m = 0; m < p.burnin; ++m)
-    mh_step<MODE, INJECT, false>(p, sm, b, n0, m, 0, vs, inv);
+    mh_step<MODE, OPTS, false>(p, sm, b, n0, m, 0, vs, inv);
 
   // phase boundary: Vs = decode(Z), 1/Vx at it; s stays as carried
-  out_layer(p, hidden_layers(p, sm, sm.z), vs);
+  out_layer<OPTS>(p, hidden_layers(p, sm, sm.z), vs);
 #pragma unroll
   for (int i = 0; i < MAXC; ++i) {
     const int c = tid + i * NT;
 #pragma unroll
     for (int t = 0; t < T; ++t)
-      inv[i][t] = c < p.F ? 1.0f / mix_var(sm.g[t], vs[i][t], sm.vb[t * p.F + c])
-                          : 0.0f;
+      inv[i][t] = c < p.F
+                      ? recip<OPTS>(p, mix_var(sm.g[t], vs[i][t], sm.vb[t * p.F + c]))
+                      : 0.0f;
   }
   for (int r = 0; r < p.n_steps - p.burnin; ++r)
-    mh_step<MODE, INJECT, true>(p, sm, b, n0, p.burnin + r, r, vs, inv);
+    mh_step<MODE, OPTS, true>(p, sm, b, n0, p.burnin + r, r, vs, inv);
 
   for (int i = tid; i < T * p.L; i += NT)
     p.z_out[row0 * p.L + i] = sm.z[(i % p.L) * T + i / p.L];
@@ -553,16 +699,16 @@ __global__ void philox_streams_kernel(uint32_t k0, uint32_t k1, int B, int N,
   const int m = (idx / N) % n_steps;
   const int b = idx / ((size_t)N * n_steps);
   for (int q = 0; q < (L + 3) / 4; ++q) {
-    const float4 nz = normals4(k0, k1, b, n, m, q);
+    const float4 nz = normals4(k0, k1, b, n, m, q, false);
     for (int j = 0; j < 4; ++j)
       if (4 * q + j < L) zn[idx * L + 4 * q + j] = f4get(nz, j);
   }
   u[idx] = accept_uniform(k0, k1, b, n, m);
 }
 
-template <int MODE, bool INJECT, bool VB>
+template <int MODE, bool VB, bool OPTS>
 cudaError_t launch(const Params& p, int nt, size_t smem, cudaStream_t st) {
-  auto kern = mh_chain_kernel<MODE, INJECT, VB>;
+  auto kern = mh_chain_kernel<MODE, VB, OPTS>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
@@ -592,48 +738,53 @@ long long gvnmf_mh_chain_smem(int F, int L, int Hd, int K) {
 // part1 / part2 = per-tile scratch; Vb form: out2 / out3 = s1 / s2
 // (B, N, F)), mode 1 = WF (out1 = acc_s, out2 = acc_n). A non-null vb
 // selects the Vb form (K = 0; wt, h, mask and the partials unused). zn / u
-// null selects the in-kernel Philox stream keyed on `seed`. Returns the
-// cudaError_t of the launches.
+// null selects the in-kernel Philox stream keyed on `seed`. samples_bf16
+// (E-mode only): out1 holds bfloat16 samples. approx_recip / approx_trans:
+// the fast-mode options. Returns the cudaError_t of the launches.
 int gvnmf_mh_chain(const float* x2, const float* vb, const float* wt,
                    const float* h, const float* mask, const float* g,
                    const float* ypre,
                    const float* z, const float* vs, const float* zn,
                    const float* u, const float* w1, const float* wmid,
                    const float* bmid, const float* wo, const float* bo,
-                   float* z_out, float* vs_out, float* out1, float* out2,
+                   float* z_out, float* vs_out, void* out1, float* out2,
                    float* out3, float* part1, float* part2, int B, int N,
                    int F, int L, int Hd, int K, int depth, int n_steps,
                    int burnin, float sqrt_var, int mode,
-                   unsigned long long seed, void* stream) {
+                   unsigned long long seed, int samples_bf16,
+                   int approx_recip, int approx_trans, void* stream) {
   const int nt = gvnmf_mh_chain_block(F);
   if (N % T != 0 || nt > MAX_NT || depth < 1 || burnin < 0 ||
-      burnin > n_steps || (mode != MODE_E && mode != MODE_WF))
+      burnin > n_steps || (mode != MODE_E && mode != MODE_WF) ||
+      (samples_bf16 && mode != MODE_E))
     return (int)cudaErrorInvalidValue;
   const bool vbf = vb != nullptr;
   if (vbf) K = 0;
   Params p{x2, vb, wt, h, mask, g, ypre, z, vs, zn, u, w1, wmid, bmid, wo, bo,
-           z_out, vs_out, out1, out2, out3,
+           z_out, vs_out,
+           samples_bf16 ? nullptr : static_cast<float*>(out1), out2, out3,
            part1, part2, B, N, F, L, Hd, K, depth, n_steps, burnin, sqrt_var,
-           (uint32_t)(seed & 0xffffffffull), (uint32_t)(seed >> 32)};
+           (uint32_t)(seed & 0xffffffffull), (uint32_t)(seed >> 32),
+           samples_bf16 ? static_cast<__nv_bfloat16*>(out1) : nullptr,
+           approx_recip != 0, approx_trans != 0};
   const size_t smem = (size_t)gvnmf_mh_chain_smem(F, L, Hd, K);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool inject = zn != nullptr;
+  // the exact Philox kernel, or the one with runtime options
+  const bool opts = zn != nullptr || samples_bf16 || approx_recip ||
+                    approx_trans;
   cudaError_t e;
-  if (mode == MODE_E) {
-    if (vbf)
-      e = inject ? launch<MODE_E, true, true>(p, nt, smem, st)
-                 : launch<MODE_E, false, true>(p, nt, smem, st);
-    else
-      e = inject ? launch<MODE_E, true, false>(p, nt, smem, st)
-                 : launch<MODE_E, false, false>(p, nt, smem, st);
-  } else {
-    if (vbf)
-      e = inject ? launch<MODE_WF, true, true>(p, nt, smem, st)
-                 : launch<MODE_WF, false, true>(p, nt, smem, st);
-    else
-      e = inject ? launch<MODE_WF, true, false>(p, nt, smem, st)
-                 : launch<MODE_WF, false, false>(p, nt, smem, st);
-  }
+  if (mode == MODE_E && !opts)
+    e = vbf ? launch<MODE_E, true, false>(p, nt, smem, st)
+            : launch<MODE_E, false, false>(p, nt, smem, st);
+  else if (mode == MODE_E)
+    e = vbf ? launch<MODE_E, true, true>(p, nt, smem, st)
+            : launch<MODE_E, false, true>(p, nt, smem, st);
+  else if (!opts)
+    e = vbf ? launch<MODE_WF, true, false>(p, nt, smem, st)
+            : launch<MODE_WF, false, false>(p, nt, smem, st);
+  else
+    e = vbf ? launch<MODE_WF, true, true>(p, nt, smem, st)
+            : launch<MODE_WF, false, true>(p, nt, smem, st);
   if (e != cudaSuccess || mode != MODE_E || vbf) return (int)e;
   const int KF = K * F;
   sum_tiles_kernel<<<dim3((KF + 255) / 256, B), 256, 0, st>>>(

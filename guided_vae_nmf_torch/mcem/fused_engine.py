@@ -2,7 +2,8 @@
 
 Counterpart of `_dec_parts`, `_nmf_m_step_batched`, `_masked_cost_batched`
 and `mcem_batch_fused` in `guided_vae_nmf_tpu/mcem/pallas_engine.py`, in
-exact mode. Per EM iteration with the NMF noise model: one E-mode chain
+exact mode and in fast mode (the K1c / K2c options: bfloat16 sample dumps,
+approximate reciprocal, bit-arithmetic exp / log). Per EM iteration with the NMF noise model: one E-mode chain
 with WH (K1a, which also emits the W-update num/den), the W update, one 'h'
 sums pass at the post-W noise variance (K2a), the H update, L1
 normalisation, one 'g' sums pass (K2a) and the gain update. With a fixed
@@ -35,14 +36,15 @@ def _dec_parts(decoder, L):
 
 
 def _nmf_m_step_batched(X2, mask, W, H, g, Vs, s1=None, s2=None,
-                        update_nmf=True, Vb_fixed=None):
+                        update_nmf=True, Vb_fixed=None, approx_recip=False):
     """Batched NMF M-step, frames-major (X2 (B, N, F), Vs (B, R, N, F),
     W (B, F, K), H (B, K, N), g (B, N)) in the reference order W -> H ->
     L1 normalisation -> g. s1 / s2 (B, N, F), the W-update sums at the
     chain's Vb, skip the first pass over the samples when given. Every
     sample-buffer reduction runs on K2 with a given Vb: 'h' for the W and H
     updates, 'g' for the gain. With update_nmf=False only g updates, at
-    Vb_fixed (B, N, F). Returns (W, H, g)."""
+    Vb_fixed (B, N, F). Vs may be the chain's bfloat16 dumps; approx_recip
+    goes to every sums pass. Returns (W, H, g)."""
     m3 = mask[..., None]
 
     def vb():
@@ -51,7 +53,8 @@ def _nmf_m_step_batched(X2, mask, W, H, g, Vs, s1=None, s2=None,
         return Vb_fixed
 
     def sums(Vb):
-        a, b = nmf_sums(Vs, None, g, mode="h", Vb=Vb)
+        a, b = nmf_sums(Vs, None, g, mode="h", Vb=Vb,
+                        approx_recip=approx_recip)
         return b, a
 
     Vb = vb()
@@ -73,7 +76,8 @@ def _nmf_m_step_batched(X2, mask, W, H, g, Vs, s1=None, s2=None,
         H = H * norm_col[:, :, None]
         Vb = vb()
 
-    num, den = nmf_sums(Vs, None, g, X2, mode="g", Vb=Vb)
+    num, den = nmf_sums(Vs, None, g, X2, mode="g", Vb=Vb,
+                        approx_recip=approx_recip)
     g = g * torch.sqrt(num / den)
     return W, H, g
 
@@ -90,7 +94,9 @@ def _masked_cost_batched(X2, mask, Vb, g, Vs):
 @torch.no_grad()
 def mcem_batch_fused(model, X_abs2, mask, y, generator,
                      cfg: MCEMConfig = MCEMConfig(), update_nmf=True,
-                     Vb_fixed=None, compute_cost=True, init=None):
+                     Vb_fixed=None, compute_cost=True, init=None,
+                     samples_dtype=torch.float32, approx_recip=False,
+                     approx_trans=False):
     """Full batched MCEM. X_abs2 (B, F, N) with benign pad frames, mask
     (B, N), y (B, y_dim, N) or None (M1), `generator` a torch.Generator on
     the tensors' device. Returns {"WFs", "WFn" (B, F, N), "cost" (B, niter),
@@ -104,7 +110,14 @@ def mcem_batch_fused(model, X_abs2, mask, y, generator,
 
     init: optional warm start in the result orientation: "W" and "H"
     replace the NMF init, "g" the unit gain and "Z" the encoder's posterior
-    mean; each key is optional."""
+    mean; each key is optional.
+
+    Fast mode, as the JAX driver applies it: every E chain gets
+    samples_dtype (its sample dumps), approx_recip and approx_trans; the WF
+    chain approx_recip and approx_trans; every sums pass approx_recip. The
+    initial Vs = decode(Z) stays exact, and the chain state stays float32.
+    compute_cost=False skips the cost pass (the result's "cost" is zeros),
+    as fast mode does."""
     if cfg.noise_gain and update_nmf:
         raise ValueError(
             "MCEMConfig.noise_gain requires a fixed noise model "
@@ -164,7 +177,9 @@ def mcem_batch_fused(model, X_abs2, mask, y, generator,
     seeds = torch.randint(0, 2**62, (cfg.niter + 1,), generator=generator,
                           device=dev).tolist()
     chain_kw = dict(nsamples=cfg.nsamples_E_step, burnin=cfg.burnin_E_step,
-                    var_RW=cfg.var_RW)
+                    var_RW=cfg.var_RW, samples_dtype=samples_dtype,
+                    approx_recip=approx_recip, approx_trans=approx_trans)
+    sums_kw = dict(approx_recip=approx_recip)
 
     costs = []
     for it in range(cfg.niter):
@@ -173,12 +188,14 @@ def mcem_batch_fused(model, X_abs2, mask, y, generator,
                 dec_w, X2, (Wt, H), g, ypre, Z, Vs, seeds[it], mode="e",
                 mask=mask, **chain_kw)
             Wt2 = Wt * torch.sqrt(numW / denW)
-            numH, denH = nmf_sums(samples, (Wt2, H), g, X2, mode="h")
+            numH, denH = nmf_sums(samples, (Wt2, H), g, X2, mode="h",
+                                  **sums_kw)
             H2 = H * torch.sqrt(numH / denH).transpose(1, 2)
             norm_col = torch.sum(torch.abs(Wt2), dim=2)       # (B, K)
             Wt = (Wt2 / norm_col[..., None]).contiguous()
             H = (H2 * norm_col[:, :, None]).contiguous()
-            num_g, den_g = nmf_sums(samples, (Wt, H), g, X2, mode="g")
+            num_g, den_g = nmf_sums(samples, (Wt, H), g, X2, mode="g",
+                                    **sums_kw)
             g = g * torch.sqrt(num_g / den_g)
             Vb2 = (torch.einsum("bkf,bkn->bnf", Wt, H) if compute_cost
                    else None)
@@ -190,7 +207,8 @@ def mcem_batch_fused(model, X_abs2, mask, y, generator,
             Z, Vs, (samples, _, _) = mh_chain(
                 dec_w, X2, None, g, ypre, Z, Vs, seeds[it], mode="e",
                 Vb=Vb_eff, **chain_kw)
-            s1, s2 = nmf_sums(samples, None, g, mode="h", Vb=Vb_eff)
+            s1, s2 = nmf_sums(samples, None, g, mode="h", Vb=Vb_eff,
+                              **sums_kw)
             if band_map is None:
                 num_b = torch.sum(X2 * Vbf * s2, dim=-1)      # (B, N)
                 den_b = torch.sum(Vbf * s1, dim=-1)
@@ -199,20 +217,23 @@ def mcem_batch_fused(model, X_abs2, mask, y, generator,
                 den_b = torch.einsum("bnf,kf->bkn", Vbf * s1, band_map)
             b = b * torch.sqrt(num_b / den_b)
             Vb2 = eff_vb(b)
-            num_g, den_g = nmf_sums(samples, None, g, X2, mode="g", Vb=Vb2)
+            num_g, den_g = nmf_sums(samples, None, g, X2, mode="g", Vb=Vb2,
+                                    **sums_kw)
             g = g * torch.sqrt(num_g / den_g)
         else:
             Z, Vs, (samples, _, _) = mh_chain(
                 dec_w, X2, None, g, ypre, Z, Vs, seeds[it], mode="e",
                 Vb=Vbf, **chain_kw)
             _, _, g = _nmf_m_step_batched(X2, mask, None, None, g, samples,
-                                          update_nmf=False, Vb_fixed=Vbf)
+                                          update_nmf=False, Vb_fixed=Vbf,
+                                          **sums_kw)
             Vb2 = Vbf
         if compute_cost:
             costs.append(_masked_cost_batched(X2, mask, Vb2, g, samples))
 
     wf_kw = dict(nsamples=cfg.nsamples_WF, burnin=cfg.burnin_WF,
-                 var_RW=cfg.var_RW)
+                 var_RW=cfg.var_RW, approx_recip=approx_recip,
+                 approx_trans=approx_trans)
     if update_nmf:
         Z, Vs, (ws, wn) = mh_chain(dec_w, X2, (Wt, H), g, ypre, Z, Vs,
                                    seeds[cfg.niter], mode="wf", **wf_kw)

@@ -1,16 +1,28 @@
 """K1: the fused Metropolis-Hastings chain over the VAE latent.
 
 Counterpart of `mh_chain_pallas` in `guided_vae_nmf_tpu/mcem/pallas_engine.py`
-(E-mode and WF-mode, exact math, float32 sample dumps), in two forms: with
-the NMF factors `WH=` (K1a) or with a given noise variance `Vb=` (K1b, the
-fixed-noise models). The kernel is `csrc/mh_chain.cu`; :func:`mh_chain_ref`
-is its plain PyTorch version, step by step the same function.
+(E-mode and WF-mode), in two forms: with the NMF factors `WH=` (K1a) or
+with a given noise variance `Vb=` (K1b, the fixed-noise models), each in
+exact math with float32 sample dumps or with the fast-mode options (K1c):
+`samples_dtype=torch.bfloat16` dumps (E-mode), `approx_recip` and
+`approx_trans`. The kernel is `csrc/mh_chain.cu`; :func:`mh_chain_ref` is
+its plain PyTorch version, step by step the same function.
+
+Under `approx_trans` both evaluate the decoder's output exp, the data
+term's log and the accept test's log u with :func:`fast_exp` /
+:func:`fast_log` (the TPU kernel's `_fast_exp` / `_fast_log`), op for op,
+so they agree bit for bit. `approx_recip` makes the kernel form every 1/Vx
+with the hardware approximate reciprocal (within 1 ulp); the plain version
+has no such reciprocal and divides exactly, so there the two differ by at
+most 1 ulp per reciprocal.
 
 :func:`mh_chain` launches the kernel for CUDA tensors and runs the plain
 version for CPU tensors; it has no other switch. Layouts are frames-major:
 X2, Vs, Vb (B, N, F); g, mask (B, N); ypre (B, N, H); Z (B, N, L); the NMF
 factors Wt (B, K, F) and H (B, K, N). `mh_chain.launches` counts kernel
-launches per variant: "e_wh", "wf_wh", "e_vb", "wf_vb".
+launches per variant: "e_wh", "wf_wh", "e_vb", "wf_vb" for exact launches,
+the same names ending in "_fast" for launches with a fast option but not
+`approx_trans`, and in "_trans" for those with `approx_trans`.
 """
 
 import ctypes
@@ -22,7 +34,49 @@ from .. import _build
 from .engine import VX_FLOOR
 
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = ([_VP] * 23 + [_I] * 9 + [_F, _I, ctypes.c_uint64, _VP])
+_ARGTYPES = ([_VP] * 23 + [_I] * 9 + [_F, _I, ctypes.c_uint64] + [_I] * 3
+             + [_VP])
+_LN2 = 0.6931471805599453
+_SQRT2 = 1.4142135623730951
+SAMPLE_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def fast_log(x):
+    """The TPU kernel's `_fast_log` for positive normal float32s, op for op:
+    log x = e ln2 + 2s (1 + s^2/3 + s^4/5 + s^6/7) with s = (m - 1)/(m + 1)
+    and the mantissa m in [sqrt(1/2), sqrt(2)) (|rel err| < 2e-7)."""
+    bits = x.contiguous().view(torch.int32)
+    e = ((bits >> 23) & 0xFF) - 127
+    m = ((bits & 0x007FFFFF) | 0x3F800000).view(torch.float32)
+    big = m > _SQRT2
+    m = torch.where(big, 0.5 * m, m)
+    e = (e + big.to(torch.int32)).to(torch.float32)
+    s = (m - 1.0) / (m + 1.0)
+    s2 = s * s
+    p = 2.0 * s * (1.0 + s2 * (0.33333333 + s2 * (0.2 + s2 * 0.14285714)))
+    return e * _LN2 + p
+
+
+def fast_exp(x):
+    """The TPU kernel's `_fast_exp`, op for op: 2^zi times a degree-6
+    Taylor of the Cody-Waite residual, x clamped to [-87, 88]
+    (|rel err| < 3e-7)."""
+    x = torch.clamp(x, -87.0, 88.0)
+    zi = torch.floor(x * (1.0 / _LN2) + 0.5)
+    r = (x - zi * 0.693359375) + zi * 2.12194440e-4
+    p = 1.0 + r * (1.0 + r * (0.5 + r * (0.16666666666666666 + r * (
+        0.041666666666666664 + r * (0.008333333333333333
+                                    + r * 0.001388888888888889)))))
+    scale = ((zi.to(torch.int32) + 127) << 23).view(torch.float32)
+    return scale * p
+
+
+def _variant(mode, form, samples_dtype, approx_recip, approx_trans):
+    """The `mh_chain.launches` key of a launch."""
+    if approx_trans:
+        return f"{mode}_{form}_trans"
+    fast = approx_recip or (mode == "e" and samples_dtype == torch.bfloat16)
+    return f"{mode}_{form}_fast" if fast else f"{mode}_{form}"
 
 
 def _lib():
@@ -57,7 +111,8 @@ def _one_of(WH, Vb):
 
 def mh_chain_ref(dec_w, X2, WH, g, ypre, Z, Vs, mode="e", nsamples=10,
                  burnin=30, var_RW=0.01, noise=None, mask=None,
-                 generator=None, Vb=None):
+                 generator=None, Vb=None, samples_dtype=torch.float32,
+                 approx_recip=False, approx_trans=False):
     """Plain PyTorch version of the chain (also the CPU path).
 
     Exactly one of WH = (Wt, H) and Vb (B, N, F) gives the noise variance.
@@ -66,8 +121,13 @@ def mh_chain_ref(dec_w, X2, WH, g, ypre, Z, Vs, mode="e", nsamples=10,
     extra = (samples (B, nsamples, N, F), numW (B, K, F), denW (B, K, F))
     in 'e' mode with WH, (samples, s1, s2) with s1 = sum 1/Vx and
     s2 = sum 1/Vx^2 (B, N, F) in 'e' mode with Vb, and (WFs_sum, WFn_sum)
-    (B, N, F) in 'wf' mode."""
+    (B, N, F) in 'wf' mode. The samples are rounded to `samples_dtype`;
+    `approx_trans` swaps the exp / log for :func:`fast_exp` /
+    :func:`fast_log`; `approx_recip` changes nothing here (exact 1/Vx)."""
     _one_of(WH, Vb)
+    _check_dtype(samples_dtype)
+    log_ = fast_log if approx_trans else torch.log
+    exp_ = fast_exp if approx_trans else torch.exp
     B, N, F = X2.shape
     L = Z.shape[-1]
     n_steps = nsamples + burnin
@@ -88,13 +148,13 @@ def mh_chain_ref(dec_w, X2, WH, g, ypre, Z, Vs, mode="e", nsamples=10,
         h = torch.tanh(Zc @ dec_w["w1"] + ypre)
         for w, b in dec_w["mid"]:
             h = torch.tanh(h @ w + b)
-        return torch.exp(h @ dec_w["wo"] + dec_w["bo"])
+        return exp_(h @ dec_w["wo"] + dec_w["bo"])
 
     def mix_var(Vs_):
         return torch.clamp_min(G * Vs_ + Vb, VX_FLOOR)
 
     def rowsum(Vx, inv):
-        return torch.sum(torch.log(Vx) + inv * X2, dim=-1)
+        return torch.sum(log_(Vx) + inv * X2, dim=-1)
 
     def propose(m, Z, s):
         Zp = Z + sqrt_var * Zn[:, m]
@@ -103,7 +163,7 @@ def mh_chain_ref(dec_w, X2, WH, g, ypre, Z, Vs, mode="e", nsamples=10,
         invp = 1.0 / Vxp
         sp = rowsum(Vxp, invp)
         acc = (s - sp) + 0.5 * torch.sum(Z * Z - Zp * Zp, dim=-1)
-        return torch.log(U[:, m]) < acc, Zp, Vsp, invp, sp
+        return log_(U[:, m]) < acc, Zp, Vsp, invp, sp
 
     Vx0 = mix_var(Vs)
     s = rowsum(Vx0, 1.0 / Vx0)
@@ -133,12 +193,19 @@ def mh_chain_ref(dec_w, X2, WH, g, ypre, Z, Vs, mode="e", nsamples=10,
             acc2 = acc2 + inv * inv      # s2
     if mode == "wf":
         return Z, Vs, (acc1, acc2)
+    samples = torch.stack(samples, dim=1).to(samples_dtype)
     if WH is None:
-        return Z, Vs, (torch.stack(samples, dim=1), acc1, acc2)
+        return Z, Vs, (samples, acc1, acc2)
     m3 = mask[..., None]
     numW = torch.einsum("bkn,bnf->bkf", H, X2 * acc2 * m3)
     denW = torch.einsum("bkn,bnf->bkf", H, acc1 * m3)
-    return Z, Vs, (torch.stack(samples, dim=1), numW, denW)
+    return Z, Vs, (samples, numW, denW)
+
+
+def _check_dtype(samples_dtype):
+    if samples_dtype not in SAMPLE_DTYPES:
+        raise ValueError(f"samples_dtype must be one of {SAMPLE_DTYPES}, got "
+                         f"{samples_dtype}")
 
 
 def _check(name, t, shape, device):
@@ -167,26 +234,34 @@ def _mid_stacked(dec_w, Hd, device):
 
 
 def mh_chain(dec_w, X2, WH, g, ypre, Z, Vs, seed=0, mode="e", nsamples=10,
-             burnin=30, var_RW=0.01, noise=None, mask=None, Vb=None):
+             burnin=30, var_RW=0.01, noise=None, mask=None, Vb=None,
+             samples_dtype=torch.float32, approx_recip=False,
+             approx_trans=False):
     """Run the chain over a frames-major batch (see :func:`mh_chain_ref`
     for the arguments and results). `Vs` must be decode(Z): the initial data
     term comes from it and the kernel re-derives Vs at the burn-in boundary.
     E-mode with WH needs the frame mask; the Vb form is unmasked.
+    `samples_dtype` is the E-mode sample dump's type (WF-mode has none and
+    ignores it, as the JAX kernel does).
 
     seed: keys the in-kernel Philox stream on CUDA (the CPU path seeds a
     `torch.Generator` with it); ignored when `noise` is given."""
     if mode not in ("e", "wf"):
         raise ValueError(f"mode must be 'e' or 'wf', got {mode!r}")
     _one_of(WH, Vb)
+    _check_dtype(samples_dtype)
     if mode == "e" and WH is not None and mask is None:
         raise ValueError("E-mode with WH needs the frame mask")
+    fast_kw = dict(samples_dtype=samples_dtype, approx_recip=approx_recip,
+                   approx_trans=approx_trans)
     if X2.device.type == "cpu":
         gen = None
         if noise is None:
             gen = torch.Generator(device="cpu").manual_seed(int(seed))
         return mh_chain_ref(dec_w, X2, WH, g, ypre, Z, Vs, mode=mode,
                             nsamples=nsamples, burnin=burnin, var_RW=var_RW,
-                            noise=noise, mask=mask, generator=gen, Vb=Vb)
+                            noise=noise, mask=mask, generator=gen, Vb=Vb,
+                            **fast_kw)
     if X2.device.type != "cuda":
         raise ValueError(f"unsupported device {X2.device}")
     dev = X2.device
@@ -227,15 +302,18 @@ def mh_chain(dec_w, X2, WH, g, ypre, Z, Vs, seed=0, mode="e", nsamples=10,
     z_out = torch.empty_like(Z)
     vs_out = torch.empty_like(X2)
     part1 = part2 = out3 = None
+    bf16 = mode == "e" and samples_dtype == torch.bfloat16
     if mode == "wf":
         out1 = torch.empty_like(X2)
         out2 = torch.empty_like(X2)
     elif WH is None:
-        out1 = torch.empty((B, nsamples, N, F), device=dev)
+        out1 = torch.empty((B, nsamples, N, F), device=dev,
+                           dtype=samples_dtype)
         out2 = torch.empty_like(X2)
         out3 = torch.empty_like(X2)
     else:
-        out1 = torch.empty((B, nsamples, N, F), device=dev)
+        out1 = torch.empty((B, nsamples, N, F), device=dev,
+                           dtype=samples_dtype)
         out2 = torch.empty((B, K, F), device=dev)
         out3 = torch.empty((B, K, F), device=dev)
         part1 = torch.empty((B, N // tile, K, F), device=dev)
@@ -250,21 +328,28 @@ def mh_chain(dec_w, X2, WH, g, ypre, Z, Vs, seed=0, mode="e", nsamples=10,
             _ptr(out2), _ptr(out3), _ptr(part1), _ptr(part2),
             B, N, F, L, Hd, K, depth, n_steps, burnin,
             float(np.sqrt(var_RW)), 0 if mode == "e" else 1,
-            int(seed) & (2**64 - 1), _stream(dev))
+            int(seed) & (2**64 - 1), int(bf16), int(bool(approx_recip)),
+            int(bool(approx_trans)), _stream(dev))
     _build.check(status, "mh_chain kernel")
-    mh_chain.launches[f"{mode}_{'wh' if WH is not None else 'vb'}"] += 1
+    mh_chain.launches[_variant(mode, "wh" if WH is not None else "vb",
+                               **fast_kw)] += 1
     if mode == "wf":
         return z_out, vs_out, (out1, out2)
     return z_out, vs_out, (out1, out2, out3)
 
 
-mh_chain.launches = dict.fromkeys(("e_wh", "wf_wh", "e_vb", "wf_vb"), 0)
+mh_chain.launches = dict.fromkeys(
+    (f"{mode}_{form}{level}" for level in ("", "_fast", "_trans")
+     for mode, form in (("e", "wh"), ("wf", "wh"), ("e", "vb"),
+                        ("wf", "vb"))), 0)
 
 
 def philox_streams(seed, B, N, L, n_steps, device):
     """The (Zn, U) streams the CUDA chain draws in-kernel for `seed`, in the
-    `noise=` layout: running the chain with them reproduces its Philox run.
-    CUDA only (a diagnostic of the kernel's generator)."""
+    `noise=` layout: running the chain with them reproduces its Philox run
+    (without `approx_trans`, under which its Box-Muller logs are
+    :func:`fast_log`'s). CUDA only (a diagnostic of the kernel's
+    generator)."""
     device = torch.device(device)
     if device.type != "cuda":
         raise ValueError("the in-kernel Philox stream exists only on CUDA")

@@ -2,11 +2,16 @@
 
 Counterpart of `nmf_sums_pallas` in `guided_vae_nmf_tpu/mcem/pallas_engine.py`
 (modes 'h' and 'g'), in two forms: with the NMF factors `WH=` (K2a) or with
-a given noise variance `Vb=` (K2b, the fixed-noise models). The kernel is
-`csrc/nmf_sums.cu`; :func:`nmf_sums_ref` is its plain PyTorch version.
-:func:`nmf_sums` launches the kernel for CUDA tensors and runs the plain
-version for CPU tensors. `nmf_sums.launches` counts kernel launches per
-variant: "h_wh", "g_wh", "h_vb", "g_vb".
+a given noise variance `Vb=` (K2b, the fixed-noise models), each over
+float32 samples in exact math or in fast mode (K2c): over the chain's
+bfloat16 sample dumps and, with `approx_recip`, with every 1/Vx from the
+hardware approximate reciprocal (within 1 ulp; the plain version divides
+exactly). The kernel is `csrc/nmf_sums.cu`; :func:`nmf_sums_ref` is its
+plain PyTorch version. :func:`nmf_sums` launches the kernel for CUDA
+tensors and runs the plain version for CPU tensors. `nmf_sums.launches`
+counts kernel launches per variant: "h_wh", "g_wh", "h_vb", "g_vb" for
+exact launches and the same names ending in "_fast" for launches over
+bfloat16 samples or with `approx_recip`.
 """
 
 import ctypes
@@ -22,7 +27,7 @@ _VP, _I = ctypes.c_void_p, ctypes.c_int
 def _lib():
     lib = _build.library("nmf_sums")
     if lib.gvnmf_nmf_sums.argtypes is None:
-        lib.gvnmf_nmf_sums.argtypes = [_VP] * 8 + [_I] * 6 + [_VP]
+        lib.gvnmf_nmf_sums.argtypes = [_VP] * 8 + [_I] * 8 + [_VP]
         lib.gvnmf_nmf_sums.restype = _I
         lib.gvnmf_nmf_sums_kmax.argtypes = []
         lib.gvnmf_nmf_sums_kmax.restype = _I
@@ -39,16 +44,19 @@ def _check_args(WH, X2, mode, Vb):
                          f"{'Vb' if WH is None else 'WH'} needs X2")
 
 
-def nmf_sums_ref(samples, WH, g, X2=None, mode="h", Vb=None):
-    """Plain PyTorch version (also the CPU path). samples (B, R, N, F),
-    exactly one of WH = (Wt (B, K, F), H (B, K, N)) and Vb (B, N, F),
-    g (B, N), X2 (B, N, F) (not needed in 'h' mode with Vb).
+def nmf_sums_ref(samples, WH, g, X2=None, mode="h", Vb=None,
+                 approx_recip=False):
+    """Plain PyTorch version (also the CPU path). samples (B, R, N, F)
+    float32 or bfloat16 (read as float32), exactly one of WH = (Wt (B, K, F),
+    H (B, K, N)) and Vb (B, N, F), g (B, N), X2 (B, N, F) (not needed in 'h'
+    mode with Vb). `approx_recip` changes nothing here (exact 1/Vx).
 
     'h' with WH -> (numH, denH) (B, N, K): (X2 sum_r Vx^-2) W and
     (sum_r Vx^-1) W; 'h' with Vb -> (s1, s2) (B, N, F): sum_r Vx^-1 and
     sum_r Vx^-2; 'g' -> (num, den) (B, N): sum_f X2 sum_r Vs Vx^-2,
     sum_{r,f} Vs Vx^-1."""
     _check_args(WH, X2, mode, Vb)
+    samples = samples.float()
     if WH is not None:
         Wt, H = WH
         Vb = torch.einsum("bkn,bkf->bnf", H, Wt)
@@ -66,11 +74,12 @@ def nmf_sums_ref(samples, WH, g, X2=None, mode="h", Vb=None):
     return num, den
 
 
-def nmf_sums(samples, WH, g, X2=None, mode="h", Vb=None):
+def nmf_sums(samples, WH, g, X2=None, mode="h", Vb=None, approx_recip=False):
     """M-step sums (see :func:`nmf_sums_ref`)."""
     _check_args(WH, X2, mode, Vb)
     if samples.device.type == "cpu":
-        return nmf_sums_ref(samples, WH, g, X2, mode=mode, Vb=Vb)
+        return nmf_sums_ref(samples, WH, g, X2, mode=mode, Vb=Vb,
+                            approx_recip=approx_recip)
     if samples.device.type != "cuda":
         raise ValueError(f"unsupported device {samples.device}")
     dev = samples.device
@@ -88,11 +97,14 @@ def nmf_sums(samples, WH, g, X2=None, mode="h", Vb=None):
         need += [("Wt", Wt, (B, K, F)), ("H", H, (B, K, N))]
     if X2 is not None:
         need.append(("X2", X2, (B, N, F)))
+    bf16 = samples.dtype == torch.bfloat16
     for name, t, shape in need:
-        if t.dtype != torch.float32 or t.device != dev or not \
+        dtype = torch.bfloat16 if name == "samples" and bf16 else \
+            torch.float32
+        if t.dtype != dtype or t.device != dev or not \
                 t.is_contiguous() or tuple(t.shape) != shape:
             raise ValueError(
-                f"{name}: need contiguous float32 {shape} on {dev}, got "
+                f"{name}: need contiguous {dtype} {shape} on {dev}, got "
                 f"{t.dtype} {tuple(t.shape)} on {t.device}")
     if mode == "g":
         out_shape = (B, N)
@@ -108,10 +120,15 @@ def nmf_sums(samples, WH, g, X2=None, mode="h", Vb=None):
         status = lib.gvnmf_nmf_sums(
             ptr(samples), ptr(Vb), ptr(Wt), ptr(H), ptr(g), ptr(X2),
             ptr(o1), ptr(o2), B, R, N, F, K, 0 if mode == "h" else 1,
+            int(bf16), int(bool(approx_recip)),
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(status, "nmf_sums kernel")
-    nmf_sums.launches[f"{mode}_{'wh' if WH is not None else 'vb'}"] += 1
+    key = f"{mode}_{'wh' if WH is not None else 'vb'}"
+    nmf_sums.launches[key + ("_fast" if bf16 or approx_recip else "")] += 1
     return o1, o2
 
 
-nmf_sums.launches = dict.fromkeys(("h_wh", "g_wh", "h_vb", "g_vb"), 0)
+nmf_sums.launches = dict.fromkeys(
+    (f"{mode}_{form}{level}" for level in ("", "_fast")
+     for mode, form in (("h", "wh"), ("g", "wh"), ("h", "vb"), ("g", "vb"))),
+    0)

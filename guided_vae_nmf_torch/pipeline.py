@@ -2,9 +2,12 @@
 labels -> batched MCEM (K1 / K2 kernels) -> Wiener filtering -> masked ISTFT
 -> PCM16.
 
-Counterpart of `guided_vae_nmf_tpu/pipeline.py` in exact mode:
-:func:`enhance_waveform` is `_enhance_waveform_jit`, :func:`enhance_to_audio`
-is `enhance_to_audio` and :func:`enhance_files` is the file sweep. Noise
+Counterpart of `guided_vae_nmf_tpu/pipeline.py`: :func:`enhance_waveform`
+is `_enhance_waveform_jit`, :func:`enhance_to_audio` is `enhance_to_audio`
+and :func:`enhance_files` is the file sweep, each in exact mode or in fast
+mode (`fast=True`: bfloat16 sample dumps, approximate reciprocal, no cost
+pass; `fast="trans"`: also the bit-arithmetic exp / log in the chains; see
+:func:`_fast_kwargs`). Noise
 models: 'nmf' (the reference protocol), 'spp' (a fixed noise variance from
 the SPP tracker, only the gains updated) and 'spp2' (two passes: the first
 pass's residual power, EMA-smoothed and floored at the SPP PSD, is the
@@ -12,8 +15,7 @@ second pass's fixed noise variance), with the optional noise gain.
 Label sources: 'dnn' (classifier on standardized power frames,
 > threshold), 'timo' (SPP soft mask, > 0.5), 'host' (caller's labels),
 'ones', 'zeros' and 'none' (M1). The 'hybrid' noise model, 'oracle'
-labels, PEEM and the fast modes are not ported yet and raise
-NotImplementedError.
+labels and PEEM are not ported yet and raise NotImplementedError.
 
 Entry points run on the GPU unless `device` names another device.
 """
@@ -100,15 +102,29 @@ def validate_noise_model(noise_model, cfg=None):
                          f"{noise_model!r}")
 
 
+def _fast_kwargs(fast):
+    """Fused-engine kwargs for the `fast` level, as the JAX package maps
+    them: False = exact; True = bfloat16 sample dumps + approximate
+    reciprocal, no cost trace; "trans" additionally the bit-arithmetic exp
+    / log in the chains. Any other truthy value raises."""
+    if not fast:
+        return {}
+    if fast not in (True, "trans"):
+        raise ValueError(f"fast must be False, True or 'trans', got {fast!r}")
+    kw = dict(samples_dtype=torch.bfloat16, approx_recip=True,
+              compute_cost=False)
+    if fast == "trans":
+        kw["approx_trans"] = True
+    return kw
+
+
 def _check_supported(noise_model, fast, cfg):
     validate_noise_model(noise_model, cfg)
+    _fast_kwargs(fast)
     if noise_model == "hybrid":
         raise NotImplementedError(
             "noise_model 'hybrid' runs on the eager engine, which is not "
             "ported yet (ROADMAP Queue 1, item 3)")
-    if fast:
-        raise NotImplementedError(
-            "fast mode needs the K1c/K2c kernel options (ROADMAP Queue 2)")
     if not isinstance(cfg, MCEMConfig):
         raise NotImplementedError(
             f"{type(cfg).__name__} (PEEM / hybrid) is not ported yet "
@@ -171,7 +187,7 @@ def _mcem_wf_istft(model, X_re, X_im, X_p, mask, y, generator, cfg,
     def run_engine(Vb_fixed, gen, cfg=cfg):
         return mcem_batch_fused(model, X_p, mask, y, gen, cfg,
                                 update_nmf=update_nmf, Vb_fixed=Vb_fixed,
-                                init=init)
+                                init=init, **_fast_kwargs(fast))
 
     if noise_model == "spp2":
         out = _spp2_two_pass(run_engine, Vb_spp, X_p, generator, cfg)

@@ -1,6 +1,8 @@
 """The CUDA kernels against their plain PyTorch versions, on the card, in
 both forms: with the NMF factors (WH=, K1a / K2a) and with a given noise
-variance (Vb=, K1b / K2b).
+variance (Vb=, K1b / K2b), in exact math and with the fast-mode options
+(K1c / K2c: bfloat16 sample dumps, approximate reciprocal, bit-arithmetic
+exp / log).
 
 Every test here needs an NVIDIA GPU and skips without one. The file
 imports neither JAX nor the JAX package, so it also runs on a GPU machine
@@ -9,8 +11,9 @@ without JAX:
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
 Tolerance: atol 2e-5 / rtol 2e-4 (float32; the kernels sum in another
-order than PyTorch). Chains run on accept/reject noise whose decisions
-cannot flip on rounding (see `decisive_noise`).
+order than PyTorch, and the fast kernels' approximate reciprocal is within
+1 ulp of the plain version's exact one). Chains run on accept/reject noise
+whose decisions cannot flip on rounding (see `decisive_noise`).
 """
 
 import numpy as np
@@ -109,7 +112,18 @@ def run_chain(fn, c, mode, nsamples, burnin, var_rw, vb=False, **kw):
 
 
 def _close(got, ref):
-    assert_allclose(got.cpu().numpy(), ref.cpu().numpy(), **TOL)
+    assert_allclose(got.float().cpu().numpy(), ref.float().cpu().numpy(),
+                    **TOL)
+
+
+def nonzero(counts):
+    """The launch counts without the variants that did not launch."""
+    return {k: {v: n for v, n in d.items() if n} for k, d in counts.items()}
+
+
+FAST = {"fast": dict(samples_dtype=torch.bfloat16, approx_recip=True),
+        "trans": dict(samples_dtype=torch.bfloat16, approx_recip=True,
+                      approx_trans=True)}
 
 
 @pytest.mark.cuda
@@ -252,9 +266,9 @@ def test_fused_engine_var0_matches_cpu(cuda):
             module_from_params(tree, device=dev), t(X), t(mask), t(y),
             torch.Generator(device=dev).manual_seed(0), cfg,
             init={k: t(v) for k, v in init.items()})
-    assert launch_counts() == {
-        "mh_chain": {"e_wh": 3, "wf_wh": 1, "e_vb": 0, "wf_vb": 0},
-        "nmf_sums": {"h_wh": 3, "g_wh": 3, "h_vb": 0, "g_vb": 0}}
+    assert nonzero(launch_counts()) == {
+        "mh_chain": {"e_wh": 3, "wf_wh": 1},
+        "nmf_sums": {"h_wh": 3, "g_wh": 3}}
     for k in ("WFs", "WFn", "W", "H", "g", "Z", "cost"):
         assert_allclose(outs["cuda"][k].cpu().numpy(),
                         outs["cpu"][k].numpy(), rtol=1e-3, atol=1e-5,
@@ -358,10 +372,92 @@ def test_fixed_noise_engine_var0_matches_cpu(cuda, bands):
             module_from_params(tree, device=dev), t(X), t(mask), t(y),
             torch.Generator(device=dev).manual_seed(0), cfg,
             update_nmf=False, Vb_fixed=t(Vb))
-    assert launch_counts() == {
-        "mh_chain": {"e_wh": 0, "wf_wh": 0, "e_vb": 3, "wf_vb": 1},
-        "nmf_sums": {"h_wh": 0, "g_wh": 0, "h_vb": 3, "g_vb": 3}}
+    assert nonzero(launch_counts()) == {
+        "mh_chain": {"e_vb": 3, "wf_vb": 1},
+        "nmf_sums": {"h_vb": 3, "g_vb": 3}}
     for k in ("WFs", "WFn", "b", "g", "Z", "cost"):
         assert_allclose(outs["cuda"][k].cpu().numpy(),
                         outs["cpu"][k].numpy(), rtol=1e-3, atol=1e-5,
+                        err_msg=k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("level", sorted(FAST))
+@pytest.mark.parametrize("form", ["wh", "vb"])
+@pytest.mark.parametrize("mode", ["e", "wf"])
+def test_fast_chain_kernel_matches_plain(cuda, mode, form, level):
+    """K1c under decisive injected noise: the bfloat16 dumps equal the plain
+    version's (the same float32 Vs, rounded to nearest even), the float32
+    outputs agree at TOL; one launch under the level's counter key."""
+    c = chain_case(cuda, 18, **SMALL)
+    vb = form == "vb"
+    noise = decisive_noise(cuda, 19, SMALL["B"], SMALL["N"], SMALL["L"], 7)
+    reset_launch_counts()
+    got = run_chain(mh_chain, c, mode, 4, 3, 0.01, vb=vb, noise=noise,
+                    **FAST[level])
+    assert nonzero(launch_counts()) == {
+        "mh_chain": {f"{mode}_{form}_{level}": 1}, "nmf_sums": {}}
+    ref = run_chain(mh_chain_ref, c, mode, 4, 3, 0.01, vb=vb, noise=noise,
+                    **FAST[level])
+    torch.cuda.synchronize()
+    if mode == "e":
+        assert got[2][0].dtype == torch.bfloat16
+        assert torch.equal(got[2][0], ref[2][0])
+    for a, b in zip((got[0], got[1]) + got[2], (ref[0], ref[1]) + ref[2]):
+        _close(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["wh", "vb"])
+@pytest.mark.parametrize("mode", ["h", "g"])
+def test_fast_sums_kernel_matches_plain(cuda, mode, form):
+    """K2c: the sums over bfloat16 samples with the approximate reciprocal."""
+    c = chain_case(cuda, 20, **SMALL)
+    rng = np.random.RandomState(21)
+    samples = torch.tensor(rng.uniform(0.01, 2.0, (2, 10, 128, 65)).astype(
+        np.float32), device=cuda).to(torch.bfloat16)
+    kw = dict(Vb=c["Vb"]) if form == "vb" else {}
+    wh = None if form == "vb" else c["WH"]
+    reset_launch_counts()
+    got = nmf_sums(samples, wh, c["g"], c["X2"], mode=mode,
+                   approx_recip=True, **kw)
+    assert nonzero(launch_counts()) == {
+        "mh_chain": {}, "nmf_sums": {f"{mode}_{form}_fast": 1}}
+    ref = nmf_sums_ref(samples, wh, c["g"], c["X2"], mode=mode, **kw)
+    for a, b in zip(got, ref):
+        _close(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("level", sorted(FAST))
+def test_fast_engine_var0_matches_cpu(cuda, level):
+    """The fused engine in fast mode (no cost pass) on the card against the
+    CPU run at var_RW = 0: only fast launches, in the NMF form."""
+    dims = SMALL
+    rng = np.random.RandomState(22)
+    tree = random_dgm(rng, dims["F"], dims["Y"], dims["L"], dims["H"])
+    B, F, N = dims["B"], dims["F"], dims["N"]
+    X = rng.uniform(0.05, 1.05, (B, F, N)).astype(np.float32)
+    y = (rng.uniform(size=(B, dims["Y"], N)) > 0.5).astype(np.float32)
+    mask = np.ones((B, N), np.float32)
+    init = {"W": rng.uniform(0.05, 1, (B, F, dims["K"])).astype(np.float32),
+            "H": rng.uniform(0.05, 1, (B, dims["K"], N)).astype(np.float32)}
+    cfg = MCEMConfig(niter=3, nsamples_E_step=2, burnin_E_step=1,
+                     nsamples_WF=2, burnin_WF=1, var_RW=0.0,
+                     nmf_rank=dims["K"])
+    outs = {}
+    for dev in ("cpu", cuda):
+        t = lambda a: torch.tensor(a, device=dev)  # noqa: E731
+        reset_launch_counts()
+        outs[str(dev)] = mcem_batch_fused(
+            module_from_params(tree, device=dev), t(X), t(mask), t(y),
+            torch.Generator(device=dev).manual_seed(0), cfg,
+            init={k: t(v) for k, v in init.items()}, compute_cost=False,
+            **FAST[level])
+    assert nonzero(launch_counts()) == {
+        "mh_chain": {f"e_wh_{level}": 3, f"wf_wh_{level}": 1},
+        "nmf_sums": {"h_wh_fast": 3, "g_wh_fast": 3}}
+    for k in ("WFs", "WFn", "W", "H", "g", "Z"):
+        assert_allclose(outs["cuda"][k].cpu().numpy(),
+                        outs["cpu"][k].numpy(), rtol=2e-3, atol=1e-5,
                         err_msg=k)

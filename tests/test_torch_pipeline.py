@@ -247,9 +247,7 @@ def test_enhance_to_audio_passes_the_noise_model():
 
 
 @pytest.mark.parametrize("kw", [dict(label_mode="oracle"),
-                                dict(noise_model="hybrid"),
-                                dict(fast="trans"),
-                                dict(fast=True)])
+                                dict(noise_model="hybrid")])
 def test_unported_options_raise(kw):
     tree = dgm_init(jax.random.PRNGKey(9), [F, F, L, [H, H]])
     x_b, mask = _batch(_mixtures(9, (0.5,)))
