@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's enhancement paths on one NVIDIA GPU: the M2-IBM
 main path (NMF noise model), the fixed-noise path (the real-noise and
-impulse-noise profiles), fast mode, and the online service with its HTTP
-front end.
+impulse-noise profiles), fast mode, the online service with its HTTP
+front end, and the paper-config path (PEEM, the PEEM -> MCEM hybrid and
+the 500-iteration harness, whose fast_bf16mm variant runs K1d).
 
     python3 chip_smoke.py [--seed 0] [--out build/chip_smoke.json]
 
@@ -19,8 +20,10 @@ Phases, in order; any failure exits nonzero without a result line:
    mode in both forms (K2a, K2b); the same chains in fast mode (K1c:
    bfloat16 dumps and approximate reciprocal, and with the bit-arithmetic
    exp / log) under injected noise, and the sums over bfloat16 samples with
-   the approximate reciprocal (K2c); then, at B=2, N=256, the accept rule
-   under real uniforms and the in-kernel Philox stream.
+   the approximate reciprocal (K2c); the chain with bfloat16 decoder
+   products (K1d, at the fast level) in both modes and forms, at K1D_TOL
+   with the elements past TOL counted; then, at B=2, N=256, the accept
+   rule under real uniforms and the in-kernel Philox stream.
 4. main path: four synthetic speech-like mixtures (2-5 s, 5 dB SNR, int16)
    through `enhance_waveform(label_mode="dnn")` with the shipped M2-IBM and
    classifier weights and the default MCEMConfig (100 EM iterations), with
@@ -46,7 +49,17 @@ Phases, in order; any failure exits nonzero without a result line:
    batch): requests/s, audio seconds per wall second, mean batch, p50 / p95
    latency; then the HTTP front end on port 0 (/v1/enhance, /healthz,
    /metrics).
-8. kernel times at the paths' shapes (CUDA events), every variant, beside
+8. paper-config path: `enhance_waveform(cfg=HybridConfig())` on the main
+   batch (500 PEEM + 150 MCEM iterations and the WF chain; 150 / 1 / 150
+   / 150 launches), with `fast=True` (the same on `_fast`) and with the
+   spp noise model (150 K1b E / 1 WF / 150 K2b g); `PEEMConfig()` (no
+   launch); one hybrid batch profiled (device activity only) with the
+   wall time of its PEEM and MCEM stages; a 1 s utterance through
+   `HybridConfig(niter=50, refine=10, var_RW=0)` on the card against the
+   CPU path; and `bench_niter500.main` at B=4, N=384, 100 iterations,
+   PEEM and a 25-iteration hybrid, which prints its JSON line (fast_bf16mm:
+   100 K1d E + 1 K1d WF launches a run).
+9. kernel times at the paths' shapes (CUDA events), every variant, beside
    their bounds and their plain versions' times.
 
 Prints the card's name and power limit, a `{"kernels": [...]}` line, and
@@ -68,7 +81,21 @@ import numpy as np
 # cores and HBM3 bandwidth.
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
+# K1d's bound: the dense bfloat16 tensor-core peak (NVIDIA data sheet) and
+# 16 special-function results per clock per SM (Hopper architecture white
+# paper), at the SM count and maximum SM clock the card reports.
+PEAK_BF16_FLOPS = 989e12
+SFU_PER_CLOCK_PER_SM = 16
 TOL = dict(atol=2e-5, rtol=2e-4)
+# K1d against its plain version: the two sum the same exact products in
+# another order, and where that moves a hidden output (or an E-mode
+# sample dump) across a bfloat16 rounding boundary the operand moves by
+# one bfloat16 ulp, at most 2^-7 of it; through |wo| <= 0.52 of the
+# shipped decoder that moves an exponent by at most 4e-3. So every element
+# must lie within atol 2e-5 + rtol 2e-2 and at most 1 % of them past TOL;
+# a kernel that skipped the rounding would put most of Vs past TOL.
+K1D_TOL = dict(atol=2e-5, rtol=2e-2)
+K1D_MAX_PAST = 0.01
 # Lengths of the main path's synthetic mixtures: 2-5 s, so padding and
 # frame masks are exercised (they pad to 384 frames).
 MAIN_SECONDS = (2.1, 3.3, 4.2, 4.9)
@@ -81,9 +108,28 @@ MAIN_LAUNCHES = dict(form="wh", e=100, wf=1, h=100, g=100)
 REAL_NOISE_LAUNCHES = dict(form="vb", e=125, wf=2, h=125, g=125)
 IMPULSE_LAUNCHES = dict(form="vb", e=100, wf=1, h=100, g=100)
 SERVING_LAUNCHES = dict(form="vb", e=100, wf=1, h=0, g=100, level="_fast")
-CHAIN_VARIANTS = [f"{m}_{f}{lv}" for lv in ("", "_fast", "_trans")
+# The PEEM -> MCEM hybrid at HybridConfig() refines with 150 MCEM
+# iterations; PEEM alone launches no kernel.
+HYBRID_LAUNCHES = dict(form="wh", e=150, wf=1, h=150, g=150)
+HYBRID_SPP_LAUNCHES = dict(form="vb", e=150, wf=1, h=0, g=150)
+PEEM_LAUNCHES = dict(form="wh", e=0, wf=0, h=0, g=0)
+# The paper-config harness's arguments here (a cut of its B=32, N=512,
+# 500 iterations, so the script stays well inside its time limit).
+HARNESS_ARGS = dict(batch=4, n=384, niter=100, peem=1, hybrid=25)
+# Chain launch keys: mode, form, level ('', '_fast', '_trans'), and
+# '_mm16' for the decoder products on bfloat16 operands (K1d).
+CHAIN_VARIANTS = [f"{m}_{f}{lv}{mm}" for mm in ("", "_mm16")
+                  for lv in ("", "_fast", "_trans")
                   for m, f in (("e", "wh"), ("wf", "wh"), ("e", "vb"),
                                ("wf", "vb"))]
+# K1d as the harness's fast_bf16mm variant runs it: the fast level with
+# bfloat16 products, in both modes and forms.
+K1D_VARIANTS = [f"{m}_{f}_fast_mm16" for m, f in (
+    ("e", "wh"), ("wf", "wh"), ("e", "vb"), ("wf", "vb"))]
+# No entry point runs bfloat16 products at a given noise variance (the
+# JAX package's only caller of the option, the harness, runs the NMF
+# noise model), so these two are checked and timed but on no path.
+OFF_PATH = ("mh_chain_e_vb_fast_mm16", "mh_chain_wf_vb_fast_mm16")
 SUMS_VARIANTS = [f"{m}_{f}{lv}" for lv in ("", "_fast")
                  for m, f in (("h", "wh"), ("g", "wh"), ("h", "vb"),
                               ("g", "vb"))]
@@ -104,13 +150,36 @@ def expected_launches(form, e, wf, h, g, n_batches=1, level=""):
 
 
 def fast_kw(torch, level):
-    """The kernel options of a level ('', '_fast', '_trans')."""
+    """The kernel options of a level ('', '_fast', '_trans', and
+    '_fast_mm16' for K1d as the harness runs it)."""
     if not level:
         return {}
     kw = dict(samples_dtype=torch.bfloat16, approx_recip=True)
     if level == "_trans":
         kw["approx_trans"] = True
+    if level.endswith("_mm16"):
+        kw["matmul_dtype"] = torch.bfloat16
     return kw
+
+
+def harness_launches(niter, hybrid):
+    """The launch counts of one `bench_niter500.main` run: each of its four
+    variants runs twice (warm-up and timed) over `niter` EM iterations and
+    a WF chain; the hybrid twice over `hybrid` fast MCEM iterations; PEEM
+    launches nothing."""
+    out = expected_launches("wh", 0, 0, 0, 0)
+    for level, runs in (("", 2), ("_fast", 2), ("_trans", 2),
+                        ("_fast_mm16", 2)):
+        out["mh_chain"][f"e_wh{level}"] += runs * niter
+        out["mh_chain"][f"wf_wh{level}"] += runs
+        sums = "_fast" if level else ""
+        out["nmf_sums"][f"h_wh{sums}"] += runs * niter
+        out["nmf_sums"][f"g_wh{sums}"] += runs * niter
+    out["mh_chain"]["e_wh_fast"] += 2 * hybrid
+    out["mh_chain"]["wf_wh_fast"] += 2
+    out["nmf_sums"]["h_wh_fast"] += 2 * hybrid
+    out["nmf_sums"]["g_wh_fast"] += 2 * hybrid
+    return out
 
 
 class SmokeFailure(RuntimeError):
@@ -142,12 +211,51 @@ def compare(name, got, ref, atol=TOL["atol"], rtol=TOL["rtol"]):
     return float(err.max())
 
 
+def compare_k1d(name, got, ref):
+    """K1d output against its plain version at K1D_TOL, with at most
+    K1D_MAX_PAST of the elements past TOL. Returns (max abs error, elements
+    past TOL, elements)."""
+    g = got.detach().double().cpu().numpy()
+    r = ref.detach().double().cpu().numpy()
+    check(g.shape == r.shape, f"{name}: shape {g.shape} vs {r.shape}")
+    check(np.all(np.isfinite(g)), f"{name}: non-finite kernel output")
+    err = np.abs(g - r)
+    ok = bool(np.all(err <= K1D_TOL["atol"] + K1D_TOL["rtol"] * np.abs(r)))
+    past = int(np.sum(err > TOL["atol"] + TOL["rtol"] * np.abs(r)))
+    ok = ok and past <= K1D_MAX_PAST * g.size
+    log(f"  {name:<28s} max_abs {err.max():.3e}  max_rel "
+        f"{(err / np.maximum(np.abs(r), 1e-30)).max():.3e}  past TOL "
+        f"{past} of {g.size}  tol atol {K1D_TOL['atol']:g} rtol "
+        f"{K1D_TOL['rtol']:g}, <= {100 * K1D_MAX_PAST:g} % past TOL  "
+        f"{'ok' if ok else 'FAIL'}")
+    check(ok, f"{name}: K1d disagrees with its plain version")
+    return float(err.max()), past, g.size
+
+
+def past_fraction(a, b):
+    """Share of the elements of a past TOL from b."""
+    a = a.detach().double().cpu().numpy()
+    b = b.detach().double().cpu().numpy()
+    return float(np.mean(np.abs(a - b) > TOL["atol"] + TOL["rtol"]
+                         * np.abs(b)))
+
+
 def gpu_name_and_limit():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
     check(out.returncode == 0, f"nvidia-smi failed: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
+
+
+def sm_clock_hz():
+    """The card's maximum SM clock, from nvidia-smi."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60)
+    check(out.returncode == 0, f"nvidia-smi failed: {out.stderr.strip()}")
+    return 1e6 * float(out.stdout.strip().splitlines()[0])
 
 
 def time_cuda(fn, launches=10, reps=5):
@@ -300,6 +408,27 @@ def chain_bound(B, N, F, L, Hd, K, R, n_steps, mode, vb=False,
             "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
 
 
+def chain_bound_mm16(B, N, F, L, Hd, K, R, n_steps, mode, vb, sms, clock_hz):
+    """(bound_ms, bound_by, terms_ms, binding term, flops, bytes) of one
+    K1d launch (bfloat16 sample dumps): the largest of the tensor-core time
+    of the decoder's products, 2 (L Hd + Hd Hd + Hd F) flops a frame-step
+    at the bfloat16 peak; the special-function time of its 2 Hd tanh, F
+    exp and F log a frame-step on SFU_PER_CLOCK_PER_SM results per clock
+    on each of `sms` SMs at `clock_hz`; and chain_bound's byte time."""
+    steps = B * N * n_steps
+    flops = steps * 2 * (L * Hd + Hd * Hd + Hd * F)
+    *_, nbytes = chain_bound(B, N, F, L, Hd, K, R, n_steps, mode, vb=vb,
+                             sample_bytes=2)
+    terms = {"tensor cores": flops / PEAK_BF16_FLOPS,
+             "special functions": steps * (2 * Hd + 2 * F)
+             / (SFU_PER_CLOCK_PER_SM * sms * clock_hz),
+             "bytes": nbytes / PEAK_BYTES}
+    binding = max(terms, key=terms.get)
+    return (1e3 * terms[binding],
+            "bytes" if binding == "bytes" else "operations",
+            {k: 1e3 * v for k, v in terms.items()}, binding, flops, nbytes)
+
+
 def sums_bound(B, R, N, F, K, mode, vb=False, sample_bytes=4):
     """(bound_ms, bound_by, flops, bytes) of one K2 launch. Operations: 6
     per sample (g Vs + Vb, floor, reciprocal and two sums), 2 per bin in
@@ -331,7 +460,9 @@ def sums_bound(B, R, N, F, K, mode, vb=False, sample_bytes=4):
 # ---------------------------------------------------------------------------
 
 
-VARIANTS = ([f"mh_chain_{v}" for v in CHAIN_VARIANTS]
+VARIANTS = ([f"mh_chain_{v}" for v in CHAIN_VARIANTS
+             if not v.endswith("_mm16")]
+            + [f"mh_chain_{v}" for v in K1D_VARIANTS]
             + [f"nmf_sums_{v}" for v in SUMS_VARIANTS])
 
 
@@ -355,13 +486,15 @@ def run_sums(c, fn, samples, mode, vb=False, **kw):
 def phase_kernels(torch, model, dev, shapes):
     """Kernel vs plain version at full width, at each (B, N) of `shapes`,
     every variant; the Philox and accept-rule checks run at the first.
-    Returns the largest absolute error per variant."""
+    Returns the largest absolute error per variant and, for K1d, the
+    elements past TOL and the elements compared."""
     from guided_vae_nmf_torch.mcem import (
         mh_chain, mh_chain_ref, nmf_sums, nmf_sums_ref)
     from guided_vae_nmf_torch.mcem.mh_chain import philox_streams
 
     K = 10
     err = dict.fromkeys(VARIANTS, 0.0)
+    k1d_past = {f"mh_chain_{v}": [0, 0] for v in K1D_VARIANTS}
 
     for B, N in shapes:
         c = chain_inputs(torch, model, B, N, K, 1, dev)
@@ -415,6 +548,38 @@ def phase_kernels(torch, model, dev, shapes):
                                     (ref[0], ref[1]) + ref[2]):
                         err[key] = max(err[key], compare(
                             "out", x.float(), y.float()))
+                    if level != "_fast":
+                        continue
+                    # K1d: the same fast options with bfloat16 products
+                    kw16 = fast_kw(torch, "_fast_mm16")
+                    got16 = run_chain(c, mh_chain, mode, 10, 30, 0.01,
+                                      vb=vb, noise=noise, **kw16)
+                    ref16 = run_chain(c, mh_chain_ref, mode, 10, 30, 0.01,
+                                      vb=vb, noise=noise, **kw16)
+                    torch.cuda.synchronize()
+                    log(f" K1d {mode}-mode, {form} form, {kw16}, "
+                        f"injected, B={B} N={N}:")
+                    key16 = f"mh_chain_{mode}_{form}_fast_mm16"
+                    check(torch.equal(got16[0], ref16[0]),
+                          "K1d: Z differs from the plain version's under "
+                          "decisive noise")
+                    names16 = (["Z", "Vs", "samples"]
+                               + (["s1", "s2"] if vb else ["numW", "denW"])
+                               if mode == "e" else ["Z", "Vs", "WFs_sum",
+                                                    "WFn_sum"])
+                    for name, x, y in zip(names16, (got16[0], got16[1])
+                                          + got16[2],
+                                          (ref16[0], ref16[1]) + ref16[2]):
+                        e, past, n = compare_k1d(name, x.float(), y.float())
+                        err[key16] = max(err[key16], e)
+                        k1d_past[key16][0] += past
+                        k1d_past[key16][1] += n
+                    moved = past_fraction(got16[1], got[1])
+                    log(f"  Vs past TOL from the float32-product kernel's: "
+                        f"{100 * moved:.1f} % (needs > 50 %: the option "
+                        "reached the products)")
+                    check(moved > 0.5, "K1d: bfloat16 products changed "
+                          "nothing")
             rng = np.random.RandomState(6)
             samples = torch.tensor(rng.gamma(0.5, 2.0, (B, 10, N, 513))
                                    .astype(np.float32) + 1e-3, device=dev)
@@ -472,7 +637,7 @@ def phase_kernels(torch, model, dev, shapes):
           "proposal normals are not standard normal")
     check(torch.equal(a[0], inj[0]) and torch.equal(a[2][0], inj[2][0]),
           "the Philox run differs from the reported streams")
-    return err
+    return err, k1d_past
 
 
 def main_batch(seed, bursts=0):
@@ -645,17 +810,24 @@ def phase_reference(torch, model, classifier, mean, std, pairs, dev):
 
 
 def phase_profile(torch, model, classifier, mean, std, x_b, mask, cfg,
-                  dev, gpu, label="main path", **settings):
+                  dev, gpu, label="main path", host_ops=True, spans=None,
+                  **settings):
     """One batch of a path under torch.profiler: device time by kernel
     group and the device's busy share of the wall time, and, where the
     path runs them, the wall time, device span (CUDA events) and kernel
-    time of the SPP tracker and of `_ema_time`, the two loops over frames
-    that the host paces. Informational: the profiler's own cost and the
-    synchronisation around the two loops inflate the wall time."""
+    time of the functions in `spans` ((module, name) pairs; by default the
+    SPP tracker and `_ema_time`, the two loops over frames that the host
+    paces). host_ops=False records device activity alone, for a path of
+    hundreds of thousands of small host ops. Informational: the profiler's
+    own cost and the synchronisation around the spans inflate the wall
+    time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
     import guided_vae_nmf_torch.pipeline as pl
+
+    if spans is None:
+        spans = ((pl, "spp_track"), (pl, "_ema_time"))
 
     loops = {}
 
@@ -677,12 +849,13 @@ def phase_profile(torch, model, classifier, mean, std, x_b, mask, cfg,
             return out
         return run
 
-    saved = pl.spp_track, pl._ema_time
-    pl.spp_track = instrumented("spp_track", pl.spp_track)
-    pl._ema_time = instrumented("_ema_time", pl._ema_time)
+    saved = [getattr(mod, name) for mod, name in spans]
+    for mod, name in spans:
+        setattr(mod, name, instrumented(name, getattr(mod, name)))
+    activities = ([ProfilerActivity.CPU] if host_ops else []) + [
+        ProfilerActivity.CUDA]
     try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=activities) as prof:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             pl.enhance_waveform(model, x_b, mask, cfg, classifier=classifier,
@@ -691,9 +864,11 @@ def phase_profile(torch, model, classifier, mean, std, x_b, mask, cfg,
             torch.cuda.synchronize()
             wall_ms = 1e3 * (time.perf_counter() - t0)
     finally:
-        pl.spp_track, pl._ema_time = saved
+        for (mod, name), fn in zip(spans, saved):
+            setattr(mod, name, fn)
     groups = {"mh_chain": 0.0, "nmf_sums": 0.0, "other": 0.0}
     other = {}
+    n_device = 0        # kernels, copies and fills the profiler saw
     averages = prof.key_averages()
     for evt in averages:
         if evt.key in loops:
@@ -708,6 +883,7 @@ def phase_profile(torch, model, classifier, mean, std, x_b, mask, cfg,
         us = evt.self_device_time_total
         if not us:
             continue
+        n_device += evt.count
         if "mh_chain_kernel" in evt.key or "sum_tiles_kernel" in evt.key:
             groups["mh_chain"] += us / 1e3
         elif "nmf_sums_kernel" in evt.key or "sums_h_vb_kernel" in evt.key:
@@ -728,11 +904,12 @@ def phase_profile(torch, model, classifier, mean, std, x_b, mask, cfg,
     log(f" profile ({label}): device busy {busy:.2f} ms of {wall_ms:.2f} ms "
         f"wall ({100 * busy / wall_ms:.1f}%); K1 {groups['mh_chain']:.2f} ms, "
         f"K2 {groups['nmf_sums']:.2f} ms, other kernels "
-        f"{groups['other']:.2f} ms; {gpu}")
+        f"{groups['other']:.2f} ms; {n_device} device activities; {gpu}")
     for name, ms in top:
         log(f"   other: {ms:8.3f} ms  {name}")
     return {"wall_ms": wall_ms, "device_ms": groups, "busy_ms": busy,
-            "top_other": top, "loops": loops}
+            "device_activities": n_device, "top_other": top,
+            "loops": loops}
 
 
 def phase_fast(torch, model, classifier, mean, std, cfg, batch, seed, dev,
@@ -769,6 +946,112 @@ def phase_fast(torch, model, classifier, mean, std, cfg, batch, seed, dev,
         label="real-noise fast='trans' path", fast="trans",
         noise_model=noise_model, soft_guidance=soft)
     return out
+
+
+# The card against the CPU path for a 1 s utterance through the hybrid at
+# var_RW=0, over the utterance's own samples. PEEM's init is a function of
+# the generator's seed on every device and its 50 iterations are
+# deterministic, but cuBLAS and the CPU sum in other orders, and 50
+# iterations of 5 fixed-rate gradient steps carry those differences
+# further than the 3 MCEM iterations of phase_reference (2 LSB).
+HYBRID_CPU_LSB = 16
+
+
+def phase_hybrid(torch, model, classifier, mean, std, batch, seed, dev,
+                 gpu):
+    """The PEEM -> MCEM hybrid at HybridConfig() (500 PEEM iterations, 150
+    MCEM, the WF chain) on the main batch: exact, with fast=True, and with
+    the spp noise model; then PEEM alone at PEEMConfig(); then one hybrid
+    batch profiled (device activity only), with the wall time and device
+    span of its two stages. Returns the runs' records."""
+    import guided_vae_nmf_torch.mcem.peem as peem_mod
+    from guided_vae_nmf_torch.mcem import HybridConfig, PEEMConfig
+
+    # PEEM's products run on cuBLAS: in full float32 only with TF32 off
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 is on for float32 matrix products")
+    out = {}
+    hcfg = HybridConfig()
+    for name, launches, settings in (
+            ("hybrid", HYBRID_LAUNCHES, {}),
+            ("hybrid, fast=True", dict(HYBRID_LAUNCHES, level="_fast"),
+             dict(fast=True)),
+            ("hybrid, spp", HYBRID_SPP_LAUNCHES, dict(noise_model="spp"))):
+        log(f"{name} path (enhance_waveform, label_mode='dnn', "
+            f"HybridConfig(), {settings}):")
+        out[name] = phase_main(torch, model, classifier, mean, std, hcfg,
+                               batch, seed, dev, gpu, launches=launches,
+                               label=f"{name} path", **settings)
+    log("PEEM path (enhance_waveform, label_mode='dnn', PEEMConfig()):")
+    out["peem"] = phase_main(torch, model, classifier, mean, std,
+                             PEEMConfig(), batch, seed, dev, gpu,
+                             launches=PEEM_LAUNCHES, label="PEEM path")
+    _, x_b, mask = batch
+    out["hybrid"]["profile"] = phase_profile(
+        torch, model, classifier, mean, std, x_b, mask, hcfg, dev, gpu,
+        label="hybrid path", host_ops=False,
+        spans=((peem_mod, "peem_run"), (peem_mod, "mcem_batch_fused")))
+    return out
+
+
+def phase_hybrid_reference(torch, model, classifier, mean, std, pairs, dev):
+    """A 1 s utterance through HybridConfig(niter=50, refine=10,
+    var_RW=0.0) with dnn labels on the card and on the CPU path: PCM16
+    within HYBRID_CPU_LSB over its samples, hard labels equal."""
+    from guided_vae_nmf_torch.dsp import pad_signal_for_stft
+    from guided_vae_nmf_torch.mcem import HybridConfig
+    from guided_vae_nmf_torch.pipeline import (
+        HOP, NFFT, bucket_frames, enhance_waveform)
+
+    x = pairs[0][1][:16000]
+    xp, nf = pad_signal_for_stft(x)
+    n_pad = bucket_frames(nf)
+    Lw = (n_pad - 1) * HOP + NFFT
+    x_b = np.zeros((1, Lw), np.int16)
+    x_b[0, : min(len(xp), Lw)] = xp[:Lw]
+    mask = np.zeros((1, n_pad), np.float32)
+    mask[0, :nf] = 1
+    cfg = HybridConfig(niter=50, refine=10, var_RW=0.0)
+    outs = {}
+    for d in ("cpu", dev):
+        mods = [m.to(d) for m in (model, classifier)]
+        t0 = time.perf_counter()
+        outs[str(d)] = [a if a is None else a.cpu().numpy()
+                        for a in enhance_waveform(
+            mods[0], x_b, mask, cfg, classifier=mods[1], mean=mean,
+            std=std, label_mode="dnn", device=d)]
+        log(f"  {d}: {time.perf_counter() - t0:.2f} s")
+    for m in (model, classifier):
+        m.to(dev)
+    g, r = outs[str(dev)], outs["cpu"]
+    diff = int(np.abs(g[0][0, :len(x)].astype(np.int32)
+                      - r[0][0, :len(x)].astype(np.int32)).max())
+    log(f" card vs CPU path (hybrid, niter=50, refine=10), 1 s at "
+        f"var_RW=0: max |s16 diff| {diff} LSB over the utterance (needs <= "
+        f"{HYBRID_CPU_LSB}); hard labels equal: {np.array_equal(g[3], r[3])}")
+    check(diff <= HYBRID_CPU_LSB, "card and CPU paths disagree (hybrid)")
+    check(np.array_equal(g[3], r[3]), "card and CPU labels disagree (hybrid)")
+    return diff
+
+
+def phase_harness(torch, dev):
+    """`bench_niter500.main` at HARNESS_ARGS (it prints its JSON line), with
+    the launch counters reset before and read after: four variants twice
+    each (warm-up and timed), fast_bf16mm on the K1d keys."""
+    import guided_vae_nmf_torch as port
+    from guided_vae_nmf_torch import bench_niter500
+
+    argv = [a for k, v in HARNESS_ARGS.items() for a in (f"--{k}", str(v))]
+    port.reset_launch_counts()
+    rec = bench_niter500.main(argv + ["--device", str(dev)])
+    counts = port.launch_counts()
+    want = harness_launches(HARNESS_ARGS["niter"], HARNESS_ARGS["hybrid"])
+    mm16 = {k: n for k, n in counts["mh_chain"].items() if k.endswith("_mm16")
+            and n}
+    log(f" harness launches {counts}; on the K1d keys {mm16} (2 runs of "
+        f"{HARNESS_ARGS['niter']} E + 1 WF)")
+    check(counts == want, f"harness launches {counts}, expected {want}")
+    return {"record": rec, "launches": counts}
 
 
 def phase_serving(torch, model, classifier, mean, std, cfg, seed, dev, gpu):
@@ -878,11 +1161,11 @@ SOURCES = {
 }
 
 
-def phase_times(torch, model, cfg, B, N, dev, gpu, err, launches):
+def phase_times(torch, model, cfg, B, N, dev, gpu, err, launches, k1d_past):
     """Per-launch times of every kernel variant (exact, K1c / K2c fast and
-    trans levels) at the paths' shapes, beside bounds and the plain
+    trans levels, K1d) at the paths' shapes, beside bounds and the plain
     versions' times; returns the `kernels` entries. `launches` holds each
-    variant's count on its path."""
+    variant's count on its path, `k1d_past` K1d's elements past TOL."""
     from guided_vae_nmf_torch.mcem import (
         mh_chain, mh_chain_ref, nmf_sums, nmf_sums_ref)
 
@@ -891,15 +1174,28 @@ def phase_times(torch, model, cfg, B, N, dev, gpu, err, launches):
     c = chain_inputs(torch, model, B, N, K, 7, dev)
     L, F, Hd = c["L"], c["X2"].shape[-1], c["ypre"].shape[-1]
     gen = torch.Generator(device=dev).manual_seed(0)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    clock = sm_clock_hz()
+    log(f"  K1d bound at {sms} SMs, {clock / 1e6:.0f} MHz maximum SM clock")
     timed = {}
     for vb, form in ((False, "wh"), (True, "vb")):
-        for level in ("", "_fast", "_trans"):
+        for level in ("", "_fast", "_trans", "_fast_mm16"):
             kw = fast_kw(torch, level)
             for mode, ns, bi in (("e", R, cfg.burnin_E_step),
                                  ("wf", cfg.nsamples_WF, cfg.burnin_WF)):
-                bound, by, flops, nbytes = chain_bound(
-                    B, N, F, L, Hd, K, ns, ns + bi, mode, vb=vb,
-                    sample_bytes=2 if level else 4)
+                extra = {}
+                if level == "_fast_mm16":
+                    bound, by, terms, binding, flops, nbytes = \
+                        chain_bound_mm16(B, N, F, L, Hd, K, ns, ns + bi,
+                                         mode, vb, sms, clock)
+                    key = f"mh_chain_{mode}_{form}{level}"
+                    extra = dict(bound_terms_ms=terms, binding=binding,
+                                 past_tol=k1d_past[key][0],
+                                 compared=k1d_past[key][1])
+                else:
+                    bound, by, flops, nbytes = chain_bound(
+                        B, N, F, L, Hd, K, ns, ns + bi, mode, vb=vb,
+                        sample_bytes=2 if level else 4)
                 timed[f"mh_chain_{mode}_{form}{level}"] = dict(
                     ms=time_cuda(lambda: run_chain(
                         c, mh_chain, mode, ns, bi, cfg.var_RW, vb=vb,
@@ -907,7 +1203,8 @@ def phase_times(torch, model, cfg, B, N, dev, gpu, err, launches):
                     plain_ms=time_cuda(lambda: run_chain(
                         c, mh_chain_ref, mode, ns, bi, cfg.var_RW, vb=vb,
                         generator=gen, **kw), launches=2, reps=3),
-                    bound_ms=bound, bound_by=by, flops=flops, bytes=nbytes)
+                    bound_ms=bound, bound_by=by, flops=flops, bytes=nbytes,
+                    **extra)
         for level in ("", "_fast"):
             kw = fast_kw(torch, level)
             samples = run_chain(c, mh_chain, "e", R, cfg.burnin_E_step,
@@ -927,18 +1224,27 @@ def phase_times(torch, model, cfg, B, N, dev, gpu, err, launches):
     for key in VARIANTS:
         v = timed[key]
         kern = key[:8]                           # mh_chain / nmf_sums
-        log(f"  {key:<22s}: {v['ms']:.4f} ms (plain {v['plain_ms']:.3f} "
-            f"ms), bound {v['bound_ms']:.4f} ms by {v['bound_by']} "
+        by = v.get("binding", v["bound_by"])
+        log(f"  {key:<27s}: {v['ms']:.4f} ms (plain {v['plain_ms']:.3f} "
+            f"ms), bound {v['bound_ms']:.4f} ms by {by} "
             f"({v['flops'] / 1e9:.3f} GFLOP, {v['bytes'] / 1e6:.2f} MB) = "
             f"{100 * v['bound_ms'] / v['ms']:.1f}% of bound; {gpu}")
+        if "bound_terms_ms" in v:
+            log("    K1d bound terms: " + ", ".join(
+                f"{k} {t:.4f} ms" for k, t in v["bound_terms_ms"].items())
+                + f"; {v['past_tol']} of {v['compared']} elements past TOL "
+                "against the plain version")
         source, replaces = SOURCES[kern]
+        detail = dict(B=B, N=N, F=F, L=L, H=Hd, K=K, R=R, flops=v["flops"],
+                      bytes=v["bytes"])
+        detail.update({k: v[k] for k in ("bound_terms_ms", "binding",
+                                         "past_tol", "compared") if k in v})
         kernels.append(dict(
             name=key, route="cuda", source=source, replaces=replaces,
             launches=launches[kern][key[9:]],
             max_abs_err=err[key], ms=v["ms"], plain_ms=v["plain_ms"],
             bound_ms=v["bound_ms"], bound_by=v["bound_by"], library_ms=None,
-            detail=dict(B=B, N=N, F=F, L=L, H=Hd, K=K, R=R,
-                        flops=v["flops"], bytes=v["bytes"])))
+            detail=detail))
     return kernels
 
 
@@ -1018,7 +1324,7 @@ def main(argv=None):
     batch = main_batch(args.seed)
     pairs, x_b, mask = batch
     log("kernels vs plain versions (full width, M2-IBM decoder):")
-    err = phase_kernels(torch, model, dev, [(2, 256), mask.shape])
+    err, k1d_past = phase_kernels(torch, model, dev, [(2, 256), mask.shape])
     log("main path (enhance_waveform, label_mode='dnn', MCEMConfig()):")
     cfg = MCEMConfig()
     main_res = phase_main(torch, model, classifier, mean, std, cfg, batch,
@@ -1066,26 +1372,37 @@ def main(argv=None):
     log("HTTP front end (EnhancementHTTPServer on port 0):")
     serving["http"] = phase_http(svc, pairs[0])
 
+    hybrid = phase_hybrid(torch, model, classifier, mean, std, batch,
+                          args.seed, dev, gpu)
+    log("hybrid on the card against the CPU path:")
+    hybrid["card_vs_cpu_lsb"] = phase_hybrid_reference(
+        torch, model, classifier, mean, std, pairs, dev)
+    log(f"paper-config harness (bench_niter500, {HARNESS_ARGS}):")
+    harness = phase_harness(torch, dev)
+
     log("kernel times at the paths' shapes:")
     # each variant's launches on the first path that runs it
-    runs = [main_res, paths["real-noise"], *fast.values(), serving]
+    runs = [main_res, paths["real-noise"], *fast.values(), serving,
+            *(r for r in hybrid.values() if isinstance(r, dict)), harness]
     launches = {k: {v: next((r["launches"][k][v] for r in runs
                              if r["launches"][k][v]), 0)
                     for v in main_res["launches"][k]}
                 for k in main_res["launches"]}
-    idle = [f"{k}_{v}" for k, d in launches.items() for v, n in d.items()
-            if not n]
+    idle = [v for v in VARIANTS
+            if v not in OFF_PATH and not launches[v[:8]][v[9:]]]
     check(not idle, f"variants no path launched: {idle}")
     kernels = phase_times(torch, model, cfg, *mask.shape, dev, gpu, err,
-                          launches)
+                          launches, k1d_past)
 
-    for r in (main_res, *paths.values(), *fast.values()):
+    for r in (main_res, *paths.values(), *fast.values(),
+              *(r for r in hybrid.values() if isinstance(r, dict))):
         r.pop("s16")
     record = {
         "gpu": gpu, "torch": torch.__version__, "build_s": build_s,
         "ptxas": ptxas, "main_path": main_res, "profile": prof,
-        "paths": paths, "fast": fast, "serving": serving,
-        "kernels": kernels, "seconds": time.perf_counter() - t_start,
+        "paths": paths, "fast": fast, "serving": serving, "hybrid": hybrid,
+        "harness": harness, "kernels": kernels,
+        "seconds": time.perf_counter() - t_start,
     }
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:

@@ -3,7 +3,8 @@
 The JAX package `guided_vae_nmf_tpu` is the reference; this package runs
 the M2-IBM enhancement main path, the fixed-noise path (spp / spp2 noise
 models, noise gain, the real-noise and impulse-noise profiles, timo
-labels), fast mode and the online service (`serving`, `http_serving`) in
+labels), fast mode, the online service (`serving`, `http_serving`) and the
+paper-config path (PEEM, the PEEM -> MCEM hybrid, `bench_niter500`) in
 PyTorch, with hand-written CUDA kernels (`csrc/`) for the MH chain (K1)
 and the NMF M-step sums (K2).
 
@@ -32,7 +33,8 @@ def reset_launch_counts():
 def launch_counts():
     """Kernel launches per wrapper and variant since the last reset:
     {"mh_chain": {"e_wh": 100, "wf_wh": 1, "e_vb": 0, ..., "e_wh_fast": 0,
-    ..., "wf_vb_trans": 0}, "nmf_sums": {"h_wh": 100, ..., "g_vb_fast": 0}}
-    (exact variants, then the fast-mode ones; see `mcem.mh_chain` and
-    `mcem.nmf_sums`)."""
+    ..., "wf_vb_trans": 0, "e_wh_mm16": 0, ..., "wf_vb_trans_mm16": 0},
+    "nmf_sums": {"h_wh": 100, ..., "g_vb_fast": 0}} (exact variants, the
+    fast-mode ones, then the chain's with bfloat16 decoder products; see
+    `mcem.mh_chain` and `mcem.nmf_sums`)."""
     return {name: dict(fn.launches) for name, fn in _wrappers().items()}

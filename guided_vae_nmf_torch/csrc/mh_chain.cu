@@ -7,14 +7,32 @@
 // hardware approximate reciprocal for every 1/Vx, and (approx_trans) the
 // bit-arithmetic log / exp of the TPU kernel's _fast_log / _fast_exp for
 // the decoder's output exp, the data term's log, the accept test's log u
-// and the Box-Muller logs. The template flag OPTS separates the main
-// path's exact kernel (in-kernel Philox, exact math, float32 dumps, and no
-// code for anything else: any added code path, even the once-a-launch
-// initial data term, measurably slowed its steps) from the kernel with
-// runtime options: the recorded streams and the fast-mode options are
-// fields of Params, uniform over the grid, and its data-term loop is
-// instantiated with and without approx_trans. Four kernels of each kind
-// keep the build under a minute.
+// and the Box-Muller logs; and with the decoder's three products on
+// bfloat16 operands (K1d, the TPU kernel's matmul_dtype=bfloat16). The
+// template flag OPTS separates the main path's exact kernel (in-kernel
+// Philox, exact math, float32 dumps, and no code for anything else: any
+// added code path, even the once-a-launch initial data term, measurably
+// slowed its steps) from the kernel with runtime options: the recorded
+// streams, the fast-mode options and the bfloat16 products are fields of
+// Params, uniform over the grid, and its data-term loop is instantiated
+// with and without approx_trans, its hidden layers with and without the
+// bfloat16 rounding. Four kernels of each kind keep the build under a
+// minute.
+//
+// K1d (mm_bf16): the TPU kernel casts both operands of each decoder
+// product to bfloat16 and accumulates in float32. Here the wrapper hands
+// the kernel weights already rounded to bfloat16 (held as float32), the
+// first layer rounds the latent operand as it reads it (never the chain
+// state z / zp, which the accept rule and the state update read in
+// float32), and each hidden layer rounds its tanh outputs where it writes
+// them, since they feed only the next product. A product of two bfloat16
+// values is exact in float32, so the FMA loops stay as they are and sum
+// the same exact products as the TPU kernel, in another order. This is
+// the simplest correct form, not a fast one: the products still run on
+// the FMA pipes. On Hopper the option is what could use the tensor cores:
+// T = 16 frames a CTA is exactly mma.sync.m16n8k16's M, and a bfloat16 wo
+// (128 x 513 x 2 B = 131 KB) fits in shared memory, where the float32 one
+// (263 KB) does not. Both belong to the work on K1's speed.
 //
 // Per frame and step the chain proposes Zp = Z + sqrt(var_RW) * n, decodes
 // Vsp = exp(Wo tanh(W2 tanh(Zp W1 + ypre) + b2) + bo), forms
@@ -111,6 +129,7 @@ struct Params {
   uint32_t seed_lo, seed_hi;
   __nv_bfloat16* out1h;  // E: bfloat16 samples in place of out1, or null
   int approx_recip, approx_trans;
+  int mm_bf16;        // decoder products on bfloat16 operands (K1d)
 };
 
 constexpr double LN2 = 0.6931471805599453;
@@ -219,6 +238,23 @@ __device__ __forceinline__ float f4get(const float4& v, int j) {
   return j == 0 ? v.x : (j == 1 ? v.y : (j == 2 ? v.z : v.w));
 }
 
+// x rounded to the nearest bfloat16 (ties to even), as a float.
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// A float4 of latent operands, rounded to bfloat16 under RND (K1d).
+template <bool RND>
+__device__ __forceinline__ float4 operand4(float4 v) {
+  if (RND) {
+    v.x = bf16_round(v.x);
+    v.y = bf16_round(v.y);
+    v.z = bf16_round(v.z);
+    v.w = bf16_round(v.w);
+  }
+  return v;
+}
+
 // Shared-memory carve-up of one CTA (floats; every offset is a multiple of
 // 16, so the [.][T] arrays can be read as float4).
 struct Smem {
@@ -258,7 +294,10 @@ __device__ inline Smem carve(float* base, const Params& p, int n_warps) {
 }
 
 // Decoder hidden stack on the [L][T] latent tile `zin`; returns the [Hd][T]
-// buffer holding the last hidden layer. Ends with a barrier.
+// buffer holding the last hidden layer. Ends with a barrier. RND (K1d):
+// the latent operand is rounded to bfloat16 as it is read and each hidden
+// output as it is written; the weights arrive rounded.
+template <bool RND>
 __device__ const float* hidden_layers(const Params& p, const Smem& sm,
                                       const float* zin) {
   const int items = p.Hd * (T / FT);
@@ -269,8 +308,10 @@ __device__ const float* hidden_layers(const Params& p, const Smem& sm,
     for (int t = 0; t < FT; ++t) acc[t] = 0.0f;
     for (int l = 0; l < p.L; ++l) {
       const float w = __ldg(p.w1 + l * p.Hd + j);
-      const float4 a = *reinterpret_cast<const float4*>(zin + l * T + t0);
-      const float4 b = *reinterpret_cast<const float4*>(zin + l * T + t0 + 4);
+      const float4 a =
+          operand4<RND>(*reinterpret_cast<const float4*>(zin + l * T + t0));
+      const float4 b =
+          operand4<RND>(*reinterpret_cast<const float4*>(zin + l * T + t0 + 4));
 #pragma unroll
       for (int t = 0; t < 4; ++t) {
         acc[t] = fmaf(f4get(a, t), w, acc[t]);
@@ -278,8 +319,10 @@ __device__ const float* hidden_layers(const Params& p, const Smem& sm,
       }
     }
 #pragma unroll
-    for (int t = 0; t < FT; ++t)
-      sm.hA[j * T + t0 + t] = tanhf(__fadd_rn(acc[t], sm.ypre[j * T + t0 + t]));
+    for (int t = 0; t < FT; ++t) {
+      const float h = tanhf(__fadd_rn(acc[t], sm.ypre[j * T + t0 + t]));
+      sm.hA[j * T + t0 + t] = RND ? bf16_round(h) : h;
+    }
   }
   __syncthreads();
   float* src = sm.hA;
@@ -304,8 +347,10 @@ __device__ const float* hidden_layers(const Params& p, const Smem& sm,
       }
       const float bj = __ldg(bias + j);
 #pragma unroll
-      for (int t = 0; t < FT; ++t)
-        dst[j * T + t0 + t] = tanhf(__fadd_rn(acc[t], bj));
+      for (int t = 0; t < FT; ++t) {
+        const float h = tanhf(__fadd_rn(acc[t], bj));
+        dst[j * T + t0 + t] = RND ? bf16_round(h) : h;
+      }
     }
     __syncthreads();
     float* tmp = src;
@@ -313,6 +358,17 @@ __device__ const float* hidden_layers(const Params& p, const Smem& sm,
     dst = tmp;
   }
   return src;
+}
+
+// The hidden stack in float32, or with bfloat16 operands under mm_bf16
+// (OPTS kernel only: the exact kernel instantiates the float32 stack
+// alone).
+template <bool OPTS>
+__device__ __forceinline__ const float* decoder_hidden(const Params& p,
+                                                       const Smem& sm,
+                                                       const float* zin) {
+  if (OPTS && p.mm_bf16) return hidden_layers<true>(p, sm, zin);
+  return hidden_layers<false>(p, sm, zin);
 }
 
 // Output layer for this thread's columns c = tid + i * blockDim.x:
@@ -467,7 +523,7 @@ __device__ __forceinline__ void mh_step(const Params& p, const Smem& sm,
   }
   __syncthreads();
   float v[MAXC][T];
-  out_layer<OPTS>(p, hidden_layers(p, sm, sm.zp), v);
+  out_layer<OPTS>(p, decoder_hidden<OPTS>(p, sm, sm.zp), v);
   // proposal data term sp = sum_f log Vxp + X2 / Vxp
   float part[T];
   data_terms<OPTS>(p, sm, v, part);
@@ -622,7 +678,7 @@ __global__ void __launch_bounds__(MAX_NT, 1) mh_chain_kernel(Params p) {
     mh_step<MODE, OPTS, false>(p, sm, b, n0, m, 0, vs, inv);
 
   // phase boundary: Vs = decode(Z), 1/Vx at it; s stays as carried
-  out_layer<OPTS>(p, hidden_layers(p, sm, sm.z), vs);
+  out_layer<OPTS>(p, decoder_hidden<OPTS>(p, sm, sm.z), vs);
 #pragma unroll
   for (int i = 0; i < MAXC; ++i) {
     const int c = tid + i * NT;
@@ -740,7 +796,9 @@ long long gvnmf_mh_chain_smem(int F, int L, int Hd, int K) {
 // selects the Vb form (K = 0; wt, h, mask and the partials unused). zn / u
 // null selects the in-kernel Philox stream keyed on `seed`. samples_bf16
 // (E-mode only): out1 holds bfloat16 samples. approx_recip / approx_trans:
-// the fast-mode options. Returns the cudaError_t of the launches.
+// the fast-mode options. mm_bf16: the decoder's products on bfloat16
+// operands (w1, wmid and wo must arrive rounded to bfloat16). Returns the
+// cudaError_t of the launches.
 int gvnmf_mh_chain(const float* x2, const float* vb, const float* wt,
                    const float* h, const float* mask, const float* g,
                    const float* ypre,
@@ -752,7 +810,8 @@ int gvnmf_mh_chain(const float* x2, const float* vb, const float* wt,
                    int F, int L, int Hd, int K, int depth, int n_steps,
                    int burnin, float sqrt_var, int mode,
                    unsigned long long seed, int samples_bf16,
-                   int approx_recip, int approx_trans, void* stream) {
+                   int approx_recip, int approx_trans, int mm_bf16,
+                   void* stream) {
   const int nt = gvnmf_mh_chain_block(F);
   if (N % T != 0 || nt > MAX_NT || depth < 1 || burnin < 0 ||
       burnin > n_steps || (mode != MODE_E && mode != MODE_WF) ||
@@ -766,12 +825,12 @@ int gvnmf_mh_chain(const float* x2, const float* vb, const float* wt,
            part1, part2, B, N, F, L, Hd, K, depth, n_steps, burnin, sqrt_var,
            (uint32_t)(seed & 0xffffffffull), (uint32_t)(seed >> 32),
            samples_bf16 ? static_cast<__nv_bfloat16*>(out1) : nullptr,
-           approx_recip != 0, approx_trans != 0};
+           approx_recip != 0, approx_trans != 0, mm_bf16 != 0};
   const size_t smem = (size_t)gvnmf_mh_chain_smem(F, L, Hd, K);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   // the exact Philox kernel, or the one with runtime options
   const bool opts = zn != nullptr || samples_bf16 || approx_recip ||
-                    approx_trans;
+                    approx_trans || mm_bf16;
   cudaError_t e;
   if (mode == MODE_E && !opts)
     e = vbf ? launch<MODE_E, true, false>(p, nt, smem, st)

@@ -3,7 +3,9 @@
 Counterpart of `_dec_parts`, `_nmf_m_step_batched`, `_masked_cost_batched`
 and `mcem_batch_fused` in `guided_vae_nmf_tpu/mcem/pallas_engine.py`, in
 exact mode and in fast mode (the K1c / K2c options: bfloat16 sample dumps,
-approximate reciprocal, bit-arithmetic exp / log). Per EM iteration with the NMF noise model: one E-mode chain
+approximate reciprocal, bit-arithmetic exp / log), and with the chains'
+decoder products on bfloat16 operands (K1d, `matmul_dtype`). Per EM
+iteration with the NMF noise model: one E-mode chain
 with WH (K1a, which also emits the W-update num/den), the W update, one 'h'
 sums pass at the post-W noise variance (K2a), the H update, L1
 normalisation, one 'g' sums pass (K2a) and the gain update. With a fixed
@@ -19,7 +21,7 @@ CUDA tensors launch the kernels; CPU tensors run their plain versions.
 import torch
 
 from .engine import VX_FLOOR, MCEMConfig, noise_gain_state
-from .mh_chain import mh_chain
+from .mh_chain import _check_matmul_dtype, bf16_weights, mh_chain
 from .nmf_sums import nmf_sums
 
 
@@ -96,7 +98,7 @@ def mcem_batch_fused(model, X_abs2, mask, y, generator,
                      cfg: MCEMConfig = MCEMConfig(), update_nmf=True,
                      Vb_fixed=None, compute_cost=True, init=None,
                      samples_dtype=torch.float32, approx_recip=False,
-                     approx_trans=False):
+                     approx_trans=False, matmul_dtype=torch.float32):
     """Full batched MCEM. X_abs2 (B, F, N) with benign pad frames, mask
     (B, N), y (B, y_dim, N) or None (M1), `generator` a torch.Generator on
     the tensors' device. Returns {"WFs", "WFn" (B, F, N), "cost" (B, niter),
@@ -117,7 +119,10 @@ def mcem_batch_fused(model, X_abs2, mask, y, generator,
     chain approx_recip and approx_trans; every sums pass approx_recip. The
     initial Vs = decode(Z) stays exact, and the chain state stays float32.
     compute_cost=False skips the cost pass (the result's "cost" is zeros),
-    as fast mode does."""
+    as fast mode does. matmul_dtype=torch.bfloat16 runs the decoder
+    products of every E chain and of the WF chain on bfloat16 operands
+    (K1d); the initial decode stays float32."""
+    _check_matmul_dtype(matmul_dtype)
     if cfg.noise_gain and update_nmf:
         raise ValueError(
             "MCEMConfig.noise_gain requires a fixed noise model "
@@ -151,6 +156,8 @@ def mcem_batch_fused(model, X_abs2, mask, y, generator,
     for w, b in dec_w["mid"]:
         h = torch.tanh(h @ w + b)
     Vs = torch.exp(h @ dec_w["wo"] + dec_w["bo"])            # decode(Z)
+    if matmul_dtype == torch.bfloat16:
+        dec_w = bf16_weights(dec_w)          # rounded once, not per launch
 
     K = cfg.nmf_rank
     if "W" in init:
@@ -178,7 +185,8 @@ def mcem_batch_fused(model, X_abs2, mask, y, generator,
                           device=dev).tolist()
     chain_kw = dict(nsamples=cfg.nsamples_E_step, burnin=cfg.burnin_E_step,
                     var_RW=cfg.var_RW, samples_dtype=samples_dtype,
-                    approx_recip=approx_recip, approx_trans=approx_trans)
+                    approx_recip=approx_recip, approx_trans=approx_trans,
+                    matmul_dtype=matmul_dtype)
     sums_kw = dict(approx_recip=approx_recip)
 
     costs = []
@@ -233,7 +241,7 @@ def mcem_batch_fused(model, X_abs2, mask, y, generator,
 
     wf_kw = dict(nsamples=cfg.nsamples_WF, burnin=cfg.burnin_WF,
                  var_RW=cfg.var_RW, approx_recip=approx_recip,
-                 approx_trans=approx_trans)
+                 approx_trans=approx_trans, matmul_dtype=matmul_dtype)
     if update_nmf:
         Z, Vs, (ws, wn) = mh_chain(dec_w, X2, (Wt, H), g, ypre, Z, Vs,
                                    seeds[cfg.niter], mode="wf", **wf_kw)

@@ -5,8 +5,18 @@ Counterpart of `mh_chain_pallas` in `guided_vae_nmf_tpu/mcem/pallas_engine.py`
 with a given noise variance `Vb=` (K1b, the fixed-noise models), each in
 exact math with float32 sample dumps or with the fast-mode options (K1c):
 `samples_dtype=torch.bfloat16` dumps (E-mode), `approx_recip` and
-`approx_trans`. The kernel is `csrc/mh_chain.cu`; :func:`mh_chain_ref` is
-its plain PyTorch version, step by step the same function.
+`approx_trans`, and with the decoder's products in bfloat16 (K1d,
+`matmul_dtype=torch.bfloat16`). The kernel is `csrc/mh_chain.cu`;
+:func:`mh_chain_ref` is its plain PyTorch version, step by step the same
+function.
+
+Under `matmul_dtype=torch.bfloat16` both operands of each of the decoder's
+three products are rounded to bfloat16 (round to nearest even) and the
+products summed in float32, as the TPU kernel's `mm` does; `ypre`, the
+biases and all chain state stay float32. A product of two bfloat16 values
+is exact in float32, so the two versions differ only in the order of the
+sums, and where that moves a hidden output across a bfloat16 rounding
+boundary, by one bfloat16 ulp of that operand.
 
 Under `approx_trans` both evaluate the decoder's output exp, the data
 term's log and the accept test's log u with :func:`fast_exp` /
@@ -22,7 +32,9 @@ X2, Vs, Vb (B, N, F); g, mask (B, N); ypre (B, N, H); Z (B, N, L); the NMF
 factors Wt (B, K, F) and H (B, K, N). `mh_chain.launches` counts kernel
 launches per variant: "e_wh", "wf_wh", "e_vb", "wf_vb" for exact launches,
 the same names ending in "_fast" for launches with a fast option but not
-`approx_trans`, and in "_trans" for those with `approx_trans`.
+`approx_trans`, in "_trans" for those with `approx_trans`, and the level's
+key followed by "_mm16" for launches with bfloat16 products (for example
+"e_wh_fast_mm16").
 """
 
 import ctypes
@@ -34,11 +46,13 @@ from .. import _build
 from .engine import VX_FLOOR
 
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = ([_VP] * 23 + [_I] * 9 + [_F, _I, ctypes.c_uint64] + [_I] * 3
+_ARGTYPES = ([_VP] * 23 + [_I] * 9 + [_F, _I, ctypes.c_uint64] + [_I] * 4
              + [_VP])
 _LN2 = 0.6931471805599453
 _SQRT2 = 1.4142135623730951
 SAMPLE_DTYPES = (torch.float32, torch.bfloat16)
+MATMUL_DTYPES = (torch.float32, torch.bfloat16)
+LEVELS = ("", "_fast", "_trans")
 
 
 def fast_log(x):
@@ -71,12 +85,30 @@ def fast_exp(x):
     return scale * p
 
 
-def _variant(mode, form, samples_dtype, approx_recip, approx_trans):
+def _variant(mode, form, samples_dtype, approx_recip, approx_trans,
+             matmul_dtype=torch.float32):
     """The `mh_chain.launches` key of a launch."""
+    mm = "_mm16" if matmul_dtype == torch.bfloat16 else ""
     if approx_trans:
-        return f"{mode}_{form}_trans"
+        return f"{mode}_{form}_trans{mm}"
     fast = approx_recip or (mode == "e" and samples_dtype == torch.bfloat16)
-    return f"{mode}_{form}_fast" if fast else f"{mode}_{form}"
+    return f"{mode}_{form}{'_fast' if fast else ''}{mm}"
+
+
+def bf16_weights(dec_w):
+    """`dec_w` with the weights of the decoder's three products (w1, the
+    hidden layers' w, wo) rounded to bfloat16 and held as float32, the
+    operands K1d reads; the biases stay as they are. Rounding is
+    idempotent, so the plain version may take these too. A caller that
+    runs many bfloat16-product chains makes them once
+    (`mcem_batch_fused` does); the wrapper makes them per launch
+    otherwise."""
+    def r(w):
+        return w.to(torch.bfloat16).float()
+
+    return {"w1": r(dec_w["w1"]),
+            "mid": tuple((r(w), b) for w, b in dec_w["mid"]),
+            "wo": r(dec_w["wo"]), "bo": dec_w["bo"], "bf16": True}
 
 
 def _lib():
@@ -112,7 +144,8 @@ def _one_of(WH, Vb):
 def mh_chain_ref(dec_w, X2, WH, g, ypre, Z, Vs, mode="e", nsamples=10,
                  burnin=30, var_RW=0.01, noise=None, mask=None,
                  generator=None, Vb=None, samples_dtype=torch.float32,
-                 approx_recip=False, approx_trans=False):
+                 approx_recip=False, approx_trans=False,
+                 matmul_dtype=torch.float32):
     """Plain PyTorch version of the chain (also the CPU path).
 
     Exactly one of WH = (Wt, H) and Vb (B, N, F) gives the noise variance.
@@ -123,9 +156,12 @@ def mh_chain_ref(dec_w, X2, WH, g, ypre, Z, Vs, mode="e", nsamples=10,
     s2 = sum 1/Vx^2 (B, N, F) in 'e' mode with Vb, and (WFs_sum, WFn_sum)
     (B, N, F) in 'wf' mode. The samples are rounded to `samples_dtype`;
     `approx_trans` swaps the exp / log for :func:`fast_exp` /
-    :func:`fast_log`; `approx_recip` changes nothing here (exact 1/Vx)."""
+    :func:`fast_log`; `approx_recip` changes nothing here (exact 1/Vx);
+    `matmul_dtype=torch.bfloat16` rounds both operands of each decoder
+    product to bfloat16 and sums the exact products in float32."""
     _one_of(WH, Vb)
     _check_dtype(samples_dtype)
+    _check_matmul_dtype(matmul_dtype)
     log_ = fast_log if approx_trans else torch.log
     exp_ = fast_exp if approx_trans else torch.exp
     B, N, F = X2.shape
@@ -144,11 +180,18 @@ def mh_chain_ref(dec_w, X2, WH, g, ypre, Z, Vs, mode="e", nsamples=10,
     G = g[..., None]
     sqrt_var = float(np.sqrt(var_RW))
 
+    if matmul_dtype == torch.bfloat16:
+        def mm(a, w):
+            return a.to(torch.bfloat16).float() @ w.to(torch.bfloat16).float()
+    else:
+        def mm(a, w):
+            return a @ w
+
     def decode(Zc):
-        h = torch.tanh(Zc @ dec_w["w1"] + ypre)
+        h = torch.tanh(mm(Zc, dec_w["w1"]) + ypre)
         for w, b in dec_w["mid"]:
-            h = torch.tanh(h @ w + b)
-        return exp_(h @ dec_w["wo"] + dec_w["bo"])
+            h = torch.tanh(mm(h, w) + b)
+        return exp_(mm(h, dec_w["wo"]) + dec_w["bo"])
 
     def mix_var(Vs_):
         return torch.clamp_min(G * Vs_ + Vb, VX_FLOOR)
@@ -208,6 +251,12 @@ def _check_dtype(samples_dtype):
                          f"{samples_dtype}")
 
 
+def _check_matmul_dtype(matmul_dtype):
+    if matmul_dtype not in MATMUL_DTYPES:
+        raise ValueError(f"matmul_dtype must be one of {MATMUL_DTYPES}, got "
+                         f"{matmul_dtype}")
+
+
 def _check(name, t, shape, device):
     if t.dtype != torch.float32:
         raise TypeError(f"{name} must be float32, got {t.dtype}")
@@ -236,13 +285,14 @@ def _mid_stacked(dec_w, Hd, device):
 def mh_chain(dec_w, X2, WH, g, ypre, Z, Vs, seed=0, mode="e", nsamples=10,
              burnin=30, var_RW=0.01, noise=None, mask=None, Vb=None,
              samples_dtype=torch.float32, approx_recip=False,
-             approx_trans=False):
+             approx_trans=False, matmul_dtype=torch.float32):
     """Run the chain over a frames-major batch (see :func:`mh_chain_ref`
     for the arguments and results). `Vs` must be decode(Z): the initial data
     term comes from it and the kernel re-derives Vs at the burn-in boundary.
     E-mode with WH needs the frame mask; the Vb form is unmasked.
     `samples_dtype` is the E-mode sample dump's type (WF-mode has none and
-    ignores it, as the JAX kernel does).
+    ignores it, as the JAX kernel does). `matmul_dtype` is torch.float32 or
+    torch.bfloat16 (K1d, the decoder's products on bfloat16 operands).
 
     seed: keys the in-kernel Philox stream on CUDA (the CPU path seeds a
     `torch.Generator` with it); ignored when `noise` is given."""
@@ -250,10 +300,11 @@ def mh_chain(dec_w, X2, WH, g, ypre, Z, Vs, seed=0, mode="e", nsamples=10,
         raise ValueError(f"mode must be 'e' or 'wf', got {mode!r}")
     _one_of(WH, Vb)
     _check_dtype(samples_dtype)
+    _check_matmul_dtype(matmul_dtype)
     if mode == "e" and WH is not None and mask is None:
         raise ValueError("E-mode with WH needs the frame mask")
     fast_kw = dict(samples_dtype=samples_dtype, approx_recip=approx_recip,
-                   approx_trans=approx_trans)
+                   approx_trans=approx_trans, matmul_dtype=matmul_dtype)
     if X2.device.type == "cpu":
         gen = None
         if noise is None:
@@ -266,6 +317,9 @@ def mh_chain(dec_w, X2, WH, g, ypre, Z, Vs, seed=0, mode="e", nsamples=10,
         raise ValueError(f"unsupported device {X2.device}")
     dev = X2.device
     lib = _lib()
+    mm16 = matmul_dtype == torch.bfloat16
+    if mm16 and not dec_w.get("bf16"):
+        dec_w = bf16_weights(dec_w)
     B, N, F = X2.shape
     L = Z.shape[-1]
     Wt, H = WH if WH is not None else (None, None)
@@ -329,7 +383,7 @@ def mh_chain(dec_w, X2, WH, g, ypre, Z, Vs, seed=0, mode="e", nsamples=10,
             B, N, F, L, Hd, K, depth, n_steps, burnin,
             float(np.sqrt(var_RW)), 0 if mode == "e" else 1,
             int(seed) & (2**64 - 1), int(bf16), int(bool(approx_recip)),
-            int(bool(approx_trans)), _stream(dev))
+            int(bool(approx_trans)), int(mm16), _stream(dev))
     _build.check(status, "mh_chain kernel")
     mh_chain.launches[_variant(mode, "wh" if WH is not None else "vb",
                                **fast_kw)] += 1
@@ -339,7 +393,7 @@ def mh_chain(dec_w, X2, WH, g, ypre, Z, Vs, seed=0, mode="e", nsamples=10,
 
 
 mh_chain.launches = dict.fromkeys(
-    (f"{mode}_{form}{level}" for level in ("", "_fast", "_trans")
+    (f"{mode}_{form}{level}{mm}" for mm in ("", "_mm16") for level in LEVELS
      for mode, form in (("e", "wh"), ("wf", "wh"), ("e", "vb"),
                         ("wf", "vb"))), 0)
 

@@ -12,10 +12,14 @@ models: 'nmf' (the reference protocol), 'spp' (a fixed noise variance from
 the SPP tracker, only the gains updated) and 'spp2' (two passes: the first
 pass's residual power, EMA-smoothed and floored at the SPP PSD, is the
 second pass's fixed noise variance), with the optional noise gain.
+Engines, chosen by the config's type: `MCEMConfig` runs the fused MCEM
+engine, `PEEMConfig` PEEM (gradient E-step, no sampling) and
+`HybridConfig` the PEEM -> MCEM hybrid (PEEM warm start, a short fused
+MCEM refinement and its Wiener filter).
 Label sources: 'dnn' (classifier on standardized power frames,
 > threshold), 'timo' (SPP soft mask, > 0.5), 'host' (caller's labels),
-'ones', 'zeros' and 'none' (M1). The 'hybrid' noise model, 'oracle'
-labels and PEEM are not ported yet and raise NotImplementedError.
+'ones', 'zeros' and 'none' (M1). The 'hybrid' noise model and 'oracle'
+labels are not ported yet and raise NotImplementedError.
 
 Entry points run on the GPU unless `device` names another device.
 """
@@ -35,8 +39,15 @@ from ._device import resolve_device
 from .data import read_wav_int16, wav_num_samples, write_wav
 from .dsp import frame_count, istft_masked, pad_signal_for_stft
 from .dsp import stft_batch_padded
-from .mcem.engine import MCEMConfig
+from .mcem.engine import MCEMConfig, _fold_in
 from .mcem.fused_engine import mcem_batch_fused
+from .mcem.peem import (
+    HybridConfig,
+    PEEMConfig,
+    peem_m1_batch,
+    peem_m2_batch,
+    peem_mcem_m2_batch,
+)
 from .mcem.spp import spp_track, timo_mask, timo_vad
 from .models.nets import classifier_features
 from .profiles import apply_profile_cfg, offline_settings
@@ -91,10 +102,14 @@ def _packbits_bands(y):
 
 def validate_noise_model(noise_model, cfg=None):
     """The one whitelist of noise models: a misspelt name raises instead of
-    running 'nmf'; the noise gain needs a fixed noise model."""
+    running 'nmf'; the PEEM -> MCEM hybrid takes 'nmf', 'spp' or 'spp2';
+    the noise gain needs a fixed noise model."""
     if noise_model not in NOISE_MODELS:
         raise ValueError(f"noise_model must be one of {NOISE_MODELS}, "
                          f"got {noise_model!r}")
+    if isinstance(cfg, HybridConfig) and noise_model == "hybrid":
+        raise ValueError("algorithm 'hybrid' supports noise_model "
+                         "'nmf', 'spp' or 'spp2' only")
     if getattr(cfg, "noise_gain", False) and noise_model not in (
             "spp", "spp2"):
         raise ValueError("MCEMConfig.noise_gain requires a fixed noise "
@@ -125,10 +140,6 @@ def _check_supported(noise_model, fast, cfg):
         raise NotImplementedError(
             "noise_model 'hybrid' runs on the eager engine, which is not "
             "ported yet (ROADMAP Queue 1, item 3)")
-    if not isinstance(cfg, MCEMConfig):
-        raise NotImplementedError(
-            f"{type(cfg).__name__} (PEEM / hybrid) is not ported yet "
-            "(ROADMAP Queue 1, item 7)")
 
 
 def _ema_time(P, alpha):
@@ -142,21 +153,12 @@ def _ema_time(P, alpha):
 
 
 def _spp2_pass1_cfg(cfg):
-    """Reduced-iteration copy of an MCEMConfig for spp2's first pass."""
-    p1 = cfg.spp2_pass1_niter
+    """Reduced-iteration copy of an MCEMConfig for spp2's first pass; a
+    config without `spp2_pass1_niter` (PEEM, hybrid) runs unchanged."""
+    p1 = getattr(cfg, "spp2_pass1_niter", None)
     if not p1 or p1 >= cfg.niter:
         return cfg
     return dataclasses.replace(cfg, niter=p1)
-
-
-def _fold_in(generator, data):
-    """A new generator on the same device whose seed is a function of
-    `generator`'s seed and `data` only (the counterpart of JAX's
-    `fold_in`): it does not depend on how far `generator` has advanced."""
-    seed = np.random.SeedSequence(
-        [generator.initial_seed(), data]).generate_state(1, np.uint64)[0]
-    return torch.Generator(device=generator.device).manual_seed(
-        int(seed) >> 1)
 
 
 def _spp2_two_pass(run_engine, Vb_spp, X_p, generator, cfg):
@@ -172,11 +174,13 @@ def _spp2_two_pass(run_engine, Vb_spp, X_p, generator, cfg):
 
 def _mcem_wf_istft(model, X_re, X_im, X_p, mask, y, generator, cfg,
                    noise_model="nmf", fast=False, init=None):
-    """Noise model -> MCEM -> Wiener filtering -> masked batched ISTFT.
+    """Noise model -> engine (by the config's type: fused MCEM, PEEM or
+    the PEEM -> MCEM hybrid) -> Wiener filtering -> masked batched ISTFT.
     Returns (s_est, n_est) padded float32 waveforms and the (B, F, N)
     Wiener gains. The SPP tracker runs over the whole padded X_p, as in the
     JAX package (its recurrence is causal, so pad frames cannot perturb the
-    valid prefix)."""
+    valid prefix). `init` is the engine's warm start; PEEM and the hybrid
+    take its "W" / "H"."""
     _check_supported(noise_model, fast, cfg)
     update_nmf = noise_model == "nmf"
     Vb_spp = None
@@ -185,6 +189,17 @@ def _mcem_wf_istft(model, X_re, X_im, X_p, mask, y, generator, cfg,
         Vb_spp = torch.clamp_min(psd, 1e-6)
 
     def run_engine(Vb_fixed, gen, cfg=cfg):
+        if isinstance(cfg, HybridConfig):
+            pcfg, mcfg = cfg.split()
+            return peem_mcem_m2_batch(model, X_p, mask, y, gen, pcfg, mcfg,
+                                      update_nmf=update_nmf,
+                                      Vb_fixed=Vb_fixed, init=init,
+                                      **_fast_kwargs(fast))
+        if isinstance(cfg, PEEMConfig):
+            peem = peem_m1_batch if y is None else peem_m2_batch
+            args = (model, X_p, mask) + (() if y is None else (y,))
+            return peem(*args, gen, cfg, update_nmf=update_nmf,
+                        Vb_fixed=Vb_fixed, init=init)
         return mcem_batch_fused(model, X_p, mask, y, gen, cfg,
                                 update_nmf=update_nmf, Vb_fixed=Vb_fixed,
                                 init=init, **_fast_kwargs(fast))
@@ -219,14 +234,15 @@ def enhance_waveform(model, x_pad, mask, cfg: MCEMConfig = MCEMConfig(), *,
                      device=None):
     """Whole pipeline on RAW WAVEFORMS: batched STFT -> labels -> MCEM ->
     Wiener filtering -> masked ISTFT -> PCM16. noise_model: 'nmf', 'spp' or
-    'spp2' (see the module docstring).
+    'spp2'; cfg: an MCEMConfig, a PEEMConfig or a HybridConfig (see the
+    module docstring).
 
     x_pad: (B, L) host-pre-padded waveforms (:func:`pad_signal_for_stft`),
     int16 (scaled by 1/32768 on the device) or float32; mask (B, N) frame
     validity with N = 1 + (L - 1024) // 256. `generator` (a torch.Generator
     on `device`, default seeded with 0) drives the NMF init and the chain
-    seeds. init: optional warm start passed to the MCEM engine (see
-    `mcem_batch_fused`).
+    seeds. init: optional warm start passed to the engine (see
+    `mcem_batch_fused`; PEEM and the hybrid take its "W" / "H").
 
     Returns (s_i16, n_i16 | None, y_soft f16 | None, y_hard packed u8 |
     None, finite_ok (B,) bool), all on `device`."""

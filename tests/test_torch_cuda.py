@@ -2,7 +2,9 @@
 both forms: with the NMF factors (WH=, K1a / K2a) and with a given noise
 variance (Vb=, K1b / K2b), in exact math and with the fast-mode options
 (K1c / K2c: bfloat16 sample dumps, approximate reciprocal, bit-arithmetic
-exp / log).
+exp / log), and the chain with bfloat16 decoder products (K1d, at its own
+tolerance, K1D_TOL below); the fused engine, PEEM and the PEEM -> MCEM
+hybrid on the card against the CPU run.
 
 Every test here needs an NVIDIA GPU and skips without one. The file
 imports neither JAX nor the JAX package, so it also runs on a GPU machine
@@ -461,3 +463,132 @@ def test_fast_engine_var0_matches_cpu(cuda, level):
         assert_allclose(outs["cuda"][k].cpu().numpy(),
                         outs["cpu"][k].numpy(), rtol=2e-3, atol=1e-5,
                         err_msg=k)
+
+
+# K1d (matmul_dtype=torch.bfloat16): the kernel and the plain version sum
+# the same exact products of bfloat16 operands in another order. Where the
+# order moves a hidden output (or an E-mode sample dump) across a bfloat16
+# rounding boundary, that value moves by one bfloat16 ulp (at most 2^-7 of
+# it). So every element is held at atol 2e-5 / rtol 2e-2, and at most 1 %
+# of them may lie past TOL; a kernel that skipped the rounding would put
+# most of Vs past TOL (checked against the float32-product kernel).
+K1D_TOL = dict(atol=2e-5, rtol=2e-2)
+
+
+def _close_k1d(got, ref):
+    g, r = got.float().cpu().numpy(), ref.float().cpu().numpy()
+    assert_allclose(g, r, **K1D_TOL)
+    assert _past_tol(g, r) <= 0.01
+
+
+def _past_tol(g, r):
+    return float(np.mean(np.abs(g - r) > TOL["atol"] + TOL["rtol"]
+                         * np.abs(r)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("level", ["exact", "fast", "trans"])
+@pytest.mark.parametrize("form", ["wh", "vb"])
+@pytest.mark.parametrize("mode", ["e", "wf"])
+def test_bf16mm_chain_kernel_matches_plain(cuda, mode, form, level):
+    """K1d at full width under decisive injected noise: one launch under
+    the level's key with "_mm16", Z equal to the plain version's, the rest
+    at K1D_TOL; the float32-product kernel's Vs differs."""
+    dims = FULL
+    c = chain_case(cuda, 24, **dims)
+    vb = form == "vb"
+    opts = FAST.get(level, {})
+    noise = decisive_noise(cuda, 25, dims["B"], dims["N"], dims["L"], 7)
+    reset_launch_counts()
+    got = run_chain(mh_chain, c, mode, 4, 3, 0.01, vb=vb, noise=noise,
+                    matmul_dtype=torch.bfloat16, **opts)
+    lv = "" if level == "exact" else f"_{level}"
+    assert nonzero(launch_counts()) == {
+        "mh_chain": {f"{mode}_{form}{lv}_mm16": 1}, "nmf_sums": {}}
+    ref = run_chain(mh_chain_ref, c, mode, 4, 3, 0.01, vb=vb, noise=noise,
+                    matmul_dtype=torch.bfloat16, **opts)
+    f32 = run_chain(mh_chain, c, mode, 4, 3, 0.01, vb=vb, noise=noise,
+                    **opts)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], ref[0])
+    for a, b in zip((got[1],) + got[2], (ref[1],) + ref[2]):
+        _close_k1d(a, b)
+    assert _past_tol(f32[1].cpu().numpy(), ref[1].cpu().numpy()) > 0.5
+
+
+@pytest.mark.cuda
+def test_bf16mm_engine_var0_matches_cpu(cuda):
+    """The fused engine with the harness's fast_bf16mm options on the card
+    against the CPU run at var_RW = 0: every chain launches K1d."""
+    dims = SMALL
+    rng = np.random.RandomState(26)
+    tree = random_dgm(rng, dims["F"], dims["Y"], dims["L"], dims["H"])
+    B, F, N = dims["B"], dims["F"], dims["N"]
+    X = rng.uniform(0.05, 1.05, (B, F, N)).astype(np.float32)
+    y = (rng.uniform(size=(B, dims["Y"], N)) > 0.5).astype(np.float32)
+    mask = np.ones((B, N), np.float32)
+    init = {"W": rng.uniform(0.05, 1, (B, F, dims["K"])).astype(np.float32),
+            "H": rng.uniform(0.05, 1, (B, dims["K"], N)).astype(np.float32)}
+    cfg = MCEMConfig(niter=3, nsamples_E_step=2, burnin_E_step=1,
+                     nsamples_WF=2, burnin_WF=1, var_RW=0.0,
+                     nmf_rank=dims["K"])
+    outs = {}
+    for dev in ("cpu", cuda):
+        t = lambda a: torch.tensor(a, device=dev)  # noqa: E731
+        reset_launch_counts()
+        outs[str(dev)] = mcem_batch_fused(
+            module_from_params(tree, device=dev), t(X), t(mask), t(y),
+            torch.Generator(device=dev).manual_seed(0), cfg,
+            init={k: t(v) for k, v in init.items()}, compute_cost=False,
+            matmul_dtype=torch.bfloat16, **FAST["fast"])
+    assert nonzero(launch_counts()) == {
+        "mh_chain": {"e_wh_fast_mm16": 3, "wf_wh_fast_mm16": 1},
+        "nmf_sums": {"h_wh_fast": 3, "g_wh_fast": 3}}
+    for k in ("WFs", "WFn", "W", "H", "g", "Z"):
+        assert_allclose(outs["cuda"][k].cpu().numpy(),
+                        outs["cpu"][k].numpy(), rtol=2e-3, atol=1e-5,
+                        err_msg=k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fixed", [False, True])
+def test_peem_and_hybrid_var0_match_cpu(cuda, fixed):
+    """PEEM (no kernel launch; its products on cuBLAS in float32) and the
+    PEEM -> MCEM hybrid at var_RW = 0 on the card against the CPU run, from
+    the same seed: PEEM's init is a function of the seed on every device.
+    rtol 1e-3: 8 PEEM iterations and 2 MCEM iterations of float32 sums in
+    other orders."""
+    from guided_vae_nmf_torch.mcem import (
+        PEEMConfig, peem_m2_batch, peem_mcem_m2_batch)
+
+    dims = SMALL
+    rng = np.random.RandomState(27)
+    tree = random_dgm(rng, dims["F"], dims["Y"], dims["L"], dims["H"])
+    B, F, N = dims["B"], dims["F"], dims["N"]
+    X = rng.uniform(0.05, 1.05, (B, F, N)).astype(np.float32)
+    y = (rng.uniform(size=(B, dims["Y"], N)) > 0.5).astype(np.float32)
+    mask = np.ones((B, N), np.float32)
+    Vb = (rng.uniform(size=(B, F, N)) * 0.2 + 0.05).astype(np.float32)
+    pcfg = PEEMConfig(niter=8, e_steps=3, nmf_rank=dims["K"])
+    mcfg = MCEMConfig(niter=2, nsamples_E_step=2, burnin_E_step=1,
+                      nsamples_WF=2, burnin_WF=1, var_RW=0.0,
+                      nmf_rank=dims["K"])
+    peem, hyb = {}, {}
+    for dev in ("cpu", cuda):
+        t = lambda a: torch.tensor(a, device=dev)  # noqa: E731
+        args = (module_from_params(tree, device=dev), t(X), t(mask), t(y),
+                torch.Generator(device=dev).manual_seed(3))
+        kw = dict(update_nmf=not fixed, Vb_fixed=t(Vb) if fixed else None)
+        reset_launch_counts()
+        peem[str(dev)] = peem_m2_batch(*args, pcfg, **kw)
+        assert nonzero(launch_counts()) == {"mh_chain": {}, "nmf_sums": {}}
+        hyb[str(dev)] = peem_mcem_m2_batch(*args, pcfg, mcfg, **kw)
+    form = "vb" if fixed else "wh"
+    sums = {"g_vb": 2} if fixed else {"h_wh": 2, "g_wh": 2}
+    assert nonzero(launch_counts()) == {
+        "mh_chain": {f"e_{form}": 2, f"wf_{form}": 1}, "nmf_sums": sums}
+    for out in (peem, hyb):
+        for k in ("WFs", "WFn", "W", "H", "g", "Z", "cost"):
+            assert_allclose(out["cuda"][k].cpu().numpy(),
+                            out["cpu"][k].numpy(), rtol=1e-3, atol=1e-5,
+                            err_msg=k)
