@@ -11,7 +11,9 @@ Phases, in order; any failure exits nonzero without a result line:
 
 1. device: CUDA is required; prints the card's name and power limit.
 2. build: compiles `guided_vae_nmf_torch/csrc/*.cu` for sm_90a (timed),
-   with each kernel's registers and spills from ptxas.
+   with each kernel's registers and spills from ptxas, and K1's launch
+   geometry (cluster size, CTAs, threads, shared memory a CTA, registers,
+   resident clusters and waves at B=4, N=384 and at B=32, N=512).
 3. kernels vs plain versions, on the card, at full width (F=513, L=32,
    H=128, K=10, the shipped M2-IBM decoder, seeded inputs) at B=2, N=256
    and at the paths' B=4, N=384: the MH chain in E- and WF-mode with the
@@ -60,7 +62,8 @@ Phases, in order; any failure exits nonzero without a result line:
    PEEM and a 25-iteration hybrid, which prints its JSON line (fast_bf16mm:
    100 K1d E + 1 K1d WF launches a run).
 9. kernel times at the paths' shapes (CUDA events), every variant, beside
-   their bounds and their plain versions' times.
+   their bounds and their plain versions' times; and K1a / K1b E and WF
+   at bench.py's B=32, N=512 beside their bounds.
 
 Prints the card's name and power limit, a `{"kernels": [...]}` line, and
 as its last line `{"ok": true, "device": {...}}`.
@@ -1171,8 +1174,14 @@ def phase_times(torch, model, cfg, B, N, dev, gpu, err, launches, k1d_past):
 
     K = cfg.nmf_rank
     R = cfg.nsamples_E_step
+    from guided_vae_nmf_torch.mcem.mh_chain import bf16_weights, pack_weights
+
     c = chain_inputs(torch, model, B, N, K, 7, dev)
     L, F, Hd = c["L"], c["X2"].shape[-1], c["ypre"].shape[-1]
+    # the weights as mcem_batch_fused hands them to the kernel: packed
+    # into the cluster's blocks once, rounded first for K1d
+    packed = {"": pack_weights(c["dec_w"]),
+              "mm16": pack_weights(bf16_weights(c["dec_w"]))}
     gen = torch.Generator(device=dev).manual_seed(0)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     clock = sm_clock_hz()
@@ -1196,9 +1205,11 @@ def phase_times(torch, model, cfg, B, N, dev, gpu, err, launches, k1d_past):
                     bound, by, flops, nbytes = chain_bound(
                         B, N, F, L, Hd, K, ns, ns + bi, mode, vb=vb,
                         sample_bytes=2 if level else 4)
+                ck = dict(c, dec_w=packed[
+                    "mm16" if level.endswith("_mm16") else ""])
                 timed[f"mh_chain_{mode}_{form}{level}"] = dict(
                     ms=time_cuda(lambda: run_chain(
-                        c, mh_chain, mode, ns, bi, cfg.var_RW, vb=vb,
+                        ck, mh_chain, mode, ns, bi, cfg.var_RW, vb=vb,
                         seed=1, **kw)),
                     plain_ms=time_cuda(lambda: run_chain(
                         c, mh_chain_ref, mode, ns, bi, cfg.var_RW, vb=vb,
@@ -1246,6 +1257,64 @@ def phase_times(torch, model, cfg, B, N, dev, gpu, err, launches, k1d_past):
             bound_ms=v["bound_ms"], bound_by=v["bound_by"], library_ms=None,
             detail=detail))
     return kernels
+
+
+# K1 at bench.py's shapes, beside the paths' B=4, N=384.
+LARGE_SHAPE = (32, 512)
+
+
+def phase_geometry(torch, dev):
+    """K1's launch at the shipped decoder's widths (F=513, L=32, H=128,
+    K=10, depth 2): cluster size, threads, shared memory and registers a
+    CTA, resident clusters, and the clusters, CTAs and waves of a launch
+    at B=4, N=384 and at LARGE_SHAPE."""
+    from guided_vae_nmf_torch.mcem.mh_chain import launch_geometry
+
+    geo = launch_geometry(513, 32, 128, 10, 2, dev)
+    check(geo["max_active_clusters"] > 0, "K1's cluster launch cannot run")
+    per = {}
+    for B, N in ((4, 384), LARGE_SHAPE):
+        clusters = B * -(-(N // geo["frames"]) // 2)
+        per[f"B={B},N={N}"] = dict(
+            clusters=clusters, ctas=clusters * geo["cluster"],
+            waves=-(-clusters // geo["max_active_clusters"]))
+    log(f"  K1 launch: clusters of {geo['cluster']} CTAs, 32 frames (two "
+        f"16-frame tiles) a cluster, {geo['threads']} threads, "
+        f"{geo['smem_bytes']} B of shared memory and {geo['registers']} "
+        f"registers a thread, {geo['max_active_clusters']} clusters "
+        f"resident; " + "; ".join(
+            f"{k}: {v['clusters']} clusters, {v['ctas']} CTAs, "
+            f"{v['waves']} waves" for k, v in per.items()))
+    return dict(geo, launches=per)
+
+
+def phase_times_large(torch, model, cfg, dev, gpu):
+    """K1a and K1b, E and WF, exact, at LARGE_SHAPE (bench.py's B and N)
+    beside their bounds (no plain version: it takes seconds there)."""
+    from guided_vae_nmf_torch.mcem import mh_chain
+    from guided_vae_nmf_torch.mcem.mh_chain import pack_weights
+
+    B, N = LARGE_SHAPE
+    K, R = cfg.nmf_rank, cfg.nsamples_E_step
+    c = chain_inputs(torch, model, B, N, K, 8, dev)
+    c["dec_w"] = pack_weights(c["dec_w"])
+    L, F, Hd = c["L"], c["X2"].shape[-1], c["ypre"].shape[-1]
+    rows = {}
+    for vb, form in ((False, "wh"), (True, "vb")):
+        for mode, ns, bi in (("e", R, cfg.burnin_E_step),
+                             ("wf", cfg.nsamples_WF, cfg.burnin_WF)):
+            bound, by, flops, nbytes = chain_bound(
+                B, N, F, L, Hd, K, ns, ns + bi, mode, vb=vb)
+            ms = time_cuda(lambda: run_chain(c, mh_chain, mode, ns, bi,
+                                             cfg.var_RW, vb=vb, seed=1),
+                           launches=5, reps=3)
+            key = f"mh_chain_{mode}_{form}"
+            rows[key] = dict(B=B, N=N, ms=ms, bound_ms=bound, bound_by=by,
+                             flops=flops, bytes=nbytes)
+            log(f"  {key:<27s}: {ms:.4f} ms at B={B}, N={N}, bound "
+                f"{bound:.4f} ms by {by} = {100 * bound / ms:.1f}% of "
+                f"bound; {gpu}")
+    return rows
 
 
 def ptxas_report(log_text):
@@ -1310,6 +1379,8 @@ def main(argv=None):
         log(f"  {len(ptxas)} kernels, largest {max(v['registers'] for v in ptxas.values())} "
             f"registers, spills in "
             f"{sum(1 for v in ptxas.values() if v['spill_stores'] or v['spill_loads'])}")
+
+    geometry = phase_geometry(torch, dev)
 
     art = os.path.join(root, "artifacts", "pretrained")
     model = load_model(os.path.join(art, "M2_ibm"), kind="dgm", y_dim=513,
@@ -1393,15 +1464,16 @@ def main(argv=None):
     check(not idle, f"variants no path launched: {idle}")
     kernels = phase_times(torch, model, cfg, *mask.shape, dev, gpu, err,
                           launches, k1d_past)
+    large = phase_times_large(torch, model, cfg, dev, gpu)
 
     for r in (main_res, *paths.values(), *fast.values(),
               *(r for r in hybrid.values() if isinstance(r, dict))):
         r.pop("s16")
     record = {
         "gpu": gpu, "torch": torch.__version__, "build_s": build_s,
-        "ptxas": ptxas, "main_path": main_res, "profile": prof,
+        "ptxas": ptxas, "k1_geometry": geometry, "main_path": main_res, "profile": prof,
         "paths": paths, "fast": fast, "serving": serving, "hybrid": hybrid,
-        "harness": harness, "kernels": kernels,
+        "harness": harness, "kernels": kernels, "kernels_b32_n512": large,
         "seconds": time.perf_counter() - t_start,
     }
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

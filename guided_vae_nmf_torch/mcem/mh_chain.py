@@ -27,7 +27,11 @@ has no such reciprocal and divides exactly, so there the two differ by at
 most 1 ulp per reciprocal.
 
 :func:`mh_chain` launches the kernel for CUDA tensors and runs the plain
-version for CPU tensors; it has no other switch. Layouts are frames-major:
+version for CPU tensors; it has no other switch. The kernel runs on
+thread-block clusters of `CLUSTER` CTAs, each holding a column slice of the
+decoder's weights in shared memory; :func:`pack_weights` lays the slices
+out (the wrapper packs per launch unless `dec_w` carries them), and
+:func:`launch_geometry` reports the launch. Layouts are frames-major:
 X2, Vs, Vb (B, N, F); g, mask (B, N); ypre (B, N, H); Z (B, N, L); the NMF
 factors Wt (B, K, F) and H (B, K, N). `mh_chain.launches` counts kernel
 launches per variant: "e_wh", "wf_wh", "e_vb", "wf_vb" for exact launches,
@@ -46,8 +50,11 @@ from .. import _build
 from .engine import VX_FLOOR
 
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = ([_VP] * 23 + [_I] * 9 + [_F, _I, ctypes.c_uint64] + [_I] * 4
+_ARGTYPES = ([_VP] * 19 + [_I] * 9 + [_F, _I, ctypes.c_uint64] + [_I] * 4
              + [_VP])
+# CTAs of the kernel's thread-block cluster: each holds a column slice of
+# the decoder's weights (see :func:`pack_weights`).
+CLUSTER = 4
 _LN2 = 0.6931471805599453
 _SQRT2 = 1.4142135623730951
 SAMPLE_DTYPES = (torch.float32, torch.bfloat16)
@@ -111,6 +118,48 @@ def bf16_weights(dec_w):
             "wo": r(dec_w["wo"]), "bo": dec_w["bo"], "bf16": True}
 
 
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def _round4(a):
+    return (a + 3) // 4 * 4
+
+
+def _slices(x, width, padded):
+    """x (..., n) cut along its last axis into CLUSTER slices of `width`
+    (the last ones ragged or empty, zero-filled), each padded with zeros to
+    `padded`: (CLUSTER, ..., padded)."""
+    n = x.shape[-1]
+    x = torch.nn.functional.pad(x, (0, CLUSTER * width - n))
+    x = x.reshape(*x.shape[:-1], CLUSTER, width).movedim(-2, 0)
+    return torch.nn.functional.pad(x, (0, padded - width))
+
+
+def pack_weights(dec_w):
+    """`dec_w` with "packed": the kernel's per-rank weight blocks
+    (CLUSTER, P) float32. Rank r of a cluster owns the output bins
+    [r Fsl, (r+1) Fsl) and the hidden units [r Hsl, (r+1) Hsl), Fsl =
+    ceil(F / CLUSTER), Hsl = ceil(H / CLUSTER) (the last ranks ragged);
+    its block holds, zero-padded to rows of Fsp = Fsl and Hsp = Hsl rounded
+    up to a multiple of 4: wo [H][Fsp], bo [Fsp], w1 [L][Hsp], then per
+    hidden layer after the first its weights [H][Hsp] and bias [Hsp]. The
+    kernel copies a rank's block into shared memory once a launch. A
+    caller that runs many chains packs once (`mcem_batch_fused` does); the
+    wrapper packs per launch otherwise. Bfloat16-rounded weights
+    (:func:`bf16_weights`) are packed as they are."""
+    w1, wo = dec_w["w1"], dec_w["wo"]
+    Hd, F = wo.shape
+    Fsl, Hsl = _cdiv(F, CLUSTER), _cdiv(Hd, CLUSTER)
+    Fsp, Hsp = _round4(Fsl), _round4(Hsl)
+    parts = [_slices(wo, Fsl, Fsp), _slices(dec_w["bo"], Fsl, Fsp),
+             _slices(w1, Hsl, Hsp)]
+    for w, b in dec_w["mid"]:
+        parts += [_slices(w, Hsl, Hsp), _slices(b, Hsl, Hsp)]
+    packed = torch.cat([p.reshape(CLUSTER, -1) for p in parts], dim=1)
+    return dict(dec_w, packed=packed.contiguous())
+
+
 def _lib():
     lib = _build.library("mh_chain")
     if lib.gvnmf_mh_chain.argtypes is None:
@@ -118,10 +167,19 @@ def _lib():
         lib.gvnmf_mh_chain.restype = _I
         lib.gvnmf_mh_chain_tile.argtypes = []
         lib.gvnmf_mh_chain_tile.restype = _I
-        lib.gvnmf_mh_chain_smem.argtypes = [_I] * 4
+        lib.gvnmf_mh_chain_cluster.argtypes = []
+        lib.gvnmf_mh_chain_cluster.restype = _I
+        lib.gvnmf_mh_chain_smem.argtypes = [_I] * 5
         lib.gvnmf_mh_chain_smem.restype = ctypes.c_longlong
+        lib.gvnmf_mh_chain_packed.argtypes = [_I] * 4
+        lib.gvnmf_mh_chain_packed.restype = ctypes.c_longlong
         lib.gvnmf_mh_chain_block.argtypes = [_I]
         lib.gvnmf_mh_chain_block.restype = _I
+        lib.gvnmf_mh_chain_occupancy.argtypes = [_I] * 5 + [_VP]
+        lib.gvnmf_mh_chain_occupancy.restype = _I
+        if lib.gvnmf_mh_chain_cluster() != CLUSTER:
+            raise _build.KernelError("mh_chain.cu's cluster size differs "
+                                     f"from the wrapper's {CLUSTER}")
         lib.gvnmf_philox_streams.argtypes = [ctypes.c_uint64] + [_I] * 4 + [
             _VP] * 3
         lib.gvnmf_philox_streams.restype = _I
@@ -269,17 +327,31 @@ def _check(name, t, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _mid_stacked(dec_w, Hd, device):
-    mid = dec_w["mid"]
-    if not mid:
-        z = torch.zeros((1,), device=device)
-        return z, z
-    for w, b in mid:
+def _check_mid(dec_w, Hd, device):
+    for i, (w, b) in enumerate(dec_w["mid"]):
         if tuple(w.shape) != (Hd, Hd):
             raise NotImplementedError(
                 "the CUDA chain needs equal decoder hidden widths")
-    return (torch.stack([w for w, _ in mid]).contiguous(),
-            torch.stack([b for _, b in mid]).contiguous())
+        _check(f"mid[{i}] weights", w, (Hd, Hd), device)
+        _check(f"mid[{i}] bias", b, (Hd,), device)
+
+
+def launch_geometry(F, L, Hd, K, depth, device=None):
+    """The chain kernel's launch at these shapes on the current card:
+    CTAs a cluster, frames a cluster, threads and dynamic shared memory a
+    CTA, the floats of a rank's weight block, registers a thread and the
+    clusters that can be resident at once (exact E-mode kernel, WH form).
+    CUDA only."""
+    lib = _lib()
+    out = (ctypes.c_int * 3)()
+    with torch.cuda.device(device or torch.cuda.current_device()):
+        _build.check(lib.gvnmf_mh_chain_occupancy(F, L, Hd, K, depth, out),
+                     "mh_chain occupancy query")
+    return {"cluster": CLUSTER, "frames": lib.gvnmf_mh_chain_tile(),
+            "threads": out[2], "smem_bytes": lib.gvnmf_mh_chain_smem(
+                F, L, Hd, K, depth),
+            "packed_floats": lib.gvnmf_mh_chain_packed(F, L, Hd, depth),
+            "registers": out[0], "max_active_clusters": out[1]}
 
 
 def mh_chain(dec_w, X2, WH, g, ypre, Z, Vs, seed=0, mode="e", nsamples=10,
@@ -332,9 +404,12 @@ def mh_chain(dec_w, X2, WH, g, ypre, Z, Vs, seed=0, mode="e", nsamples=10,
         raise ValueError(f"N={N} must be a multiple of {tile}")
     if lib.gvnmf_mh_chain_block(F) > 384:
         raise ValueError(f"F={F} exceeds the kernel's 768 bins")
-    smem = lib.gvnmf_mh_chain_smem(F, L, Hd, K)
+    smem = lib.gvnmf_mh_chain_smem(F, L, Hd, K, depth)
     if smem > 232448:
-        raise ValueError(f"shapes need {smem} B of shared memory per CTA")
+        raise ValueError(f"shapes need {smem} B of shared memory per CTA "
+                         f"(F={F}, H={Hd}, depth {depth}: each of the "
+                         f"{CLUSTER} CTAs of a cluster holds a 1/{CLUSTER} "
+                         "column slice of every decoder weight)")
     noise_in = (("Vb", Vb, (B, N, F)),) if WH is None else (
         ("Wt", Wt, (B, K, F)), ("H", H, (B, K, N)))
     for name, t, shape in (
@@ -344,10 +419,15 @@ def mh_chain(dec_w, X2, WH, g, ypre, Z, Vs, seed=0, mode="e", nsamples=10,
             ("w1", dec_w["w1"], (L, Hd)), ("wo", dec_w["wo"], (Hd, F)),
             ("bo", dec_w["bo"], (F,))):
         _check(name, t, shape, dev)
+    _check_mid(dec_w, Hd, dev)
     use_mask = mode == "e" and WH is not None
     if use_mask:
         _check("mask", mask, (B, N), dev)
-    wmid, bmid = _mid_stacked(dec_w, Hd, dev)
+    packed = dec_w.get("packed")
+    if packed is None:
+        packed = pack_weights(dec_w)["packed"]
+    _check("packed weights", packed,
+           (CLUSTER, lib.gvnmf_mh_chain_packed(F, L, Hd, depth)), dev)
     zn = u = None
     if noise is not None:
         zn, u = noise
@@ -377,8 +457,7 @@ def mh_chain(dec_w, X2, WH, g, ypre, Z, Vs, seed=0, mode="e", nsamples=10,
             _ptr(X2), _ptr(Vb), _ptr(Wt), _ptr(H),
             _ptr(mask if use_mask else None),
             _ptr(g), _ptr(ypre), _ptr(Z), _ptr(Vs), _ptr(zn), _ptr(u),
-            _ptr(dec_w["w1"]), _ptr(wmid), _ptr(bmid), _ptr(dec_w["wo"]),
-            _ptr(dec_w["bo"]), _ptr(z_out), _ptr(vs_out), _ptr(out1),
+            _ptr(packed), _ptr(z_out), _ptr(vs_out), _ptr(out1),
             _ptr(out2), _ptr(out3), _ptr(part1), _ptr(part2),
             B, N, F, L, Hd, K, depth, n_steps, burnin,
             float(np.sqrt(var_RW)), 0 if mode == "e" else 1,

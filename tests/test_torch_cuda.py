@@ -592,3 +592,85 @@ def test_peem_and_hybrid_var0_match_cpu(cuda, fixed):
             assert_allclose(out["cuda"][k].cpu().numpy(),
                             out["cpu"][k].numpy(), rtol=1e-3, atol=1e-5,
                             err_msg=k)
+
+
+# The chain kernel on thread-block clusters: each of the CLUSTER CTAs of a
+# cluster holds a column slice of the decoder (ceil(F / 4) bins and
+# ceil(H / 4) hidden units, the last ones ragged) for two 16-frame tiles of
+# one utterance; an odd tile count makes the last cluster of an utterance
+# compute its one tile twice and write it once.
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["wh", "vb"])
+def test_chain_batch_matches_each_utterance(cuda, form):
+    """A chain over B=4 returns, per utterance, bit for bit what the chain
+    over that utterance alone returns: no result depends on the tiling or
+    on the other clusters. N=48 (three tiles) takes the repeated-tile
+    path. The option kernel runs on injected decisive noise (sliced per
+    utterance); the exact kernel at var_RW = 0, where the Philox stream
+    (keyed on the utterance index) changes no output."""
+    dims = dict(B=4, F=513, N=48, L=32, H=128, K=10, Y=20)
+    c = chain_case(cuda, 30, **dims)
+    vb = form == "vb"
+    noise = decisive_noise(cuda, 31, 4, 48, 32, 7)
+
+    def one(b):
+        cb = {k: v[b:b + 1].contiguous() if torch.is_tensor(v) else v
+              for k, v in c.items() if k != "WH"}
+        cb["WH"] = tuple(x[b:b + 1].contiguous() for x in c["WH"])
+        return cb
+
+    for mode in ("e", "wf"):
+        runs = [(dict(noise=noise), 0.01,
+                 lambda b: dict(noise=tuple(x[b:b + 1].contiguous()
+                                            for x in noise))),
+                (dict(seed=5), 0.0, lambda b: dict(seed=5))]
+        for kw, var_rw, kw_b in runs:
+            got = run_chain(mh_chain, c, mode, 4, 3, var_rw, vb=vb, **kw)
+            outs = (got[0], got[1]) + got[2]
+            for b in range(4):
+                alone = run_chain(mh_chain, one(b), mode, 4, 3, var_rw,
+                                  vb=vb, **kw_b(b))
+                for x, y in zip(outs, (alone[0], alone[1]) + alone[2]):
+                    assert torch.equal(x[b:b + 1], y), (mode, var_rw, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H", [16, 24, 128])
+@pytest.mark.parametrize("F", [65, 129, 130, 513])
+def test_chain_kernel_ragged_cluster_split(cuda, F, H):
+    """F and H whose split over the cluster's 4 CTAs is ragged (F=129 and
+    513 leave one extra bin on the first CTA, F=65 and 130 ragged last
+    slices; H=24 gives 6 units a CTA, not a multiple of 4), E and WF, both
+    forms, against the plain version under decisive injected noise; N=48
+    repeats a tile."""
+    dims = dict(B=2, F=F, N=48, L=8, H=H, K=3, Y=10)
+    c = chain_case(cuda, F + H, **dims)
+    noise = decisive_noise(cuda, 32, 2, 48, 8, 7)
+    for vb in (False, True):
+        for mode in ("e", "wf"):
+            ref = run_chain(mh_chain_ref, c, mode, 4, 3, 0.01, vb=vb,
+                            noise=noise)
+            got = run_chain(mh_chain, c, mode, 4, 3, 0.01, vb=vb,
+                            noise=noise)
+            for a, b in zip((got[0], got[1]) + got[2],
+                            (ref[0], ref[1]) + ref[2]):
+                _close(a, b)
+
+
+@pytest.mark.cuda
+def test_chain_launch_geometry(cuda):
+    """The launch the wrapper reports: 4-CTA clusters, 288 threads and
+    under 227 KB of shared memory a CTA at the shipped decoder's widths,
+    at least one resident cluster; shapes whose slices do not fit raise
+    with the reason."""
+    from guided_vae_nmf_torch.mcem.mh_chain import launch_geometry
+
+    geo = launch_geometry(513, 32, 128, 10, 2, cuda)
+    assert geo["cluster"] == 4 and geo["frames"] == 16
+    assert geo["threads"] == 288 and geo["smem_bytes"] <= 232448
+    assert geo["max_active_clusters"] >= 1 and geo["registers"] > 0
+    c = chain_case(cuda, 33, B=1, F=768, N=16, L=32, H=128, K=2, Y=3)
+    with pytest.raises(ValueError, match="shared memory"):
+        run_chain(mh_chain, c, "wf", 2, 1, 0.01)
