@@ -13,7 +13,9 @@ Phases, in order; any failure exits nonzero without a result line:
 2. build: compiles `guided_vae_nmf_torch/csrc/*.cu` for sm_90a (timed),
    with each kernel's registers and spills from ptxas, and K1's launch
    geometry (cluster size, CTAs, threads, shared memory a CTA, registers,
-   resident clusters and waves at B=4, N=384 and at B=32, N=512).
+   resident clusters and waves at B=4, N=384 and at B=32, N=512) and K2's
+   (CTAs, threads, shared memory, stages, frames a tile, CTAs an SM and
+   the SMs occupied, in each mode and form at the same two shapes).
 3. kernels vs plain versions, on the card, at full width (F=513, L=32,
    H=128, K=10, the shipped M2-IBM decoder, seeded inputs) at B=2, N=256
    and at the paths' B=4, N=384: the MH chain in E- and WF-mode with the
@@ -61,9 +63,13 @@ Phases, in order; any failure exits nonzero without a result line:
    CPU path; and `bench_niter500.main` at B=4, N=384, 100 iterations,
    PEEM and a 25-iteration hybrid, which prints its JSON line (fast_bf16mm:
    100 K1d E + 1 K1d WF launches a run).
-9. kernel times at the paths' shapes (CUDA events), every variant, beside
-   their bounds and their plain versions' times; and K1a / K1b E and WF
-   at bench.py's B=32, N=512 beside their bounds.
+9. kernel times at the paths' shapes, every variant, beside their bounds
+   and their plain versions' times: K1 by CUDA events; K2 as device time
+   between two events inside a CUDA graph with the L2 as the main path
+   leaves it (right after a K1 E launch), warm and cold, beside the
+   CUDA-event time of back-to-back calls and the wrapper's host time a
+   call; and K1a / K1b E and WF and K2a / K2b 'h' and 'g' at bench.py's
+   B=32, N=512 beside their bounds.
 
 Prints the card's name and power limit, a `{"kernels": [...]}` line, and
 as its last line `{"ok": true, "device": {...}}`.
@@ -281,6 +287,59 @@ def time_cuda(fn, launches=10, reps=5):
     return float(np.median(times))
 
 
+# K2's kernel by name in a profile
+K2_KERNEL_NAME = "nmf_sums_kernel"
+
+
+def graph_ms(torch, fn, prep, launches=10):
+    """Device milliseconds a launch of fn(s): one CUDA graph holds
+    `launches` copies of [s = prep(), event, fn(s), event], where prep()
+    enqueues the step that sets the L2 state and returns the samples
+    (nothing: warm; a write of 4x the L2: cold; the K1 E launch that writes
+    the samples: as the main path leaves it). The graph is replayed once to
+    load it and once more to time it, so the wrapper's host work and the
+    graph's first launch stay outside every event pair. Median of the
+    pairs; `graph_floor_ms` reads a pair with no kernel between."""
+    fn(prep())
+    torch.cuda.synchronize()
+    ev = [[torch.cuda.Event(enable_timing=True, external=True)
+           for _ in range(2)] for _ in range(launches)]
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        graph.capture_begin(capture_error_mode="thread_local")
+        for a, b in ev:
+            s = prep()
+            a.record()
+            fn(s)
+            b.record()
+        graph.capture_end()
+    torch.cuda.current_stream().wait_stream(side)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+    return float(np.median([a.elapsed_time(b) for a, b in ev]))
+
+
+def graph_floor_ms(torch, launches=10):
+    """`graph_ms` with no kernel between the two events."""
+    return graph_ms(torch, lambda s: None, lambda: None, launches)
+
+
+def host_us(torch, fn, calls=1000):
+    """Host microseconds a call of fn(): the host clock over `calls` calls
+    with no synchronisation inside."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e6 * dt / calls
+
+
 # ---------------------------------------------------------------------------
 # Inputs
 # ---------------------------------------------------------------------------
@@ -486,13 +545,40 @@ def run_sums(c, fn, samples, mode, vb=False, **kw):
     return fn(samples, c["WH"], c["g"], c["X2"], mode=mode, **kw)
 
 
+def check_sums(torch, c, vb, dev, samples=None):
+    """K2 in one form against its plain version on the inputs `c`: 'h' and
+    'g' over float32 samples (K2a / K2b) and over their bfloat16 rounding
+    with the approximate reciprocal (K2c); seeded gamma samples unless
+    `samples` is given. Returns the largest absolute error per variant."""
+    from guided_vae_nmf_torch.mcem import nmf_sums, nmf_sums_ref
+
+    form = "vb" if vb else "wh"
+    B, N, F = c["X2"].shape
+    if samples is None:
+        rng = np.random.RandomState(6)
+        samples = torch.tensor(rng.gamma(0.5, 2.0, (B, 10, N, F))
+                               .astype(np.float32) + 1e-3, device=dev)
+    err = {}
+    for level, smp in (("", samples), ("_fast", samples.to(torch.bfloat16))):
+        kw = dict(approx_recip=True) if level else {}
+        for mode in ("h", "g"):
+            got = run_sums(c, nmf_sums, smp, mode, vb, **kw)
+            ref = run_sums(c, nmf_sums_ref, smp, mode, vb)
+            names = ("s1", "s2") if vb and mode == "h" else ("num", "den")
+            log(f" K2{'c' if level else ('b' if vb else 'a')} "
+                f"{mode}-mode, {form} form, {smp.dtype}, B={B} N={N}:")
+            key = f"nmf_sums_{mode}_{form}{level}"
+            err[key] = max(compare(name, x, y)
+                           for name, x, y in zip(names, got, ref))
+    return err
+
+
 def phase_kernels(torch, model, dev, shapes):
     """Kernel vs plain version at full width, at each (B, N) of `shapes`,
     every variant; the Philox and accept-rule checks run at the first.
     Returns the largest absolute error per variant and, for K1d, the
     elements past TOL and the elements compared."""
-    from guided_vae_nmf_torch.mcem import (
-        mh_chain, mh_chain_ref, nmf_sums, nmf_sums_ref)
+    from guided_vae_nmf_torch.mcem import mh_chain, mh_chain_ref
     from guided_vae_nmf_torch.mcem.mh_chain import philox_streams
 
     K = 10
@@ -583,23 +669,8 @@ def phase_kernels(torch, model, dev, shapes):
                         "reached the products)")
                     check(moved > 0.5, "K1d: bfloat16 products changed "
                           "nothing")
-            rng = np.random.RandomState(6)
-            samples = torch.tensor(rng.gamma(0.5, 2.0, (B, 10, N, 513))
-                                   .astype(np.float32) + 1e-3, device=dev)
-            for level, smp in (("", samples),
-                               ("_fast", samples.to(torch.bfloat16))):
-                kw = dict(approx_recip=True) if level else {}
-                for mode in ("h", "g"):
-                    got = run_sums(c, nmf_sums, smp, mode, vb, **kw)
-                    ref = run_sums(c, nmf_sums_ref, smp, mode, vb)
-                    names = (("s1", "s2") if vb and mode == "h"
-                             else ("num", "den"))
-                    log(f" K2{'c' if level else ('b' if vb else 'a')} "
-                        f"{mode}-mode, {form} form, {smp.dtype}, "
-                        f"B={B} N={N}:")
-                    for name, x, y in zip(names, got, ref):
-                        key = f"nmf_sums_{mode}_{form}{level}"
-                        err[key] = max(err[key], compare(name, x, y))
+            for key, e in check_sums(torch, c, vb, dev).items():
+                err[key] = max(err[key], e)
 
     # the accept rule itself under real uniforms: a decision whose margin
     # is below rounding may flip between the two, so count frames
@@ -889,7 +960,7 @@ def phase_profile(torch, model, classifier, mean, std, x_b, mask, cfg,
         n_device += evt.count
         if "mh_chain_kernel" in evt.key or "sum_tiles_kernel" in evt.key:
             groups["mh_chain"] += us / 1e3
-        elif "nmf_sums_kernel" in evt.key or "sums_h_vb_kernel" in evt.key:
+        elif K2_KERNEL_NAME in evt.key:
             groups["nmf_sums"] += us / 1e3
         else:
             groups["other"] += us / 1e3
@@ -1164,13 +1235,70 @@ SOURCES = {
 }
 
 
+def l2_flush(torch):
+    """A buffer whose zeroing writes 4x the card's 50 MB L2."""
+    return torch.empty(50 * 2**20, device="cuda")
+
+
+def time_sums(torch, c, vb, level, cfg, gpu):
+    """K2 in both modes for one form and level on the inputs `c`, over the
+    samples of one K1 E launch: device ms a launch (`graph_ms`) with the
+    L2 as the main path leaves it (`ms`: right after the K1 E launch that
+    wrote the samples), warm (the same buffer) and cold (after a write of
+    4x the L2); beside them the CUDA-event time of `time_cuda`, the
+    wrapper's host microseconds a call, the bound and the plain version's
+    time. Returns rows by variant."""
+    from guided_vae_nmf_torch.mcem import mh_chain, nmf_sums, nmf_sums_ref
+
+    form = "vb" if vb else "wh"
+    B, N, F = c["X2"].shape
+    K, R = c["WH"][0].shape[1], cfg.nsamples_E_step
+    kw = fast_kw(torch, level)
+
+    def chain():
+        return run_chain(c, mh_chain, "e", R, cfg.burnin_E_step, cfg.var_RW,
+                         vb=vb, seed=2, **kw)[2][0]
+
+    samples = chain()
+    flush = l2_flush(torch)
+
+    def cold():
+        flush.zero_()
+        return samples
+
+    sums_kw = dict(approx_recip=True) if level else {}
+    rows = {}
+    for mode in ("h", "g"):
+        def run(s):
+            return run_sums(c, nmf_sums, s, mode, vb, **sums_kw)
+
+        key = f"nmf_sums_{mode}_{form}{level}"
+        bound, by, flops, nbytes = sums_bound(
+            B, R, N, F, K, mode, vb=vb, sample_bytes=samples.element_size())
+        rows[key] = dict(
+            ms=graph_ms(torch, run, chain),
+            warm_ms=graph_ms(torch, run, lambda: samples),
+            cold_ms=graph_ms(torch, run, cold),
+            event_ms=time_cuda(lambda: run(samples)),
+            host_us=host_us(torch, lambda: run(samples)),
+            plain_ms=time_cuda(lambda: run_sums(
+                c, nmf_sums_ref, samples, mode, vb)),
+            bound_ms=bound, bound_by=by, flops=flops, bytes=nbytes)
+        v = rows[key]
+        log(f"  {key:<27s} B={B} N={N}: device {v['ms']:.4f} ms after K1 "
+            f"(warm {v['warm_ms']:.4f}, cold {v['cold_ms']:.4f}), events "
+            f"{v['event_ms']:.4f} ms, host {v['host_us']:.1f} us a call; "
+            f"bound {bound:.4f} ms = {100 * bound / v['ms']:.1f}% after K1, "
+            f"{100 * bound / v['cold_ms']:.1f}% cold; {gpu}")
+    return rows
+
+
 def phase_times(torch, model, cfg, B, N, dev, gpu, err, launches, k1d_past):
     """Per-launch times of every kernel variant (exact, K1c / K2c fast and
     trans levels, K1d) at the paths' shapes, beside bounds and the plain
     versions' times; returns the `kernels` entries. `launches` holds each
     variant's count on its path, `k1d_past` K1d's elements past TOL."""
-    from guided_vae_nmf_torch.mcem import (
-        mh_chain, mh_chain_ref, nmf_sums, nmf_sums_ref)
+    from guided_vae_nmf_torch.mcem import mh_chain, mh_chain_ref
 
     K = cfg.nmf_rank
     R = cfg.nsamples_E_step
@@ -1186,6 +1314,10 @@ def phase_times(torch, model, cfg, B, N, dev, gpu, err, launches, k1d_past):
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     clock = sm_clock_hz()
     log(f"  K1d bound at {sms} SMs, {clock / 1e6:.0f} MHz maximum SM clock")
+    floor = graph_floor_ms(torch)
+    log(f"  K2 device times hold the graph's step from its first event to "
+        f"the kernel: {floor:.4f} ms between the two events with no kernel; "
+        f"{gpu}")
     timed = {}
     for vb, form in ((False, "wh"), (True, "vb")):
         for level in ("", "_fast", "_trans", "_fast_mm16"):
@@ -1217,20 +1349,7 @@ def phase_times(torch, model, cfg, B, N, dev, gpu, err, launches, k1d_past):
                     bound_ms=bound, bound_by=by, flops=flops, bytes=nbytes,
                     **extra)
         for level in ("", "_fast"):
-            kw = fast_kw(torch, level)
-            samples = run_chain(c, mh_chain, "e", R, cfg.burnin_E_step,
-                                cfg.var_RW, vb=vb, seed=2, **kw)[2][0]
-            sums_kw = dict(approx_recip=True) if level else {}
-            for mode in ("h", "g"):
-                bound, by, flops, nbytes = sums_bound(
-                    B, R, N, F, K, mode, vb=vb,
-                    sample_bytes=samples.element_size())
-                timed[f"nmf_sums_{mode}_{form}{level}"] = dict(
-                    ms=time_cuda(lambda: run_sums(
-                        c, nmf_sums, samples, mode, vb, **sums_kw)),
-                    plain_ms=time_cuda(lambda: run_sums(
-                        c, nmf_sums_ref, samples, mode, vb)),
-                    bound_ms=bound, bound_by=by, flops=flops, bytes=nbytes)
+            timed.update(time_sums(torch, c, vb, level, cfg, gpu))
     kernels = []
     for key in VARIANTS:
         v = timed[key]
@@ -1248,8 +1367,11 @@ def phase_times(torch, model, cfg, B, N, dev, gpu, err, launches, k1d_past):
         source, replaces = SOURCES[kern]
         detail = dict(B=B, N=N, F=F, L=L, H=Hd, K=K, R=R, flops=v["flops"],
                       bytes=v["bytes"])
-        detail.update({k: v[k] for k in ("bound_terms_ms", "binding",
-                                         "past_tol", "compared") if k in v})
+        detail.update({k: v[k] for k in (
+            "bound_terms_ms", "binding", "past_tol", "compared", "warm_ms",
+            "cold_ms", "event_ms", "host_us") if k in v})
+        if kern == "nmf_sums":
+            detail["graph_floor_ms"] = floor
         kernels.append(dict(
             name=key, route="cuda", source=source, replaces=replaces,
             launches=launches[kern][key[9:]],
@@ -1288,6 +1410,31 @@ def phase_geometry(torch, dev):
     return dict(geo, launches=per)
 
 
+def phase_sums_geometry(torch, dev, R=10, F=513, K=10):
+    """K2's launch at R=10, F=513, K=10 in each mode and form over float32
+    samples: CTAs, threads, shared memory and registers a CTA, ring stages,
+    frames a tile, CTAs an SM, and the SMs a launch occupies at B=4, N=384
+    and at LARGE_SHAPE."""
+    from guided_vae_nmf_torch.mcem.nmf_sums import launch_geometry
+
+    out = {}
+    for B, N in ((4, 384), LARGE_SHAPE):
+        for mode, vb in (("h", False), ("g", False), ("h", True),
+                         ("g", True)):
+            geo = launch_geometry(B, R, N, F, K, mode, vb, device=dev)
+            key = f"{mode}_{'vb' if vb else 'wh'} B={B},N={N}"
+            out[key] = geo
+            log(f"  K2 launch {key}: {geo['ctas']} CTAs of "
+                f"{geo['threads']} threads on {min(geo['ctas'], geo['sms'])}"
+                f" of {geo['sms']} SMs ({geo['ctas_per_sm']} an SM), "
+                f"{geo['smem_bytes']} B of shared memory, {geo['stages']} "
+                f"stages, {geo['frames']} frames a tile, "
+                f"{geo['segments']} segments a frame, {geo['registers']} "
+                "registers a thread")
+            check(geo["ctas"] >= geo["sms"], "K2 leaves SMs idle")
+    return out
+
+
 def phase_times_large(torch, model, cfg, dev, gpu):
     """K1a and K1b, E and WF, exact, at LARGE_SHAPE (bench.py's B and N)
     beside their bounds (no plain version: it takes seconds there)."""
@@ -1314,6 +1461,45 @@ def phase_times_large(torch, model, cfg, dev, gpu):
             log(f"  {key:<27s}: {ms:.4f} ms at B={B}, N={N}, bound "
                 f"{bound:.4f} ms by {by} = {100 * bound / ms:.1f}% of "
                 f"bound; {gpu}")
+    rows.update(times_large_sums(torch, c, cfg, dev, gpu))
+    return rows
+
+
+def times_large_sums(torch, c, cfg, dev, gpu):
+    """K2a and K2b, 'h' and 'g', exact, on the inputs `c` (LARGE_SHAPE)
+    over seeded uniform samples (the buffer is several times the L2):
+    checked against the plain version, then device ms a launch cold (after
+    a write of 4x the L2) and warm, beside the byte bound."""
+    from guided_vae_nmf_torch.mcem import nmf_sums
+
+    B, N, F = c["X2"].shape
+    K, R = c["WH"][0].shape[1], cfg.nsamples_E_step
+    gen = torch.Generator(device=dev).manual_seed(9)
+    samples = torch.empty((B, R, N, F), device=dev).uniform_(
+        0.01, 2.0, generator=gen)
+    flush = l2_flush(torch)
+
+    def cold():
+        flush.zero_()
+        return samples
+
+    rows = {}
+    for vb, form in ((False, "wh"), (True, "vb")):
+        err = check_sums(torch, c, vb, dev, samples=samples)
+        for mode in ("h", "g"):
+            def run(s):
+                return run_sums(c, nmf_sums, s, mode, vb)
+
+            key = f"nmf_sums_{mode}_{form}"
+            bound, by, flops, nbytes = sums_bound(B, R, N, F, K, mode, vb=vb)
+            cold_ms = graph_ms(torch, run, cold, launches=5)
+            warm_ms = graph_ms(torch, run, lambda: samples, launches=5)
+            rows[key] = dict(B=B, N=N, cold_ms=cold_ms, warm_ms=warm_ms,
+                             max_abs_err=err[key], bound_ms=bound,
+                             bound_by=by, flops=flops, bytes=nbytes)
+            log(f"  {key:<27s}: device {cold_ms:.4f} ms cold (warm "
+                f"{warm_ms:.4f}) at B={B}, N={N}, bound {bound:.4f} ms by "
+                f"{by} = {100 * bound / cold_ms:.1f}% of bound cold; {gpu}")
     return rows
 
 
@@ -1381,6 +1567,7 @@ def main(argv=None):
             f"{sum(1 for v in ptxas.values() if v['spill_stores'] or v['spill_loads'])}")
 
     geometry = phase_geometry(torch, dev)
+    sums_geometry = phase_sums_geometry(torch, dev)
 
     art = os.path.join(root, "artifacts", "pretrained")
     model = load_model(os.path.join(art, "M2_ibm"), kind="dgm", y_dim=513,
@@ -1471,7 +1658,8 @@ def main(argv=None):
         r.pop("s16")
     record = {
         "gpu": gpu, "torch": torch.__version__, "build_s": build_s,
-        "ptxas": ptxas, "k1_geometry": geometry, "main_path": main_res, "profile": prof,
+        "ptxas": ptxas, "k1_geometry": geometry,
+        "k2_geometry": sums_geometry, "main_path": main_res, "profile": prof,
         "paths": paths, "fast": fast, "serving": serving, "hybrid": hybrid,
         "harness": harness, "kernels": kernels, "kernels_b32_n512": large,
         "seconds": time.perf_counter() - t_start,

@@ -12,6 +12,11 @@ tensors and runs the plain version for CPU tensors. `nmf_sums.launches`
 counts kernel launches per variant: "h_wh", "g_wh", "h_vb", "g_vb" for
 exact launches and the same names ending in "_fast" for launches over
 bfloat16 samples or with `approx_recip`.
+
+The kernel streams tiles of a few frames through shared memory, two bins
+of every frame a thread, so it takes F up to `FMAX`, any N, R and storage
+offset, and K from 1 to `KMAX` (:func:`check_widths`);
+:func:`launch_geometry` reports its launch, frames a tile included.
 """
 
 import ctypes
@@ -22,6 +27,11 @@ from .. import _build
 from .engine import VX_FLOOR
 
 _VP, _I = ctypes.c_void_p, ctypes.c_int
+# The kernel's limits, checked against csrc/nmf_sums.cu's when it is
+# loaded: F up to two bins a consumer thread of at most 992, NMF rank up to
+# KMAX.
+FMAX = 1984
+KMAX = 16
 
 
 def _lib():
@@ -29,9 +39,45 @@ def _lib():
     if lib.gvnmf_nmf_sums.argtypes is None:
         lib.gvnmf_nmf_sums.argtypes = [_VP] * 8 + [_I] * 8 + [_VP]
         lib.gvnmf_nmf_sums.restype = _I
-        lib.gvnmf_nmf_sums_kmax.argtypes = []
-        lib.gvnmf_nmf_sums_kmax.restype = _I
+        lib.gvnmf_nmf_sums_geometry.argtypes = [_I] * 9 + [_VP]
+        lib.gvnmf_nmf_sums_geometry.restype = _I
+        for fn, want in ((lib.gvnmf_nmf_sums_kmax, KMAX),
+                         (lib.gvnmf_nmf_sums_fmax, FMAX)):
+            fn.argtypes = []
+            fn.restype = _I
+            if fn() != want:
+                raise _build.KernelError(
+                    f"nmf_sums.cu's {fn.__name__} differs from the "
+                    f"wrapper's {want}")
     return lib
+
+
+def check_widths(F, K=None):
+    """Raises ValueError for widths the kernel does not take: F bins from
+    1 to FMAX, NMF rank K from 1 to KMAX (None: the Vb form, no K)."""
+    if not 1 <= F <= FMAX:
+        raise ValueError(f"F={F}: the sums kernel takes 1 <= F <= {FMAX} "
+                         "(two bins a thread of at most 992)")
+    if K is not None and not 1 <= K <= KMAX:
+        raise ValueError(f"NMF rank {K}: the kernel takes 1 to {KMAX}")
+
+
+def launch_geometry(B, R, N, F, K, mode="h", vb=False, bf16=False,
+                    approx_recip=False, device=None):
+    """The launch `nmf_sums` makes at these shapes on the current card,
+    without launching: CTAs, threads and dynamic shared memory a CTA,
+    ring stages, frames a tile, reduction segments a frame, CTAs an SM,
+    SMs and registers a thread. CUDA only."""
+    check_widths(F, None if vb else K)
+    lib = _lib()
+    out = (ctypes.c_int * 9)()
+    with torch.cuda.device(device or torch.cuda.current_device()):
+        _build.check(lib.gvnmf_nmf_sums_geometry(
+            B, R, N, F, K, 0 if mode == "h" else 1, int(vb), int(bf16),
+            int(approx_recip), out), "nmf_sums geometry query")
+    keys = ("ctas", "threads", "smem_bytes", "stages", "frames",
+            "segments", "ctas_per_sm", "sms", "registers")
+    return dict(zip(keys, out))
 
 
 def _check_args(WH, X2, mode, Vb):
@@ -83,13 +129,11 @@ def nmf_sums(samples, WH, g, X2=None, mode="h", Vb=None, approx_recip=False):
     if samples.device.type != "cuda":
         raise ValueError(f"unsupported device {samples.device}")
     dev = samples.device
-    lib = _lib()
     B, R, N, F = samples.shape
     Wt, H = WH if WH is not None else (None, None)
     K = 0 if WH is None else Wt.shape[1]
-    if K > lib.gvnmf_nmf_sums_kmax():
-        raise ValueError(f"NMF rank {K} exceeds the kernel's "
-                         f"{lib.gvnmf_nmf_sums_kmax()}")
+    check_widths(F, None if WH is None else K)
+    lib = _lib()
     need = [("samples", samples, (B, R, N, F)), ("g", g, (B, N))]
     if WH is None:
         need.append(("Vb", Vb, (B, N, F)))

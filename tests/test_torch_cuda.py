@@ -674,3 +674,163 @@ def test_chain_launch_geometry(cuda):
     c = chain_case(cuda, 33, B=1, F=768, N=16, L=32, H=128, K=2, Y=3)
     with pytest.raises(ValueError, match="shared memory"):
         run_chain(mh_chain, c, "wf", 2, 1, 0.01)
+
+
+# K2 as a streaming pass: each CTA walks an even share of the B N frames in
+# tiles of a few frames of one utterance, two bins of each frame
+# a consumer thread; the samples, Vb and X2 rows of a tile arrive by bulk
+# copies of their enclosing 16-byte granules, so any N, F and storage
+# offset stream the same way. Every sum has one order that depends on F
+# and K only.
+
+SUMS_LEVELS = {"f32": (torch.float32, False), "f32_rcp": (torch.float32, True),
+               "bf16": (torch.bfloat16, False),
+               "bf16_rcp": (torch.bfloat16, True)}
+
+
+def sums_case(device, seed, B, R, N, F, K):
+    rng = np.random.RandomState(seed)
+    t = lambda a: torch.tensor(a.astype(np.float32), device=device)  # noqa
+    return dict(samples=t(rng.uniform(0.01, 2.0, (B, R, N, F))),
+                X2=t(rng.uniform(0.05, 1.05, (B, N, F))),
+                WH=(t(rng.uniform(0.05, 0.5, (B, K, F))),
+                    t(rng.uniform(0.05, 0.5, (B, K, N)))),
+                g=t(rng.uniform(0.5, 1.5, (B, N))),
+                Vb=t(rng.uniform(0.01, 0.3, (B, N, F))))
+
+
+def run_all_sums(fn, c, samples, **kw):
+    """Both modes in both forms: {(mode, form): (o1, o2)}."""
+    out = {}
+    for mode in ("h", "g"):
+        out[mode, "wh"] = fn(samples, c["WH"], c["g"], c["X2"], mode=mode,
+                             **kw)
+        out[mode, "vb"] = fn(samples, None, c["g"], c["X2"], mode=mode,
+                             Vb=c["Vb"], **kw)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [16, 40, 384])
+@pytest.mark.parametrize("F", [65, 129, 130, 513])
+def test_sums_kernel_ragged_shapes(cuda, F, N):
+    """Every K2 variant against the plain version at ragged F (the bins of
+    the last consumer warp run past F; a tile of F=513 or 65 bins is no
+    multiple of 16 bytes), N that is no multiple of the tile, (R, K) in
+    (1, 16), (2, 1) and (10, 10), float32 and bfloat16 samples, with and
+    without the approximate reciprocal."""
+    for R, K in ((1, 16), (2, 1), (10, 10)):
+        c = sums_case(cuda, F + N + R, 2, R, N, F, K)
+        for level, (dtype, rcp) in SUMS_LEVELS.items():
+            samples = c["samples"].to(dtype)
+            got = run_all_sums(nmf_sums, c, samples, approx_recip=rcp)
+            ref = run_all_sums(nmf_sums_ref, c, samples)
+            for key in got:
+                for a, b in zip(got[key], ref[key]):
+                    assert a.shape == b.shape, (key, R, K, level)
+                    _close(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("level", sorted(SUMS_LEVELS))
+def test_sums_batch_matches_each_utterance(cuda, level):
+    """A B=4 pass returns, per utterance, bit for bit what the pass over
+    that utterance alone returns, though the tiles and the CTAs' shares of
+    the frames differ (N=38 at F=513: tiles of 4 frames, ragged); and two
+    launches on the same inputs are equal."""
+    dtype, rcp = SUMS_LEVELS[level]
+    c = sums_case(cuda, 40, 4, 10, 38, 513, 10)
+    samples = c["samples"].to(dtype)
+    got = run_all_sums(nmf_sums, c, samples, approx_recip=rcp)
+    again = run_all_sums(nmf_sums, c, samples, approx_recip=rcp)
+    for key in got:
+        assert all(torch.equal(a, b) for a, b in zip(got[key], again[key]))
+    for b in range(4):
+        one = {k: v[b:b + 1].contiguous() for k, v in c.items() if k != "WH"}
+        one["WH"] = tuple(x[b:b + 1].contiguous() for x in c["WH"])
+        alone = run_all_sums(nmf_sums, one, samples[b:b + 1].contiguous(),
+                             approx_recip=rcp)
+        for key in got:
+            for x, y in zip(got[key], alone[key]):
+                assert torch.equal(x[b:b + 1], y), (key, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sums_kernel_offset_and_strided_views(cuda, dtype):
+    """Contiguous views at storage offsets that break 16-byte alignment
+    (samples, X2 and Vb) are taken and give the plain version's result; a
+    non-contiguous view is refused with a ValueError."""
+    B, R, N, F, K = 2, 3, 40, 129, 4
+    c = sums_case(cuda, 41, B, R, N, F, K)
+
+    def shifted(t, by):
+        flat = torch.empty(t.numel() + by, dtype=t.dtype, device=cuda)
+        view = flat[by:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    samples = shifted(c["samples"].to(dtype), 3)
+    c2 = dict(c, X2=shifted(c["X2"], 1), Vb=shifted(c["Vb"], 2))
+    assert samples.storage_offset() == 3 and samples.is_contiguous()
+    got = run_all_sums(nmf_sums, c2, samples)
+    ref = run_all_sums(nmf_sums_ref, c, c["samples"].to(dtype))
+    for key in got:
+        for a, b in zip(got[key], ref[key]):
+            _close(a, b)
+    strided = samples.transpose(2, 3).contiguous().transpose(2, 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        nmf_sums(strided, c["WH"], c["g"], c["X2"], mode="g")
+
+
+@pytest.mark.cuda
+def test_sums_exact_reciprocal_is_correctly_rounded(cuda):
+    """The exact kernels' 1/Vx (rcp.approx and one Newton step) is 1.0 / Vx
+    bit for bit: 'h' with Vb at R=1, g=1 and Vb=0 gives s1 = 1/Vx and
+    s2 = (1/Vx)^2 of one term each, here over every float32 significand
+    (the all-ones ones included) at exponents from 2^-33, just over the
+    1e-10 floor, to 2^59, where (1/Vx)^2 is still normal."""
+    sig = torch.arange(1 << 23, dtype=torch.int32, device=cuda)
+    vx = torch.cat([(((e + 127) << 23) | sig).view(torch.float32)
+                    for e in (-33, -1, 0, 1, 24, 59)])
+    F = 512
+    N = vx.numel() // F
+    samples = vx.view(1, 1, N, F)
+    g = torch.ones(1, N, device=cuda)
+    Vb = torch.zeros(1, N, F, device=cuda)
+    got = nmf_sums(samples, None, g, mode="h", Vb=Vb)
+    ref = nmf_sums_ref(samples, None, g, mode="h", Vb=Vb)
+    assert torch.equal(got[0], 1.0 / vx.view(1, N, F))
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_sums_launch_geometry(cuda):
+    """The launch the wrapper reports at the paths' shapes: at least one
+    CTA on every SM at B=4, N=384 (F=513, K=10, R=10), 320 threads (9
+    consumer warps of two bins a thread, and a producer warp), tiles of 4
+    frames (one frame at F=FMAX), under 227 KB of shared memory; F past
+    FMAX and K past KMAX raise with the reason."""
+    from guided_vae_nmf_torch.mcem.nmf_sums import (
+        FMAX, KMAX, launch_geometry)
+
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for mode in ("h", "g"):
+        for vb in (False, True):
+            for bf16 in (False, True):
+                geo = launch_geometry(4, 10, 384, 513, 10, mode, vb, bf16,
+                                      device=cuda)
+                assert geo["sms"] == sms and geo["ctas"] >= sms
+                assert geo["threads"] == 320 and geo["frames"] == 4
+                assert 0 < geo["smem_bytes"] <= 232448
+                assert geo["ctas_per_sm"] >= 1 and geo["registers"] > 0
+                assert geo["ctas"] <= geo["ctas_per_sm"] * sms
+    geo = launch_geometry(4, 10, 384, FMAX, 10, device=cuda)
+    assert geo["frames"] == 1 and geo["threads"] == 1024
+    c = sums_case(cuda, 42, 1, 2, 16, FMAX + 1, 2)
+    with pytest.raises(ValueError, match=f"F={FMAX + 1}"):
+        nmf_sums(c["samples"], c["WH"], c["g"], c["X2"], mode="h")
+    c = sums_case(cuda, 43, 1, 2, 16, 65, KMAX + 1)
+    with pytest.raises(ValueError, match=f"NMF rank {KMAX + 1}"):
+        nmf_sums(c["samples"], c["WH"], c["g"], c["X2"], mode="h")
