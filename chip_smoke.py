@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's enhancement paths on one NVIDIA GPU: the M2-IBM
 main path (NMF noise model), the fixed-noise path (the real-noise and
-impulse-noise profiles), fast mode, the online service with its HTTP
-front end, and the paper-config path (PEEM, the PEEM -> MCEM hybrid and
-the 500-iteration harness, whose fast_bf16mm variant runs K1d).
+impulse-noise profiles), fast mode, the rest of the offline pipeline
+(oracle labels, the Wiener-DNN baseline, enhance_batch, the eager MCEM
+engine and serving on it), the online service with its HTTP front end,
+and the paper-config path (PEEM, the PEEM -> MCEM hybrid and the
+500-iteration harness, whose fast_bf16mm variant runs K1d).
 
     python3 chip_smoke.py [--seed 0] [--out build/chip_smoke.json]
 
@@ -47,13 +49,26 @@ Phases, in order; any failure exits nonzero without a result line:
    x realtime beside the exact path's, |s + n - x| <= 2 LSB and SI-SDR
    against the exact output (no quality claim); and the real-noise
    settings with `fast="trans"` (125 / 2 / 125 / 125).
-7. serving: `EnhancementService(ServeConfig(fast=True))` (spp noise model,
+7. the rest of the offline pipeline, on the main batch: oracle labels
+   from the clean tracks (`label_mode="oracle"`, 100 / 1 / 100 / 100 K1a
+   / K2a launches; the card's labels against `make_labels("oracle")` on
+   the host, at most one element apart an utterance; and
+   `enhance_files(classif_type="oracle")`); the Wiener-DNN baseline
+   (`enhance_files_wiener` with the shipped `wiener` checkpoint, on the
+   card against the CPU, PCM within 2 LSB, and its batch program timed);
+   `enhance_batch` on host spectrograms (fused: the main path's launches;
+   the hybrid noise model: the eager engine, no launch); the eager engine
+   (`engine="xla"`, no launch) timed and profiled; a 1 s utterance
+   through the eager `mcem_run` under injected streams on the card
+   against the CPU; and `EnhancementService(ServeConfig(engine="xla"))`:
+   a request alone and co-batched within 1 LSB.
+8. serving: `EnhancementService(ServeConfig(fast=True))` (spp noise model,
    dnn labels, shipped weights), warmed up, then 16 requests of 1-5 s from
    4 producer threads (100 E / 1 WF / 0 h / 100 g fast Vb-form launches a
    batch): requests/s, audio seconds per wall second, mean batch, p50 / p95
    latency; then the HTTP front end on port 0 (/v1/enhance, /healthz,
    /metrics).
-8. paper-config path: `enhance_waveform(cfg=HybridConfig())` on the main
+9. paper-config path: `enhance_waveform(cfg=HybridConfig())` on the main
    batch (500 PEEM + 150 MCEM iterations and the WF chain; 150 / 1 / 150
    / 150 launches), with `fast=True` (the same on `_fast`) and with the
    spp noise model (150 K1b E / 1 WF / 150 K2b g); `PEEMConfig()` (no
@@ -63,7 +78,7 @@ Phases, in order; any failure exits nonzero without a result line:
    CPU path; and `bench_niter500.main` at B=4, N=384, 100 iterations,
    PEEM and a 25-iteration hybrid, which prints its JSON line (fast_bf16mm:
    100 K1d E + 1 K1d WF launches a run).
-9. kernel times at the paths' shapes, every variant, beside their bounds
+10. kernel times at the paths' shapes, every variant, beside their bounds
    and their plain versions' times: K1 by CUDA events; K2 as device time
    between two events inside a CUDA graph with the L2 as the main path
    leaves it (right after a K1 E launch), warm and cold, beside the
@@ -714,30 +729,38 @@ def phase_kernels(torch, model, dev, shapes):
     return err, k1d_past
 
 
-def main_batch(seed, bursts=0):
-    """The main path's batch: (clean, mixture) int16 pairs of MAIN_SECONDS,
-    the host-padded mixtures (B, L) and their frame masks (B, n_pad)."""
+def padded(signals):
+    """Host-padded int16 rows (B, L) and frame masks (B, n_pad) of
+    `signals`, bucketed as enhance_files buckets them."""
     from guided_vae_nmf_torch.dsp import pad_signal_for_stft
     from guided_vae_nmf_torch.pipeline import HOP, NFFT, bucket_frames
 
-    pairs = speech_like_mixtures(seed, MAIN_SECONDS, bursts=bursts)
-    padded = [pad_signal_for_stft(x) for _, x in pairs]
-    n_pad = bucket_frames(max(nf for _, nf in padded))
+    rows = [pad_signal_for_stft(x) for x in signals]
+    n_pad = bucket_frames(max(nf for _, nf in rows))
     Lw = (n_pad - 1) * HOP + NFFT
-    x_b = np.zeros((len(pairs), Lw), np.int16)
-    mask = np.zeros((len(pairs), n_pad), np.float32)
-    for j, (xp, nf) in enumerate(padded):
+    x_b = np.zeros((len(rows), Lw), np.int16)
+    mask = np.zeros((len(rows), n_pad), np.float32)
+    for j, (xp, nf) in enumerate(rows):
         x_b[j, : min(len(xp), Lw)] = xp[:Lw]
         mask[j, :nf] = 1.0
-    return pairs, x_b, mask
+    return x_b, mask
+
+
+def main_batch(seed, bursts=0):
+    """The main path's batch: (clean, mixture) int16 pairs of MAIN_SECONDS,
+    the host-padded mixtures (B, L) and their frame masks (B, n_pad)."""
+    pairs = speech_like_mixtures(seed, MAIN_SECONDS, bursts=bursts)
+    return (pairs,) + padded([x for _, x in pairs])
 
 
 def phase_main(torch, model, classifier, mean, std, cfg, batch, seed, dev,
-               gpu, launches=MAIN_LAUNCHES, label="main path", **settings):
-    """A path through enhance_waveform (dnn labels; `settings` such as
-    noise_model and soft_guidance, `cfg` with its noise gain): three runs,
-    each with the launch counters reset before and checked against
-    `launches` after. Returns its shapes, times and launch counts."""
+               gpu, launches=MAIN_LAUNCHES, label="main path",
+               label_mode="dnn", **settings):
+    """A path through enhance_waveform (dnn labels unless `label_mode` says
+    otherwise; `settings` such as noise_model, soft_guidance, engine or
+    s_pad, `cfg` with its noise gain): three runs, each with the launch
+    counters reset before and checked against `launches` after. Returns
+    its shapes, times, launch counts, PCM and packed hard labels."""
     import guided_vae_nmf_torch as port
     from guided_vae_nmf_torch.pipeline import NFFT, enhance_waveform
 
@@ -754,7 +777,7 @@ def phase_main(torch, model, classifier, mean, std, cfg, batch, seed, dev,
         t0 = time.perf_counter()
         s16, n16, y_soft, y_hard, ok = enhance_waveform(
             model, x_b, mask, cfg, classifier=classifier, mean=mean, std=std,
-            label_mode="dnn", return_noise=True, device=dev,
+            label_mode=label_mode, return_noise=True, device=dev,
             generator=torch.Generator(device=dev).manual_seed(seed + rep),
             **settings)
         torch.cuda.synchronize()
@@ -767,7 +790,8 @@ def phase_main(torch, model, classifier, mean, std, cfg, batch, seed, dev,
     check(bool(ok.all()), "non-finite enhancement output")
     check(s16.shape == (len(pairs), x_b.shape[1] - NFFT),
           f"s shape {s16.shape}")
-    check(y_soft.shape == (len(pairs), 513, n_pad), "soft label shape")
+    if label_mode == "dnn":
+        check(y_soft.shape == (len(pairs), 513, n_pad), "soft label shape")
     check(y_hard.shape == (len(pairs), 65, n_pad), "packed label shape")
     worst = 0
     for j, (clean, x) in enumerate(pairs):
@@ -786,14 +810,16 @@ def phase_main(torch, model, classifier, mean, std, cfg, batch, seed, dev,
     return {"n_pad": n_pad, "B": len(pairs), "wall_s": wall,
             "walls_s": walls, "audio_s": audio_s,
             "x_realtime": audio_s / wall,
-            "launches": port.launch_counts(), "s16": s16}
+            "launches": port.launch_counts(), "s16": s16,
+            "y_hard": y_hard.cpu().numpy()}
 
 
 def phase_files(torch, model, classifier, mean, std, pairs, cfg, seed,
-                dev, launches, profile=None):
+                dev, launches, profile=None, classif_type="dnn"):
     """The same mixtures as wav files through enhance_files (with
-    `profile`, if given); `launches` are the expected counts per batch.
-    Returns the sweep's wall seconds."""
+    `profile`, if given; with classif_type="oracle" also the clean tracks
+    as `_s.wav`); `launches` are the expected counts per batch. Returns
+    the sweep's wall seconds."""
     import guided_vae_nmf_torch as port
     from guided_vae_nmf_torch.data import read_wav_int16, write_wav
     from guided_vae_nmf_torch.pipeline import enhance_files, plan_batches
@@ -802,11 +828,13 @@ def phase_files(torch, model, classifier, mean, std, pairs, cfg, seed,
         src, dst = os.path.join(tmp, "in"), os.path.join(tmp, "out")
         os.makedirs(src)
         files = []
-        for j, (_, x) in enumerate(pairs):
+        for j, (clean, x) in enumerate(pairs):
             write_wav(os.path.join(src, f"utt{j}_x.wav"), x, 16000)
+            write_wav(os.path.join(src, f"utt{j}_s.wav"), clean, 16000)
             files.append(f"utt{j}.wav")
         port.reset_launch_counts()
-        res = enhance_files(files, src, dst, model, classif_type="dnn",
+        res = enhance_files(files, src, dst, model,
+                            classif_type=classif_type,
                             classifier=classifier, mean=mean, std=std,
                             cfg=cfg, seed=seed, device=dev, profile=profile)
         counts = port.launch_counts()
@@ -815,7 +843,8 @@ def phase_files(torch, model, classifier, mean, std, pairs, cfg, seed,
         n_batches = len(plan_batches(
             files, [frame_count(len(x)) for _, x in pairs]))
         audio_s = sum(len(x) for _, x in pairs) / 16000
-        log(f" enhance_files(profile={profile!r}): {res.n_processed} files "
+        log(f" enhance_files(profile={profile!r}, classif_type="
+            f"{classif_type!r}): {res.n_processed} files "
             f"in {float(res):.3f} s ({audio_s / float(res):.2f}x realtime, "
             f"wav I/O included), {n_batches} batches, launches {counts}")
         check(counts == expected_launches(n_batches=n_batches, **launches),
@@ -1106,6 +1135,275 @@ def phase_hybrid_reference(torch, model, classifier, mean, std, pairs, dev):
     check(diff <= HYBRID_CPU_LSB, "card and CPU paths disagree (hybrid)")
     check(np.array_equal(g[3], r[3]), "card and CPU labels disagree (hybrid)")
     return diff
+
+
+# ---------------------------------------------------------------------------
+# The rest of the offline pipeline: oracle labels, the Wiener-DNN baseline,
+# enhance_batch, the eager engine and eager serving
+# ---------------------------------------------------------------------------
+
+NO_LAUNCHES = dict(form="wh", e=0, wf=0, h=0, g=0)
+# The eager engine's card-vs-CPU check: a 1 s utterance, 3 EM iterations
+# at full width under injected streams whose accept decisions cannot flip.
+EAGER_REF_CFG = dict(niter=3, nsamples_E_step=10, burnin_E_step=30,
+                     nsamples_WF=25, burnin_WF=75)
+
+
+def phase_oracle(torch, model, mean, std, cfg, batch, seed, dev, gpu):
+    """Oracle labels from the clean tracks: enhance_waveform(label_mode=
+    "oracle", s_pad=...) on the main batch (100 / 1 / 100 / 100 K1a / K2a
+    launches a run); the card's hard labels against make_labels("oracle")
+    on the host over each utterance's valid frames (equal but for at most
+    one crossing element an utterance); and enhance_files(classif_type=
+    "oracle") over `_x.wav` / `_s.wav` files. Returns the record."""
+    from guided_vae_nmf_torch.data import write_wav
+    from guided_vae_nmf_torch.dsp import frame_count
+    from guided_vae_nmf_torch.pipeline import make_labels
+
+    pairs, x_b, mask = batch
+    s_b, _ = padded([clean for clean, _ in pairs])
+    res = phase_main(torch, model, None, None, None, cfg, batch, seed, dev,
+                     gpu, label="oracle path", label_mode="oracle",
+                     s_pad=s_b)
+    y_card = np.unpackbits(res["y_hard"], axis=1)[:, :513]
+    crossings = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for j, (clean, _) in enumerate(pairs):
+            path = os.path.join(tmp, f"utt{j}_s.wav")
+            write_wav(path, clean, 16000)
+            _, y_host = make_labels("oracle", None, s_path=path)
+            nf = frame_count(len(clean))
+            check(y_host.shape == (513, nf), f"host labels {y_host.shape}")
+            crossings.append(int((y_card[j, :, :nf] != y_host).sum()))
+    log(f" oracle labels, card against make_labels on the host: "
+        f"{crossings} differing elements an utterance (needs <= 1 each: "
+        "the element at the Lorenz threshold)")
+    check(max(crossings) <= 1, "card and host oracle labels disagree")
+    res["label_crossings"] = crossings
+    res["enhance_files_s"] = phase_files(
+        torch, model, None, mean, std, pairs, cfg, seed, dev, MAIN_LAUNCHES,
+        classif_type="oracle")
+    return res
+
+
+def phase_wiener(torch, batch, dev, gpu, art):
+    """The Wiener-DNN baseline with the shipped `wiener` checkpoint, its
+    mean and its std: enhance_files_wiener over the main batch's mixtures
+    as wav files on the card (a warm-up sweep, then the timed one) and on
+    the CPU; PCM16 within 2 LSB, masks within 1e-3; and the batch's device
+    program alone (`_wiener_waveform`, median of 5). Returns the record."""
+    from guided_vae_nmf_torch.data import read_wav_int16, write_wav
+    from guided_vae_nmf_torch.pipeline import (
+        _wiener_waveform, enhance_files_wiener)
+    from guided_vae_nmf_torch.train import load_model, load_norm_stats
+
+    wdir = os.path.join(art, "wiener")
+    wmean, wstd = load_norm_stats(wdir)
+    pairs, x_b, mask = batch
+    audio_s = sum(len(x) for _, x in pairs) / 16000
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "in")
+        os.makedirs(src)
+        files = []
+        for j, (_, x) in enumerate(pairs):
+            write_wav(os.path.join(src, f"utt{j}_x.wav"), x, 16000)
+            files.append(f"utt{j}.wav")
+        for d in (dev, dev, "cpu"):
+            model = load_model(wdir, kind="classifier", device=d)
+            torch.cuda.synchronize()
+            secs = enhance_files_wiener(files, src, os.path.join(
+                tmp, str(d)), model, mean=wmean, std=wstd, device=d)
+            out[str(d)] = secs
+        worst = 0
+        for j in range(len(pairs)):
+            got, ref = (read_wav_int16(os.path.join(tmp, d, f"utt{j}_s_est"
+                                                    ".wav"))[0]
+                        for d in (str(dev), "cpu"))
+            m_got, m_ref = (np.load(os.path.join(tmp, d, f"utt{j}_wiener_"
+                                                 "mask.npy"))
+                            for d in (str(dev), "cpu"))
+            worst = max(worst, int(np.abs(got.astype(np.int32) - ref).max()))
+            check(m_got.shape == m_ref.shape and
+                  np.abs(m_got - m_ref).max() <= 1e-3,
+                  "Wiener masks: card and CPU disagree")
+    log(f" enhance_files_wiener: {len(files)} files in {out[str(dev)]:.3f} s "
+        f"on the card ({audio_s / out[str(dev)]:.2f}x realtime, wav I/O "
+        f"included; {gpu}), {out['cpu']:.3f} s on the CPU; card against "
+        f"CPU: max |s16 diff| {worst} LSB (needs <= 2), masks within 1e-3")
+    check(worst <= 2, "Wiener PCM: card and CPU disagree")
+    model = load_model(wdir, kind="classifier", device=dev)
+    x_d = torch.as_tensor(x_b, device=dev)
+    m_d = torch.as_tensor(mask, device=dev)
+    walls = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _wiener_waveform(model, x_d, wmean, wstd, m_d)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    wall = float(np.median(walls[1:]))
+    log(f" _wiener_waveform on the main batch: {1e3 * wall:.2f} ms = "
+        f"{audio_s / wall:.1f}x realtime (median of 5 after a warm-up; "
+        f"{gpu})")
+    return {"files_s": out[str(dev)], "files_cpu_s": out["cpu"],
+            "x_realtime_files": audio_s / out[str(dev)],
+            "batch_ms": 1e3 * wall, "x_realtime_batch": audio_s / wall,
+            "card_vs_cpu_lsb": worst}
+
+
+def phase_enhance_batch(torch, model, classifier, mean, std, cfg, batch,
+                        seed, dev, gpu):
+    """enhance_batch on the main mixtures' host spectrograms with the dnn
+    labels of make_labels: engine="fused" with the NMF noise model (the
+    main path's launches) and noise_model="hybrid" (the eager engine: no
+    K1 / K2 launch). Returns the record."""
+    import guided_vae_nmf_torch as port
+    from guided_vae_nmf_torch.dsp import stft
+    from guided_vae_nmf_torch.pipeline import enhance_batch, make_labels
+
+    pairs = batch[0]
+    X_tfs = [stft(x.astype(np.float64) / 32768.0) for _, x in pairs]
+    ys = [make_labels("dnn", (np.abs(X) ** 2).astype(np.float32),
+                      classifier=classifier, mean=mean, std=std)[1]
+          for X in X_tfs]
+    audio_s = sum(len(x) for _, x in pairs) / 16000
+    out = {}
+    for name, kw, launches in (
+            ("fused, nmf", dict(engine="fused"), MAIN_LAUNCHES),
+            ("hybrid noise model", dict(noise_model="hybrid"), NO_LAUNCHES)):
+        walls = []
+        for rep in range(2):
+            port.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            S_hat, N_hat = enhance_batch(
+                model, X_tfs, ys, cfg=cfg, device=dev,
+                generator=torch.Generator(device=dev).manual_seed(seed + rep),
+                **kw)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            counts = port.launch_counts()
+            check(counts == expected_launches(**launches),
+                  f"enhance_batch ({name}) launches {counts}, expected "
+                  f"{launches}")
+        for S, Nh, X in zip(S_hat, N_hat, X_tfs):
+            check(S.shape == X.shape and np.all(np.isfinite(S)) and
+                  np.all(np.isfinite(Nh)), "enhance_batch output")
+            check(np.abs(S + Nh - X).max() <= 1e-3 * np.abs(X).max(),
+                  "enhance_batch: S + N != X")
+        log(f" enhance_batch ({name}): {walls[1]:.3f} s for {audio_s:.1f} s "
+            f"of audio = {audio_s / walls[1]:.2f}x realtime (second run), "
+            f"launches {launches}; {gpu}")
+        out[name] = {"wall_s": walls[1], "x_realtime": audio_s / walls[1],
+                     "launches": counts}
+    return out
+
+
+def phase_eager(torch, model, classifier, mean, std, cfg, batch, seed, dev,
+                gpu):
+    """The eager engine: enhance_waveform(engine="xla") on the main batch
+    (no K1 / K2 launch), then one run profiled (device activity only) for
+    the device's busy share. Returns the record."""
+    _, x_b, mask = batch
+    res = phase_main(torch, model, classifier, mean, std, cfg, batch, seed,
+                     dev, gpu, launches=NO_LAUNCHES, label="eager engine",
+                     engine="xla")
+    res["profile"] = phase_profile(
+        torch, model, classifier, mean, std, x_b, mask, cfg, dev, gpu,
+        label="eager engine", host_ops=False, spans=(), engine="xla")
+    return res
+
+
+def phase_eager_reference(torch, model, pairs, dev):
+    """A 1 s utterance through the eager engine's mcem_run under injected
+    streams (accept decisions of u = 0 or inf, which cannot flip) from one
+    NMF init, on the card and on the CPU, EAGER_REF_CFG: WFs, WFn, g and
+    Z within atol 2e-5 / rtol 2e-4. Returns the largest errors."""
+    from guided_vae_nmf_torch.dsp import stft
+    from guided_vae_nmf_torch.mcem import MCEMConfig
+    from guided_vae_nmf_torch.mcem.engine import mcem_run, pad_power
+
+    X = stft(pairs[0][1][:16000].astype(np.float64) / 32768.0)
+    F, n = X.shape
+    N = 64
+    rng = np.random.RandomState(6)
+    X_p, m = pad_power(torch.tensor(np.abs(X[None]) ** 2,
+                                    dtype=torch.float32), N)
+    y = np.zeros((1, 513, N), np.float32)
+    y[:, :, :n] = (np.abs(X) ** 2 > np.median(np.abs(X) ** 2))
+    cfg = MCEMConfig(**EAGER_REF_CFG)
+    L = model.encoder.mu.w.shape[1]
+    sE = cfg.nsamples_E_step + cfg.burnin_E_step
+    sW = cfg.nsamples_WF + cfg.burnin_WF
+    zE = rng.randn(1, cfg.niter, sE, L, N).astype(np.float32)
+    uE = np.where(rng.uniform(size=(1, cfg.niter, sE, N)) < 0.5, 0, np.inf)
+    zW = rng.randn(1, sW, L, N).astype(np.float32)
+    uW = np.where(rng.uniform(size=(1, sW, N)) < 0.5, 0, np.inf)
+    W0 = rng.uniform(0.05, 1, (1, F, cfg.nmf_rank)).astype(np.float32)
+    H0 = rng.uniform(0.05, 1, (1, cfg.nmf_rank, N)).astype(np.float32)
+    outs = {}
+    for d in ("cpu", dev):
+        def t(a):
+            return torch.as_tensor(a, dtype=torch.float32, device=d)
+
+        t0 = time.perf_counter()
+        outs[str(d)] = mcem_run(
+            model.to(d), t(X_p), t(m), t(y), [7], cfg,
+            init_nmf=(t(W0), t(H0), t(np.ones((1, N)))),
+            noise=tuple(map(t, (zE, uE, zW, uW))))
+        log(f"  {d}: {time.perf_counter() - t0:.2f} s")
+    model.to(dev)
+    errs = {}
+    for k in ("WFs", "WFn", "g", "Z"):
+        errs[k] = compare(f"eager engine {k}, card vs CPU",
+                          outs[str(dev)][k], outs["cpu"][k])
+    return errs
+
+
+def phase_eager_serving(torch, model, classifier, mean, std, cfg, seed,
+                        dev, gpu):
+    """EnhancementService(ServeConfig(engine="xla")) (spp noise model, dnn
+    labels): a request served alone, then the same request (again the
+    first, so the same seed) co-batched with two others, one of them in
+    the next length bucket: PCM within 1 LSB, and no K1 / K2 launch.
+    Returns the record."""
+    import guided_vae_nmf_torch as port
+    from guided_vae_nmf_torch.serving import EnhancementService, ServeConfig
+
+    xs = [x.astype(np.float32) / 32768.0 for _, x in
+          speech_like_mixtures(seed + 3, (1.5, 3.9, 1.1))]
+    outs = []
+    port.reset_launch_counts()
+    t0 = time.perf_counter()
+    for group, wait_ms in ((xs[:1], 50.0), (xs, 2000.0)):
+        with EnhancementService(model, classifier=classifier, mean=mean,
+                                std=std, cfg=cfg, device=dev,
+                                serve=ServeConfig(engine="xla",
+                                                  max_wait_ms=wait_ms)) as svc:
+            futs = [svc.submit(x) for x in group]
+            outs.append([f.result(timeout=600) for f in futs])
+    wall = time.perf_counter() - t0
+    counts = port.launch_counts()
+    alone, mixed = outs[0][0], outs[1][0]
+    diff = float(np.abs(alone["s"] - mixed["s"]).max() * 32768)
+    log(f" serving, engine='xla': 1 request alone (batch "
+        f"{alone['batch_size']}), then co-batched (batch "
+        f"{mixed['batch_size']}) with 2 others: max |s diff| {diff:.1f} LSB "
+        f"(needs <= 1); latency {alone['latency_s']:.3f} s alone, "
+        f"{mixed['latency_s']:.3f} s co-batched; {wall:.2f} s in all; {gpu}")
+    check(mixed["batch_size"] == 3, "the requests were not co-batched")
+    check(counts == expected_launches(**NO_LAUNCHES),
+          f"eager serving launched kernels: {counts}")
+    for x, r in zip(xs, outs[1]):
+        check(r["s"].shape == x.shape and np.all(np.isfinite(r["s"])),
+              "eager serving output")
+        check(np.abs(r["s"] + r["n"] - x).max() <= 3 / 32768,
+              "eager serving: s + n != x")
+    check(diff <= 1.0, "a request co-batched differs from itself alone")
+    return {"alone_vs_cobatched_lsb": diff, "wall_s": wall,
+            "latency_alone_s": alone["latency_s"],
+            "latency_cobatched_s": mixed["latency_s"]}
 
 
 def phase_harness(torch, dev):
@@ -1623,6 +1921,28 @@ def main(argv=None):
 
     fast = phase_fast(torch, model, classifier, mean, std, cfg, batch,
                       args.seed, dev, gpu, main_res)
+
+    rest = {}
+    log("oracle path (enhance_waveform, label_mode='oracle', clean tracks "
+        "as s_pad):")
+    rest["oracle"] = phase_oracle(torch, model, mean, std, cfg, batch,
+                                  args.seed, dev, gpu)
+    log("Wiener-DNN baseline (enhance_files_wiener, shipped wiener "
+        "checkpoint):")
+    rest["wiener"] = phase_wiener(torch, batch, dev, gpu, art)
+    log("enhance_batch (host spectrograms, dnn labels from make_labels):")
+    rest["enhance_batch"] = phase_enhance_batch(
+        torch, model, classifier, mean, std, cfg, batch, args.seed, dev, gpu)
+    log("eager engine (enhance_waveform, engine='xla', MCEMConfig()):")
+    rest["eager"] = phase_eager(torch, model, classifier, mean, std, cfg,
+                                batch, args.seed, dev, gpu)
+    log(f"eager engine on the card against the CPU (1 s, {EAGER_REF_CFG}, "
+        "injected streams):")
+    rest["eager"]["card_vs_cpu"] = phase_eager_reference(torch, model,
+                                                         pairs, dev)
+    log("serving on the eager engine (ServeConfig(engine='xla')):")
+    rest["eager_serving"] = phase_eager_serving(
+        torch, model, classifier, mean, std, cfg, args.seed, dev, gpu)
     log("serving (EnhancementService, ServeConfig(fast=True), spp noise "
         "model, dnn labels):")
     svc, serving = phase_serving(torch, model, classifier, mean, std, cfg,
@@ -1653,14 +1973,17 @@ def main(argv=None):
                           launches, k1d_past)
     large = phase_times_large(torch, model, cfg, dev, gpu)
 
-    for r in (main_res, *paths.values(), *fast.values(),
+    for r in (main_res, *paths.values(), *fast.values(), rest["oracle"],
+              rest["eager"],
               *(r for r in hybrid.values() if isinstance(r, dict))):
         r.pop("s16")
+        r.pop("y_hard")
     record = {
         "gpu": gpu, "torch": torch.__version__, "build_s": build_s,
         "ptxas": ptxas, "k1_geometry": geometry,
         "k2_geometry": sums_geometry, "main_path": main_res, "profile": prof,
-        "paths": paths, "fast": fast, "serving": serving, "hybrid": hybrid,
+        "paths": paths, "fast": fast, "offline_rest": rest,
+        "serving": serving, "hybrid": hybrid,
         "harness": harness, "kernels": kernels, "kernels_b32_n512": large,
         "seconds": time.perf_counter() - t_start,
     }

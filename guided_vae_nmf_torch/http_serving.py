@@ -14,7 +14,7 @@ API:
                         X-Latency-S (service-side latency), X-Batch-Size.
   POST /v1/enhance_stream
                         501: the streaming enhancers are not ported yet
-                        (ROADMAP Queue 1, item 8).
+                        (ROADMAP Queue 1, item 1).
   GET  /healthz         {"status": "ok", "requests": N}.
   GET  /stats           the service's latency and batching counters.
   GET  /metrics         the same counters in Prometheus text format.
@@ -253,7 +253,7 @@ def build_server(models_dir, host="127.0.0.1", port=8571, niter=100,
 
     The stream route is not ported yet, so `stream` defaults to False here
     (the JAX package's default is True); `stream`, `pooled_streams`
-    (ROADMAP Queue 1, item 8) and `data_parallel` (item 11) raise
+    (ROADMAP Queue 1, item 1) and `data_parallel` (item 5) raise
     NotImplementedError."""
     from .mcem.engine import MCEMConfig
     from .profiles import get_profile
@@ -262,11 +262,11 @@ def build_server(models_dir, host="127.0.0.1", port=8571, niter=100,
 
     if stream or pooled_streams:
         raise NotImplementedError(
-            "the streaming route is not ported yet (ROADMAP Queue 1, item 8)")
+            "the streaming route is not ported yet (ROADMAP Queue 1, item 1)")
     if data_parallel:
         raise NotImplementedError(
             "data-parallel serving is not ported yet (ROADMAP Queue 1, "
-            "item 11)")
+            "item 5)")
     if profile is not None:
         prof = get_profile(profile)
         if prof.offline:

@@ -55,6 +55,10 @@ _ARGTYPES = ([_VP] * 19 + [_I] * 9 + [_F, _I, ctypes.c_uint64] + [_I] * 4
 # CTAs of the kernel's thread-block cluster: each holds a column slice of
 # the decoder's weights (see :func:`pack_weights`).
 CLUSTER = 4
+# Launch limits: threads a CTA (384 at F = 768, the most bins a launch
+# takes) and the dynamic shared memory a CTA may take on the H100 (bytes).
+_MAX_BLOCK = 384
+SMEM_MAX = 232448
 _LN2 = 0.6931471805599453
 _SQRT2 = 1.4142135623730951
 SAMPLE_DTYPES = (torch.float32, torch.bfloat16)
@@ -336,6 +340,17 @@ def _check_mid(dec_w, Hd, device):
         _check(f"mid[{i}] bias", b, (Hd,), device)
 
 
+def kernel_takes(F, L, Hd, K, depth, N):
+    """Whether the CUDA chain launches at these shapes (K the NMF rank):
+    N a multiple of its frame tile, at most 768 bins and each CTA's
+    shared memory within SMEM_MAX. Equal hidden widths are the caller's
+    to check. Builds the library."""
+    lib = _lib()
+    return (N % lib.gvnmf_mh_chain_tile() == 0
+            and lib.gvnmf_mh_chain_block(F) <= _MAX_BLOCK
+            and lib.gvnmf_mh_chain_smem(F, L, Hd, K, depth) <= SMEM_MAX)
+
+
 def launch_geometry(F, L, Hd, K, depth, device=None):
     """The chain kernel's launch at these shapes on the current card:
     CTAs a cluster, frames a cluster, threads and dynamic shared memory a
@@ -402,10 +417,10 @@ def mh_chain(dec_w, X2, WH, g, ypre, Z, Vs, seed=0, mode="e", nsamples=10,
     tile = lib.gvnmf_mh_chain_tile()
     if N % tile:
         raise ValueError(f"N={N} must be a multiple of {tile}")
-    if lib.gvnmf_mh_chain_block(F) > 384:
+    if lib.gvnmf_mh_chain_block(F) > _MAX_BLOCK:
         raise ValueError(f"F={F} exceeds the kernel's 768 bins")
     smem = lib.gvnmf_mh_chain_smem(F, L, Hd, K, depth)
-    if smem > 232448:
+    if smem > SMEM_MAX:
         raise ValueError(f"shapes need {smem} B of shared memory per CTA "
                          f"(F={F}, H={Hd}, depth {depth}: each of the "
                          f"{CLUSTER} CTAs of a cluster holds a 1/{CLUSTER} "

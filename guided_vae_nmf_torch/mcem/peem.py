@@ -29,7 +29,9 @@ from .engine import (
     _fold_in,
     _masked_cost,
     _precompute_label_proj,
+    fold_seed,
     framewise_uniform,
+    mcem_run,
     nmf_m_step,
     noise_gain_state,
 )
@@ -204,19 +206,27 @@ def peem_m2_batch(model, X_abs2, mask, y, generator, cfg: PEEMConfig,
 
 def peem_mcem_m2_batch(model, X_abs2, mask, y, generator, pcfg: PEEMConfig,
                        mcfg: MCEMConfig, update_nmf=True, Vb_fixed=None,
-                       init=None, **fused_kw):
-    """PEEM warm start plus a short fused-MCEM refinement: pcfg.niter PEEM
-    iterations, then `mcem_batch_fused` from PEEM's (W, H, g, Z) for
-    mcfg.niter sampling iterations and the sampled Wiener filter, with
-    `fused_kw` (the fast-mode options). y=None runs M1. The refinement's
-    generator is folded from `generator` with 7331, as the JAX package
-    folds its keys. `init` {"W", "H"} goes to PEEM. The result's "cost"
-    is PEEM's trace followed by the refinement's."""
+                       init=None, use_fused=True, seeds=None, **fused_kw):
+    """PEEM warm start plus a short MCEM refinement: pcfg.niter PEEM
+    iterations, then MCEM from PEEM's (W, H, g, Z) for mcfg.niter sampling
+    iterations and the sampled Wiener filter. y=None runs M1. The
+    refinement runs `mcem_batch_fused` with `fused_kw` (the fast-mode
+    options) and a generator folded from `generator` with 7331, as the JAX
+    package folds its keys; with use_fused=False it runs the eager
+    engine's `mcem_run` on the row `seeds` folded with 7331 (and no fast
+    options, as in the JAX package). `init` {"W", "H"} goes to PEEM. The
+    result's "cost" is PEEM's trace followed by the refinement's."""
     r = peem_run(model, X_abs2, mask, y, generator, pcfg,
                  update_nmf=update_nmf, Vb_fixed=Vb_fixed, init=init)
-    out = mcem_batch_fused(
-        model, X_abs2, mask, y, _fold_in(generator, 7331), mcfg,
-        update_nmf=update_nmf, Vb_fixed=Vb_fixed,
-        init={k: r[k] for k in ("W", "H", "g", "Z")}, **fused_kw)
+    if use_fused:
+        out = mcem_batch_fused(
+            model, X_abs2, mask, y, _fold_in(generator, 7331), mcfg,
+            update_nmf=update_nmf, Vb_fixed=Vb_fixed,
+            init={k: r[k] for k in ("W", "H", "g", "Z")}, **fused_kw)
+    else:
+        out = mcem_run(model, X_abs2, mask, y,
+                       [fold_seed(s, 7331) for s in seeds], mcfg,
+                       update_nmf=update_nmf, Vb_fixed=Vb_fixed,
+                       init_nmf=(r["W"], r["H"], r["g"]), init_Z=r["Z"])
     out["cost"] = torch.cat([r["cost"], out["cost"]], dim=-1)
     return out

@@ -3,23 +3,28 @@ labels -> batched MCEM (K1 / K2 kernels) -> Wiener filtering -> masked ISTFT
 -> PCM16.
 
 Counterpart of `guided_vae_nmf_tpu/pipeline.py`: :func:`enhance_waveform`
-is `_enhance_waveform_jit`, :func:`enhance_to_audio` is `enhance_to_audio`
-and :func:`enhance_files` is the file sweep, each in exact mode or in fast
-mode (`fast=True`: bfloat16 sample dumps, approximate reciprocal, no cost
-pass; `fast="trans"`: also the bit-arithmetic exp / log in the chains; see
-:func:`_fast_kwargs`). Noise
+is `_enhance_waveform_jit`, :func:`enhance_to_audio`, :func:`enhance_batch`
+and :func:`enhance_files` are their namesakes, :func:`make_labels` and
+:func:`load_mixture` the host helpers, and :func:`_wiener_waveform` /
+:func:`enhance_files_wiener` the Wiener-DNN baseline. The MCEM entry points
+run in exact mode or in fast mode (`fast=True`: bfloat16 sample dumps,
+approximate reciprocal, no cost pass; `fast="trans"`: also the
+bit-arithmetic exp / log in the chains; see :func:`_fast_kwargs`). Noise
 models: 'nmf' (the reference protocol), 'spp' (a fixed noise variance from
-the SPP tracker, only the gains updated) and 'spp2' (two passes: the first
+the SPP tracker, only the gains updated), 'hybrid' (the SPP floor plus a
+learned NMF residual, Vb = W H + Vb_spp) and 'spp2' (two passes: the first
 pass's residual power, EMA-smoothed and floored at the SPP PSD, is the
 second pass's fixed noise variance), with the optional noise gain.
-Engines, chosen by the config's type: `MCEMConfig` runs the fused MCEM
-engine, `PEEMConfig` PEEM (gradient E-step, no sampling) and
-`HybridConfig` the PEEM -> MCEM hybrid (PEEM warm start, a short fused
-MCEM refinement and its Wiener filter).
+Algorithms, chosen by the config's type: `MCEMConfig` runs MCEM,
+`PEEMConfig` PEEM (gradient E-step, no sampling) and `HybridConfig` the
+PEEM -> MCEM hybrid (PEEM warm start, a short MCEM refinement and its
+Wiener filter). MCEM runs on the fused engine (the K1 / K2 kernels) or on
+the eager engine (`mcem.engine.mcem_run`), by `engine=` (see
+:func:`_use_fused`); the 'hybrid' noise model always runs eager.
 Label sources: 'dnn' (classifier on standardized power frames,
-> threshold), 'timo' (SPP soft mask, > 0.5), 'host' (caller's labels),
-'ones', 'zeros' and 'none' (M1). The 'hybrid' noise model and 'oracle'
-labels are not ported yet and raise NotImplementedError.
+> threshold), 'oracle' (the Lorenz-quantile IBM / VAD of the clean
+track), 'timo' (SPP soft mask, > 0.5), 'host' (caller's labels), 'ones',
+'zeros' and 'none' (M1).
 
 Entry points run on the GPU unless `device` names another device.
 """
@@ -36,11 +41,27 @@ import torch.nn.functional as Fn
 
 from ._build import KernelError, build_all
 from ._device import resolve_device
-from .data import read_wav_int16, wav_num_samples, write_wav
-from .dsp import frame_count, istft_masked, pad_signal_for_stft
-from .dsp import stft_batch_padded
-from .mcem.engine import MCEMConfig, _fold_in
+from .data import read_wav, read_wav_int16, wav_num_samples, write_wav
+from .dsp import (
+    clean_speech_IBM,
+    clean_speech_IBM_torch,
+    clean_speech_VAD,
+    clean_speech_VAD_torch,
+    frame_count,
+    istft_masked,
+    pad_signal_for_stft,
+    stft,
+    stft_batch_padded,
+)
+from .mcem.engine import (
+    MCEMConfig,
+    _fold_in,
+    fold_seed,
+    mcem_run,
+    row_seeds,
+)
 from .mcem.fused_engine import mcem_batch_fused
+from .mcem.mh_chain import kernel_takes
 from .mcem.peem import (
     HybridConfig,
     PEEMConfig,
@@ -48,7 +69,13 @@ from .mcem.peem import (
     peem_m2_batch,
     peem_mcem_m2_batch,
 )
-from .mcem.spp import spp_track, timo_mask, timo_vad
+from .mcem.spp import (
+    spp_track,
+    timo_mask,
+    timo_mask_estimation,
+    timo_vad,
+    timo_vad_estimation,
+)
 from .models.nets import classifier_features
 from .profiles import apply_profile_cfg, offline_settings
 
@@ -57,14 +84,69 @@ NFFT = 1024
 HOP = 256
 BINS = 513
 
-LABEL_MODES = ("none", "host", "dnn", "timo", "ones", "zeros")
+LABEL_MODES = ("none", "host", "dnn", "oracle", "timo", "ones", "zeros")
 NOISE_MODELS = ("nmf", "spp", "hybrid", "spp2")
+ENGINES = ("auto", "fused", "xla")
 
 
 def bucket_frames(n_frames, bucket_multiple=128):
     """Padded frame count of an utterance."""
     return ((n_frames + bucket_multiple - 1) // bucket_multiple) * \
         bucket_multiple
+
+
+def load_mixture(path_base):
+    """Read `<base>_x.wav` -> (x_t, T_orig, X_tf (F, N) complex64), by the
+    host STFT (the port has no native loader)."""
+    x_t, fs = read_wav(path_base + "_x.wav")
+    if fs != FS:
+        raise ValueError(f"{path_base}_x.wav: sample rate {fs}, expected "
+                         f"{FS}")
+    X_tf = stft(x_t, fs=FS, wlen_sec=NFFT / FS, hop_percent=HOP / NFFT)
+    return x_t, len(x_t), X_tf
+
+
+def make_labels(classif_type, X_power, s_path=None, classifier=None,
+                mean=None, std=None, target="ibm", quantile_fraction=0.98,
+                quantile_weight=0.999, eps=1e-8, features="power",
+                dnn_threshold=0.5):
+    """Per-utterance guidance labels on the host: X_power (F, N) mixture
+    power -> (y_soft, y_hard) numpy arrays of shape (y_dim, N), y_dim = 513
+    for IBM targets and 1 for VAD. 'dnn' runs `classifier` (a module) on
+    its own device; 'oracle' reads the clean track `s_path`; 'timo',
+    'ones' and 'zeros' need only X_power."""
+    if classif_type == "dnn":
+        x = classifier_features(torch.as_tensor(X_power.T), features)
+        if mean is not None:
+            x = (x - torch.as_tensor(mean).reshape(1, -1)) / (
+                torch.as_tensor(std).reshape(1, -1) + eps)
+        dev = classifier.out.w.device
+        with torch.no_grad():
+            y_soft = classifier(x.to(dev, torch.float32)).cpu().numpy().T
+        y_hard = (y_soft > dnn_threshold).astype(np.float32)
+    elif classif_type == "oracle":
+        s_t, _ = read_wav(s_path)
+        s_tf = stft(s_t, fs=FS, wlen_sec=NFFT / FS, hop_percent=HOP / NFFT)
+        fn = clean_speech_VAD if target == "vad" else clean_speech_IBM
+        y_soft = fn(s_tf, quantile_fraction=quantile_fraction,
+                    quantile_weight=quantile_weight)
+        if target == "vad":
+            y_soft = y_soft.reshape(1, -1)
+        y_hard = y_soft.astype(np.float32)
+    elif classif_type == "timo":
+        if target == "vad":
+            y_soft = timo_vad_estimation(X_power)[None]
+        else:
+            y_soft = timo_mask_estimation(X_power)
+        y_hard = (y_soft > 0.5).astype(np.float32)
+    elif classif_type in ("ones", "zeros"):
+        y_dim = 1 if target == "vad" else X_power.shape[0]
+        fill = np.ones if classif_type == "ones" else np.zeros
+        y_soft = fill((y_dim, X_power.shape[1]), np.float32)
+        y_hard = y_soft
+    else:
+        raise ValueError(f"unknown classif_type: {classif_type}")
+    return y_soft, y_hard
 
 
 def _pad_batch(X_tfs, ys, n_pad):
@@ -133,13 +215,38 @@ def _fast_kwargs(fast):
     return kw
 
 
-def _check_supported(noise_model, fast, cfg):
+def _check_engine(engine):
+    if engine not in ENGINES:
+        raise ValueError(f"engine must be one of {ENGINES}, got {engine!r}")
+
+
+def _check_supported(noise_model, fast, cfg, engine="auto"):
     validate_noise_model(noise_model, cfg)
     _fast_kwargs(fast)
-    if noise_model == "hybrid":
-        raise NotImplementedError(
-            "noise_model 'hybrid' runs on the eager engine, which is not "
-            "ported yet (ROADMAP Queue 1, item 3)")
+    _check_engine(engine)
+
+
+def _use_fused(engine, model, n_pad, nmf_rank=10):
+    """Engine choice: 'fused' runs the fused engine (K1 / K2 on CUDA, their
+    plain versions on the CPU), 'xla' the eager engine; 'auto' the fused
+    engine wherever K1 takes the decoder (1 to 4 hidden layers of one
+    width, and the kernel's frame-tile, bin and shared-memory limits at
+    n_pad frames and rank `nmf_rank`), and the eager engine otherwise. The
+    plain versions take any decoder, so on the CPU 'auto' stays on the
+    fused engine, where the JAX package picks its XLA engine. A kernel that
+    does not build raises here: a build fault never selects the eager
+    engine."""
+    _check_engine(engine)
+    if engine != "auto":
+        return engine == "fused"
+    dec = model.decoder
+    if dec.out.w.device.type != "cuda":
+        return True
+    widths = {layer.w.shape[1] for layer in dec.hidden}
+    if not (1 <= len(dec.hidden) <= 4 and len(widths) == 1):
+        return False
+    return kernel_takes(dec.out.w.shape[1], model.encoder.mu.w.shape[1],
+                        widths.pop(), nmf_rank, len(dec.hidden), n_pad)
 
 
 def _ema_time(P, alpha):
@@ -161,53 +268,91 @@ def _spp2_pass1_cfg(cfg):
     return dataclasses.replace(cfg, niter=p1)
 
 
-def _spp2_two_pass(run_engine, Vb_spp, X_p, generator, cfg):
+def _eager(engine, model, n_pad, cfg, noise_model):
+    """Whether MCEM runs on the eager engine: the 'hybrid' noise model, or
+    where :func:`_use_fused` does not pick the fused engine."""
+    return noise_model == "hybrid" or not _use_fused(
+        engine, model, n_pad, getattr(cfg, "nmf_rank", 0))
+
+
+def _spp2_two_pass(run_engine, Vb_spp, X_p, cfg):
     """Two-pass noise model ('spp2'): pass 1 runs the engine at the SPP
     noise variance with cfg.spp2_pass1_niter EM iterations; pass 2 re-runs
-    it with Vb = max(Vb_spp, ema((1 - WFs1)^2 |X|^2)), the energy the first
-    Wiener filter removed, floored at the SPP PSD."""
-    out = run_engine(Vb_spp, generator, cfg=_spp2_pass1_cfg(cfg))
+    it, with its randomness folded with 2, at Vb = max(Vb_spp,
+    ema((1 - WFs1)^2 |X|^2)), the energy the first Wiener filter removed,
+    floored at the SPP PSD."""
+    out = run_engine(Vb_spp, cfg=_spp2_pass1_cfg(cfg))
     res = torch.square(1.0 - out["WFs"]) * X_p
     Vb2 = torch.maximum(Vb_spp, _ema_time(res, 0.5))
-    return run_engine(Vb2, _fold_in(generator, 2))
+    return run_engine(Vb2, fold=2)
 
 
-def _mcem_wf_istft(model, X_re, X_im, X_p, mask, y, generator, cfg,
-                   noise_model="nmf", fast=False, init=None):
-    """Noise model -> engine (by the config's type: fused MCEM, PEEM or
-    the PEEM -> MCEM hybrid) -> Wiener filtering -> masked batched ISTFT.
-    Returns (s_est, n_est) padded float32 waveforms and the (B, F, N)
-    Wiener gains. The SPP tracker runs over the whole padded X_p, as in the
-    JAX package (its recurrence is causal, so pad frames cannot perturb the
-    valid prefix). `init` is the engine's warm start; PEEM and the hybrid
-    take its "W" / "H"."""
-    _check_supported(noise_model, fast, cfg)
-    update_nmf = noise_model == "nmf"
+def _run_mcem(model, X_p, mask, y, generator, cfg, noise_model="nmf",
+              fast=False, init=None, engine="auto", seeds=None):
+    """Noise model -> engine: the algorithm by the config's type (MCEM, PEEM
+    or the PEEM -> MCEM hybrid), MCEM on the engine :func:`_use_fused`
+    picks (the 'hybrid' noise model on the eager engine). Returns the
+    engine's result dict. The SPP tracker runs over the whole padded X_p,
+    as in the JAX package (its recurrence is causal, so pad frames cannot
+    perturb the valid prefix). The fused engine and PEEM draw from
+    `generator`; the eager engine from the row `seeds` (default: derived
+    from the generator's seed and each row's index) and ignores `fast`, as
+    the JAX package's XLA engine does. `init` is the warm start: "W" /
+    "H" for PEEM and the hybrid, also "g" / "Z" for MCEM on either
+    engine."""
+    _check_supported(noise_model, fast, cfg, engine)
+    update_nmf = noise_model not in ("spp", "spp2")
     Vb_spp = None
-    if not update_nmf:
+    if noise_model != "nmf":
         psd, _ = spp_track(X_p)
         Vb_spp = torch.clamp_min(psd, 1e-6)
+    use_fused = not _eager(engine, model, X_p.shape[-1], cfg, noise_model)
+    if seeds is None:
+        seeds = row_seeds(generator.initial_seed(), X_p.shape[0])
 
-    def run_engine(Vb_fixed, gen, cfg=cfg):
+    def run_engine(Vb_fixed, cfg=cfg, fold=None):
+        gen, sds = generator, seeds
+        if fold is not None:
+            gen = _fold_in(generator, fold)
+            sds = [fold_seed(s, fold) for s in seeds]
         if isinstance(cfg, HybridConfig):
             pcfg, mcfg = cfg.split()
             return peem_mcem_m2_batch(model, X_p, mask, y, gen, pcfg, mcfg,
                                       update_nmf=update_nmf,
                                       Vb_fixed=Vb_fixed, init=init,
+                                      use_fused=use_fused, seeds=sds,
                                       **_fast_kwargs(fast))
         if isinstance(cfg, PEEMConfig):
             peem = peem_m1_batch if y is None else peem_m2_batch
             args = (model, X_p, mask) + (() if y is None else (y,))
             return peem(*args, gen, cfg, update_nmf=update_nmf,
                         Vb_fixed=Vb_fixed, init=init)
-        return mcem_batch_fused(model, X_p, mask, y, gen, cfg,
-                                update_nmf=update_nmf, Vb_fixed=Vb_fixed,
-                                init=init, **_fast_kwargs(fast))
+        if use_fused:
+            return mcem_batch_fused(model, X_p, mask, y, gen, cfg,
+                                    update_nmf=update_nmf, Vb_fixed=Vb_fixed,
+                                    init=init, **_fast_kwargs(fast))
+        warm = init or {}
+        init_nmf = None
+        if "W" in warm:
+            init_nmf = (warm["W"], warm["H"],
+                        warm.get("g", torch.ones_like(mask)))
+        return mcem_run(model, X_p, mask, y, sds, cfg, update_nmf=update_nmf,
+                        Vb_fixed=Vb_fixed, init_nmf=init_nmf,
+                        init_Z=warm.get("Z"))
 
     if noise_model == "spp2":
-        out = _spp2_two_pass(run_engine, Vb_spp, X_p, generator, cfg)
-    else:
-        out = run_engine(Vb_spp, generator)
+        return _spp2_two_pass(run_engine, Vb_spp, X_p, cfg)
+    return run_engine(Vb_spp)
+
+
+def _mcem_wf_istft(model, X_re, X_im, X_p, mask, y, generator, cfg,
+                   noise_model="nmf", fast=False, init=None, engine="auto",
+                   seeds=None):
+    """:func:`_run_mcem` -> Wiener filtering -> masked batched ISTFT.
+    Returns (s_est, n_est) padded float32 waveforms and the (B, F, N)
+    Wiener gains."""
+    out = _run_mcem(model, X_p, mask, y, generator, cfg, noise_model, fast,
+                    init, engine, seeds)
     X = torch.complex(X_re, X_im)
     s_est = istft_masked(out["WFs"] * X, mask)
     n_est = istft_masked(out["WFn"] * X, mask)
@@ -224,38 +369,46 @@ def _as_device(a, device, dtype=None):
                                                   dtype=dtype)
 
 
+def _waveforms(a, dev):
+    """Host-padded waveforms on `dev` as float32 (int16 PCM scaled by
+    1/32768)."""
+    x = _as_device(a, dev)
+    if x.dtype != torch.float32:
+        x = x.to(torch.float32) / 32768.0
+    return x
+
+
 @torch.no_grad()
 def enhance_waveform(model, x_pad, mask, cfg: MCEMConfig = MCEMConfig(), *,
                      classifier=None, mean=None, std=None, y_in=None,
-                     generator=None, label_mode="none",
-                     noise_model="nmf", fast=False, target="ibm",
-                     return_noise=True, soft_guidance=False,
-                     features="power", dnn_threshold=0.5, init=None,
-                     device=None):
+                     s_pad=None, generator=None, seeds=None,
+                     label_mode="none", noise_model="nmf", fast=False,
+                     engine="auto", target="ibm", quantile_fraction=0.98,
+                     quantile_weight=0.999, return_noise=True,
+                     soft_guidance=False, features="power",
+                     dnn_threshold=0.5, init=None, device=None):
     """Whole pipeline on RAW WAVEFORMS: batched STFT -> labels -> MCEM ->
-    Wiener filtering -> masked ISTFT -> PCM16. noise_model: 'nmf', 'spp' or
-    'spp2'; cfg: an MCEMConfig, a PEEMConfig or a HybridConfig (see the
-    module docstring).
+    Wiener filtering -> masked ISTFT -> PCM16. noise_model: 'nmf', 'spp',
+    'hybrid' or 'spp2'; cfg: an MCEMConfig, a PEEMConfig or a HybridConfig;
+    engine: 'auto', 'fused' or 'xla' (see the module docstring).
 
     x_pad: (B, L) host-pre-padded waveforms (:func:`pad_signal_for_stft`),
     int16 (scaled by 1/32768 on the device) or float32; mask (B, N) frame
-    validity with N = 1 + (L - 1024) // 256. `generator` (a torch.Generator
-    on `device`, default seeded with 0) drives the NMF init and the chain
-    seeds. init: optional warm start passed to the engine (see
-    `mcem_batch_fused`; PEEM and the hybrid take its "W" / "H").
+    validity with N = 1 + (L - 1024) // 256. s_pad: the clean waveforms,
+    padded alike, for label_mode='oracle': the labels are the
+    Lorenz-quantile IBM (or, with target='vad', VAD) of their masked power,
+    at `quantile_fraction` / `quantile_weight`. `generator` (a
+    torch.Generator on `device`, default seeded with 0) drives the fused
+    engine and PEEM; `seeds` (B ints) the eager engine's rows (see
+    `_run_mcem`). init: optional warm start passed to the engine.
 
     Returns (s_i16, n_i16 | None, y_soft f16 | None, y_hard packed u8 |
-    None, finite_ok (B,) bool), all on `device`."""
+    None, finite_ok (B,) bool), all on `device`; soft labels come back for
+    'dnn' and 'timo' only (elsewhere soft equals hard)."""
     if label_mode not in LABEL_MODES:
-        if label_mode == "oracle":
-            raise NotImplementedError(
-                "label_mode 'oracle' is not ported yet (ROADMAP Queue 1, "
-                "item 2)")
         raise ValueError(f"unknown label_mode {label_mode!r}")
     dev = resolve_device(device)
-    x = _as_device(x_pad, dev)
-    if x.dtype != torch.float32:
-        x = x.to(torch.float32) / 32768.0
+    x = _waveforms(x_pad, dev)
     mask = _as_device(mask, dev, torch.float32)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
@@ -267,6 +420,12 @@ def enhance_waveform(model, x_pad, mask, cfg: MCEMConfig = MCEMConfig(), *,
     y = y_soft = y_hard = None
     if label_mode == "host":
         y = _as_device(y_in, dev, torch.float32)
+    elif label_mode == "oracle":
+        S = stft_batch_padded(_waveforms(s_pad, dev))
+        Sp = (S.real**2 + S.imag**2) * mask[:, None, :]
+        fn = (clean_speech_VAD_torch if target == "vad"
+              else clean_speech_IBM_torch)
+        y = y_hard = fn(Sp, quantile_fraction, quantile_weight)
     elif label_mode == "dnn":
         # pad frames carry benign X_p = 1; the masked engine ignores their
         # labels
@@ -297,7 +456,7 @@ def enhance_waveform(model, x_pad, mask, cfg: MCEMConfig = MCEMConfig(), *,
 
     s_est, n_est, _, _ = _mcem_wf_istft(model, X_re, X_im, X_p, mask, y,
                                         generator, cfg, noise_model, fast,
-                                        init=init)
+                                        init=init, engine=engine, seeds=seeds)
     # per-row flags: one row's numeric failure must not fail its batch-mates
     finite_ok = torch.all(torch.isfinite(s_est), dim=-1)
     if return_noise:
@@ -312,7 +471,8 @@ def enhance_waveform(model, x_pad, mask, cfg: MCEMConfig = MCEMConfig(), *,
 @torch.no_grad()
 def enhance_to_audio(model, X_tfs, t_origs, ys=None, generator=None,
                      cfg: MCEMConfig = MCEMConfig(), bucket_multiple=128,
-                     noise_model="nmf", fast=False, device=None):
+                     noise_model="nmf", fast=False, engine="auto",
+                     device=None):
     """Complex spectrograms (F, N_i) in, trimmed float32 (s_est, n_est)
     waveform lists out."""
     dev = resolve_device(device)
@@ -326,11 +486,39 @@ def enhance_to_audio(model, X_tfs, t_origs, ys=None, generator=None,
         torch.as_tensor(np.ascontiguousarray(np.imag(X_c)), device=dev),
         torch.as_tensor(X_p, device=dev), torch.as_tensor(mask, device=dev),
         None if ys is None else torch.as_tensor(y_b, device=dev),
-        generator, cfg, noise_model, fast)
+        generator, cfg, noise_model, fast, engine=engine)
     s_est = s_est.cpu().numpy()
     n_est = n_est.cpu().numpy()
     return ([s_est[i][:t] for i, t in enumerate(t_origs)],
             [n_est[i][:t] for i, t in enumerate(t_origs)])
+
+
+@torch.no_grad()
+def enhance_batch(model, X_tfs, ys=None, generator=None, seeds=None,
+                  cfg: MCEMConfig = MCEMConfig(), bucket_multiple=128,
+                  return_masks=False, engine="auto", noise_model="nmf",
+                  device=None):
+    """Enhance per-utterance (F, N_i) complex spectrograms in one padded
+    batch: returns lists of (F, N_i) S_hat / N_hat complex numpy arrays,
+    and with return_masks the engine's result dict (on `device`) as a
+    third item. noise_model, engine, generator / seeds as in
+    :func:`enhance_waveform`."""
+    dev = resolve_device(device)
+    n_pad = bucket_frames(max(X.shape[1] for X in X_tfs), bucket_multiple)
+    _, X_p, mask, y_b = _pad_batch(X_tfs, ys, n_pad)
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    out = _run_mcem(model, torch.as_tensor(X_p, device=dev),
+                    torch.as_tensor(mask, device=dev),
+                    None if ys is None else torch.as_tensor(y_b, device=dev),
+                    generator, cfg, noise_model, engine=engine, seeds=seeds)
+    WFs = out["WFs"].cpu().numpy()
+    WFn = out["WFn"].cpu().numpy()
+    S_hat = [WFs[i, :, : X.shape[1]] * X for i, X in enumerate(X_tfs)]
+    N_hat = [WFn[i, :, : X.shape[1]] * X for i, X in enumerate(X_tfs)]
+    if return_masks:
+        return S_hat, N_hat, out
+    return S_hat, N_hat
 
 
 def plan_batches(file_paths, n_frames_all, batch_size=16,
@@ -355,6 +543,18 @@ def plan_batches(file_paths, n_frames_all, batch_size=16,
     return batches
 
 
+def _fill_row(path, row):
+    """Decode one int16 wav, end-pad and reflect-pad it into `row` (samples
+    past the row's frames belong to no frame); returns (valid frames,
+    samples)."""
+    x_t, fs = read_wav_int16(path)
+    if fs != FS:
+        raise ValueError(f"{path}: sample rate {fs}, expected {FS}")
+    xp, nf = pad_signal_for_stft(x_t)
+    row[: min(len(xp), len(row))] = xp[:len(row)]
+    return nf, len(x_t)
+
+
 class SweepResult(float):
     """Wall-clock seconds of a sweep (a plain float), annotated with the
     numbers of processed and skipped utterances."""
@@ -372,22 +572,29 @@ def enhance_files(file_paths, processed_dir, output_dir, model,
                   model_type="m2", classif_type="dnn", target="ibm",
                   classifier=None, mean=None, std=None,
                   cfg: MCEMConfig = MCEMConfig(), batch_size=16,
-                  bucket_multiple=128, seed=0, verbose=False,
-                  noise_model="nmf", fast=False, soft_guidance=False,
-                  skip_existing=False, profile=None, features="power",
-                  dnn_threshold=0.5, device=None):
-    """Sweep over a file list: reads `<utt>_x.wav`, writes
-    `<utt>_s_est.wav`, `<utt>_n_est.wav` and, for M2, the soft/hard label
-    arrays `_ibm_soft_est.npy` / `_ibm_hard_est.npy`.
+                  bucket_multiple=128, quantile_fraction=0.98,
+                  quantile_weight=0.999, seed=0, verbose=False,
+                  engine="auto", noise_model="nmf", fast=False,
+                  soft_guidance=False, skip_existing=False, profile=None,
+                  features="power", dnn_threshold=0.5, device=None):
+    """Sweep over a file list: reads `<utt>_x.wav` (and `<utt>_s.wav` for
+    oracle labels), writes `<utt>_s_est.wav`, `<utt>_n_est.wav` and, for
+    M2, the soft/hard label arrays `_ibm_soft_est.npy` /
+    `_ibm_hard_est.npy`.
 
     Wav decode and padding run in a prefetch pool ahead of the device;
-    each batch runs :func:`enhance_waveform` with `return_noise=False` (the
-    Wiener gains sum to one, so n = x - s is formed on the host); a writer
-    pool writes the outputs. A failed batch is retried one utterance at a
-    time, and an utterance that still fails is written as mixture
-    passthrough; a :class:`KernelError` (a kernel that does not build or
-    launch) is not retried but raised. On a CUDA device the kernels are
-    built before the sweep starts. Returns a :class:`SweepResult`.
+    each batch runs :func:`enhance_waveform`. On the fused engine it runs
+    with `return_noise=False` (the fused chain's Wiener gains sum to one,
+    so n = x - s is formed on the host); on the eager engine, whose floor
+    on Vx can break that sum in near-silent bins, the device's n is
+    written. A writer pool writes the outputs. Each utterance's seed comes
+    from its list index (:func:`plan_batches`): a batch's generator is
+    seeded from its first member's, and the eager engine takes every
+    member's. A failed batch is retried one utterance at a time, and an
+    utterance that still fails is written as mixture passthrough; a
+    :class:`KernelError` (a kernel that does not build or launch) is not
+    retried but raised. On a CUDA device the kernels are built before the
+    sweep starts. Returns a :class:`SweepResult`.
 
     profile: name of a validated operating point (:mod:`.profiles`),
     authoritative for noise_model, soft_guidance and the cfg's noise_gain /
@@ -396,13 +603,9 @@ def enhance_files(file_paths, processed_dir, output_dir, model,
         noise_model, soft_guidance = offline_settings(profile)
         cfg = apply_profile_cfg(cfg, profile)
     label_mode = classif_type if model_type == "m2" else "none"
-    if label_mode not in ("none", "dnn", "timo", "ones", "zeros"):
-        if label_mode == "oracle":
-            raise NotImplementedError(
-                "classif_type 'oracle' is not ported yet (ROADMAP Queue 1, "
-                "item 2)")
+    if label_mode not in ("none", "dnn", "oracle", "timo", "ones", "zeros"):
         raise ValueError(f"unknown classif_type: {classif_type!r}")
-    _check_supported(noise_model, fast, cfg)
+    _check_supported(noise_model, fast, cfg, engine)
     dev = resolve_device(device)
     n_listed = len(file_paths)
     if skip_existing:
@@ -429,36 +632,43 @@ def enhance_files(file_paths, processed_dir, output_dir, model,
     batches = plan_batches(file_paths, n_frames_all, batch_size,
                            bucket_multiple, seed)
 
+    oracle = label_mode == "oracle"
+
     def assemble(paths, n_pad):
         L = (n_pad - 1) * HOP + NFFT
         x_b = np.zeros((len(paths), L), np.int16)
+        s_b = np.zeros((len(paths), L), np.int16) if oracle else None
         mask_b = np.zeros((len(paths), n_pad), np.float32)
         t_origs = []
         for j, path in enumerate(paths):
-            x_t, fs = read_wav_int16(base_in(path) + "_x.wav")
-            if fs != FS:
-                raise ValueError(f"{path}: sample rate {fs}, expected {FS}")
-            xp, nf = pad_signal_for_stft(x_t)
-            # samples past (n_pad-1)*hop + nfft belong to no frame
-            x_b[j, : min(len(xp), L)] = xp[:L]
+            nf, T = _fill_row(base_in(path) + "_x.wav", x_b[j])
             mask_b[j, :nf] = 1.0
-            t_origs.append(len(x_t))
-        return {"paths": paths, "t_origs": t_origs, "x": x_b,
+            t_origs.append(T)
+            if oracle:
+                _fill_row(base_in(path) + "_s.wav", s_b[j])
+        return {"paths": paths, "t_origs": t_origs, "x": x_b, "s": s_b,
                 "mask": mask_b, "n_frames": [frame_count(t) for t in t_origs]}
 
-    def run(x, mask, seeds):
+    def run(a, rows, seeds):
+        """enhance_waveform over a["..."][rows]; returns (s, n | None,
+        y_soft, y_hard) on the host."""
+        eager = _eager(engine, model, a["mask"].shape[1], cfg, noise_model)
         gen = torch.Generator(device=dev).manual_seed(int(seeds[0]))
         out = enhance_waveform(
-            model, x, mask, cfg, classifier=classifier, mean=mean, std=std,
-            generator=gen, label_mode=label_mode, noise_model=noise_model,
-            fast=fast, target=target, return_noise=False,
+            model, a["x"][rows], a["mask"][rows], cfg,
+            classifier=classifier, mean=mean, std=std,
+            s_pad=None if a["s"] is None else a["s"][rows], generator=gen,
+            seeds=[int(v) for v in seeds], label_mode=label_mode,
+            noise_model=noise_model, fast=fast, engine=engine, target=target,
+            quantile_fraction=quantile_fraction,
+            quantile_weight=quantile_weight, return_noise=eager,
             soft_guidance=soft_guidance, features=features,
             dnn_threshold=dnn_threshold, device=dev)
-        s, _, y_soft, y_hard, ok = (None if o is None else o.cpu().numpy()
+        s, n, y_soft, y_hard, ok = (None if o is None else o.cpu().numpy()
                                     for o in out)
         if not np.all(ok):
             raise FloatingPointError("non-finite enhancement output")
-        return s, y_soft, y_hard
+        return s, n, y_soft, y_hard
 
     y_dim = 1 if target == "vad" else BINS
 
@@ -494,12 +704,14 @@ def enhance_files(file_paths, processed_dir, output_dir, model,
             if i + PREFETCH < len(batches):
                 nxt = batches[i + PREFETCH]
                 pending.append(loader.submit(assemble, nxt[0], nxt[1]))
-            rows = []
+            rows = []      # (s, n | None, y_soft, y_hard) per utterance
             try:
-                s_b, ys_b, yh_b = run(a["x"], a["mask"], seeds)
+                s_b, n_b, ys_b, yh_b = run(a, slice(None), seeds)
                 for j, t in enumerate(a["t_origs"]):
-                    rows.append((s_b[j][:t],) + labels_host(
-                        ys_b, yh_b, j, a["n_frames"][j]))
+                    rows.append((s_b[j][:t],
+                                 None if n_b is None else n_b[j][:t])
+                                + labels_host(ys_b, yh_b, j,
+                                              a["n_frames"][j]))
             except KernelError:
                 raise
             except (RuntimeError, FloatingPointError) as exc:
@@ -507,10 +719,12 @@ def enhance_files(file_paths, processed_dir, output_dir, model,
                       "per-utterance")
                 for j, t in enumerate(a["t_origs"]):
                     try:
-                        s1, ys1, yh1 = run(a["x"][j:j + 1],
-                                           a["mask"][j:j + 1], seeds[j:j + 1])
-                        rows.append((s1[0][:t],) + labels_host(
-                            ys1, yh1, 0, a["n_frames"][j]))
+                        s1, n1, ys1, yh1 = run(a, slice(j, j + 1),
+                                               seeds[j:j + 1])
+                        rows.append((s1[0][:t],
+                                     None if n1 is None else n1[0][:t])
+                                    + labels_host(ys1, yh1, 0,
+                                                  a["n_frames"][j]))
                     except KernelError:
                         raise
                     except (RuntimeError, FloatingPointError) as exc2:
@@ -520,12 +734,14 @@ def enhance_files(file_paths, processed_dir, output_dir, model,
                         zeros = (None, None) if label_mode == "none" else (
                             np.zeros((y_dim, nf), np.float16),
                             np.zeros((y_dim, nf), np.uint8))
-                        rows.append((a["x"][j][off:off + t].copy(),) + zeros)
-            for j, (s, ys, yh) in enumerate(rows):
+                        rows.append((a["x"][j][off:off + t].copy(), None)
+                                    + zeros)
+            for j, (s, n, ys, yh) in enumerate(rows):
                 t = a["t_origs"][j]
-                n = np.clip(a["x"][j][off:off + t].astype(np.int32)
-                            - s.astype(np.int32), -32768, 32767).astype(
-                                np.int16)
+                if n is None:
+                    n = np.clip(a["x"][j][off:off + t].astype(np.int32)
+                                - s.astype(np.int32), -32768,
+                                32767).astype(np.int16)
                 write_futs.append(writer.submit(write_utt, paths[j], s, n,
                                                 ys, yh))
             if verbose:
@@ -534,3 +750,73 @@ def enhance_files(file_paths, processed_dir, output_dir, model,
             f.result()
     return SweepResult(time.perf_counter() - t_start, len(file_paths),
                        n_skipped)
+
+
+@torch.no_grad()
+def _wiener_waveform(model, x_pad, mean, std, mask, eps=1e-8):
+    """The Wiener-DNN baseline on a batch, on the model's device: STFT ->
+    power frames standardised by mean / std -> the mask m = model(frames)
+    (a sigmoid MLP) -> S = m X -> masked ISTFT -> PCM16. x_pad (B, L)
+    host-padded int16 or float32 waveforms, mask (B, N). Returns (s_i16
+    (B, L - 1024), m float16 (B, F, N))."""
+    dev = model.out.w.device
+    x = _waveforms(x_pad, dev)
+    mask = _as_device(mask, dev, torch.float32)
+    X = stft_batch_padded(x)
+    X_re, X_im = X.real, X.imag
+    xn = (X_re**2 + X_im**2).transpose(1, 2)              # (B, N, F)
+    if mean is not None:
+        mean = _as_device(mean, dev, torch.float32)
+        std = _as_device(std, dev, torch.float32)
+        xn = (xn - mean.reshape(1, 1, -1)) / (std.reshape(1, 1, -1) + eps)
+    m = model(xn.reshape(-1, xn.shape[-1]))
+    m = m.reshape(xn.shape[0], xn.shape[1], -1).transpose(1, 2)
+    s_est = istft_masked(torch.complex(m * X_re, m * X_im), mask)
+    return _to_pcm16(s_est), m.to(torch.float16)
+
+
+def enhance_files_wiener(file_paths, processed_dir, output_dir, model,
+                         mean=None, std=None, eps=1e-8, verbose=False,
+                         batch_size=32, bucket_multiple=128, device=None):
+    """The Wiener-DNN baseline sweep: reads `<utt>_x.wav`, writes
+    `<utt>_s_est.wav` and the soft mask `<utt>_wiener_mask.npy` (float32,
+    (F, frames)). Utterances are bucketed by padded frame count and each
+    batch of up to `batch_size` runs :func:`_wiener_waveform` on `device`
+    (the GPU unless named; the model must live there), with int16
+    transport. Returns wall-clock seconds."""
+    dev = resolve_device(device)
+    t_start = time.perf_counter()
+
+    def base(root, path):
+        return os.path.join(root, os.path.splitext(path)[0])
+
+    groups = defaultdict(list)
+    for path in file_paths:
+        nf = frame_count(wav_num_samples(base(processed_dir, path)
+                                         + "_x.wav"))
+        groups[bucket_frames(nf, bucket_multiple)].append(path)
+    for n_pad, paths in sorted(groups.items()):
+        L = (n_pad - 1) * HOP + NFFT
+        for lo in range(0, len(paths), batch_size):
+            sel = paths[lo: lo + batch_size]
+            x_b = np.zeros((len(sel), L), np.int16)
+            mask_b = np.zeros((len(sel), n_pad), np.float32)
+            rows = []
+            for j, path in enumerate(sel):
+                nf, T = _fill_row(base(processed_dir, path) + "_x.wav",
+                                  x_b[j])
+                mask_b[j, :nf] = 1.0
+                rows.append((nf, T))
+            s_i16, m = _wiener_waveform(
+                model, torch.as_tensor(x_b, device=dev), mean, std,
+                torch.as_tensor(mask_b, device=dev), eps=eps)
+            s_i16, m = s_i16.cpu().numpy(), m.cpu().numpy()
+            for j, (path, (nf, T)) in enumerate(zip(sel, rows)):
+                base_out = base(output_dir, path)
+                os.makedirs(os.path.dirname(base_out), exist_ok=True)
+                write_wav(base_out + "_s_est.wav", s_i16[j][:T], FS)
+                np.save(base_out + "_wiener_mask.npy",
+                        m[j][:, :nf].astype(np.float32))
+                if verbose:
+                    print(f"wiener: {path}")
+    return time.perf_counter() - t_start

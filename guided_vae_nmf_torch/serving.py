@@ -12,14 +12,18 @@ host and resolves its requests. Batch sizes are rounded up to a small
 lattice with duplicated tail rows, as in the JAX package, which bounds the
 shapes a deployment sees.
 
-Determinism: a batch's `torch.Generator` is seeded from its first
-request's seed (`seed * 1_000_003 + rid`), as the JAX fused engine uses
-only the batch's leading key, so a request's output depends on what else
-rode in its batch. At var_RW=0 with the 'spp' noise model nothing is drawn
-at random and the output is deterministic.
+Determinism: every request has its own seed, `seed * 1_000_003 + rid`.
+On the fused engine a batch's `torch.Generator` is seeded from its first
+request's, as the JAX fused engine uses only the batch's leading key, so a
+request's output depends on what else rode in its batch. On the eager
+engine (`engine='xla'`) each row draws from its own seed by a counter
+hash and its EM runs in float64 (`mcem.engine`), so a request gives the
+same PCM alone or co-batched (the tests allow 1 LSB); its noise track is
+the device's n, not x - s. At var_RW=0 with the 'spp' noise model
+nothing is drawn at random and the output is deterministic.
 
-Not ported yet: the eager engine (`engine='xla'`, ROADMAP Queue 1 item 3)
-and mesh-sharded serving (`mesh=`, item 11) raise NotImplementedError.
+Not ported yet: mesh-sharded serving (`mesh=`, ROADMAP Queue 1 item 5)
+raises NotImplementedError.
 """
 
 import contextlib
@@ -37,7 +41,7 @@ from ._build import build_all
 from ._device import resolve_device
 from .dsp import frame_count, pad_signal_for_stft
 from .mcem.engine import MCEMConfig
-from .pipeline import HOP, NFFT, _check_supported, enhance_waveform
+from .pipeline import HOP, NFFT, _check_supported, _eager, enhance_waveform
 
 SERVE_LABEL_MODES = ("dnn", "timo", "none", "ones", "zeros")
 
@@ -64,8 +68,9 @@ class ServeConfig:
       (0: no bound). max_pad_waste: under load, shorter requests merge into
       the longest pending bucket while each wastes at most this share of
       its row's compute (0: no coalescing).
-    engine: 'auto' or 'fused' (the same: the fused engine); 'xla' is not
-      ported. fast: False, True or 'trans' (see pipeline._fast_kwargs)."""
+    engine: 'auto', 'fused' or 'xla' (see pipeline._use_fused); 'xla' is
+      the replay-stable eager engine. fast: False, True or 'trans' (see
+      pipeline._fast_kwargs)."""
 
     max_batch: int = 16
     max_wait_ms: float = 20.0
@@ -112,19 +117,13 @@ class EnhancementService:
         if mesh is not None:
             raise NotImplementedError(
                 "mesh-sharded serving is not ported yet (ROADMAP Queue 1, "
-                "item 11)")
-        if serve.engine == "xla":
-            raise NotImplementedError(
-                "engine 'xla' runs the eager MCEM engine, which is not "
-                "ported yet (ROADMAP Queue 1, item 3)")
-        if serve.engine not in ("auto", "fused"):
-            raise ValueError(f"unknown engine {serve.engine!r}")
+                "item 5)")
         if serve.label_mode not in SERVE_LABEL_MODES:
             raise ValueError(f"label_mode must be one of {SERVE_LABEL_MODES},"
                              f" got {serve.label_mode!r}")
         if serve.label_mode == "dnn" and classifier is None:
             raise ValueError("label_mode 'dnn' needs a classifier")
-        _check_supported(serve.noise_model, serve.fast, cfg)
+        _check_supported(serve.noise_model, serve.fast, cfg, serve.engine)
         lat = tuple(serve.batch_lattice)
         if not lat or list(lat) != sorted(set(lat)) or lat[0] < 1:
             raise ValueError("batch_lattice must be strictly increasing "
@@ -349,7 +348,8 @@ class EnhancementService:
 
     def _dispatch_bucket(self, n_pad, reqs):
         """Host assembly, then the batch on the device; returns the device
-        tensors (s_i16, finite_ok) without waiting for them."""
+        tensors (s_i16, n_i16 or None, finite_ok) without waiting for
+        them."""
         sv = self._serve
         B = len(reqs)
         Bp = next(b for b in sv.batch_lattice if b >= B)
@@ -363,31 +363,40 @@ class EnhancementService:
             mask_b[j, :nf] = 1.0
         x_b[B:] = x_b[B - 1]                     # benign duplicate tail rows
         mask_b[B:] = mask_b[B - 1]
-        seed = (sv.seed * 1_000_003 + reqs[0].rid) % 2**63
-        gen = torch.Generator(device=self._dev).manual_seed(seed)
+        seeds = [sv.seed * 1_000_003 + r.rid
+                 for r in reqs + [reqs[-1]] * (Bp - B)]
+        gen = torch.Generator(device=self._dev).manual_seed(
+            seeds[0] % 2**63)
+        # the eager engine's Vx floor can break WFs + WFn = 1 in near-silent
+        # bins, so its rows return the device's n
+        eager = _eager(sv.engine, self._model, n_pad, self._cfg,
+                       sv.noise_model)
         dnn = sv.label_mode == "dnn"
-        s_i16, _, _, _, finite_ok = enhance_waveform(
+        s_i16, n_i16, _, _, finite_ok = enhance_waveform(
             self._model, x_b, mask_b, self._cfg,
             classifier=self._cls if dnn else None,
             mean=self._mean if dnn else None, std=self._std if dnn else None,
-            generator=gen, label_mode=sv.label_mode,
-            noise_model=sv.noise_model, fast=sv.fast, target=sv.target,
-            return_noise=False, soft_guidance=sv.soft_guidance,
-            features=sv.features, dnn_threshold=sv.dnn_threshold,
-            device=self._dev)
-        return s_i16, finite_ok
+            generator=gen, seeds=seeds, label_mode=sv.label_mode,
+            noise_model=sv.noise_model, fast=sv.fast, engine=sv.engine,
+            target=sv.target, return_noise=eager,
+            soft_guidance=sv.soft_guidance, features=sv.features,
+            dnn_threshold=sv.dnn_threshold, device=self._dev)
+        return s_i16, n_i16, finite_ok
 
     def _resolve_bucket(self, handles, reqs):
-        s_i16, finite_ok = handles
+        s_i16, n_i16, finite_ok = handles
         B = len(reqs)
         s_np = s_i16.cpu().numpy().astype(np.float32) / 32768.0
+        n_np = (None if n_i16 is None
+                else n_i16.cpu().numpy().astype(np.float32) / 32768.0)
         ok = finite_ok.cpu().numpy()            # (Bp,) per-row flags
         now = time.perf_counter()
         for j, r in enumerate(reqs):
             T = len(r.x)
             if ok[j]:
                 s = s_np[j, :T]
-                n = r.x - s                      # the Wiener gains sum to 1
+                # the fused engine's Wiener gains sum to 1
+                n = r.x - s if n_np is None else n_np[j, :T]
             else:                                # degrade this row only
                 s, n = r.x.copy(), np.zeros(T, np.float32)
             lat = now - r.t_submit

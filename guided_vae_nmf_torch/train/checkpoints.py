@@ -87,7 +87,7 @@ def load_model(path_or_dir, kind="vae", y_dim=513, device=None):
     if path.endswith(".pt"):
         raise NotImplementedError(
             "reference .pt import is not ported yet (ROADMAP Queue 1, "
-            "item 12); convert it with the JAX package to .ckpt.npz")
+            "item 6); convert it with the JAX package to .ckpt.npz")
     tree = load_params(path, static=_static_leaves(kind, y_dim))
     return module_from_params(tree, device=device)
 

@@ -4,7 +4,9 @@ variance (Vb=, K1b / K2b), in exact math and with the fast-mode options
 (K1c / K2c: bfloat16 sample dumps, approximate reciprocal, bit-arithmetic
 exp / log), and the chain with bfloat16 decoder products (K1d, at its own
 tolerance, K1D_TOL below); the fused engine, PEEM and the PEEM -> MCEM
-hybrid on the card against the CPU run.
+hybrid on the card against the CPU run; and the parts that launch no
+kernel of their own, on the card against the CPU: the oracle labels, the
+eager MCEM engine under injected streams and the Wiener-DNN forward.
 
 Every test here needs an NVIDIA GPU and skips without one. The file
 imports neither JAX nor the JAX package, so it also runs on a GPU machine
@@ -834,3 +836,144 @@ def test_sums_launch_geometry(cuda):
     c = sums_case(cuda, 43, 1, 2, 16, 65, KMAX + 1)
     with pytest.raises(ValueError, match=f"NMF rank {KMAX + 1}"):
         nmf_sums(c["samples"], c["WH"], c["g"], c["X2"], mode="h")
+
+
+# Paths that launch no kernel of their own (PyTorch operations on the
+# card): the oracle labels, the eager engine and the Wiener-DNN forward.
+
+
+def _speech_power(rng, B, F, N):
+    """(B, F, N) speech-like power: harmonic stacks with a gliding f0 and a
+    syllable-rate gate, over a little noise."""
+    f = np.arange(F)[None, :, None]
+    n = np.arange(N)[None, None, :]
+    f0 = rng.uniform(6, 12, (B, 1, 1)) * (1 + 0.1 * np.sin(n / 40.0))
+    dist = np.abs(f / f0 - np.round(f / f0))
+    p = np.exp(-(dist / 0.08) ** 2) * np.exp(-f / 150.0)
+    p *= (np.sin(n / 7.0 + rng.uniform(0, 6, (B, 1, 1))) > -0.3)
+    p = p * 1e3 + rng.exponential(size=(B, F, N)) * 1e-2
+    return p.astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [384, 2048])
+def test_oracle_labels_match_cpu(cuda, N):
+    """The Lorenz-quantile IBM and VAD on the card against the CPU: the
+    sort path at N=384 and the bisection at N=2048 (513 N >= 2^20); equal
+    but for at most one crossing element a row."""
+    from guided_vae_nmf_torch.dsp import (
+        clean_speech_IBM_torch, clean_speech_VAD_torch)
+
+    p = _speech_power(np.random.RandomState(N), 3, 513, N)
+    p[2] = 0.0                                  # no element below 98 %
+    for fn in (clean_speech_IBM_torch, clean_speech_VAD_torch):
+        got = fn(torch.tensor(p, device=cuda)).cpu().numpy()
+        ref = fn(torch.tensor(p)).numpy()
+        assert got.shape == ref.shape
+        diff = (got != ref).reshape(3, -1).sum(axis=1)
+        assert np.all(diff <= 1), (fn.__name__, diff)
+        assert 0 < ref[0].mean() < 1 and not ref[2].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("noise_model", ["nmf", "spp", "hybrid"])
+def test_eager_engine_matches_cpu(cuda, noise_model):
+    """mcem_run on the card against the CPU, from one init_nmf, under
+    injected streams whose accept decisions cannot flip; no K1 / K2
+    launch. Full width: F=513, L=32, H=128."""
+    from guided_vae_nmf_torch.mcem.engine import mcem_run
+
+    dims = dict(FULL, N=128)
+    B, F, N, K = dims["B"], dims["F"], dims["N"], dims["K"]
+    rng = np.random.RandomState(41)
+    tree = random_dgm(rng, F, dims["Y"], dims["L"], dims["H"])
+    X = rng.uniform(0.05, 1.05, (B, F, N)).astype(np.float32)
+    y = (rng.uniform(size=(B, dims["Y"], N)) > 0.5).astype(np.float32)
+    mask = np.ones((B, N), np.float32)
+    mask[1, N - 30:] = 0.0
+    Vb = (rng.uniform(size=(B, F, N)) * 0.2 + 0.05).astype(np.float32)
+    update_nmf = noise_model != "spp"
+    Kr = K if update_nmf else 1
+    W0 = rng.uniform(0.05, 1, (B, F, Kr)).astype(np.float32)
+    H0 = rng.uniform(0.05, 1, (B, Kr, N)).astype(np.float32)
+    if not update_nmf:
+        W0, H0 = np.ones_like(W0), np.zeros_like(H0)
+    g0 = np.ones((B, N), np.float32)
+    cfg = MCEMConfig(niter=3, nsamples_E_step=2, burnin_E_step=1,
+                     nsamples_WF=2, burnin_WF=1, nmf_rank=K)
+    outs = {}
+    for dev in ("cpu", cuda):
+        t = lambda a: torch.tensor(a, device=dev)  # noqa: E731
+        zE, uE = decisive_noise(dev, 42, B * 3, N, dims["L"], 3)
+        zW, uW = decisive_noise(dev, 43, B, N, dims["L"], 3)
+        noise = (zE.reshape(B, 3, 3, N, -1).transpose(-1, -2),
+                 uE.reshape(B, 3, 3, N), zW.transpose(-1, -2), uW)
+        reset_launch_counts()
+        outs[str(dev)] = mcem_run(
+            module_from_params(tree, device=dev), t(X), t(mask), t(y),
+            [1, 2], cfg, update_nmf=update_nmf,
+            Vb_fixed=None if noise_model == "nmf" else t(Vb),
+            init_nmf=(t(W0), t(H0), t(g0)), noise=noise)
+        assert nonzero(launch_counts()) == {"mh_chain": {}, "nmf_sums": {}}
+    for k in ("WFs", "WFn", "W", "H", "g", "Z", "cost"):
+        assert_allclose(outs["cuda"][k].cpu().numpy(),
+                        outs["cpu"][k].numpy(), rtol=1e-3, atol=1e-5,
+                        err_msg=k)
+
+
+@pytest.mark.cuda
+def test_wiener_forward_matches_cpu(cuda):
+    """The shipped Wiener-DNN checkpoint on the card against the CPU:
+    PCM16 within 2 LSB, masks within 1e-3."""
+    import os
+
+    from guided_vae_nmf_torch.pipeline import _wiener_waveform
+    from guided_vae_nmf_torch.train import load_model, load_norm_stats
+
+    wdir = os.path.join(os.path.dirname(__file__), "..", "artifacts",
+                        "pretrained", "wiener")
+    mean, std = load_norm_stats(wdir)
+    rng = np.random.RandomState(44)
+    n_pad = 256
+    x = (rng.randn(3, (n_pad - 1) * 256 + 1024) * 3000).astype(np.int16)
+    mask = np.ones((3, n_pad), np.float32)
+    mask[1, 200:] = 0.0
+    outs = {}
+    for dev in ("cpu", cuda):
+        model = load_model(wdir, kind="classifier", device=dev)
+        outs[str(dev)] = [a.cpu().numpy() for a in _wiener_waveform(
+            model, x, mean, std, mask)]
+    (s_g, m_g), (s_c, m_c) = outs["cuda"], outs["cpu"]
+    assert np.abs(s_g.astype(np.int32) - s_c).max() <= 2
+    assert_allclose(m_g.astype(np.float32), m_c.astype(np.float32),
+                    atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("noise_model", ["nmf", "spp"])
+def test_eager_engine_row_alone_equals_batched(cuda, noise_model):
+    """The eager engine's rows on the card, bit for bit: a row run alone at
+    its own padded length equals the row in a batch of three padded
+    further (float64 EM; the replay property of engine='xla' serving)."""
+    from guided_vae_nmf_torch.mcem.engine import mcem_run
+
+    rng = np.random.RandomState(45)
+    B, F, N, Y = 3, FULL["F"], 256, FULL["Y"]
+    tree = random_dgm(rng, F, Y, FULL["L"], FULL["H"])
+    model = module_from_params(tree, device=cuda)
+    t = lambda a: torch.tensor(a, device=cuda)  # noqa: E731
+    mask = np.zeros((B, N), np.float32)
+    mask[:, :100] = 1.0
+    X = np.where(mask[:, None] > 0,
+                 rng.exponential(size=(B, F, N)), 1.0).astype(np.float32)
+    y = (rng.uniform(size=(B, Y, N)) > 0.5).astype(np.float32)
+    Vb = rng.uniform(0.05, 0.3, (B, F, N)).astype(np.float32)
+    kw = {} if noise_model == "nmf" else dict(update_nmf=False)
+    cfg = MCEMConfig(niter=5, var_RW=0.01, nmf_rank=FULL["K"])
+    both = mcem_run(model, t(X), t(mask), t(y), [7, 8, 9], cfg,
+                    Vb_fixed=None if kw == {} else t(Vb), **kw)
+    one = mcem_run(model, t(X[:1, :, :128]), t(mask[:1, :128]),
+                   t(y[:1, :, :128]), [7], cfg,
+                   Vb_fixed=None if kw == {} else t(Vb[:1, :, :128]), **kw)
+    for k in ("WFs", "WFn", "H", "g", "Z"):
+        assert torch.equal(one[k][0, ..., :100], both[k][0, ..., :100]), k

@@ -394,6 +394,32 @@ def test_enhance_waveform_peem_and_hybrid_match_jax(algorithm, noise_model):
     assert got[4].all() and np.asarray(ref[4]).all()
 
 
+def test_hybrid_refines_on_the_eager_engine():
+    """HybridConfig with engine='xla': PEEM, then the eager engine's
+    refinement, against the JAX package's `use_fused=False` (spp noise
+    model, var_RW=0): PCM16 within 2 LSB on each utterance's samples."""
+    xs = _mixtures(3, (1.1, 0.8))
+    x_b, mask = _batch(xs)
+    Fw = 513
+    tree = dgm_init(jax.random.PRNGKey(0), [Fw, Fw, L, [H, H]])
+    y_in = (np.random.RandomState(4).uniform(size=(2, Fw, mask.shape[1]))
+            > 0.5).astype(np.float32)
+    ref = _enhance_waveform_jit(
+        tree, jnp.asarray(x_b), None, jnp.asarray(y_in), None, None, None,
+        jnp.asarray(mask), jax.random.split(jax.random.PRNGKey(2), 2),
+        JaxHybrid(**HYBRID_SMALL), use_fused=False, noise_model="spp",
+        label_mode="host")
+    got = enhance_waveform(module_from_params(tree), x_b, mask,
+                           HybridConfig(**HYBRID_SMALL), y_in=y_in,
+                           label_mode="host", noise_model="spp",
+                           engine="xla", device="cpu")
+    for i in (0, 1):
+        for j, x in enumerate(xs):
+            diff = np.abs(got[i].numpy()[j, :len(x)].astype(np.int32)
+                          - np.asarray(ref[i])[j, :len(x)].astype(np.int32))
+            assert diff.max() <= 2, (i, j, diff.max())
+
+
 def test_other_entry_points_take_peem_and_hybrid(tmp_path):
     """enhance_to_audio and enhance_files run PEEM and the hybrid with the
     nmf noise model; the hybrid's fast mode changes its output."""
@@ -454,7 +480,9 @@ def test_hybrid_config_refuses_the_hybrid_noise_model():
         enhance_waveform(model, x_b, mask, HybridConfig(**HYBRID_SMALL),
                          label_mode="ones", noise_model="hybrid",
                          device="cpu")
-    with pytest.raises(NotImplementedError):
-        enhance_waveform(model, x_b, mask, PEEMConfig(**SMALL),
-                         label_mode="ones", noise_model="hybrid",
-                         device="cpu")
+    # PEEM takes the hybrid noise model (Vb = W H + the SPP PSD in its
+    # M-step), as the JAX package's does
+    out = enhance_waveform(model, x_b, mask, PEEMConfig(**SMALL),
+                           label_mode="ones", noise_model="hybrid",
+                           device="cpu")
+    assert out[4].all()

@@ -7,7 +7,14 @@ reproduced from `keys[0]` as `mcem_batch_fused` draws it, through `init=`;
 the fixed-noise models (spp, spp2) draw no init, so at var_RW=0 they are
 deterministic. Tolerance: PCM16 samples within 2 LSB (float32 STFT/ISTFT
 of two FFT libraries, then rounding), packed hard labels equal, soft
-labels within 1e-3 (float16)."""
+labels within 1e-3 (float16).
+
+Also held against the JAX package: oracle labels from clean tracks, the
+eager engine (`engine="xla"`, against `use_fused=False`, with the spp
+noise model at var_RW=0), `enhance_batch` on both engines, the host
+helpers `make_labels` (every branch) and `load_mixture`, and the
+Wiener-DNN baseline (`_wiener_waveform`, `enhance_files_wiener`) with the
+shipped `wiener` checkpoint (PCM16 within 2 LSB, masks within 1e-3)."""
 
 import dataclasses
 import os
@@ -19,10 +26,12 @@ import numpy as np
 import pytest
 import torch
 
+from guided_vae_nmf_tpu import pipeline as jax_pipeline
 from guided_vae_nmf_tpu import profiles as jax_profiles
 from guided_vae_nmf_tpu.mcem import MCEMConfig as JaxConfig
 from guided_vae_nmf_tpu.models import classifier_init, dgm_init, vae_init
 from guided_vae_nmf_tpu.pipeline import _enhance_waveform_jit
+from guided_vae_nmf_tpu.train import load_params as jax_load_params
 from guided_vae_nmf_torch import profiles
 from guided_vae_nmf_torch._build import KernelError
 from guided_vae_nmf_torch.data import read_wav_int16, write_wav
@@ -31,13 +40,19 @@ from guided_vae_nmf_torch.mcem import MCEMConfig
 from guided_vae_nmf_torch.models import module_from_params
 from guided_vae_nmf_torch.pipeline import (
     _packbits_bands,
+    _use_fused,
+    _wiener_waveform,
     bucket_frames,
+    enhance_batch,
     enhance_files,
+    enhance_files_wiener,
     enhance_to_audio,
     enhance_waveform,
+    load_mixture,
+    make_labels,
     plan_batches,
 )
-from guided_vae_nmf_torch.train import load_norm_stats
+from guided_vae_nmf_torch.train import load_model, load_norm_stats
 
 torch.set_num_threads(2)
 
@@ -46,6 +61,8 @@ SMALL = dict(niter=2, nsamples_E_step=2, burnin_E_step=1, nsamples_WF=2,
              burnin_WF=1, nmf_rank=K, var_RW=0.0)
 CLS_DIR = os.path.join(os.path.dirname(__file__), "..", "artifacts",
                        "pretrained", "classifier_ibm")
+WIENER_DIR = os.path.join(os.path.dirname(__file__), "..", "artifacts",
+                          "pretrained", "wiener")
 
 
 def _mixtures(seed, seconds):
@@ -246,14 +263,39 @@ def test_enhance_to_audio_passes_the_noise_model():
     assert not np.allclose(s[0], s_nmf[0])
 
 
+def _clean_and_mixtures(seed, seconds):
+    """int16 (clean, mixture) pairs: the tone of :func:`_mixtures` alone,
+    and with its noise."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for sec in seconds:
+        t = np.arange(int(sec * 16000)) / 16000
+        s = 0.3 * np.sin(2 * np.pi * 180 * t) * (
+            0.5 - 0.5 * np.cos(8 * np.pi * t))
+        x = s + 0.05 * rng.randn(len(t))
+        out.append((np.round(s * 32767).astype(np.int16),
+                    np.round(x * 32767).astype(np.int16)))
+    return out
+
+
 @pytest.mark.parametrize("kw", [dict(label_mode="oracle"),
-                                dict(noise_model="hybrid")])
-def test_unported_options_raise(kw):
+                                dict(noise_model="hybrid"),
+                                dict(engine="xla")])
+def test_formerly_refused_options_run(kw):
+    """Oracle labels, the hybrid noise model and the eager engine run (they
+    raised NotImplementedError before the eager engine was ported)."""
     tree = dgm_init(jax.random.PRNGKey(9), [F, F, L, [H, H]])
-    x_b, mask = _batch(_mixtures(9, (0.5,)))
-    with pytest.raises(NotImplementedError):
-        enhance_waveform(module_from_params(tree), x_b, mask,
-                         MCEMConfig(**SMALL), device="cpu", **kw)
+    pairs = _clean_and_mixtures(9, (0.5,))
+    x_b, mask = _batch([x for _, x in pairs])
+    s_b, _ = _batch([s for s, _ in pairs])
+    out = enhance_waveform(module_from_params(tree), x_b, mask,
+                           MCEMConfig(**SMALL), device="cpu", s_pad=s_b,
+                           **{"label_mode": "ones", **kw})
+    assert out[0].shape == (1, x_b.shape[1] - 1024)
+    assert out[4].all()
+    if "label_mode" in kw:
+        assert out[3].shape == (1, 65, mask.shape[1])
+        assert np.unpackbits(out[3].numpy(), axis=1).any()
 
 
 def _compare(got, ref):
@@ -396,3 +438,239 @@ def test_bad_noise_model_settings_raise(kw):
     with pytest.raises(ValueError):
         enhance_waveform(module_from_params(tree), x_b, mask, cfg,
                          device="cpu", **kw)
+
+
+@pytest.mark.parametrize("target", ["ibm", "vad"])
+def test_oracle_labels_match_jax(target):
+    """label_mode='oracle' from clean tracks, from JAX's NMF init: the
+    Lorenz-quantile labels equal JAX's and the PCM16 within 2 LSB."""
+    pairs = _clean_and_mixtures(1, (1.6, 1.1))
+    x_b, mask = _batch([x for _, x in pairs])
+    s_b, _ = _batch([s for s, _ in pairs])
+    B, N = mask.shape
+    y_dim = 1 if target == "vad" else F
+    tree = dgm_init(jax.random.PRNGKey(0), [F, y_dim, L, [H, H]])
+    keys = jax.random.split(jax.random.PRNGKey(2), B)
+    ref = _enhance_waveform_jit(
+        tree, jnp.asarray(x_b), jnp.asarray(s_b), None, None, None, None,
+        jnp.asarray(mask), keys, JaxConfig(**SMALL), use_fused=True,
+        label_mode="oracle", target=target)
+    got = enhance_waveform(
+        module_from_params(tree), x_b, mask, MCEMConfig(**SMALL), s_pad=s_b,
+        label_mode="oracle", target=target,
+        init={k: torch.tensor(v) for k, v in
+              _jax_nmf_init(keys, B, N).items()}, device="cpu")
+    got = _compare(got, ref)
+    assert got[2] is None and got[3].shape == (B, 1 if target == "vad"
+                                               else 65, N)
+
+
+def test_eager_engine_matches_jax_xla_engine():
+    """engine='xla' against `use_fused=False` with the spp noise model at
+    var_RW=0, where neither engine draws anything that matters."""
+    x_b, mask = _batch(_mixtures(14, (1.6, 1.1)))
+    tree = dgm_init(jax.random.PRNGKey(0), [F, F, L, [H, H]])
+    y_in = (np.random.RandomState(15).uniform(size=(2, F, mask.shape[1]))
+            > 0.5).astype(np.float32)
+    keys = jax.random.split(jax.random.PRNGKey(2), 2)
+    ref = _enhance_waveform_jit(
+        tree, jnp.asarray(x_b), None, jnp.asarray(y_in), None, None, None,
+        jnp.asarray(mask), keys, JaxConfig(**SMALL), use_fused=False,
+        noise_model="spp", label_mode="host")
+    got = enhance_waveform(
+        module_from_params(tree), x_b, mask, MCEMConfig(**SMALL), y_in=y_in,
+        label_mode="host", noise_model="spp", engine="xla", device="cpu")
+    _compare(got, ref)
+
+
+def _spectrograms(seed, seconds):
+    from guided_vae_nmf_torch.dsp import stft
+
+    return [stft(x.astype(np.float64) / 32768) for x in
+            _mixtures(seed, seconds)]
+
+
+@pytest.mark.parametrize("engine", ["fused", "xla"])
+def test_enhance_batch_matches_jax(engine):
+    """enhance_batch on either engine against the JAX package's, with the
+    spp noise model at var_RW=0: S_hat / N_hat within 2e-5 + 2e-4 |X|."""
+    X_tfs = _spectrograms(16, (1.0, 0.6))
+    ys = [(np.abs(X) > 0.02).astype(np.float32) for X in X_tfs]
+    tree = dgm_init(jax.random.PRNGKey(0), [F, F, L, [H, H]])
+    ref = jax_pipeline.enhance_batch(
+        tree, X_tfs, ys, cfg=JaxConfig(**SMALL), noise_model="spp",
+        engine=engine, return_masks=True)
+    got = enhance_batch(module_from_params(tree), X_tfs, ys,
+                        cfg=MCEMConfig(**SMALL), noise_model="spp",
+                        engine=engine, return_masks=True, device="cpu")
+    for a_list, r_list in zip(got[:2], ref[:2]):
+        for a, r, X in zip(a_list, r_list, X_tfs):
+            assert a.shape == X.shape
+            np.testing.assert_allclose(np.abs(a - r), 0,
+                                       atol=2e-5 + 2e-4 * np.abs(X).max())
+    np.testing.assert_allclose(got[2]["g"].numpy(), np.asarray(ref[2]["g"]),
+                               rtol=2e-4, atol=2e-5)
+
+
+def test_enhance_batch_hybrid_is_the_eager_engine():
+    """The hybrid noise model runs the eager engine whatever `engine`
+    says: its result equals mcem_m2_batch's at Vb = W H + the SPP PSD."""
+    from guided_vae_nmf_torch.mcem.engine import mcem_m2_batch
+    from guided_vae_nmf_torch.mcem.spp import spp_track
+    from guided_vae_nmf_torch.pipeline import _pad_batch
+
+    X_tfs = _spectrograms(17, (0.8, 0.5))
+    ys = [(np.abs(X) > 0.02).astype(np.float32) for X in X_tfs]
+    model = module_from_params(dgm_init(jax.random.PRNGKey(1),
+                                        [F, F, L, [H, H]]))
+    cfg = MCEMConfig(**{**SMALL, "var_RW": 0.01})
+    outs = [enhance_batch(model, X_tfs, ys, seeds=[5, 6], cfg=cfg,
+                          noise_model="hybrid", engine=e, return_masks=True,
+                          device="cpu")[2] for e in ("fused", "xla")]
+    _, X_p, mask, y_b = _pad_batch(X_tfs, ys, 128)
+    X_p = torch.tensor(X_p)
+    Vb = torch.clamp_min(spp_track(X_p)[0], 1e-6)
+    ref = mcem_m2_batch(model, X_p, torch.tensor(mask), torch.tensor(y_b),
+                        [5, 6], cfg, update_nmf=True, Vb_fixed=Vb)
+    for out in outs:
+        for k in ("WFs", "W", "H", "g"):
+            assert torch.equal(out[k], ref[k]), k
+
+
+def test_use_fused_routes_the_engines():
+    model = module_from_params(dgm_init(jax.random.PRNGKey(1),
+                                        [F, F, L, [H, 24, H]]))
+    assert _use_fused("fused", model, 100) is True
+    assert _use_fused("xla", model, 128) is False
+    # on the CPU the plain versions take any decoder: 'auto' stays fused
+    assert _use_fused("auto", model, 100) is True
+    with pytest.raises(ValueError, match="engine"):
+        _use_fused("eager", model, 128)
+
+
+def _write_pairs(src, pairs):
+    src.mkdir()
+    files = []
+    for j, (s, x) in enumerate(pairs):
+        write_wav(str(src / f"u{j}_x.wav"), x, 16000)
+        write_wav(str(src / f"u{j}_s.wav"), s, 16000)
+        files.append(f"u{j}.wav")
+    return files
+
+
+def test_make_labels_and_load_mixture_match_jax(tmp_path):
+    pairs = _clean_and_mixtures(18, (0.9,))
+    files = _write_pairs(tmp_path / "in", pairs)
+    base = str(tmp_path / "in" / os.path.splitext(files[0])[0])
+    x_t, T, X_tf = load_mixture(base)
+    jx_t, jT, jX_tf = jax_pipeline.load_mixture(base)
+    assert T == jT == len(pairs[0][1])
+    np.testing.assert_allclose(x_t, jx_t, atol=1e-7)
+    np.testing.assert_allclose(X_tf, jX_tf, rtol=1e-4, atol=1e-5)
+    X_power = (np.abs(jX_tf) ** 2).astype(np.float32)
+    cls = classifier_init(jax.random.PRNGKey(5), [F, [H, H], F])
+    mean, std = load_norm_stats(CLS_DIR)
+    for classif_type in ("dnn", "oracle", "timo", "ones", "zeros"):
+        for target in ("ibm", "vad"):
+            if classif_type == "dnn" and target == "vad":
+                continue            # the IBM classifier has 513 outputs
+            kw = dict(s_path=base + "_s.wav", mean=mean, std=std,
+                      target=target)
+            got = make_labels(classif_type, X_power,
+                              classifier=module_from_params(cls), **kw)
+            ref = jax_pipeline.make_labels(classif_type, X_power,
+                                           classifier_params=cls, **kw)
+            for g, r in zip(got, ref):
+                assert g.shape == r.shape, (classif_type, target)
+                np.testing.assert_allclose(g, np.asarray(r), atol=1e-5,
+                                           err_msg=classif_type)
+    with pytest.raises(ValueError, match="classif_type"):
+        make_labels("oracel", X_power)
+
+
+def test_enhance_files_oracle_reads_the_clean_tracks(tmp_path,
+                                                     monkeypatch):
+    """classif_type='oracle': each batch and the per-utterance retry carry
+    the clean tracks; the written hard labels are the oracle IBM of
+    `<utt>_s.wav` (make_labels on the host)."""
+    import guided_vae_nmf_torch.pipeline as pl
+
+    tree = module_from_params(dgm_init(jax.random.PRNGKey(4),
+                                       [F, F, L, [H, H]]))
+    pairs = _clean_and_mixtures(19, (1.0, 1.05))
+    files = _write_pairs(tmp_path / "in", pairs)
+    real = pl.enhance_waveform
+    seen = []
+
+    def flaky(model, x_pad, mask, *a, **kw):
+        seen.append(kw["s_pad"].shape[0])
+        if x_pad.shape[0] > 1:
+            raise RuntimeError("injected failure")
+        return real(model, x_pad, mask, *a, **kw)
+
+    monkeypatch.setattr(pl, "enhance_waveform", flaky)
+    res = enhance_files(files, str(tmp_path / "in"), str(tmp_path / "out"),
+                        tree, classif_type="oracle", cfg=MCEMConfig(**SMALL),
+                        device="cpu")
+    assert res.n_processed == 2 and seen == [2, 1, 1]
+    for j, (s, x) in enumerate(pairs):
+        base = tmp_path / "in" / f"u{j}"
+        _, yh_ref = make_labels(
+            "oracle", None, s_path=str(base) + "_s.wav")
+        yh = np.load(tmp_path / "out" / f"u{j}_ibm_hard_est.npy")
+        assert yh.shape == yh_ref.shape
+        assert (yh != yh_ref).sum() <= 1
+        out, _ = read_wav_int16(str(tmp_path / "out" / f"u{j}_s_est.wav"))
+        assert len(out) == len(x) and np.any(out != x)
+
+
+def _wiener_batch():
+    pairs = _clean_and_mixtures(20, (1.3, 0.8))
+    return _batch([x for _, x in pairs])
+
+
+def test_wiener_waveform_matches_jax():
+    """The shipped Wiener-DNN checkpoint through the port and through
+    `_wiener_waveform_jit`: PCM16 within 2 LSB, masks within 1e-3."""
+    x_b, mask = _wiener_batch()
+    model = load_model(WIENER_DIR, kind="classifier", device="cpu")
+    mean, std = load_norm_stats(WIENER_DIR)
+    tree = jax_load_params(
+        [os.path.join(WIENER_DIR, f) for f in os.listdir(WIENER_DIR)
+         if f.endswith(".ckpt.npz")][0], static={"batch_norm": False})
+    ref = jax_pipeline._wiener_waveform_jit(
+        tree, jnp.asarray(x_b), jnp.asarray(mean, jnp.float32),
+        jnp.asarray(std, jnp.float32), jnp.asarray(mask))
+    s, m = _wiener_waveform(model, x_b, mean, std, mask)
+    assert s.dtype == torch.int16 and m.dtype == torch.float16
+    diff = np.abs(s.numpy().astype(np.int32) - np.asarray(ref[0]))
+    assert s.shape == ref[0].shape and diff.max() <= 2, diff.max()
+    np.testing.assert_allclose(m.numpy().astype(np.float32),
+                               np.asarray(ref[1]).astype(np.float32),
+                               atol=1e-3)
+    assert 0.05 < float(m.float().mean()) < 0.95
+
+
+def test_enhance_files_wiener_matches_jax(tmp_path):
+    pairs = _clean_and_mixtures(21, (1.3, 0.8, 2.1))
+    files = _write_pairs(tmp_path / "in", pairs)
+    model = load_model(WIENER_DIR, kind="classifier", device="cpu")
+    mean, std = load_norm_stats(WIENER_DIR)
+    tree = jax_load_params(
+        [os.path.join(WIENER_DIR, f) for f in os.listdir(WIENER_DIR)
+         if f.endswith(".ckpt.npz")][0], static={"batch_norm": False})
+    enhance_files_wiener(files, str(tmp_path / "in"), str(tmp_path / "a"),
+                         model, mean=mean, std=std, batch_size=2,
+                         device="cpu")
+    jax_pipeline.enhance_files_wiener(files, str(tmp_path / "in"),
+                                      str(tmp_path / "b"), tree, mean=mean,
+                                      std=std, batch_size=2)
+    for j, (_, x) in enumerate(pairs):
+        s_a, _ = read_wav_int16(str(tmp_path / "a" / f"u{j}_s_est.wav"))
+        s_b, _ = read_wav_int16(str(tmp_path / "b" / f"u{j}_s_est.wav"))
+        assert len(s_a) == len(s_b) == len(x)
+        assert np.abs(s_a.astype(np.int32) - s_b).max() <= 2
+        m_a = np.load(tmp_path / "a" / f"u{j}_wiener_mask.npy")
+        m_b = np.load(tmp_path / "b" / f"u{j}_wiener_mask.npy")
+        assert m_a.dtype == np.float32 and m_a.shape == m_b.shape
+        np.testing.assert_allclose(m_a, m_b, atol=1e-3)

@@ -181,7 +181,6 @@ def test_queue_backpressure(m1):
     (dict(label_mode="oracle"), ValueError),     # needs clean speech
     (dict(bucket_multiple=100), ValueError),     # not a multiple of 16
     (dict(engine="eager"), ValueError),
-    (dict(engine="xla"), NotImplementedError),   # ROADMAP Queue 1, item 3
 ])
 def test_serveconfig_rejected_at_init(m1, bad, exc):
     with pytest.raises(exc):
@@ -189,7 +188,7 @@ def test_serveconfig_rejected_at_init(m1, bad, exc):
 
 
 def test_mesh_and_missing_classifier_rejected(m1):
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="item 5"):
         EnhancementService(m1, cfg=CFG, serve=SV, mesh=object(),
                            device="cpu")
     with pytest.raises(ValueError, match="classifier"):
@@ -257,3 +256,29 @@ def test_service_matches_jax_service():
     for k in ("s", "n"):
         diff = np.abs(np.round(got[k] * 32768) - np.round(ref[k] * 32768))
         assert diff.max() <= 2, (k, diff.max())
+
+
+def _serve_xla(model, xs, wait_ms):
+    """Submit `xs` in order to a fresh eager-engine service (so the first
+    request's id, and seed, is 1 every time); returns their results."""
+    serve = dataclasses.replace(SV, engine="xla", max_wait_ms=wait_ms)
+    cfg = dataclasses.replace(CFG, var_RW=0.01)
+    with _service(model, serve, cfg) as svc:
+        futs = [svc.submit(x) for x in xs]
+        return [f.result(timeout=300) for f in futs]
+
+
+def test_xla_engine_replays_alone_and_cobatched(m1):
+    """ServeConfig(engine='xla'): a request served alone and co-batched
+    with two others (one of them in the next length bucket, so the batch
+    pads further) gives PCM within 1 LSB, since each row draws from its
+    own seed; the noise track is the device's, s + n = x within 3 LSB."""
+    x = _wav(21, 0.7)
+    alone = _serve_xla(m1, [x], 50.0)[0]
+    mixed = _serve_xla(m1, [x, _wav(22, 1.9), _wav(23, 0.5)], 2000.0)
+    assert alone["batch_size"] == 1 and mixed[0]["batch_size"] == 3
+    assert np.abs(alone["s"] - mixed[0]["s"]).max() * 32768 <= 1.0
+    _consistent(x, alone)
+    # served second, x has another seed: the draws matter at var_RW=0.01
+    other = _serve_xla(m1, [_wav(24, 0.3), x], 2000.0)[1]
+    assert np.abs(other["s"] - alone["s"]).max() * 32768 > 1.0
