@@ -4,8 +4,10 @@ main path (NMF noise model), the fixed-noise path (the real-noise and
 impulse-noise profiles), fast mode, the rest of the offline pipeline
 (oracle labels, the Wiener-DNN baseline, enhance_batch, the eager MCEM
 engine and serving on it), the online service with its HTTP front end,
-and the paper-config path (PEEM, the PEEM -> MCEM hybrid and the
-500-iteration harness, whose fast_bf16mm variant runs K1d).
+streaming (the Wiener, SPP and M2 stream enhancers, the multi-stream pool,
+its driver and the HTTP stream route), and the paper-config path (PEEM,
+the PEEM -> MCEM hybrid and the 500-iteration harness, whose fast_bf16mm
+variant runs K1d).
 
     python3 chip_smoke.py [--seed 0] [--out build/chip_smoke.json]
 
@@ -67,7 +69,26 @@ Phases, in order; any failure exits nonzero without a result line:
    4 producer threads (100 E / 1 WF / 0 h / 100 g fast Vb-form launches a
    batch): requests/s, audio seconds per wall second, mean batch, p50 / p95
    latency; then the HTTP front end on port 0 (/v1/enhance, /healthz,
-   /metrics).
+   /metrics); then streaming, on a 2.5 s speech-like mixture with three
+   noise bursts and the shipped weights, every phase with the launch
+   counters reset before and 0 K1 / K2 launches checked after: the
+   Wiener stream (ragged pushes) within 2 LSB of `_wiener_waveform` on
+   the card; the SPP stream's masks against `timo_mask` of the whole
+   spectrogram; the M2 stream (dnn labels) in the `reference`,
+   `real-noise`, `streaming-low-latency` and `streaming-192ms` profiles
+   and `streaming-low-latency` with `lookahead` over 2.5 s: the tick
+   wall (median, p95) against the chunk's duration and x realtime on the
+   card, the card against the port on the CPU tick by tick (flipped hard
+   labels and escalations counted and printed; PCM16 within 2 LSB where
+   none flipped), and the device activities a tick and busy share of a
+   profiled 0.5 s stream; a pool of 8 streams of 1-2 s (real-noise
+   settings)
+   fed ragged, interleaved pushes, each lane against a dedicated stream
+   pushed the same pieces (atol 2e-5 / rtol 1e-4), audio s per wall s and
+   the tick wall; `StreamPoolDriver` from 4 threads; and
+   `build_server(stream=True)`: a chunked PCM16 POST to
+   /v1/enhance_stream (200, X-Chunk-Frames, every sample) within 1 LSB of
+   the enhancer called directly, counted in /stats.
 9. paper-config path: `enhance_waveform(cfg=HybridConfig())` on the main
    batch (500 PEEM + 150 MCEM iterations and the WF chain; 150 / 1 / 150
    / 150 launches), with `fast=True` (the same on `_fast`) and with the
@@ -1525,6 +1546,461 @@ def phase_http(svc, pair):
     return {"latency_s": float(lat), "health": health}
 
 
+# ---------------------------------------------------------------------------
+# Streaming: the Wiener, SPP and M2 stream enhancers, the pool, its driver
+# and the HTTP stream route
+# ---------------------------------------------------------------------------
+
+STREAM_PROFILES = ("reference", "real-noise", "streaming-low-latency",
+                   "streaming-192ms")
+STREAM_SECONDS = 2.5       # a profile's stream, on the card and the CPU
+STREAM_PROF_SECONDS = 0.5  # its profiled stream
+POOL_STREAMS = 8
+POOL_SECONDS = (1.0, 2.0)  # the range of the pool's stream lengths
+POOL_TOL = dict(atol=2e-5, rtol=1e-4)
+
+
+def ragged_sizes(seed, n=16, lo=500, hi=5000):
+    return [int(v) for v in np.random.RandomState(seed).randint(lo, hi, n)]
+
+
+def drive(enh, x, sizes):
+    """Push x in the cyclic `sizes` pieces, then flush; returns the output
+    and the wall seconds."""
+    t0 = time.perf_counter()
+    out, lo, i = [], 0, 0
+    while lo < len(x):
+        n = sizes[i % len(sizes)]
+        out.append(enh.push(x[lo:lo + n]))
+        lo += n
+        i += 1
+    out.append(enh.flush())
+    return np.concatenate(out), time.perf_counter() - t0
+
+
+def pcm(x):
+    return np.clip(np.round(np.asarray(x, np.float64) * 32768.0), -32768,
+                   32767).astype(np.int32)
+
+
+def stream_kwargs(name, classifier, mean, std, meta, **extra):
+    """StreamingM2Enhancer settings of a profile with the shipped
+    classifier's protocol (dnn labels)."""
+    from guided_vae_nmf_torch.profiles import streaming_settings
+
+    return dict(streaming_settings(name), classifier=classifier, mean=mean,
+                std=std, label_mode="dnn", features=meta["features"],
+                dnn_threshold=meta["threshold"], **extra)
+
+
+def check_no_launches(what):
+    import guided_vae_nmf_torch as port
+
+    counts = port.launch_counts()
+    check(counts == expected_launches(**NO_LAUNCHES),
+          f"{what} launched K1 / K2 kernels: {counts}")
+
+
+def profile_device(torch, fn):
+    """fn() under torch.profiler with device activity only: (wall ms, busy
+    ms, device activities)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    busy, n = 0.0, 0
+    for evt in prof.key_averages():
+        if evt.device_type == DeviceType.CUDA and evt.self_device_time_total:
+            busy += evt.self_device_time_total / 1e3
+            n += evt.count
+    return wall_ms, busy, n
+
+
+def captured_ticks(st_mod):
+    """Wrap streaming._m2_tick to keep each tick's labels and adaptive
+    iterations on the host; returns (records, restore)."""
+    records = []
+    orig = st_mod._m2_tick
+
+    def wrapped(*a, **kw):
+        out = orig(*a, **kw)
+        records.append((out[3]["labels"].cpu().numpy(),
+                        out[3]["extra"].cpu().numpy()))
+        return out
+
+    st_mod._m2_tick = wrapped
+
+    def restore():
+        st_mod._m2_tick = orig
+    return records, restore
+
+
+def timed_ticks(enh, name):
+    """Wrap one of the enhancer's tick methods with a host clock; returns
+    the list the tick walls (s) land in."""
+    walls = []
+    fn = getattr(enh, name)
+
+    def run(*a, **kw):
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        walls.append(time.perf_counter() - t0)
+        return out
+
+    setattr(enh, name, run)
+    return walls
+
+
+def phase_stream_wiener(torch, dev, gpu, art, x):
+    """StreamingWienerEnhancer with the shipped `wiener` checkpoint on the
+    card, ragged pushes, against the offline `_wiener_waveform` on the
+    card: PCM16 within 2 LSB. Returns the record."""
+    import guided_vae_nmf_torch as port
+    from guided_vae_nmf_torch.dsp import pad_signal_for_stft
+    from guided_vae_nmf_torch.pipeline import _wiener_waveform
+    from guided_vae_nmf_torch.streaming import StreamingWienerEnhancer
+    from guided_vae_nmf_torch.train import load_model, load_norm_stats
+
+    wdir = os.path.join(art, "wiener")
+    wmean, wstd = load_norm_stats(wdir)
+    model = load_model(wdir, kind="classifier", device=dev)
+    port.reset_launch_counts()
+    walls = []
+    for _ in range(2):
+        y, wall = drive(StreamingWienerEnhancer(model, wmean, wstd,
+                                                device=dev),
+                        x, ragged_sizes(11))
+        walls.append(wall)
+    xp, nf = pad_signal_for_stft(x)
+    s16, _ = _wiener_waveform(model, xp[None], wmean, wstd,
+                              np.ones((1, nf), np.float32))
+    check_no_launches("the Wiener stream")
+    ref = s16[0, :len(x)].cpu().numpy().astype(np.int32)
+    diff = int(np.abs(pcm(y) - ref).max())
+    audio_s = len(x) / 16000
+    log(f" Wiener stream (64-frame chunks, ragged pushes): {audio_s:.1f} s "
+        f"in {walls[1]:.3f} s = {audio_s / walls[1]:.1f}x realtime; against "
+        f"the offline program on the card: max |s16 diff| {diff} LSB (needs "
+        f"<= 2); launches 0; {gpu}")
+    check(len(y) == len(x), "Wiener stream length")
+    check(diff <= 2, "the Wiener stream disagrees with the offline program")
+    return {"wall_s": walls[1], "x_realtime": audio_s / walls[1],
+            "vs_offline_lsb": diff}
+
+
+def phase_stream_spp(torch, dev, gpu, x):
+    """StreamingSPPEnhancer on the card, ragged pushes: its masks against
+    `timo_mask` of the whole spectrogram (float16 masks, atol 1e-3).
+    Returns the record."""
+    import guided_vae_nmf_torch as port
+    from guided_vae_nmf_torch.dsp import stft_torch
+    from guided_vae_nmf_torch.mcem.spp import timo_mask
+    from guided_vae_nmf_torch.streaming import StreamingSPPEnhancer
+
+    port.reset_launch_counts()
+    walls = []
+    for _ in range(2):
+        enh = StreamingSPPEnhancer(device=dev)
+        y, wall = drive(enh, x, ragged_sizes(12))
+        walls.append(wall)
+    X = stft_torch(torch.as_tensor(x, device=dev))
+    whole = timo_mask(X.real**2 + X.imag**2).to(torch.float16).float()
+    check_no_launches("the SPP stream")
+    masks = enh.masks.astype(np.float32)
+    check(masks.shape == tuple(whole.shape),
+          f"SPP masks {masks.shape} vs {tuple(whole.shape)}")
+    err = float(np.abs(masks - whole.cpu().numpy()).max())
+    audio_s = len(x) / 16000
+    log(f" SPP stream (64-frame chunks): {audio_s:.1f} s in {walls[1]:.3f} "
+        f"s = {audio_s / walls[1]:.1f}x realtime; masks against timo_mask "
+        f"of the whole spectrogram: max abs {err:.2e} (needs <= 1e-3); "
+        f"{gpu}")
+    check(err <= 1e-3 and len(y) == len(x),
+          "the SPP stream's masks disagree with timo_mask")
+    return {"wall_s": walls[1], "x_realtime": audio_s / walls[1],
+            "mask_err": err}
+
+
+def phase_stream_m2(torch, mods, cpu_mods, mean, std, meta, dev, gpu, x,
+                    name, lookahead=False):
+    """One profile's M2 stream (dnn labels, shipped weights) over
+    STREAM_SECONDS on the card, its tick walls timed (median, p95), against
+    the same stream on the CPU tick by tick: the hard labels and the
+    adaptive iterations compared (flips counted), the PCM16 within 2 LSB
+    where nothing flipped; then a profiled stream of STREAM_PROF_SECONDS
+    (device activities a tick, busy share). Returns the record."""
+    import guided_vae_nmf_torch as port
+    import guided_vae_nmf_torch.streaming as st
+
+    label = name + (", lookahead" if lookahead else "")
+    sizes = ragged_sizes(13)
+    extra = dict(lookahead=True) if lookahead else {}
+    tick_fn = "_tick_full" if lookahead else "_enhance_frame_batch"
+    port.reset_launch_counts()
+    runs = {}
+    for d, (m2, cls) in ((dev, mods), ("cpu", cpu_mods)):
+        enh = st.StreamingM2Enhancer(
+            m2, device=d, **stream_kwargs(name, cls, mean, std, meta,
+                                          **extra))
+        walls = timed_ticks(enh, tick_fn)
+        records, restore = captured_ticks(st)
+        try:
+            y, wall = drive(enh, x, sizes)
+        finally:
+            restore()
+        runs[str(d)] = (y, records, walls, wall)
+    (yg, rg, walls, wall), (yc, rc, _, _) = runs[str(dev)], runs["cpu"]
+    check(len(rg) == len(rc), "card and CPU ran different tick counts")
+    check(len(yg) == len(x) and len(yc) == len(x) and
+          np.all(np.isfinite(yg)), f"M2 stream {label}: output")
+    soft = stream_kwargs(name, None, None, None, meta)["soft_guidance"]
+    label_flips = 0 if soft else int(sum(
+        (a[0] != b[0]).sum() for a, b in zip(rg, rc)))
+    esc_flips = int(sum((a[1] != b[1]).sum() for a, b in zip(rg, rc)))
+    escalated = int(sum((a[1] > 0).sum() for a in rg))
+    diff = int(np.abs(pcm(yg) - pcm(yc)).max())
+    n_labels = int(sum(a[0].size for a in rg))
+    flipped = label_flips or esc_flips
+    log(f" M2 stream {label}: card against CPU ({len(rg)} ticks): label "
+        f"flips {label_flips} of {n_labels}"
+        f"{' (soft guidance: none possible)' if soft else ''}, escalation "
+        f"flips {esc_flips} ({escalated} escalated blocks on the card); "
+        f"max |s16 diff| {diff} LSB "
+        + ("(needs <= 2)" if not flipped else
+           "(not held: a decision flipped)"))
+    if not flipped:
+        check(diff <= 2, f"M2 stream {label}: card and CPU disagree")
+
+    enh = st.StreamingM2Enhancer(
+        mods[0], device=dev, **stream_kwargs(name, mods[1], mean, std, meta,
+                                             **extra))
+    n_ticks = timed_ticks(enh, tick_fn)
+    xp = x[:int(STREAM_PROF_SECONDS * 16000)]
+    pwall, busy, acts = profile_device(torch, lambda: drive(enh, xp, sizes))
+    check_no_launches(f"the M2 stream ({label})")
+    chunk_ms = 16.0 * enh.chunk_frames
+    med = 1e3 * float(np.median(walls))
+    p95 = 1e3 * float(np.percentile(walls, 95))
+    audio_s = len(x) / 16000
+    log(f" M2 stream {label} (chunk {enh.chunk_frames} = {chunk_ms:.0f} ms): "
+        f"tick wall median {med:.2f} ms, p95 {p95:.2f} ms over {len(walls)} "
+        f"ticks; {audio_s:.1f} s in {wall:.3f} s = {audio_s / wall:.2f}x "
+        f"realtime; profiled {STREAM_PROF_SECONDS} s: "
+        f"{acts / max(len(n_ticks), 1):.0f} device activities a tick, busy "
+        f"{busy:.2f} ms of {pwall:.2f} ms ({100 * busy / pwall:.1f}%); "
+        f"launches 0; {gpu}")
+    return {"chunk_ms": chunk_ms, "tick_ms_median": med, "tick_ms_p95": p95,
+            "ticks": len(walls), "x_realtime": audio_s / wall,
+            "activities_per_tick": acts / max(len(n_ticks), 1),
+            "busy_share": busy / pwall, "label_flips": label_flips,
+            "escalation_flips": esc_flips, "escalated": escalated,
+            "card_vs_cpu_lsb": diff}
+
+
+def phase_stream_pool(torch, mods, mean, std, meta, dev, gpu, seed):
+    """MultiStreamM2Enhancer of POOL_STREAMS slots (real-noise settings:
+    soft guidance, so no label edge) fed ragged, interleaved pushes: each
+    lane against a dedicated stream on the card pushed the same pieces
+    (the residual floor follows the tick boundaries, so the pieces must
+    match) within POOL_TOL; audio s per wall s and the tick wall; then
+    StreamPoolDriver from 4 threads pushing the same pieces, each stream
+    against its dedicated one. Returns the record."""
+    import threading
+
+    import guided_vae_nmf_torch as port
+    import guided_vae_nmf_torch.streaming as st
+
+    m2, cls = mods
+    kw = stream_kwargs("real-noise", cls, mean, std, meta)
+    seconds = np.random.RandomState(seed + 5).uniform(*POOL_SECONDS,
+                                                      POOL_STREAMS)
+    xs = [x.astype(np.float32) / 32768.0 for _, x in
+          speech_like_mixtures(seed + 5, seconds)]
+    rng = np.random.RandomState(seed + 6)
+    pieces = []
+    for x in xs:
+        cuts = np.cumsum(rng.randint(800, 5000, len(x) // 800 + 1))
+        cuts = [0] + [int(c) for c in cuts if c < len(x)] + [len(x)]
+        pieces.append([x[a:b] for a, b in zip(cuts, cuts[1:])])
+    port.reset_launch_counts()
+    singles = []
+    for ps in pieces:
+        enh = st.StreamingM2Enhancer(m2, device=dev, **kw)
+        singles.append(np.concatenate([enh.push(p) for p in ps]
+                                      + [enh.flush()]))
+    pool = st.MultiStreamM2Enhancer(m2, max_streams=POOL_STREAMS,
+                                    device=dev, **kw)
+    walls = timed_ticks(pool, "_tick")
+    t0 = time.perf_counter()
+    sids = [pool.open() for _ in xs]
+    outs = {sid: [] for sid in sids}
+    live = set(range(len(xs)))
+    rnd = 0
+    while live:
+        for i in sorted(live):
+            pool.feed(sids[i], pieces[i][rnd])
+        for sid, arr in pool.step().items():
+            outs[sid].append(arr)
+        rnd += 1
+        for i in sorted(live):
+            if rnd == len(pieces[i]):
+                outs[sids[i]].append(pool.flush(sids[i]))
+                pool.close(sids[i])
+                live.discard(i)
+    wall = time.perf_counter() - t0
+
+    def worst_of(got, i, what):
+        check(len(got) == len(xs[i]), f"{what} {i}: length")
+        err = np.abs(got - singles[i])
+        check(bool(np.all(err <= POOL_TOL["atol"] + POOL_TOL["rtol"]
+                          * np.abs(singles[i]))),
+              f"{what} {i} disagrees with its dedicated stream")
+        return float(err.max())
+
+    worst = max(worst_of(np.concatenate(outs[sid]), i, "pool lane")
+                for i, sid in enumerate(sids))
+    audio_s = float(sum(len(x) for x in xs)) / 16000
+    med = 1e3 * float(np.median(walls))
+    p95 = 1e3 * float(np.percentile(walls, 95))
+    log(f" pool of {POOL_STREAMS} (real-noise settings, chunk 8): "
+        f"{audio_s:.1f} s of audio in {wall:.3f} s = {audio_s / wall:.2f} "
+        f"audio s per wall s; {len(walls)} ticks, tick wall median "
+        f"{med:.2f} ms, p95 {p95:.2f} ms; lanes against dedicated streams: "
+        f"max abs {worst:.2e} (atol {POOL_TOL['atol']:g} rtol "
+        f"{POOL_TOL['rtol']:g}); {gpu}")
+
+    driver = st.StreamPoolDriver(st.MultiStreamM2Enhancer(
+        m2, max_streams=POOL_STREAMS, device=dev, **kw), tick_ms=2.0)
+    results, errors = {}, []
+
+    def client(i):
+        try:
+            sess = st.PooledStreamSession(driver)
+            try:
+                parts = [sess.push(p) for p in pieces[i]]
+                parts.append(sess.flush())
+                results[i] = np.concatenate([p for p in parts if p.size])
+            finally:
+                sess.close()
+        except Exception as e:       # reported by the checks below
+            errors.append(repr(e))
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(300)
+    dwall = time.perf_counter() - t0
+    driver.shutdown()
+    check(not errors and not any(t.is_alive() for t in threads),
+          f"driver clients failed: {errors}")
+    dworst = max(worst_of(results[i], i, "driver stream") for i in range(4))
+    check_no_launches("the stream pool")
+    d_audio = float(sum(len(x) for x in xs[:4])) / 16000
+    log(f" StreamPoolDriver from 4 threads (the same pieces, tick_ms 2): "
+        f"{d_audio:.1f} s in {dwall:.3f} s = {d_audio / dwall:.2f} audio s "
+        f"per wall s; against dedicated streams max abs {dworst:.2e}; "
+        f"launches 0; {gpu}")
+    return {"streams": POOL_STREAMS, "audio_s": audio_s, "wall_s": wall,
+            "audio_s_per_s": audio_s / wall, "tick_ms_median": med,
+            "tick_ms_p95": p95, "ticks": len(walls), "vs_single_max": worst,
+            "driver_audio_s_per_s": d_audio / dwall,
+            "driver_vs_single_max": dworst}
+
+
+def phase_stream_http(torch, mods, mean, std, meta, dev, gpu, art, x):
+    """build_server(stream=True) on the card: a chunked PCM16 POST to
+    /v1/enhance_stream (odd-sized pieces) answers 200 with X-Chunk-Frames
+    and as many samples as were sent, within 1 LSB of the enhancer called
+    directly; /stats counts the stream. Returns the record."""
+    import http.client
+
+    import guided_vae_nmf_torch as port
+    from guided_vae_nmf_torch.http_serving import build_server
+    from guided_vae_nmf_torch.streaming import StreamingM2Enhancer
+
+    port.reset_launch_counts()
+    body = pcm(x).astype("<i2").tobytes()
+    srv = build_server(art, port=0, device=dev, stream=True).start()
+    try:
+        cuts = list(range(0, len(body), 3001)) + [len(body)]
+        conn = http.client.HTTPConnection("127.0.0.1", srv.port, timeout=300)
+        t0 = time.perf_counter()
+        conn.request("POST", "/v1/enhance_stream",
+                     body=iter([body[a:b] for a, b in zip(cuts, cuts[1:])]),
+                     headers={"Content-Type": "audio/L16",
+                              "Transfer-Encoding": "chunked"},
+                     encode_chunked=True)
+        resp = conn.getresponse()
+        status, chunk = resp.status, resp.headers.get("X-Chunk-Frames")
+        got = np.frombuffer(resp.read(), "<i2").astype(np.int32)
+        wall = time.perf_counter() - t0
+        conn.close()
+        conn = http.client.HTTPConnection("127.0.0.1", srv.port, timeout=60)
+        conn.request("GET", "/stats")
+        streams = json.loads(conn.getresponse().read())["streams"]
+        conn.close()
+    finally:
+        srv.close_all()
+    m2, cls = mods
+    xq = pcm(x).astype(np.float32) / 32768.0
+    enh = StreamingM2Enhancer(m2, classifier=cls, mean=mean, std=std,
+                              label_mode="dnn", features=meta["features"],
+                              dnn_threshold=meta["threshold"],
+                              keep_masks=False, device=dev)
+    want = pcm(np.concatenate([enh.push(xq), enh.flush()]))
+    check_no_launches("the HTTP stream route")
+    check(status == 200 and chunk == "8" and len(got) == len(x),
+          f"/v1/enhance_stream answered {status}, X-Chunk-Frames {chunk}, "
+          f"{len(got)} of {len(x)} samples")
+    diff = int(np.abs(got - want).max())
+    log(f" POST /v1/enhance_stream (chunked, {len(cuts) - 1} pieces): "
+        f"{status}, X-Chunk-Frames {chunk}, {len(got)} samples in "
+        f"{wall:.3f} s; against the enhancer called directly: max |s16 "
+        f"diff| {diff} LSB (needs <= 1); /stats streams {streams}; {gpu}")
+    check(diff <= 1, "the HTTP stream disagrees with the enhancer")
+    check(streams.get("done") == 1 and streams.get("active") == 0,
+          f"/stats does not count the stream: {streams}")
+    return {"wall_s": wall, "vs_direct_lsb": diff, "streams": streams}
+
+
+def phase_streaming(torch, mods, mean, std, meta, dev, gpu, art, seed):
+    """Every streaming phase, on one speech-like mixture with three noise
+    bursts (STREAM_SECONDS) and the shipped weights. Returns the record."""
+    from guided_vae_nmf_torch.train import load_model
+
+    t0 = time.perf_counter()
+    _, x16 = speech_like_mixtures(seed + 4, (STREAM_SECONDS,), bursts=3)[0]
+    x = x16.astype(np.float32) / 32768.0          # every stream's input
+    rec = {"wiener": phase_stream_wiener(torch, dev, gpu, art, x),
+           "spp": phase_stream_spp(torch, dev, gpu, x)}
+    cpu_mods = (load_model(os.path.join(art, "M2_ibm"), kind="dgm",
+                           y_dim=513, device="cpu"),
+                load_model(os.path.join(art, "classifier_ibm"),
+                           kind="classifier", device="cpu"))
+    m2 = {}
+    for name in STREAM_PROFILES:
+        m2[name] = phase_stream_m2(torch, mods, cpu_mods, mean, std, meta,
+                                   dev, gpu, x, name)
+    m2["streaming-low-latency, lookahead"] = phase_stream_m2(
+        torch, mods, cpu_mods, mean, std, meta, dev, gpu, x,
+        "streaming-low-latency", lookahead=True)
+    rec["m2"] = m2
+    rec["pool"] = phase_stream_pool(torch, mods, mean, std, meta, dev, gpu,
+                                    seed)
+    rec["http"] = phase_stream_http(torch, mods, mean, std, meta, dev, gpu,
+                                    art, x)
+    rec["seconds"] = time.perf_counter() - t0
+    log(f" streaming phases: {rec['seconds']:.1f} s in all")
+    return rec
+
+
 SOURCES = {
     "mh_chain": ("guided_vae_nmf_torch/csrc/mh_chain.cu",
                  "guided_vae_nmf_tpu/mcem/pallas_engine.py:494"),
@@ -1949,6 +2425,10 @@ def main(argv=None):
                                  args.seed, dev, gpu)
     log("HTTP front end (EnhancementHTTPServer on port 0):")
     serving["http"] = phase_http(svc, pairs[0])
+    log("streaming (the Wiener, SPP and M2 stream enhancers, the pool, its "
+        "driver, the HTTP stream route; shipped weights):")
+    streaming = phase_streaming(torch, (model, classifier), mean, std, meta,
+                                dev, gpu, art, args.seed)
 
     hybrid = phase_hybrid(torch, model, classifier, mean, std, batch,
                           args.seed, dev, gpu)
@@ -1983,7 +2463,7 @@ def main(argv=None):
         "ptxas": ptxas, "k1_geometry": geometry,
         "k2_geometry": sums_geometry, "main_path": main_res, "profile": prof,
         "paths": paths, "fast": fast, "offline_rest": rest,
-        "serving": serving, "hybrid": hybrid,
+        "serving": serving, "streaming": streaming, "hybrid": hybrid,
         "harness": harness, "kernels": kernels, "kernels_b32_n512": large,
         "seconds": time.perf_counter() - t_start,
     }

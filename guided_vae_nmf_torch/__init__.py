@@ -3,10 +3,11 @@
 The JAX package `guided_vae_nmf_tpu` is the reference; this package runs
 the M2-IBM enhancement main path, the fixed-noise path (spp / spp2 noise
 models, noise gain, the real-noise and impulse-noise profiles, timo
-labels), fast mode, the online service (`serving`, `http_serving`) and the
-paper-config path (PEEM, the PEEM -> MCEM hybrid, `bench_niter500`) in
-PyTorch, with hand-written CUDA kernels (`csrc/`) for the MH chain (K1)
-and the NMF M-step sums (K2).
+labels), fast mode, the online service (`serving`, `http_serving`), the
+streaming enhancers and their pool (`streaming`, the HTTP stream route)
+and the paper-config path (PEEM, the PEEM -> MCEM hybrid,
+`bench_niter500`) in PyTorch, with hand-written CUDA kernels (`csrc/`) for
+the MH chain (K1) and the NMF M-step sums (K2).
 
 Float32 matrix products run in full float32, as the JAX path does.
 """

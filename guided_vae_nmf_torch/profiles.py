@@ -2,7 +2,8 @@
 
 A copy of `guided_vae_nmf_tpu/profiles.py` (the port imports nothing of the
 JAX package). The offline profiles drive `pipeline.enhance_files(profile=)`;
-the streaming settings wait for the streaming port.
+`streaming_settings` gives the `streaming` enhancers' knobs, and
+`http_serving.build_server(profile=)` applies both.
 
 The round-3 quality levers that win on real noise — `noise_model='spp'`/
 `'spp2'`, per-frame/per-band `noise_gain`, `soft_guidance`, streaming

@@ -6,7 +6,10 @@ exp / log), and the chain with bfloat16 decoder products (K1d, at its own
 tolerance, K1D_TOL below); the fused engine, PEEM and the PEEM -> MCEM
 hybrid on the card against the CPU run; and the parts that launch no
 kernel of their own, on the card against the CPU: the oracle labels, the
-eager MCEM engine under injected streams and the Wiener-DNN forward.
+eager MCEM engine under injected streams and the Wiener-DNN forward; and
+streaming on the card: a stream's output against how its pushes are
+split, a stream against the CPU, pool lanes against dedicated streams,
+and the HTTP stream route.
 
 Every test here needs an NVIDIA GPU and skips without one. The file
 imports neither JAX nor the JAX package, so it also runs on a GPU machine
@@ -977,3 +980,156 @@ def test_eager_engine_row_alone_equals_batched(cuda, noise_model):
                    Vb_fixed=None if kw == {} else t(Vb[:1, :, :128]), **kw)
     for k in ("WFs", "WFn", "H", "g", "Z"):
         assert torch.equal(one[k][0, ..., :100], both[k][0, ..., :100]), k
+
+
+# ---------------------------------------------------------------------------
+# Streaming (no kernel of its own: plain PyTorch on the card)
+# ---------------------------------------------------------------------------
+
+
+def _stream_signal(seed, n):
+    rng = np.random.RandomState(seed)
+    t = np.arange(n) / 16000
+    s = 0.1 * np.sin(2 * np.pi * np.cumsum(
+        130 + 20 * np.sin(2 * np.pi * 0.9 * t)) / 16000)
+    s *= np.clip(np.sin(2 * np.pi * 1.5 * t + seed), 0, None)
+    return (s + 0.03 * rng.randn(n)).astype(np.float32)
+
+
+def _stream_m2(device, seed=46):
+    rng = np.random.RandomState(seed)
+    return module_from_params(random_dgm(rng, FULL["F"], FULL["Y"],
+                                         FULL["L"], FULL["H"]),
+                              device=device)
+
+
+def _pushed(enh, pieces):
+    return np.concatenate([enh.push(p) for p in pieces] + [enh.flush()])
+
+
+def _pieces(x, sizes):
+    cuts = np.cumsum([0] + [sizes[i % len(sizes)]
+                            for i in range(len(x) // min(sizes) + 1)])
+    return [x[a:b] for a, b in zip(cuts, cuts[1:]) if a < len(x)]
+
+
+@pytest.mark.cuda
+def test_stream_output_independent_of_push_split(cuda):
+    """An M2 stream on the card (full width, timo labels, per-frame noise
+    gain, chunk 4) gives the same output however its pushes are split: in
+    this configuration every frame's block EM is its own (no residual
+    floor, no adaptive budget), so tick boundaries change nothing, and at
+    4 frames a chunk the overlap-add sums in frame order."""
+    from guided_vae_nmf_torch.streaming import StreamingM2Enhancer
+
+    m2 = _stream_m2(cuda)
+    kw = dict(label_mode="timo", noise_gain=True, soft_guidance=True,
+              chunk_frames=4, device=cuda)
+    x = _stream_signal(1, 24000)
+    whole = _pushed(StreamingM2Enhancer(m2, **kw), [x])
+    for sizes in ([313, 2048, 999], [100], [4096]):
+        got = _pushed(StreamingM2Enhancer(m2, **kw), _pieces(x, sizes))
+        assert len(got) == len(x)
+        assert_allclose(got, whole, **TOL, err_msg=str(sizes))
+
+
+@pytest.mark.cuda
+def test_stream_card_matches_cpu(cuda):
+    """The real-noise stream settings (soft guidance: no label edge; no
+    adaptive budget) on the card against the CPU: PCM16 within 2 LSB."""
+    from guided_vae_nmf_torch.streaming import StreamingM2Enhancer
+
+    x = _stream_signal(2, 20000)
+    pieces = _pieces(x, [1500, 3100, 700])
+    card, host = (np.round(_pushed(StreamingM2Enhancer(
+        _stream_m2(dev), label_mode="timo", soft_guidance=True,
+        residual_tracking=True, noise_gain=True, device=dev), pieces)
+        * 32768.0) for dev in (cuda, "cpu"))
+    assert np.abs(card - host).max() <= 2
+
+
+@pytest.mark.cuda
+def test_stream_pool_lanes_match_dedicated_streams(cuda):
+    """Each lane of a pool on the card (soft guidance, residual floor,
+    noise gain) against a dedicated stream pushed the same pieces, within
+    atol 2e-5 / rtol 1e-4; the pool launches no K1 / K2 kernel."""
+    from guided_vae_nmf_torch.streaming import (
+        MultiStreamM2Enhancer, StreamingM2Enhancer)
+
+    m2 = _stream_m2(cuda)
+    kw = dict(label_mode="timo", soft_guidance=True, residual_tracking=True,
+              noise_gain=True, device=cuda)
+    xs = [_stream_signal(10 + i, n) for i, n in enumerate((16000, 22000,
+                                                          9000))]
+    pieces = [_pieces(x, [900 + 700 * i, 3300]) for i, x in enumerate(xs)]
+    singles = [_pushed(StreamingM2Enhancer(m2, **kw), ps) for ps in pieces]
+    reset_launch_counts()
+    pool = MultiStreamM2Enhancer(m2, max_streams=4, **kw)
+    sids = [pool.open() for _ in xs]
+    outs = {sid: [] for sid in sids}
+    for r in range(max(len(ps) for ps in pieces)):
+        for sid, ps in zip(sids, pieces):
+            if r < len(ps):
+                pool.feed(sid, ps[r])
+        for sid, arr in pool.step().items():
+            outs[sid].append(arr)
+        for sid, ps in zip(sids, pieces):
+            if r == len(ps) - 1:
+                outs[sid].append(pool.flush(sid))
+    for i, sid in enumerate(sids):
+        got = np.concatenate(outs[sid])
+        assert len(got) == len(xs[i])
+        assert_allclose(got, singles[i], atol=2e-5, rtol=1e-4,
+                        err_msg=f"lane {i}")
+    counts = launch_counts()
+    assert not any(n for v in counts.values() for n in v.values()), counts
+
+
+@pytest.mark.cuda
+def test_http_stream_route_on_the_card(cuda):
+    """POST /v1/enhance_stream with a stream factory on the card: 200,
+    X-Chunk-Frames, every sample back, within 1 LSB of the enhancer called
+    directly on the card; /stats counts the stream."""
+    import http.client
+    import json
+
+    from guided_vae_nmf_torch.http_serving import EnhancementHTTPServer
+    from guided_vae_nmf_torch.models import VAE
+    from guided_vae_nmf_torch.serving import EnhancementService, ServeConfig
+    from guided_vae_nmf_torch.streaming import StreamingM2Enhancer
+
+    m2 = _stream_m2(cuda)
+    kw = dict(label_mode="timo", chunk_frames=8, keep_masks=False,
+              device=cuda)
+    svc = EnhancementService(
+        VAE([513, 8, [16]]).eval(), cfg=MCEMConfig(niter=1), device="cpu",
+        serve=ServeConfig(label_mode="none", noise_model="nmf"))
+    srv = EnhancementHTTPServer(
+        svc, port=0,
+        stream_factory=lambda: StreamingM2Enhancer(m2, **kw)).start()
+    x = _stream_signal(3, 21000)
+    body = np.round(x * 32768.0).astype("<i2").tobytes()
+    try:
+        conn = http.client.HTTPConnection("127.0.0.1", srv.port, timeout=300)
+        conn.request("POST", "/v1/enhance_stream",
+                     body=iter([body[a:a + 5001]
+                                for a in range(0, len(body), 5001)]),
+                     headers={"Transfer-Encoding": "chunked"},
+                     encode_chunked=True)
+        resp = conn.getresponse()
+        assert resp.status == 200
+        assert resp.headers["X-Chunk-Frames"] == "8"
+        got = np.frombuffer(resp.read(), "<i2").astype(np.int32)
+        conn.close()
+        conn = http.client.HTTPConnection("127.0.0.1", srv.port, timeout=60)
+        conn.request("GET", "/stats")
+        streams = json.loads(conn.getresponse().read())["streams"]
+        conn.close()
+    finally:
+        srv.close_all()
+    xq = np.frombuffer(body, "<i2").astype(np.float32) / 32768.0
+    enh = StreamingM2Enhancer(m2, **kw)
+    want = np.round(np.concatenate([enh.push(xq), enh.flush()]) * 32768.0)
+    assert len(got) == len(x)
+    assert np.abs(got - np.clip(want, -32768, 32767)).max() <= 1
+    assert streams["done"] == 1 and streams["active"] == 0

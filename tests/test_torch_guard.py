@@ -12,7 +12,15 @@ import pytest
 import torch
 
 from guided_vae_nmf_torch._device import resolve_device
+from guided_vae_nmf_torch.http_serving import build_server
+from guided_vae_nmf_torch.models import DGM, Classifier
 from guided_vae_nmf_torch.pipeline import enhance_waveform
+from guided_vae_nmf_torch.streaming import (
+    MultiStreamM2Enhancer,
+    StreamingM2Enhancer,
+    StreamingSPPEnhancer,
+    StreamingWienerEnhancer,
+)
 from guided_vae_nmf_torch.train import load_model
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -60,6 +68,16 @@ def test_default_device_entry_points_raise_without_a_gpu(no_gpu):
     with pytest.raises(RuntimeError):
         enhance_waveform(None, np.zeros((1, 33536), np.int16),
                          np.ones((1, 128), np.float32))
+    m2 = DGM([513, 513, 8, [16]])
+    for make in (lambda: StreamingM2Enhancer(m2, label_mode="timo"),
+                 lambda: StreamingWienerEnhancer(
+                     Classifier([513, [16], 513])),
+                 lambda: StreamingSPPEnhancer(),
+                 lambda: MultiStreamM2Enhancer(m2, label_mode="timo"),
+                 lambda: build_server(ROOT / "artifacts" / "pretrained",
+                                      port=0, stream=True)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
     assert resolve_device("cpu") == torch.device("cpu")
 
 

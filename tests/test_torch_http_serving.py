@@ -2,9 +2,10 @@
 CPU, mirroring the non-stream tests of tests/test_http_serving.py: a real
 client (urllib) on an ephemeral port drives POST /v1/enhance against a
 live EnhancementService, plus /healthz, /stats, /metrics and the rejection
-paths; the stream route answers 501; a failed batch (a kernel that does not
-build or launch) answers 500 with its message, a closed service 503; and
-`build_server` serves the shipped weights."""
+paths; the stream route answers 501 on a server without a stream factory
+(tests/test_torch_http_stream.py serves it); a failed batch (a kernel that
+does not build or launch) answers 500 with its message, a closed service
+503; and `build_server` serves the shipped weights."""
 
 import concurrent.futures as cf
 import io
@@ -207,15 +208,40 @@ def test_build_server_serves_the_shipped_weights():
         srv.close_all()
 
 
-@pytest.mark.parametrize("kw", [dict(stream=True), dict(pooled_streams=True),
-                                dict(data_parallel=True)])
+@pytest.mark.parametrize("kw", [dict(data_parallel=True)])
 def test_build_server_refuses_what_is_not_ported(kw):
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="item 5"):
         build_server(MODELS, port=0, device="cpu", **kw)
 
 
-def test_main_refuses_the_stream_flag():
-    with pytest.raises(NotImplementedError, match="stream"):
-        main(["--models", MODELS, "--device", "cpu", "--stream", "1"])
+def test_main_takes_the_stream_flags(monkeypatch):
+    """`--stream` (on by default), `--pooled_streams`, `--chunk_frames`,
+    `--stream_residual`, `--max_streams` and `--tick_ms` reach
+    build_server."""
+    import guided_vae_nmf_torch.http_serving as hs
+
+    seen = {}
+
+    class Stop(Exception):
+        pass
+
+    def fake_build(models, **kw):
+        seen.update(kw)
+        raise Stop
+
+    monkeypatch.setattr(hs, "build_server", fake_build)
+    with pytest.raises(Stop):
+        main(["--models", MODELS, "--device", "cpu", "--stream", "1",
+              "--pooled_streams", "1", "--chunk_frames", "4",
+              "--stream_residual", "1", "--max_streams", "3",
+              "--tick_ms", "2.5"])
+    assert {k: seen[k] for k in ("stream", "pooled_streams", "chunk_frames",
+                                 "stream_residual", "max_streams",
+                                 "tick_ms")} == dict(
+        stream=True, pooled_streams=True, chunk_frames=4,
+        stream_residual=True, max_streams=3, tick_ms=2.5)
+    with pytest.raises(Stop):
+        main(["--models", MODELS, "--device", "cpu"])
+    assert seen["stream"] is True and seen["pooled_streams"] is False
     with pytest.raises(SystemExit):
         main(["--fast", "2"])
