@@ -5,7 +5,9 @@ impulse-noise profiles), fast mode, the rest of the offline pipeline
 (oracle labels, the Wiener-DNN baseline, enhance_batch, the eager MCEM
 engine and serving on it), the online service with its HTTP front end,
 streaming (the Wiener, SPP and M2 stream enhancers, the multi-stream pool,
-its driver and the HTTP stream route), and the paper-config path (PEEM,
+its driver and the HTTP stream route), the evaluation protocol (the
+`gvnmf-torch` command line, the evaluate / run_metrics scripts and the
+metrics), and the paper-config path (PEEM,
 the PEEM -> MCEM hybrid and the 500-iteration harness, whose fast_bf16mm
 variant runs K1d).
 
@@ -89,7 +91,23 @@ Phases, in order; any failure exits nonzero without a result line:
    `build_server(stream=True)`: a chunked PCM16 POST to
    /v1/enhance_stream (200, X-Chunk-Frames, every sample) within 1 LSB of
    the enhancer called directly, counted in /stats.
-9. paper-config path: `enhance_waveform(cfg=HybridConfig())` on the main
+9. evaluation protocol, on the main batch's four mixtures written as a
+   reference-layout data root (`raw/` and `processed/.../si_et_05/`, the
+   SNR pickle): `gvnmf-torch enhance <dir> <out>/` in-process (one padded
+   batch: 100 / 1 / 100 / 100 K1a / K2a launches; PCM16 equal to
+   `enhance_to_audio` with the same seed; x realtime with wav I/O and
+   labels), `scripts.evaluate_M2_ibm` (dnn labels, MCEMConfig()) then
+   `scripts.run_metrics_M2` and `scripts.run_metrics_mixture` through the
+   spawn pool (one worker an utterance; every row finite; files/s,
+   utterances/s, and the mean SI-SDR / SI-SIR / SI-SAR / ESTOI / PESQ-wb /
+   F1 beside the mixture floor, no quality claim), `energy_ratios_torch`
+   on the card over the zero-padded batch against numpy (float32 within
+   1e-3 dB, float64 within 1e-9 dB), `gvnmf-torch metrics` on one pair
+   against the library's values, `gvnmf-torch stream --profile
+   streaming-low-latency` on the 2.5 s burst mixture (0 K1 / K2 launches,
+   PCM equal to `StreamingM2Enhancer` pushed the same chunks), and
+   `gvnmf-torch doctor` (the card and both kernel libraries found).
+10. paper-config path: `enhance_waveform(cfg=HybridConfig())` on the main
    batch (500 PEEM + 150 MCEM iterations and the WF chain; 150 / 1 / 150
    / 150 launches), with `fast=True` (the same on `_fast`) and with the
    spp noise model (150 K1b E / 1 WF / 150 K2b g); `PEEMConfig()` (no
@@ -99,7 +117,7 @@ Phases, in order; any failure exits nonzero without a result line:
    CPU path; and `bench_niter500.main` at B=4, N=384, 100 iterations,
    PEEM and a 25-iteration hybrid, which prints its JSON line (fast_bf16mm:
    100 K1d E + 1 K1d WF launches a run).
-10. kernel times at the paths' shapes, every variant, beside their bounds
+11. kernel times at the paths' shapes, every variant, beside their bounds
    and their plain versions' times: K1 by CUDA events; K2 as device time
    between two events inside a CUDA graph with the L2 as the main path
    leaves it (right after a K1 E launch), warm and cold, beside the
@@ -2001,6 +2019,293 @@ def phase_streaming(torch, mods, mean, std, meta, dev, gpu, art, seed):
     return rec
 
 
+EVAL_SNR_DB = 5.0          # speech_like_mixtures' SNR, the sweep's SNR list
+
+
+def write_eval_root(pairs, root):
+    """The (clean, mixture) int16 pairs as a reference-layout data root:
+    `<root>/subset/{raw,processed}/CSR-1-WSJ-0/WAV/wsj0/si_et_05/<spk>/`
+    with `<utt>.wav` (raw clean) and `<utt>_{s,n,x}.wav` (processed), and
+    the test split's SNR pickle. Returns (raw dir, processed dir, utterance
+    base paths under processed)."""
+    from guided_vae_nmf_torch.data import write_dataset, write_wav
+
+    sub = os.path.join(root, "subset")
+    rel = os.path.join("CSR-1-WSJ-0", "WAV", "wsj0", "si_et_05")
+    raw, proc = (os.path.join(sub, d) + "/" for d in ("raw", "processed"))
+    bases = []
+    for j, (clean, x) in enumerate(pairs):
+        spk = str(440 + j // 2)
+        utt = f"{spk}c02{j:02d}"
+        for d in (raw, proc):
+            os.makedirs(os.path.join(d, rel, spk), exist_ok=True)
+        noise = np.clip(x.astype(np.int32) - clean, -32768,
+                        32767).astype(np.int16)
+        write_wav(os.path.join(raw, rel, spk, utt + ".wav"), clean, 16000)
+        base = os.path.join(proc, rel, spk, utt)
+        for tag, sig in (("s", clean), ("n", noise), ("x", x)):
+            write_wav(f"{base}_{tag}.wav", sig, 16000)
+        bases.append(os.path.join(rel, spk, utt))
+    write_dataset([EVAL_SNR_DB] * len(pairs), proc, "test", "snr_db")
+    return raw, proc, bases
+
+
+def captured(fn, *args):
+    """(fn(*args), what it printed)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args)
+    return out, buf.getvalue()
+
+
+def phase_evaluation(torch, mods, mean, std, meta, batch, dev, gpu, art,
+                     seed):
+    """The evaluation protocol on the card with the main batch's mixtures
+    and the shipped weights: `gvnmf-torch enhance` on a directory (one
+    padded batch; the main path's launches; PCM equal to enhance_to_audio
+    with the same seed), `evaluate_M2_ibm` then `run_metrics_M2` and
+    `run_metrics_mixture` through the spawn pool, `energy_ratios_torch` on
+    the card against numpy, the `metrics` subcommand against the library,
+    the `stream` subcommand against its enhancer (no K1 / K2 launch) and
+    the doctor. Returns the record."""
+    import guided_vae_nmf_torch as port
+    from guided_vae_nmf_torch import cli
+    from guided_vae_nmf_torch.data import read_wav, read_wav_int16, write_wav
+    from guided_vae_nmf_torch.dsp import frame_count, stft
+    from guided_vae_nmf_torch.metrics import (
+        energy_ratios, energy_ratios_torch, mos_lqo_wb, stoi)
+    from guided_vae_nmf_torch.metrics.pesq import pesq
+    from guided_vae_nmf_torch.pipeline import (
+        enhance_to_audio, make_labels, plan_batches)
+    from guided_vae_nmf_torch.scripts import (
+        evaluate_M2_ibm, run_metrics_M2, run_metrics_mixture)
+    from guided_vae_nmf_torch.streaming import HOP, StreamingM2Enhancer
+
+    model, classifier = mods
+    pairs = batch[0]
+    m2_dir, cdir = (os.path.join(art, d) for d in ("M2_ibm",
+                                                   "classifier_ibm"))
+    audio_s = sum(len(x) for _, x in pairs) / 16000
+    rec = {}
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        raw, proc, bases = write_eval_root(pairs, os.path.join(tmp, "data"))
+
+        # -- gvnmf-torch enhance <dir> <out>/ against the library ---------
+        mix_dir, out_dir = os.path.join(tmp, "mix"), os.path.join(tmp, "cli")
+        os.makedirs(mix_dir)
+        mix_paths = []
+        for j, (_, x) in enumerate(pairs):
+            mix_paths.append(os.path.join(mix_dir, f"utt{j}.wav"))
+            write_wav(mix_paths[-1], x, 16000)
+        port.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc, out = captured(cli.main, [
+            "enhance", mix_dir, out_dir + "/", "--model", m2_dir,
+            "--classifier", cdir, "--seed", str(seed)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = port.launch_counts()
+        check(rc == 0, f"gvnmf-torch enhance returned {rc}")
+        check(counts == expected_launches(**MAIN_LAUNCHES),
+              f"gvnmf-torch enhance launches {counts}, expected "
+              f"{MAIN_LAUNCHES} (one padded batch)")
+        xs = [read_wav(p)[0].astype(np.float32) for p in mix_paths]
+        X = [stft(x) for x in xs]
+        ys = [make_labels("dnn", np.abs(Xi) ** 2, classifier=classifier,
+                          mean=mean, std=std, features=meta["features"],
+                          dnn_threshold=meta["threshold"])[1] for Xi in X]
+        s_list, _ = enhance_to_audio(
+            model, X, [len(x) for x in xs], ys=ys,
+            generator=torch.Generator(device=dev).manual_seed(seed),
+            device=dev)
+        for j, s in enumerate(s_list):
+            ref_path = os.path.join(tmp, f"ref{j}.wav")
+            write_wav(ref_path, s, 16000)
+            got = read_wav_int16(os.path.join(out_dir,
+                                              f"utt{j}_enhanced.wav"))[0]
+            check(torch.equal(torch.from_numpy(got), torch.from_numpy(
+                read_wav_int16(ref_path)[0])),
+                f"gvnmf-torch enhance utt{j} differs from enhance_to_audio")
+        log(f" gvnmf-torch enhance {mix_dir}/ (4 files, one padded batch): "
+            f"{wall:.3f} s wall with model loads, wav I/O and labels = "
+            f"{audio_s / wall:.2f}x realtime ({gpu}); launches {counts}; "
+            "PCM equal to enhance_to_audio with the same seed")
+        rec["cli_enhance"] = {"wall_s": wall, "audio_s": audio_s,
+                              "x_realtime": audio_s / wall,
+                              "launches": counts}
+
+        # -- evaluate_M2_ibm, then run_metrics_M2 / run_metrics_mixture ---
+        est = os.path.join(tmp, "M2_ibm_dnn_enhanced") + "/"
+        root = os.path.join(tmp, "data")
+        files = [b + ".wav" for b in bases]
+        n_batches = len(plan_batches(
+            files, [frame_count(len(x)) for _, x in pairs]))
+        port.reset_launch_counts()
+        res, _ = captured(evaluate_M2_ibm.main, [
+            "--data_root", root, "--model", m2_dir, "--classifier", cdir,
+            "--output", est])
+        counts = port.launch_counts()
+        check(counts == expected_launches(n_batches=n_batches,
+                                          **MAIN_LAUNCHES),
+              f"evaluate_M2_ibm launches {counts}, expected {MAIN_LAUNCHES}"
+              f" a batch over {n_batches} batches")
+        check(res.n_processed == len(pairs), "evaluate_M2_ibm processed "
+              f"{res.n_processed} of {len(pairs)}")
+        log(f" evaluate_M2_ibm (dnn labels, MCEMConfig()): {len(pairs)} "
+            f"files in {float(res):.3f} s = {len(pairs) / float(res):.3f} "
+            f"files/s, {audio_s / float(res):.2f}x realtime, {n_batches} "
+            f"batches, launches {counts}")
+        sweeps = {}
+        for name, fn, argv in (
+                ("run_metrics_M2", run_metrics_M2.main,
+                 ["--data_root", root, "--est_dir", est]),
+                ("run_metrics_mixture", run_metrics_mixture.main,
+                 ["--data_root", root])):
+            t0 = time.perf_counter()
+            (keys, rows, _, _), _ = captured(fn, argv)
+            w = time.perf_counter() - t0
+            check(len(rows) == len(pairs)
+                  and all(np.all(np.isfinite(r)) for r in rows),
+                  f"{name}: rows {rows}")
+            means = {k: float(np.mean([r[i] for r in rows]))
+                     for i, k in enumerate(keys)}
+            sweeps[name] = {"wall_s": w, "utt_per_s": len(rows) / w,
+                            "keys": keys, "rows": [list(map(float, r))
+                                                   for r in rows],
+                            "means": means}
+            log(f" {name} (spawn pool, {min(8, len(rows))} workers, pool "
+                f"start included): {len(rows)} utterances in {w:.3f} s = "
+                f"{len(rows) / w:.3f} utterances/s")
+        from guided_vae_nmf_torch.metrics.runner import metrics_pool
+
+        t0 = time.perf_counter()
+        with metrics_pool(len(pairs)) as ex:
+            list(ex.map(abs, range(len(pairs))))
+        sweeps["pool_start_s"] = time.perf_counter() - t0
+        log(f" a spawn pool of {len(pairs)} workers alone (start, one "
+            f"trivial task each, shutdown): {sweeps['pool_start_s']:.3f} s")
+        out_m, floor = sweeps["run_metrics_M2"]["means"], \
+            sweeps["run_metrics_mixture"]["means"]
+        log("  means, synthetic mixtures, no quality claim: "
+            + ", ".join(f"{k} {out_m[k]:.4f} (mixture {floor[k]:.4f})"
+                        for k in ("SI-SDR", "SI-SIR", "SI-SAR", "ESTOI",
+                                  "PESQ"))
+            + f", F1 {out_m['F1']:.4f}")
+        rec["evaluate_M2_ibm"] = {"wall_s": float(res),
+                                  "files_per_s": len(pairs) / float(res),
+                                  "launches": counts}
+        rec["metrics"] = sweeps
+
+        # -- energy_ratios_torch on the card over the padded batch ---------
+        sigs = []
+        for b in bases:
+            s, _ = read_wav(os.path.join(proc, b) + "_s.wav")
+            n, _ = read_wav(os.path.join(proc, b) + "_n.wav")
+            sh, _ = read_wav(os.path.join(est, b) + "_s_est.wav")
+            ln = min(len(s), len(sh))
+            sigs.append((sh[:ln], s[:ln], n[:ln]))
+        T = max(len(a[0]) for a in sigs)
+        errs = {}
+        for dtype, tol in ((torch.float32, 1e-3), (torch.float64, 1e-9)):
+            padded_b = torch.zeros(3, len(sigs), T, dtype=torch.float64)
+            for j, trio in enumerate(sigs):
+                for k, a in enumerate(trio):
+                    padded_b[k, j, :len(a)] = torch.from_numpy(a)
+            got = energy_ratios_torch(*(a.to(dev, dtype) for a in padded_b))
+            err = max(abs(float(g[j]) - r) for j, trio in enumerate(sigs)
+                      for g, r in zip(got, energy_ratios(*trio)))
+            errs[str(dtype)] = err
+            log(f" energy_ratios_torch on the card, {dtype}, B={len(sigs)} "
+                f"zero-padded to {T}: max |dB - numpy| {err:.3e} (needs < "
+                f"{tol:g})")
+            check(err < tol, f"energy_ratios_torch {dtype} off numpy by "
+                  f"{err} dB")
+        rec["energy_ratios_torch_max_err_db"] = errs
+
+        # -- the metrics subcommand against the library --------------------
+        b = bases[0]
+        paths = (os.path.join(proc, b) + "_s.wav",
+                 os.path.join(est, b) + "_s_est.wav",
+                 os.path.join(proc, b) + "_x.wav")
+        rc, out = captured(cli.main, ["metrics", "--clean", paths[0],
+                                      "--enhanced", paths[1], "--mixture",
+                                      paths[2]])
+        s, _ = read_wav(paths[0])
+        sh, _ = read_wav(paths[1])
+        x, _ = read_wav(paths[2])
+        ln = min(len(s), len(sh), len(x))
+        s, sh = s[:ln], sh[:ln]
+        sdr, sir, sar = energy_ratios(sh, s, x[:ln] - s)
+        want = {"ESTOI": f"{stoi(s, sh, 16000, True):.4f}",
+                # the JAX command's composition, kept for parity
+                "PESQ-wb (MOS-LQO)":
+                    f"{mos_lqo_wb(pesq(16000, s, sh, 'wb')):.3f}",
+                "SI-SDR": f"{sdr:+.2f} dB", "SI-SIR": f"{sir:+.2f} dB",
+                "SI-SAR": f"{sar:+.2f} dB"}
+        got = dict(line.rsplit("  ", 1) for line in out.splitlines())
+        got = {k.strip(): v for k, v in got.items()}
+        check(rc == 0 and got == want,
+              f"gvnmf-torch metrics printed {got}, the library gives {want}")
+        log(f" gvnmf-torch metrics on {os.path.basename(b)}: {got} (equal "
+            "to the library's values)")
+
+        # -- the stream subcommand against its enhancer ---------------------
+        _, x16 = speech_like_mixtures(seed + 4, (STREAM_SECONDS,),
+                                      bursts=3)[0]
+        s_in, s_out = (os.path.join(tmp, f"stream_{t}.wav")
+                       for t in ("in", "out"))
+        write_wav(s_in, x16, 16000)
+        prof = "streaming-low-latency"
+        port.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc, _ = captured(cli.main, [
+            "stream", s_in, s_out, "--model", m2_dir, "--label", "dnn",
+            "--classifier", cdir, "--profile", prof])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(rc == 0, f"gvnmf-torch stream returned {rc}")
+        check_no_launches("gvnmf-torch stream")
+        enh = StreamingM2Enhancer(model, device=dev, **stream_kwargs(
+            prof, classifier, mean, std, meta))
+        xf = read_wav(s_in)[0].astype(np.float32)
+        chunk = enh.chunk_frames * HOP
+        y = np.concatenate([enh.push(xf[lo:lo + chunk])
+                            for lo in range(0, len(xf), chunk)]
+                           + [enh.flush()])
+        ref_path = os.path.join(tmp, "stream_ref.wav")
+        write_wav(ref_path, y, 16000)
+        a, r = (read_wav_int16(p)[0].astype(np.int32)
+                for p in (s_out, ref_path))
+        diff = int(np.abs(a - r).max()) if len(a) == len(r) else -1
+        log(f" gvnmf-torch stream --profile {prof} ({STREAM_SECONDS} s, "
+            f"three noise bursts): {wall:.3f} s wall with model loads and "
+            f"wav I/O; 0 K1 / K2 launches; max |PCM - enhancer| {diff} LSB "
+            "(needs 0)")
+        check(diff == 0, "gvnmf-torch stream differs from its enhancer")
+        rec["cli_stream"] = {"wall_s": wall, "audio_s": STREAM_SECONDS,
+                             "max_lsb": diff}
+
+        # -- the doctor ----------------------------------------------------
+        rc, out = captured(cli.main, ["doctor"])
+        rows = [ln.strip() for ln in out.splitlines()[1:]]
+        log(" gvnmf-torch doctor: " + "; ".join(rows))
+        check(rc == 0 and not any(r.startswith("FAIL") for r in rows)
+              and "ok  kernel library mh_chain: built" in rows
+              and "ok  kernel library nmf_sums: built" in rows
+              and any(r.startswith("ok  cuda: 1 device(s)") for r in rows),
+              "gvnmf-torch doctor did not find the card and both kernel "
+              "libraries")
+    rec["seconds"] = time.perf_counter() - t_phase
+    log(f" evaluation-protocol phase: {rec['seconds']:.1f} s in all")
+    return rec
+
+
 SOURCES = {
     "mh_chain": ("guided_vae_nmf_torch/csrc/mh_chain.cu",
                  "guided_vae_nmf_tpu/mcem/pallas_engine.py:494"),
@@ -2429,6 +2734,10 @@ def main(argv=None):
         "driver, the HTTP stream route; shipped weights):")
     streaming = phase_streaming(torch, (model, classifier), mean, std, meta,
                                 dev, gpu, art, args.seed)
+    log("evaluation protocol (gvnmf-torch enhance / metrics / stream / "
+        "doctor, evaluate_M2_ibm, run_metrics_M2, run_metrics_mixture):")
+    evaluation = phase_evaluation(torch, (model, classifier), mean, std,
+                                  meta, batch, dev, gpu, art, args.seed)
 
     hybrid = phase_hybrid(torch, model, classifier, mean, std, batch,
                           args.seed, dev, gpu)
@@ -2463,7 +2772,8 @@ def main(argv=None):
         "ptxas": ptxas, "k1_geometry": geometry,
         "k2_geometry": sums_geometry, "main_path": main_res, "profile": prof,
         "paths": paths, "fast": fast, "offline_rest": rest,
-        "serving": serving, "streaming": streaming, "hybrid": hybrid,
+        "serving": serving, "streaming": streaming,
+        "evaluation": evaluation, "hybrid": hybrid,
         "harness": harness, "kernels": kernels, "kernels_b32_n512": large,
         "seconds": time.perf_counter() - t_start,
     }

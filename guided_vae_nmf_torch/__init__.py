@@ -4,10 +4,12 @@ The JAX package `guided_vae_nmf_tpu` is the reference; this package runs
 the M2-IBM enhancement main path, the fixed-noise path (spp / spp2 noise
 models, noise gain, the real-noise and impulse-noise profiles, timo
 labels), fast mode, the online service (`serving`, `http_serving`), the
-streaming enhancers and their pool (`streaming`, the HTTP stream route)
-and the paper-config path (PEEM, the PEEM -> MCEM hybrid,
-`bench_niter500`) in PyTorch, with hand-written CUDA kernels (`csrc/`) for
-the MH chain (K1) and the NMF M-step sums (K2).
+streaming enhancers and their pool (`streaming`, the HTTP stream route),
+the paper-config path (PEEM, the PEEM -> MCEM hybrid, `bench_niter500`)
+and the evaluation protocol (`metrics`, the `gvnmf-torch` command line
+`cli`, the evaluate / run_metrics / serve / doctor / streaming `scripts`)
+in PyTorch, with hand-written CUDA kernels (`csrc/`) for the MH chain (K1)
+and the NMF M-step sums (K2).
 
 Float32 matrix products run in full float32, as the JAX path does.
 """

@@ -9,7 +9,10 @@ kernel of their own, on the card against the CPU: the oracle labels, the
 eager MCEM engine under injected streams and the Wiener-DNN forward; and
 streaming on the card: a stream's output against how its pushes are
 split, a stream against the CPU, pool lanes against dedicated streams,
-and the HTTP stream route.
+and the HTTP stream route; and the evaluation protocol: the batched
+SI-SDR on the card against numpy, the `gvnmf-torch enhance` command on
+the card against `enhance_to_audio` with its launch counts, and the
+metric pool started from a process that holds a CUDA context.
 
 Every test here needs an NVIDIA GPU and skips without one. The file
 imports neither JAX nor the JAX package, so it also runs on a GPU machine
@@ -1133,3 +1136,117 @@ def test_http_stream_route_on_the_card(cuda):
     assert len(got) == len(x)
     assert np.abs(got - np.clip(want, -32768, 32767)).max() <= 1
     assert streams["done"] == 1 and streams["active"] == 0
+
+
+# ---------------------------------------------------------------------------
+# the evaluation protocol
+# ---------------------------------------------------------------------------
+
+def _speech_like(seed, seconds, snr_db=5.0, fs=16000):
+    rng = np.random.RandomState(seed)
+    n = int(seconds * fs)
+    t = np.arange(n) / fs
+    f0 = rng.uniform(100, 200) * (1 + 0.1 * np.sin(2 * np.pi * 0.4 * t))
+    phase = 2 * np.pi * np.cumsum(f0) / fs
+    s = sum(np.sin(k * phase) / k for k in range(1, 20))
+    s *= 0.5 - 0.5 * np.cos(2 * np.pi * rng.uniform(3, 5) * t)
+    noise = np.convolve(rng.randn(n), np.ones(4) / 4, mode="same")
+    noise *= np.sqrt(np.mean(s**2) / np.mean(noise**2) / 10 ** (snr_db / 10))
+    scale = 0.5 / np.max(np.abs(s + noise))
+    return s * scale, noise * scale
+
+
+@pytest.mark.cuda
+def test_energy_ratios_on_the_card_match_numpy(cuda):
+    from guided_vae_nmf_torch.metrics import energy_ratios, energy_ratios_torch
+
+    rows = [_speech_like(40 + i, sec) for i, sec in enumerate((1.1, 2.3,
+                                                               3.0))]
+    T = max(len(s) for s, _ in rows)
+    for dtype, tol in ((torch.float32, 1e-3), (torch.float64, 1e-9)):
+        b = torch.zeros(3, len(rows), T, dtype=dtype)
+        for i, (s, n) in enumerate(rows):
+            sh = s + 0.25 * n + 0.2 * np.tanh(3 * s)
+            for j, a in enumerate((sh, s, n)):
+                b[j, i, :len(s)] = torch.from_numpy(a)
+        got = energy_ratios_torch(*(a.to(cuda) for a in b))
+        for i, (s, n) in enumerate(rows):
+            ref = energy_ratios(*(b[j, i, :len(s)].double().numpy()
+                                  for j in range(3)))
+            for g, r in zip(got, ref):
+                assert g.device.type == "cuda" and g.dtype == dtype
+                assert abs(float(g[i]) - r) < tol
+
+
+@pytest.mark.cuda
+def test_cli_enhance_on_the_card(cuda, tmp_path):
+    import os
+
+    from guided_vae_nmf_torch import cli
+    from guided_vae_nmf_torch.data import read_wav, read_wav_int16, write_wav
+    from guided_vae_nmf_torch.dsp import stft
+    from guided_vae_nmf_torch.pipeline import enhance_to_audio, make_labels
+    from guided_vae_nmf_torch.train import load_model, load_norm_stats
+
+    art = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "artifacts", "pretrained")
+    m2_dir, cdir = (os.path.join(art, d) for d in ("M2_ibm",
+                                                   "classifier_ibm"))
+    src = tmp_path / "in"
+    src.mkdir()
+    for i, sec in enumerate((1.3, 2.2)):
+        s, n = _speech_like(50 + i, sec)
+        write_wav(str(src / f"u{i}.wav"), s + n, 16000)
+    reset_launch_counts()
+    assert cli.main(["enhance", str(src), str(tmp_path / "out") + "/",
+                     "--model", m2_dir, "--classifier", cdir,
+                     "--seed", "7"]) == 0
+    counts = launch_counts()
+    m2 = load_model(m2_dir, kind="dgm", device=cuda)
+    cls = load_model(cdir, kind="classifier", device=cuda)
+    mean, std = load_norm_stats(cdir)
+    xs = [read_wav(str(src / f"u{i}.wav"))[0].astype(np.float32)
+          for i in range(2)]
+    X = [stft(x) for x in xs]
+    ys = [make_labels("dnn", np.abs(Xi) ** 2, classifier=cls, mean=mean,
+                      std=std)[1] for Xi in X]
+    s_list, _ = enhance_to_audio(
+        m2, X, [len(x) for x in xs], ys=ys,
+        generator=torch.Generator(device=cuda).manual_seed(7), device=cuda)
+    for i, s in enumerate(s_list):
+        write_wav(str(tmp_path / f"ref{i}.wav"), s, 16000)
+        got = read_wav_int16(str(tmp_path / "out" / f"u{i}_enhanced.wav"))
+        ref = read_wav_int16(str(tmp_path / f"ref{i}.wav"))
+        assert torch.equal(torch.from_numpy(got[0]),
+                           torch.from_numpy(ref[0]))
+    assert (counts["mh_chain"]["e_wh"], counts["mh_chain"]["wf_wh"],
+            counts["nmf_sums"]["h_wh"], counts["nmf_sums"]["g_wh"]) == (
+        100, 1, 100, 100)
+
+
+@pytest.mark.cuda
+def test_metric_pool_from_a_process_with_a_cuda_context(cuda, tmp_path):
+    import os
+
+    from guided_vae_nmf_torch.data import write_dataset, write_wav
+    from guided_vae_nmf_torch.metrics import runner
+
+    torch.ones(1, device=cuda).sum().item()      # this process holds one
+    assert torch.cuda.is_initialized()
+    rel = os.path.join("CSR-1-WSJ-0", "WAV", "wsj0", "si_et_05", "440")
+    raw, proc = tmp_path / "raw", tmp_path / "processed"
+    for i in range(2):
+        s, n = _speech_like(60 + i, 1.2)
+        for d in (raw, proc):
+            (d / rel).mkdir(parents=True, exist_ok=True)
+        write_wav(str(raw / rel / f"u{i}.wav"), s, 16000)
+        for tag, sig in (("s", s), ("n", n), ("x", s + n)):
+            write_wav(str(proc / rel / f"u{i}_{tag}.wav"), sig, 16000)
+    write_dataset([0.0, 0.0], str(proc), "test", "snr_db")
+    keys, rows, _, _ = runner.run_metrics(str(raw) + "/", str(proc) + "/",
+                                          mixture_floor=True, max_workers=2)
+    assert len(rows) == 2 and all(np.all(np.isfinite(r)) for r in rows)
+    with runner.metrics_pool(1) as ex:
+        assert ex.submit(os.getenv, "CUDA_VISIBLE_DEVICES").result() == ""
+        assert ex.submit(torch.cuda.device_count).result() == 0
+        assert ex.submit(torch.cuda.is_initialized).result() is False
