@@ -7,7 +7,8 @@ engine and serving on it), the online service with its HTTP front end,
 streaming (the Wiener, SPP and M2 stream enhancers, the multi-stream pool,
 its driver and the HTTP stream route), the evaluation protocol (the
 `gvnmf-torch` command line, the evaluate / run_metrics scripts and the
-metrics), and the paper-config path (PEEM,
+metrics), training (`gvnmf-torch dataset` / `train` for the four model
+families at the shipped widths), and the paper-config path (PEEM,
 the PEEM -> MCEM hybrid and the 500-iteration harness, whose fast_bf16mm
 variant runs K1d).
 
@@ -107,7 +108,23 @@ Phases, in order; any failure exits nonzero without a result line:
    streaming-low-latency` on the 2.5 s burst mixture (0 K1 / K2 launches,
    PCM equal to `StreamingM2Enhancer` pushed the same chunks), and
    `gvnmf-torch doctor` (the card and both kernel libraries found).
-10. paper-config path: `enhance_waveform(cfg=HybridConfig())` on the main
+10. training, at the shipped widths (M1 513/32/(128, 128), M2
+   513/513/32/(128, 128), classifier 513/(128, 128)/513, Wiener
+   513/(128 x 5)/513), batch 128, Adam 1e-3: 48 speech-like clean
+   utterances of 3-5 s and the synthetic noise bank as wavs, two
+   `gvnmf-torch dataset` stores (noisy_labels, noisy_wiener_labels; where
+   h5py is missing the stores' code runs over `MemH5`, an in-memory
+   stand-in of h5py's File); `gvnmf-torch train <family> --epochs 3` for
+   the four families (three checkpoints with the reference naming, both
+   logs, the side-cars, finite losses, the training loss falling from
+   epoch 1 to 3; steady epochs' wall and training frames/s); one M2 epoch
+   profiled (device activities, busy share, host syncs counted by the
+   CUDA sync debug mode); the classifier's and the Wiener DNN's `fit`, 2
+   epochs from the same weights on the card and the CPU, and one M1 / M2
+   step with z = mu on each (stated tolerances); a 4th M2 epoch through
+   `--resume`, whose best checkpoint then drives the main batch (100 / 1
+   / 100 / 100 K1a / K2a launches, |s + n - x| <= 2 LSB).
+11. paper-config path: `enhance_waveform(cfg=HybridConfig())` on the main
    batch (500 PEEM + 150 MCEM iterations and the WF chain; 150 / 1 / 150
    / 150 launches), with `fast=True` (the same on `_fast`) and with the
    spp noise model (150 K1b E / 1 WF / 150 K2b g); `PEEMConfig()` (no
@@ -117,7 +134,7 @@ Phases, in order; any failure exits nonzero without a result line:
    CPU path; and `bench_niter500.main` at B=4, N=384, 100 iterations,
    PEEM and a 25-iteration hybrid, which prints its JSON line (fast_bf16mm:
    100 K1d E + 1 K1d WF launches a run).
-11. kernel times at the paths' shapes, every variant, beside their bounds
+12. kernel times at the paths' shapes, every variant, beside their bounds
    and their plain versions' times: K1 by CUDA events; K2 as device time
    between two events inside a CUDA graph with the L2 as the main path
    leaves it (right after a K1 E launch), warm and cold, beside the
@@ -2306,6 +2323,415 @@ def phase_evaluation(torch, mods, mean, std, meta, batch, dev, gpu, art,
     return rec
 
 
+# -- training -----------------------------------------------------------
+
+TRAIN_UTTS = 48                    # clean utterances of the training data
+TRAIN_SECONDS = (3.0, 5.0)         # the range of their lengths
+TRAIN_EPOCHS = 3
+# (family, store labels, checkpoint name, extra `train` flags): the
+# shipped models' widths (M1 513/32/(128, 128), M2 513/513/32/(128, 128),
+# classifier 513/(128, 128)/513, Wiener 513/(128 x 5)/513), batch 128,
+# Adam 1e-3
+TRAIN_FAMILIES = (
+    ("m1", "noisy_labels", "M1", []),
+    ("m2", "noisy_labels", "M2", []),
+    ("classifier", "noisy_labels", "Classifier", []),
+    ("wiener", "noisy_wiener_labels", "Wiener",
+     ["--h_dim", "128,128,128,128,128"]),
+)
+CARD_CPU_FRAMES = (2560, 640)      # the card-against-CPU fits' frames
+# measured (NVIDIA H100 80GB HBM3): losses 2.6e-7 / 9.9e-7 apart, weights
+# 8.9e-8 / 3.4e-4 (classifier / Wiener): Adam moves a weight whose gradient
+# sits at rounding level (a dead ReLU's inputs) by up to lr a step either
+# way, so the weights are held to lr
+CARD_CPU_TOL = dict(loss_rtol=1e-5, weight_atol=1e-3)
+# one M1 / M2 step: Adam's first step moves a weight by about lr whatever
+# its gradient's size, so a gradient at float32 rounding level may move a
+# weight 2 lr the other way on the other device
+STEP_WEIGHT_ATOL = 2.1e-3
+STEP_GRAD_TOL = dict(rtol=1e-4, scale_atol=1e-5)
+
+
+class MemH5:
+    """In-memory stand-in for the part of h5py's `File` that
+    `guided_vae_nmf_torch/data/h5io.py` calls (attrs, create / resize /
+    slice / delete a dataset), for a machine without h5py: the stores'
+    code runs as written, without HDF5 compression or disk I/O."""
+
+    files = {}
+
+    class Dataset:
+        def __init__(self, shape, dtype, chunks=None, compression=None,
+                     maxshape=None):
+            self.data = np.zeros(shape, dtype)
+            self.chunks = chunks
+            self.compression = compression
+
+        @property
+        def shape(self):
+            return self.data.shape
+
+        def resize(self, n, axis):
+            grow = [(0, 0)] * self.data.ndim
+            grow[axis] = (0, n - self.data.shape[axis])
+            self.data = np.pad(self.data, grow)
+
+        def __getitem__(self, key):
+            return np.array(self.data[key])
+
+        def __setitem__(self, key, value):
+            self.data[key] = value
+
+    class File:
+        def __init__(self, path, mode="r", **_):
+            if mode == "r" and path not in MemH5.files:
+                raise FileNotFoundError(path)
+            store = MemH5.files.setdefault(path, ({}, {}))
+            self.attrs, self._sets = store
+
+        def __contains__(self, name):
+            return name in self._sets
+
+        def __getitem__(self, name):
+            return self._sets[name]
+
+        def __delitem__(self, name):
+            del self._sets[name]
+
+        def create_dataset(self, name, shape, dtype, **kw):
+            self._sets[name] = MemH5.Dataset(shape, dtype, **kw)
+            return self._sets[name]
+
+        def close(self):
+            pass
+
+
+def store_backend():
+    """'h5py', or 'memory' (MemH5 installed) where h5py is missing."""
+    import importlib.util
+
+    from guided_vae_nmf_torch.data import h5io
+
+    if importlib.util.find_spec("h5py") is not None:
+        return "h5py"
+    h5io._h5 = lambda: MemH5
+    return "memory"
+
+
+def recorded_fits():
+    """Wrap trainer.fit to keep each run's history by model dir; returns
+    (records, restore)."""
+    from guided_vae_nmf_torch.train import trainer
+
+    records = {}
+    orig = trainer.fit
+
+    def wrapped(*a, **kw):
+        out = orig(*a, **kw)
+        records[a[5]] = out[1]
+        return out
+
+    trainer.fit = wrapped
+
+    def restore():
+        trainer.fit = orig
+    return records, restore
+
+
+def training_data(torch, tmp, seed):
+    """Clean utterances and the synthetic noise bank as wavs, then
+    `gvnmf-torch dataset` twice (noisy_labels, noisy_wiener_labels).
+    Returns ({labels: store path}, record)."""
+    from guided_vae_nmf_torch import cli
+    from guided_vae_nmf_torch.data import synthetic_noise_bank, write_wav
+
+    rng = np.random.RandomState(seed + 17)
+    seconds = rng.uniform(*TRAIN_SECONDS, TRAIN_UTTS)
+    clean_dir, noise_dir = (os.path.join(tmp, d) for d in ("clean",
+                                                           "noise"))
+    os.makedirs(clean_dir)
+    os.makedirs(noise_dir)
+    t0 = time.perf_counter()
+    for j, (clean, _) in enumerate(speech_like_mixtures(seed + 17,
+                                                        seconds)):
+        write_wav(os.path.join(clean_dir, f"utt{j:02d}.wav"), clean, 16000)
+    bank = synthetic_noise_bank()
+    for name, x in bank.items():
+        write_wav(os.path.join(noise_dir, f"{name}.wav"), x, 16000)
+    wav_s = time.perf_counter() - t0
+    stores, rec = {}, {"utterances": TRAIN_UTTS,
+                       "audio_s": float(seconds.sum()),
+                       "noise_types": sorted(bank), "wavs_s": wav_s}
+    for labels in ("noisy_labels", "noisy_wiener_labels"):
+        stores[labels] = os.path.join(tmp, f"{labels}.h5")
+        t0 = time.perf_counter()
+        rc, out = captured(cli.main, [
+            "dataset", "--clean", clean_dir, "--noise", noise_dir,
+            "--out", stores[labels], "--labels", labels,
+            "--seed", str(seed)])
+        wall = time.perf_counter() - t0
+        check(rc == 0, f"gvnmf-torch dataset {labels} returned {rc}")
+        rec[labels] = {"wall_s": wall, "printed": out.strip()}
+        log(f"  gvnmf-torch dataset --labels {labels}: {wall:.2f} s; "
+            f"{out.strip()}")
+    log(f"  {TRAIN_UTTS} clean utterances ({seconds.sum():.1f} s of audio, "
+        f"{TRAIN_SECONDS[0]:g}-{TRAIN_SECONDS[1]:g} s each) and "
+        f"{len(bank)} noise wavs written in {wav_s:.2f} s")
+    return stores, rec
+
+
+def read_store(path):
+    """(((Xtr, Ytr), (Xva, Yva)), train mean, train std) of a store."""
+    from guided_vae_nmf_torch.data import H5FrameReader
+
+    rtr = H5FrameReader(path, "train")
+    rva = H5FrameReader(path, "validation")
+    out = (rtr.load_all(), rva.load_all()), rtr.mean[:, 0], rtr.std[:, 0]
+    rtr.close()
+    rva.close()
+    return out
+
+
+def epoch_line(path):
+    """[(epoch, train, valid)] of an output_epoch.log."""
+    rows = []
+    with open(path) as f:
+        for line in f:
+            m = re.match(r"Epoch: (\d+) Train loss: (\S+) Valid loss: (\S+)",
+                         line)
+            rows.append((int(m.group(1)), float(m.group(2)),
+                         float(m.group(3))))
+    return rows
+
+
+def training_runs(torch, tmp, stores, gpu):
+    """`gvnmf-torch train <family> --epochs 3` for the four families on
+    the card, with each run's checkpoints, logs and side-cars checked and
+    its steady epochs (2-3) timed. Returns {family: record}."""
+    from guided_vae_nmf_torch import cli
+
+    records, restore = recorded_fits()
+    out = {}
+    try:
+        for family, labels, name, extra in TRAIN_FAMILIES:
+            model_dir = os.path.join(tmp, f"train_{family}")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rc, printed = captured(cli.main, [
+                "train", family, "--h5", stores[labels], "--out", model_dir,
+                "--epochs", str(TRAIN_EPOCHS), *extra])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            check(rc == 0, f"gvnmf-torch train {family} returned {rc}")
+            files = sorted(os.listdir(model_dir))
+            ckpts = [f for f in files if re.fullmatch(
+                rf"{name}_epoch_(\d{{3}})_vloss_-?\d+\.\d\d\.ckpt\.npz", f)]
+            check([int(c.split("_epoch_")[1][:3]) for c in ckpts]
+                  == list(range(1, TRAIN_EPOCHS + 1)),
+                  f"{family}: checkpoints {ckpts}")
+            want = {"output_batch.log", "output_epoch.log",
+                    "resume_state.npz"}
+            if family in ("classifier", "wiener"):
+                want |= {"trainset_mean.npy", "trainset_std.npy"}
+            if family == "classifier":
+                want.add("classifier_meta.json")
+            check(want <= set(files), f"{family}: missing "
+                  f"{sorted(want - set(files))}")
+            rows = epoch_line(os.path.join(model_dir, "output_epoch.log"))
+            check(len(rows) == TRAIN_EPOCHS and all(
+                np.isfinite(v) for r in rows for v in r[1:]),
+                f"{family}: epoch log {rows}")
+            check(rows[-1][1] < rows[0][1],
+                  f"{family}: training loss did not fall {rows}")
+            hist = records[model_dir]
+            steady = [h["time_s"] for h in hist[1:]]
+            (Xtr, _), _ = read_store(stores[labels])[0]
+            frames = (len(Xtr) // 128) * 128
+            epoch_s = float(np.mean(steady))
+            out[family] = {
+                "model_dir": model_dir, "wall_s": wall, "epochs": rows,
+                "epoch_s": [h["time_s"] for h in hist],
+                "steady_epoch_s": epoch_s, "train_frames": frames,
+                "frames_per_s": frames / epoch_s}
+            log(f"  train {family}: {wall:.2f} s for {TRAIN_EPOCHS} epochs "
+                f"with store load; losses {[(r[1], r[2]) for r in rows]}; "
+                f"epochs {[round(h['time_s'], 4) for h in hist]} s; steady "
+                f"epoch {epoch_s:.4f} s = {frames / epoch_s:.0f} training "
+                f"frames/s ({frames} frames, batch 128; {gpu})")
+    finally:
+        restore()
+    return out
+
+
+def training_profile(torch, store, dev, gpu):
+    """One epoch of M2 (fresh weights, frames already on the card) under
+    torch.profiler with device activity only and the CUDA sync debug mode
+    counting host syncs. Returns the record."""
+    import warnings
+
+    from guided_vae_nmf_torch.models import dgm_init
+    from guided_vae_nmf_torch.train import TrainConfig, fit
+
+    ((Xtr, Ytr), (Xva, Yva)), _, _ = read_store(store)
+    data = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            for a in (Xtr, Ytr, Xva, Yva)]
+    model = dgm_init(torch.Generator().manual_seed(0),
+                     [513, 513, 32, [128, 128]]).to(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        def one_epoch():
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fit(model, "m2", data[:2], data[2:], TrainConfig(end_epoch=1),
+                    tmp, "M2", device=dev)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+
+        one_epoch()                                    # warm
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            wall, busy, n = profile_device(torch, one_epoch)
+    syncs = [str(w.message).splitlines()[0] for w in caught
+             if "synchroniz" in str(w.message)]
+    log(f"  one M2 epoch profiled ({len(Xtr) // 128} batches of 128, "
+        f"{len(Yva)} validation frames): {wall:.2f} ms wall, {n} device "
+        f"activities, {busy:.2f} ms busy = {100 * busy / wall:.1f} % busy; "
+        f"{len(syncs)} host syncs ({gpu})")
+    for s in sorted(set(syncs)):
+        log(f"    sync: {s[:120]}")
+    return {"wall_ms": wall, "busy_ms": busy, "activities": n,
+            "busy_share": busy / wall, "host_syncs": len(syncs),
+            "sync_messages": sorted(set(syncs))}
+
+
+def training_card_vs_cpu(torch, stores, dev, seed):
+    """The classifier's and the Wiener DNN's `fit`, 2 epochs each from the
+    same initial weights on the card and on the CPU, and one M1 / M2 step
+    with z = mu on each. Returns the record."""
+    import copy
+
+    from guided_vae_nmf_torch.models import (classifier_init, dgm_init,
+                                             vae_init)
+    from guided_vae_nmf_torch.train import TrainConfig, fit, trainer
+
+    n_tr, n_va = CARD_CPU_FRAMES
+    rec = {}
+    for family, labels, h in (("classifier", "noisy_labels", [128, 128]),
+                              ("wiener", "noisy_wiener_labels", [128] * 5)):
+        ((Xtr, Ytr), (Xva, Yva)), mean, std = read_store(stores[labels])
+        Xtr = ((Xtr[:n_tr] - mean) / (std + 1e-8)).astype(np.float32)
+        Xva = ((Xva[:n_va] - mean) / (std + 1e-8)).astype(np.float32)
+        init = classifier_init(torch.Generator().manual_seed(seed),
+                               [513, h, 513])
+        runs = {}
+        with tempfile.TemporaryDirectory() as tmp:
+            for tag, d in (("card", dev), ("cpu", torch.device("cpu"))):
+                m, hist = fit(init, family, (Xtr, Ytr[:n_tr]),
+                              (Xva, Yva[:n_va]), TrainConfig(end_epoch=2),
+                              os.path.join(tmp, tag), family, device=d)
+                runs[tag] = (m.cpu().state_dict(), hist)
+        (wc, hc), (wg, hg) = runs["cpu"], runs["card"]
+        loss_rel = max(abs(a[k] - b[k]) / abs(a[k]) for a, b in zip(hc, hg)
+                       for k in ("train", "valid"))
+        w_abs = max(float((wc[k] - wg[k]).abs().max()) for k in wc)
+        ok = (loss_rel <= CARD_CPU_TOL["loss_rtol"]
+              and w_abs <= CARD_CPU_TOL["weight_atol"])
+        log(f"  {family} fit, 2 epochs of {n_tr} frames, card against CPU: "
+            f"epoch losses {loss_rel:.2e} apart (rel), final weights "
+            f"{w_abs:.2e} apart (abs); tolerance {CARD_CPU_TOL}  "
+            f"{'ok' if ok else 'FAIL'}")
+        check(ok, f"{family} fit: card and CPU disagree")
+        rec[family] = {"loss_rel": loss_rel, "weight_abs": w_abs}
+
+    ((Xtr, Ytr), _), _, _ = read_store(stores["noisy_labels"])
+    for family, init in (("m1", vae_init(torch.Generator().manual_seed(
+            seed), [513, 32, [128, 128]])),
+            ("m2", dgm_init(torch.Generator().manual_seed(seed),
+                            [513, 513, 32, [128, 128]]))):
+        out = {}
+        for tag, d in (("cpu", torch.device("cpu")), ("card", dev)):
+            m = copy.deepcopy(init).to(d)
+            leaves = trainer._trainable(m)
+            for _, t in leaves:
+                t.requires_grad_(True)
+            opt = trainer.make_optimizer(TrainConfig(),
+                                         [t for _, t in leaves])
+            batch = (torch.from_numpy(Xtr[:128]).to(d),
+                     torch.from_numpy(Ytr[:128]).to(d))
+            loss, _ = trainer.LOSSES[family](m, batch, None, 1e-8)
+            opt.zero_grad()
+            loss.backward()
+            grads = {k: t.grad.cpu().numpy().copy() for k, t in leaves}
+            opt.step()
+            out[tag] = (float(loss.detach()), grads, {
+                k: t.detach().cpu().numpy() for k, t in leaves})
+        (lc, gc, pc), (lg, gg, pg) = out["cpu"], out["card"]
+        g_err = max(float(np.max(np.abs(gg[k] - gc[k]) / (
+            STEP_GRAD_TOL["rtol"] * np.abs(gc[k])
+            + STEP_GRAD_TOL["scale_atol"] * np.abs(gc[k]).max() + 1e-30)))
+            for k in gc)
+        w_abs = max(float(np.abs(pg[k] - pc[k]).max()) for k in pc)
+        moved = sum(int(np.sum(np.abs(pg[k] - pc[k]) > 1e-6)) for k in pc)
+        total = sum(v.size for v in pc.values())
+        ok = (abs(lg - lc) <= 1e-5 * abs(lc) and g_err <= 1
+              and w_abs <= STEP_WEIGHT_ATOL)
+        log(f"  {family} step (z = mu, 128 store frames), card against CPU: "
+            f"loss {lg:.6g} vs {lc:.6g}, gradients at {g_err:.3f} of "
+            f"their tolerance ({STEP_GRAD_TOL}), weights after the step "
+            f"{w_abs:.2e} apart (needs <= {STEP_WEIGHT_ATOL:g}), {moved} of "
+            f"{total} past 1e-6  {'ok' if ok else 'FAIL'}")
+        check(ok, f"{family} step: card and CPU disagree")
+        rec[family] = {"loss": lg, "loss_cpu": lc, "grad_err": g_err,
+                       "weight_abs": w_abs, "past_1e-6": moved,
+                       "elements": total}
+    return rec
+
+
+def phase_training(torch, classifier, mean, std, batch, dev, gpu, seed):
+    """Training at the shipped models' full width on the card: data
+    synthesis through `gvnmf-torch dataset`, `gvnmf-torch train` for the
+    four families, one profiled M2 epoch, the card against the CPU, and a
+    resumed 4th M2 epoch whose best checkpoint drives one main-path batch.
+    Returns the record."""
+    from guided_vae_nmf_torch import cli
+    from guided_vae_nmf_torch.mcem import MCEMConfig
+    from guided_vae_nmf_torch.train import load_model
+
+    t_phase = time.perf_counter()
+    rec = {"store": store_backend()}
+    note = ("" if rec["store"] == "h5py" else ": h5py is missing, the "
+            "stores' code runs over chip_smoke.MemH5 (no HDF5 compression "
+            "or disk I/O)")
+    log(f"  frame stores: {rec['store']}{note}")
+    with tempfile.TemporaryDirectory() as tmp:
+        stores, rec["data"] = training_data(torch, tmp, seed)
+        rec["runs"] = training_runs(torch, tmp, stores, gpu)
+        rec["profile_m2_epoch"] = training_profile(
+            torch, stores["noisy_labels"], dev, gpu)
+        rec["card_vs_cpu"] = training_card_vs_cpu(torch, stores, dev, seed)
+
+        m2_dir = rec["runs"]["m2"]["model_dir"]
+        rc, out = captured(cli.main, [
+            "train", "m2", "--h5", stores["noisy_labels"], "--out", m2_dir,
+            "--epochs", str(TRAIN_EPOCHS + 1), "--resume"])
+        rows = epoch_line(os.path.join(m2_dir, "output_epoch.log"))
+        check(rc == 0 and [r[0] for r in rows] == list(
+            range(1, TRAIN_EPOCHS + 2)) and np.isfinite(rows[-1][1]),
+            f"resumed M2 run: {rows}")
+        check(any(f.startswith(f"M2_epoch_{TRAIN_EPOCHS + 1:03d}_")
+                  for f in os.listdir(m2_dir)), "no 4th M2 checkpoint")
+        log(f"  train m2 --resume: epoch {rows[-1][0]} train "
+            f"{rows[-1][1]:.2f} valid {rows[-1][2]:.2f}")
+        model = load_model(m2_dir, kind="dgm", device=dev)
+        rec["enhance"] = phase_main(
+            torch, model, classifier, mean, std, MCEMConfig(), batch, seed,
+            dev, gpu, label="main path with the trained M2")
+        rec["enhance"].pop("s16")
+        rec["enhance"].pop("y_hard")
+    rec["seconds"] = time.perf_counter() - t_phase
+    log(f" training phase: {rec['seconds']:.1f} s in all")
+    return rec
+
+
 SOURCES = {
     "mh_chain": ("guided_vae_nmf_torch/csrc/mh_chain.cu",
                  "guided_vae_nmf_tpu/mcem/pallas_engine.py:494"),
@@ -2738,6 +3164,11 @@ def main(argv=None):
         "doctor, evaluate_M2_ibm, run_metrics_M2, run_metrics_mixture):")
     evaluation = phase_evaluation(torch, (model, classifier), mean, std,
                                   meta, batch, dev, gpu, art, args.seed)
+    log("training (gvnmf-torch dataset / train at the shipped widths, one "
+        "profiled M2 epoch, the card against the CPU, a resumed M2 run "
+        "driving the main path):")
+    training = phase_training(torch, classifier, mean, std, batch, dev, gpu,
+                              args.seed)
 
     hybrid = phase_hybrid(torch, model, classifier, mean, std, batch,
                           args.seed, dev, gpu)
@@ -2773,7 +3204,7 @@ def main(argv=None):
         "k2_geometry": sums_geometry, "main_path": main_res, "profile": prof,
         "paths": paths, "fast": fast, "offline_rest": rest,
         "serving": serving, "streaming": streaming,
-        "evaluation": evaluation, "hybrid": hybrid,
+        "evaluation": evaluation, "training": training, "hybrid": hybrid,
         "harness": harness, "kernels": kernels, "kernels_b32_n512": large,
         "seconds": time.perf_counter() - t_start,
     }

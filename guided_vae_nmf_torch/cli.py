@@ -7,14 +7,16 @@ same subcommands, flags, choices and defaults, over the port's library:
     gvnmf-torch stream   in.wav out.wav --model DIR ...  # online, chunked
     gvnmf-torch metrics  --clean s.wav --enhanced sh.wav [--mixture x.wav]
     gvnmf-torch serve    --models DIR [--port 8571] ...  # HTTP front end
+    gvnmf-torch dataset  --clean DIR --noise DIR --out x.h5  # frame store
+    gvnmf-torch train    m1|m2|classifier|wiener --h5 x.h5 --out DIR
     gvnmf-torch doctor                                   # bounded check
     gvnmf-torch version
 
-also run as `python -m guided_vae_nmf_torch.cli`. `enhance`, `stream` and
-`serve` run on the GPU unless `--device` names another device (`--device
-cpu` runs the kernels' plain versions); without a GPU they raise. `dataset`
-and `train` take the JAX command's flags and exit nonzero: training comes
-with ROADMAP Queue 1, item 4.
+also run as `python -m guided_vae_nmf_torch.cli`. `enhance`, `stream`,
+`serve` and `train` run on the GPU unless `--device` names another device
+(`--device cpu` runs the kernels' plain versions); without a GPU they
+raise. `dataset` is host code (numpy, scipy, h5py); `train
+--data_parallel` raises (ROADMAP Queue 1, item 5).
 """
 
 import argparse
@@ -325,13 +327,123 @@ def cmd_serve(a):
 
 
 # ---------------------------------------------------------------------------
-# dataset / train: the training slice
+# dataset (arbitrary user wavs -> labeled-frames H5)
 # ---------------------------------------------------------------------------
 
-def cmd_not_ported(a):
-    print(f"gvnmf-torch {a.command}: training and its data layer are not "
-          "ported yet (ROADMAP Queue 1, item 4)", file=sys.stderr)
-    return 2
+def cmd_dataset(a):
+    import tempfile
+
+    import numpy as np
+
+    from .data import read_wav, write_wav
+    from .data.noise import preprocess_noise
+    from .data.synthesis import augment_clean, create_noisy_frames
+
+    # fresh per run, removed after: converted copies and augmented wavs
+    # cannot collide across concurrent dataset builds
+    with tempfile.TemporaryDirectory(prefix="gvnmf_dataset_") as conv_dir:
+        clean = [_to_16k_mono_file(p, conv_dir)
+                 for p in _expand_inputs(a.clean)[0]]
+        if len(clean) < 2:
+            raise SystemExit("need at least 2 clean wavs (train + "
+                             "validation)")
+        rng = np.random.RandomState(a.seed)
+        order = rng.permutation(len(clean))
+        # at least one utterance on each side of the split
+        n_val = min(max(1, int(round(a.val_fraction * len(clean)))),
+                    len(clean) - 1)
+        splits = {
+            "validation": [clean[i] for i in order[:n_val]],
+            "train": [clean[i] for i in order[n_val:]],
+        }
+        if a.augment:
+            # speed-perturbed + gain-varied copies of the TRAIN side only
+            arrays = [read_wav(p)[0] for p in splits["train"]]
+            extra = augment_clean(arrays)[len(arrays):]
+            for i, x in enumerate(extra):
+                p = os.path.join(conv_dir, f"augment_{a.seed}_{i}.wav")
+                write_wav(p, np.asarray(x, np.float32), 16000)
+                splits["train"].append(p)
+            print(f"augmented train split: +{len(extra)} utterances")
+
+        noises = {}
+        for path in _expand_inputs(a.noise)[0]:
+            x, fs = read_wav(path)
+            stem = os.path.splitext(os.path.basename(path))[0]
+            if stem in noises:
+                raise SystemExit(
+                    f"duplicate noise type {stem!r} (two files share the "
+                    "basename); rename one — each file becomes one type")
+            noises[stem] = preprocess_noise(x, fs)  # ch. 0, 16 kHz
+        snrs = tuple(float(v) for v in a.snrs.split(","))
+
+        all_snr = create_noisy_frames(
+            "", a.out, {"train": noises, "validation": noises},
+            labels=a.labels, snrs=snrs, seed=a.seed, file_lists=splits)
+    n_tr, n_va = len(splits["train"]), len(splits["validation"])
+    print(f"wrote {a.out}: {n_tr} train / {n_va} validation utterances, "
+          f"{len(noises)} noise types {sorted(noises)}, "
+          f"SNRs {sorted(set(sum(all_snr.values(), [])))} dB, "
+          f"labels={a.labels}")
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# train (any model family from a labeled-frames H5)
+# ---------------------------------------------------------------------------
+
+def cmd_train(a):
+    import numpy as np
+
+    from .data.h5io import H5FrameReader
+    from .train import (
+        TrainConfig, train_classifier, train_m1, train_m2, train_wiener,
+    )
+
+    if a.data_parallel:
+        raise NotImplementedError(
+            "--data_parallel is not ported yet (ROADMAP Queue 1, item 5)")
+    dev = _device(a)
+    cfg = TrainConfig(end_epoch=a.epochs, batch_size=a.batch_size,
+                      learning_rate=a.lr, seed=a.seed)
+    h_dim = tuple(int(v) for v in a.h_dim.split(","))
+
+    rtr = H5FrameReader(a.h5, "train")
+    Xtr, Ytr = rtr.load_all()
+    mean = rtr.mean[:, 0] if rtr.mean is not None else Xtr.mean(0)
+    std = rtr.std[:, 0] if rtr.std is not None else Xtr.std(0)
+    rva = H5FrameReader(a.h5, "validation")
+    Xva, Yva = rva.load_all()
+    rtr.close()
+    rva.close()
+    y_dim = (Ytr.shape[1] if Ytr is not None and Ytr.ndim == 2 else 1)
+
+    if a.family == "m1":
+        _, hist = train_m1(
+            Xtr, Xva, dims=(513, a.z_dim, h_dim), cfg=cfg,
+            model_dir=a.out, name="M1", resume=a.resume, verbose=True,
+            device=dev)
+    elif a.family == "m2":
+        _, hist = train_m2(
+            (Xtr, Ytr), (Xva, Yva), dims=(513, y_dim, a.z_dim, h_dim),
+            cfg=cfg, model_dir=a.out, name="M2", resume=a.resume,
+            verbose=True, device=dev)
+    else:
+        # classifier / wiener standardize with the H5 train stats
+        # (reference training_classifier.py:97-108) and save .npy
+        # side-cars consumed at enhancement time
+        eps = 1e-8
+        Xtr = ((Xtr - mean) / (std + eps)).astype(np.float32)
+        Xva = ((Xva - mean) / (std + eps)).astype(np.float32)
+        fn = train_classifier if a.family == "classifier" else train_wiener
+        name = "Classifier" if a.family == "classifier" else "Wiener"
+        _, hist = fn(
+            (Xtr, Ytr), (Xva, Yva), dims=(513, h_dim, y_dim), cfg=cfg,
+            model_dir=a.out, name=name, mean=mean, std=std,
+            resume=a.resume, verbose=True, device=dev)
+    best = min(h["valid"] for h in hist)
+    print(f"done; best valid {best:.2f}; checkpoints in {a.out}")
+    return 0
 
 
 # ---------------------------------------------------------------------------
@@ -549,8 +661,7 @@ def build_parser():
     p.set_defaults(fn=cmd_serve)
 
     p = sub.add_parser(
-        "dataset", help="synthesize a labeled-frames H5 from user wavs "
-                        "(not ported yet: ROADMAP Queue 1, item 4)")
+        "dataset", help="synthesize a labeled-frames H5 from user wavs")
     p.add_argument("--clean", required=True,
                    help="clean-speech wavs (file, glob, or directory)")
     p.add_argument("--noise", required=True,
@@ -566,11 +677,9 @@ def build_parser():
     p.add_argument("--augment", action="store_true",
                    help="speed/gain-augmented copies of the train split "
                         "(small-corpus recipe)")
-    p.set_defaults(fn=cmd_not_ported)
+    p.set_defaults(fn=cmd_dataset)
 
-    p = sub.add_parser("train", help="train a model family from an H5 "
-                                     "(not ported yet: ROADMAP Queue 1, "
-                                     "item 4)")
+    p = sub.add_parser("train", help="train a model family from an H5")
     p.add_argument("family", choices=("m1", "m2", "classifier", "wiener"))
     p.add_argument("--h5", required=True,
                    help="labeled-frames H5 (create_*_train_set output)")
@@ -583,8 +692,10 @@ def build_parser():
     p.add_argument("--h_dim", default="128,128")
     p.add_argument("--resume", action="store_true")
     p.add_argument("--data_parallel", action="store_true",
-                   help="shard the frame batch over all devices")
-    p.set_defaults(fn=cmd_not_ported)
+                   help="shard the frame batch over all devices (not "
+                        "ported yet: ROADMAP Queue 1, item 5)")
+    _add_device_flag(p)
+    p.set_defaults(fn=cmd_train)
 
     p = sub.add_parser("doctor", help="bounded environment diagnostics")
     p.add_argument("--probe_s", type=float, default=30.0)

@@ -3,9 +3,8 @@ reference's defaults, resolvable from CLI `--key value` overrides.
 
 Counterpart of `guided_vae_nmf_tpu/config.py`: `PathsConfig`, `StftConfig`,
 `LabelConfig`, `ModelDims` and :func:`apply_overrides` are the port's own
-copies, and `MCEMConfig` is the port's (`mcem.engine`). The JAX module also
-re-exports `TrainConfig` from its trainer; the port's trainer comes with the
-training slice (ROADMAP Queue 1, item 4), so `TrainConfig` is not here yet.
+copies; `MCEMConfig` (`mcem.engine`) and `TrainConfig` (`train.trainer`)
+are the port's, re-exported here as the JAX module re-exports its own.
 """
 
 import dataclasses
@@ -13,6 +12,7 @@ import os
 from dataclasses import dataclass
 
 from .mcem.engine import MCEMConfig
+from .train.trainer import TrainConfig
 
 
 @dataclass
@@ -134,5 +134,6 @@ __all__ = [
     "LabelConfig",
     "ModelDims",
     "MCEMConfig",
+    "TrainConfig",
     "apply_overrides",
 ]

@@ -1,16 +1,19 @@
-"""Parameter trees -> the port's modules.
+"""Parameter trees <-> the port's modules.
 
 A parameter tree is what the JAX package's `train/checkpoints.load_params`
 returns and what :func:`guided_vae_nmf_torch.train.checkpoints.load_params`
 reads from the same `.ckpt.npz` files: nested dicts and lists of arrays
 (numpy or anything `np.asarray` accepts), Linear weights stored (in, out),
-plus the static leaves `y_dim` (M2) and `batch_norm` (classifier).
+plus the static leaves `y_dim` (M2, the two-class classifier) and
+`batch_norm` (classifiers).
 """
+
+import re
 
 import numpy as np
 import torch
 
-from .nets import DGM, VAE, Classifier
+from .nets import DGM, VAE, Classifier, Classifier2
 
 
 def _flatten(tree, prefix=""):
@@ -26,6 +29,40 @@ def _flatten(tree, prefix=""):
     return out          # bool / int static leaves carry no tensor
 
 
+def unflatten(flat):
+    """Dotted keys -> nested dicts, with all-digit key sets turned into
+    lists; leaves stay numpy arrays."""
+    tree = {}
+    for key, val in flat.items():
+        parts = key.split(".")
+        node = tree
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = val
+
+    def fix(node):
+        if isinstance(node, dict):
+            keys = list(node.keys())
+            if keys and all(re.fullmatch(r"\d+", k) for k in keys):
+                return [fix(node[str(i)]) for i in range(len(keys))]
+            return {k: fix(v) for k, v in node.items()}
+        return np.asarray(node)
+
+    return fix(tree)
+
+
+def leaf_order(paths):
+    """Dotted leaf paths in the JAX package's tree-flatten order: dict keys
+    sorted, list items by index. optax's state lists its leaves in this
+    order."""
+    return sorted(paths, key=lambda p: tuple(
+        int(c) if c.isdigit() else c for c in p.split(".")))
+
+
+# static leaves, also when a tree map turned them into 0-d arrays
+STATIC = ("y_dim", "batch_norm")
+
+
 def _widths(layers):
     return [int(np.shape(layer["w"])[1]) for layer in layers]
 
@@ -34,7 +71,8 @@ def module_from_params(tree, device="cpu"):
     """Build the module a parameter tree describes and copy its arrays in:
     `encoder`/`decoder` trees give a :class:`DGM` when `y_dim` is present
     and positive, else a :class:`VAE`; `hidden`/`out` trees give a
-    :class:`Classifier` (with BatchNorm when a `bn` subtree exists)."""
+    :class:`Classifier` (with BatchNorm when a `bn` subtree exists), or a
+    :class:`Classifier2` when `y_dim` is present."""
     if "encoder" in tree:
         enc = tree["encoder"]
         x_in = int(np.shape(enc["hidden"][0]["w"])[0])
@@ -48,11 +86,34 @@ def module_from_params(tree, device="cpu"):
     elif "hidden" in tree and "out" in tree:
         x_in = int(np.shape(tree["hidden"][0]["w"])[0])
         y_dim = int(np.shape(tree["out"]["w"])[1])
-        model = Classifier([x_in, _widths(tree["hidden"]), y_dim],
-                           batch_norm="bn" in tree)
+        y2 = int(tree.get("y_dim", 0) or 0)
+        cls = Classifier2 if y2 else Classifier
+        model = cls([x_in, _widths(tree["hidden"]), y2 or y_dim],
+                    batch_norm="bn" in tree)
     else:
         raise ValueError(f"unrecognised parameter tree: {sorted(tree)}")
     state = {k: torch.tensor(np.asarray(v, np.float32))
-             for k, v in _flatten(tree).items()}
+             for k, v in _flatten(tree).items() if k not in STATIC}
     model.load_state_dict(state, strict=True)
     return model.to(device).eval()
+
+
+def params_from_module(model):
+    """The JAX package's parameter tree of `model`: float32 numpy arrays
+    (Linear weights (in, out), BatchNorm's scale / bias / mean / var under
+    `bn`) and the static leaves `y_dim` (M2, two-class classifier) and
+    `batch_norm` (classifiers). What the port's checkpoints write."""
+    tree = unflatten({k: v.detach().cpu().numpy().copy()
+                      for k, v in model.state_dict().items()})
+    tree.update(static_leaves(model))
+    return tree
+
+
+def static_leaves(model):
+    """The static leaves of `model`'s parameter tree."""
+    if isinstance(model, Classifier):
+        out = {"batch_norm": model.batch_norm}
+        if isinstance(model, Classifier2):
+            out["y_dim"] = model.y_dim
+        return out
+    return {"y_dim": model.y_dim} if isinstance(model, DGM) else {}

@@ -1,14 +1,20 @@
-"""Frame-wise FFNN families as torch modules (inference forwards).
+"""Frame-wise FFNN families as torch modules.
 
 Counterpart of `guided_vae_nmf_tpu/models/nets.py`: the tanh encoder
 (mu / log_var heads), the tanh^depth -> exp decoder, the M1 VAE, the guided
-M2 deep generative model (label-concatenated encoder and decoder) and the
-sigmoid classifier with optional inference BatchNorm.
+M2 deep generative model (label-concatenated encoder and decoder), the
+sigmoid classifier with optional BatchNorm and its two-class softmax
+variant, and the initialisers the trainer starts from.
 
 Linear weights keep the reference layout (in, out) so a layer is
 `x @ w + b`, as in the JAX package; :mod:`.convert` copies parameter trees
-across unchanged. Sampling takes an explicit `torch.Generator`.
+across unchanged. Sampling and initialisation take an explicit
+`torch.Generator`. Every module is built frozen (`requires_grad=False`):
+inference never records a graph, and the trainer turns gradients on for
+the modules it trains.
 """
+
+import math
 
 import torch
 from torch import nn
@@ -28,6 +34,27 @@ class Linear(nn.Module):
 
 def linear_apply(layer, x):
     return layer(x)
+
+
+def linear_init(layer, generator):
+    """Xavier-normal weights (std sqrt(2 / (in + out)), gain 1) and zero
+    bias, in place: the reference's init for every Linear. The draws come
+    from `generator`, so their bits differ from the JAX package's."""
+    n_in, n_out = layer.w.shape
+    std = math.sqrt(2.0 / (n_in + n_out))
+    with torch.no_grad():
+        layer.w.copy_(std * torch.randn(n_in, n_out, generator=generator,
+                                        device=layer.w.device))
+        layer.b.zero_()
+    return layer
+
+
+def _init(model, generator):
+    """Initialise every Linear of `model` in module order; frozen, eval."""
+    for m in model.modules():
+        if isinstance(m, Linear):
+            linear_init(m, generator)
+    return model.eval()
 
 
 def _mlp(sizes):
@@ -119,6 +146,16 @@ class DGM(nn.Module):
         return r, mu, log_var
 
 
+def vae_init(generator, dims):
+    """M1 with initialised weights; dims = [x_dim, z_dim, h_dim]."""
+    return _init(VAE(dims), generator)
+
+
+def dgm_init(generator, dims):
+    """M2 with initialised weights; dims = [x_dim, y_dim, z_dim, h_dim]."""
+    return _init(DGM(dims), generator)
+
+
 def vae_apply(model, x, generator=None):
     return model(x, generator)
 
@@ -137,7 +174,7 @@ def dgm_sample(model, z, y):
 
 class Classifier(nn.Module):
     """dims = [x_dim, h_dim, y_dim]: ReLU hidden layers (each optionally
-    followed by inference BatchNorm on running stats), sigmoid output."""
+    followed by BatchNorm), sigmoid output."""
 
     def __init__(self, dims, batch_norm=False):
         super().__init__()
@@ -148,18 +185,36 @@ class Classifier(nn.Module):
         if batch_norm:
             self.bn = nn.ModuleList(_BatchNorm(h) for h in h_dim)
 
-    def forward(self, x):
+    def logits(self, x, train=False):
         h = x
         for i, layer in enumerate(self.hidden):
             h = layer(h)
             if self.batch_norm:
-                h = self.bn[i](h)
+                h = self.bn[i](h, train)
             h = torch.relu(h)
-        return torch.sigmoid(self.out(h))
+        return self.out(h)
+
+    def forward(self, x, train=False):
+        return torch.sigmoid(self.logits(x, train))
+
+
+class Classifier2(Classifier):
+    """Two-class softmax-per-bin variant: the output layer is 2 y_dim wide,
+    reshaped to (batch, 2, y_dim) and softmaxed over the class axis."""
+
+    def __init__(self, dims, batch_norm=False):
+        x_dim, h_dim, y_dim = dims
+        super().__init__([x_dim, h_dim, 2 * y_dim], batch_norm)
+        self.y_dim = y_dim
+
+    def forward(self, x, train=False):
+        logits = self.logits(x, train).reshape(-1, 2, self.y_dim)
+        return torch.softmax(logits, dim=1)
 
 
 class _BatchNorm(nn.Module):
-    """Inference BatchNorm: (h - mean) / sqrt(var + eps) * scale + bias."""
+    """BatchNorm with scale, bias and the running mean / var as buffers:
+    (h - mean) / sqrt(var + eps) * scale + bias."""
 
     def __init__(self, n, eps=1e-5):
         super().__init__()
@@ -168,13 +223,61 @@ class _BatchNorm(nn.Module):
                            ("var", 1.0)):
             self.register_buffer(name, torch.full((n,), fill))
 
-    def forward(self, h):
-        return ((h - self.mean) / torch.sqrt(self.var + self.eps)
-                * self.scale + self.bias)
+    def forward(self, h, train=False):
+        return _bn_apply(self, h, train)
 
 
-def classifier_apply(model, x):
-    return model(x)
+def _bn_apply(bn, h, train, momentum=0.1):
+    """Normalise `h` with the running stats, or, with `train`, with the
+    batch's mean and biased variance, updating the running stats in place
+    ((1 - momentum) old + momentum batch), as the JAX package's `_bn_apply`
+    returns them."""
+    if train:
+        mean = torch.mean(h, dim=0)
+        var = torch.var(h, dim=0, unbiased=False)
+        with torch.no_grad():
+            bn.mean.copy_((1 - momentum) * bn.mean + momentum * mean)
+            bn.var.copy_((1 - momentum) * bn.var + momentum * var)
+    else:
+        mean, var = bn.mean, bn.var
+    return (h - mean) / torch.sqrt(var + bn.eps) * bn.scale + bn.bias
+
+
+def classifier_init(generator, dims, batch_norm=False):
+    """Classifier with initialised weights (BatchNorm: scale 1, bias 0,
+    mean 0, var 1); dims = [x_dim, h_dim, y_dim]."""
+    return _init(Classifier(dims, batch_norm), generator)
+
+
+def classifier2_init(generator, dims, batch_norm=False):
+    """Two-class softmax classifier with initialised weights."""
+    return _init(Classifier2(dims, batch_norm), generator)
+
+
+def classifier_apply(model, x, train=False):
+    """Sigmoid output. With BatchNorm and `train`, normalises with the
+    batch's statistics and updates the module's running stats in place
+    (JAX returns them in a new tree)."""
+    return model(x, train)
+
+
+def classifier_apply_logits(model, x):
+    """Pre-sigmoid logits, BatchNorm on its running stats: the input of
+    the trainer's logits-form BCE."""
+    return model.logits(x)
+
+
+def classifier2_apply(model, x, train=False):
+    """(batch, 2, y_dim) class probabilities. With `train`, the running
+    stats update in place, as in :func:`classifier_apply` (JAX's
+    `classifier2_apply` drops them)."""
+    return model(x, train)
+
+
+def count_parameters(model):
+    """Total count of the trained values: parameters and BatchNorm
+    buffers (the JAX tree's array leaves)."""
+    return sum(t.numel() for t in model.state_dict().values())
 
 
 FEATURE_MODES = ("power", "log-power")

@@ -12,7 +12,10 @@ split, a stream against the CPU, pool lanes against dedicated streams,
 and the HTTP stream route; and the evaluation protocol: the batched
 SI-SDR on the card against numpy, the `gvnmf-torch enhance` command on
 the card against `enhance_to_audio` with its launch counts, and the
-metric pool started from a process that holds a CUDA context.
+metric pool started from a process that holds a CUDA context; and
+training: one step of each family on the card against the CPU (z = mu),
+`fit` on the card leaving `load_model`'s modules frozen, and a card's
+`resume_state.npz` resumed on the CPU.
 
 Every test here needs an NVIDIA GPU and skips without one. The file
 imports neither JAX nor the JAX package, so it also runs on a GPU machine
@@ -1250,3 +1253,134 @@ def test_metric_pool_from_a_process_with_a_cuda_context(cuda, tmp_path):
         assert ex.submit(os.getenv, "CUDA_VISIBLE_DEVICES").result() == ""
         assert ex.submit(torch.cuda.device_count).result() == 0
         assert ex.submit(torch.cuda.is_initialized).result() is False
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+TRAIN_DIMS = {"m1": [513, 32, [128, 128]], "m2": [513, 513, 32, [128, 128]],
+              "classifier": [513, [128, 128], 513],
+              "wiener": [513, [128] * 5, 513]}
+
+
+def _train_batch(family, n=128, seed=0):
+    """Well-scaled frames: gamma power for M1 / M2, standardized frames
+    for the classifier and the Wiener DNN."""
+    rng = np.random.RandomState(seed)
+    x = rng.gamma(0.7, 1.0, (n, 513)).astype(np.float32)
+    if family in ("classifier", "wiener"):
+        x = ((x - 0.7) / 0.84).astype(np.float32)
+    y = (rng.rand(n, 513) > 0.7).astype(np.float32)
+    if family == "wiener":
+        y = rng.uniform(0, 1, (n, 513)).astype(np.float32)
+    return x, (None if family == "m1" else y)
+
+
+def _init(family, seed=0):
+    from guided_vae_nmf_torch import models
+
+    g = torch.Generator().manual_seed(seed)
+    if family == "m1":
+        return models.vae_init(g, TRAIN_DIMS[family])
+    if family == "m2":
+        return models.dgm_init(g, TRAIN_DIMS[family])
+    return models.classifier_init(g, TRAIN_DIMS[family])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["m1", "m2", "classifier", "wiener"])
+def test_train_step_card_matches_cpu(cuda, family):
+    """One Adam step at full width with z = mu (TF32 off): the loss within
+    rtol 1e-5 and every gradient within rtol 1e-4 (atol 1e-5 of its
+    largest element) of the CPU's; the weights after the step within 2 lr
+    (Adam's first step moves a weight by lr g / (|g| + eps): about lr
+    whatever |g| is, so a gradient at rounding level may move it the other
+    way), with at most 0.1 % of them more than 1e-6 apart."""
+    import copy
+
+    from guided_vae_nmf_torch.train import trainer as tt
+
+    x, y = _train_batch(family)
+    out = {}
+    for tag, dev in (("cpu", torch.device("cpu")), ("card", cuda)):
+        m = copy.deepcopy(_init(family)).to(dev)
+        leaves = tt._trainable(m)
+        for _, t in leaves:
+            t.requires_grad_(True)
+        opt = tt.make_optimizer(tt.TrainConfig(), [t for _, t in leaves])
+        batch = (torch.from_numpy(x).to(dev),
+                 None if y is None else torch.from_numpy(y).to(dev))
+        loss, _ = tt.LOSSES[family](m, batch, None, 1e-8)
+        opt.zero_grad()
+        loss.backward()
+        grads = {k: t.grad.cpu().numpy().copy() for k, t in leaves}
+        opt.step()
+        out[tag] = (float(loss.detach()), grads,
+                    {k: t.detach().cpu().numpy() for k, t in leaves})
+    (lc, gc, pc), (lg, gg, pg) = out["cpu"], out["card"]
+    assert np.isfinite(lg)
+    assert_allclose(lg, lc, rtol=1e-5)
+    for k in gc:
+        scale = float(np.abs(gc[k]).max())
+        assert_allclose(gg[k], gc[k], rtol=1e-4, atol=1e-5 * scale,
+                        err_msg=k)
+    diff = np.concatenate([np.abs(pg[k] - pc[k]).ravel() for k in pc])
+    lr = tt.TrainConfig().learning_rate
+    assert diff.max() <= 2 * lr, diff.max()
+    assert np.mean(diff > 1e-6) <= 1e-3, (int(np.sum(diff > 1e-6)),
+                                          diff.size, diff.max())
+
+
+@pytest.mark.cuda
+def test_fit_on_the_card_leaves_load_model_frozen(cuda, tmp_path):
+    import os
+
+    from guided_vae_nmf_torch.train import TrainConfig, fit, load_model
+
+    art = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "artifacts", "pretrained")
+    m2 = load_model(os.path.join(art, "M2_ibm"), kind="dgm", device=cuda)
+    before = {k: v.clone() for k, v in m2.state_dict().items()}
+    x, y = _train_batch("m2", n=256)
+    trained, hist = fit(m2, "m2", (x, y), (x[:128], y[:128]),
+                        TrainConfig(end_epoch=1), str(tmp_path), "M2",
+                        device=cuda)
+    assert np.isfinite(hist[0]["train"])
+    for k, v in m2.state_dict().items():
+        assert not v.requires_grad and torch.equal(v, before[k]), k
+    for mod in (m2, trained):
+        assert not any(p.requires_grad for p in mod.parameters())
+        assert mod.encoder.hidden[0].w.cpu().numpy().shape == (1026, 128)
+    assert trained.encoder.hidden[0].w.is_cuda
+
+
+@pytest.mark.cuda
+def test_card_resume_state_resumes_on_the_cpu(cuda, tmp_path):
+    """2 epochs on the card, the 3rd resumed on the CPU, against 3 epochs
+    resumed on the card: epoch-3 losses within rtol 1e-4, weights within
+    atol 1e-5."""
+    import shutil
+
+    from guided_vae_nmf_torch.train import TrainConfig, fit
+
+    x, y = _train_batch("classifier", n=640, seed=1)
+    va = (x[:256], y[:256])
+    first = str(tmp_path / "card")
+    fit(_init("classifier"), "classifier", (x, y), va,
+        TrainConfig(end_epoch=2), first, "C", device=cuda)
+    second = str(tmp_path / "cpu")
+    shutil.copytree(first, second)
+    got, h_cpu = fit(_init("classifier"), "classifier", (x, y), va,
+                     TrainConfig(end_epoch=3), second, "C", resume=True,
+                     device="cpu")
+    ref, h_card = fit(_init("classifier"), "classifier", (x, y), va,
+                      TrainConfig(end_epoch=3), first, "C", resume=True,
+                      device=cuda)
+    assert [h["epoch"] for h in h_cpu] == [h["epoch"] for h in h_card] == [3]
+    assert_allclose([h_cpu[0]["train"], h_cpu[0]["valid"]],
+                    [h_card[0]["train"], h_card[0]["valid"]], rtol=1e-4)
+    for (k, a), b in zip(got.state_dict().items(),
+                         ref.state_dict().values()):
+        assert_allclose(a.numpy(), b.cpu().numpy(), rtol=0, atol=1e-5,
+                        err_msg=k)

@@ -10,7 +10,14 @@ package's `run_metrics` rows and statistics on the same tree;
 streaming scripts run at a tiny size. The metric scripts run their sweep
 on a thread pool here (`thread_pool`): the spawn pool itself, which costs
 seconds a worker to start on the CPU, is held against JAX in
-tests/test_torch_metrics_runner.py."""
+tests/test_torch_metrics_runner.py.
+
+The dataset and training scripts run on a second root with train and
+validation splits (`si_tr_s`, `si_dt_05`) and a short synthetic noise
+bank in place of the 60 s one: each `create_*` script writes what the
+JAX package's script writes (bit for bit), and each `training_*` script
+(`--end_epoch 1 --device cpu`) writes the reference's model directory
+with its checkpoint, logs and side-cars."""
 
 import importlib
 import os
@@ -33,7 +40,10 @@ FS = 16000
 SCRIPTS = ("evaluate_M2_ibm", "evaluate_M2_vad", "evaluate_M1",
            "evaluate_wiener_filter", "run_metrics_M1", "run_metrics_M2",
            "run_metrics_mixture", "run_metrics_wiener", "serve_http",
-           "doctor", "eval_streaming_m2", "bench_multistream")
+           "doctor", "eval_streaming_m2", "bench_multistream",
+           "create_train_set", "create_noisy_train_set", "create_test_set",
+           "training_M1", "training_M2", "training_classifier",
+           "training_wiener_filter")
 UTTS = (("440", "440c0201", 1.2, 5.0), ("440", "440c0202", 1.7, 0.0),
         ("441", "441c0203", 1.4, 5.0))
 
@@ -112,6 +122,7 @@ def test_help_exits_zero(name, capsys):
     ("evaluate_M1", ["--data_root", "d"]),
     ("bench_multistream", []),
     ("serve_http", ["--models", ART]),
+    ("training_M2", ["--data_root", "d"]),
 ])
 def test_data_parallel_raises(name, argv):
     with pytest.raises(NotImplementedError, match="item 5"):
@@ -234,3 +245,149 @@ def test_streaming_scripts_run_small(root, monkeypatch, capsys):
         "--streams", "2", "--seconds", "0.4", "--device", "cpu"])
     assert [r["streams"] for r in rows] == [2]
     assert rows[0]["pooled_wall_s"] > 0 and rows[0]["serial_wall_s"] > 0
+
+
+# ---------------------------------------------------------------------------
+# dataset and training scripts
+# ---------------------------------------------------------------------------
+
+TRAIN_UTTS = {"si_tr_s": [("011", "011a0101", 1.3), ("011", "011a0102", 1.0),
+                          ("012", "012a0103", 1.1), ("012", "012a0104", 0.9)],
+              "si_dt_05": [("021", "021a0201", 1.0), ("022", "022a0202", 0.9)],
+              "si_et_05": [("031", "031a0301", 1.0), ("032", "032a0302", 1.2)]}
+
+
+@pytest.fixture(scope="module")
+def bank():
+    from guided_vae_nmf_torch.data import synthetic_noise_bank
+
+    return synthetic_noise_bank(duration_sec=4)
+
+
+@pytest.fixture
+def short_bank(monkeypatch, bank):
+    """The scripts' `--synthetic_noise 1` bank, 4 s a family (both
+    packages)."""
+    import guided_vae_nmf_tpu.data as j_data
+
+    for mod in (script("create_noisy_train_set"), script("create_test_set"),
+                j_data):
+        monkeypatch.setattr(mod, "synthetic_noise_bank",
+                            lambda *a, **kw: dict(bank))
+
+
+@pytest.fixture(scope="module")
+def train_root(tmp_path_factory):
+    """`<root>/subset/raw/CSR-1-WSJ-0/WAV/wsj0/{si_tr_s,si_dt_05,si_et_05}`
+    with speech-like utterances."""
+    base = str(tmp_path_factory.mktemp("train_root"))
+    rel = os.path.join(base, "subset", "raw", "CSR-1-WSJ-0", "WAV", "wsj0")
+    seed = 50
+    for split, utts in TRAIN_UTTS.items():
+        for spk, utt, sec in utts:
+            os.makedirs(os.path.join(rel, split, spk), exist_ok=True)
+            write_wav(os.path.join(rel, split, spk, utt + ".wav"),
+                      speech_like(seed, sec, 5.0)[0], FS)
+            seed += 1
+    return base
+
+
+def jax_script(name):
+    spec = importlib.util.spec_from_file_location(
+        f"jax_script_{name}", os.path.join(ROOT, "scripts", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("name,argv", [
+    ("create_train_set", []),
+    ("create_noisy_train_set", ["--synthetic_noise", "1"]),
+    ("create_noisy_train_set", ["--synthetic_noise", "1", "--labels",
+                                "noisy_wiener_labels"]),
+    ("create_test_set", ["--synthetic_noise", "1"]),
+])
+def test_create_scripts_write_what_jax_writes(train_root, tmp_path,
+                                              short_bank, name, argv,
+                                              capsys):
+    import shutil
+
+    roots = {}
+    for tag in ("jax", "port"):
+        roots[tag] = str(tmp_path / tag)
+        shutil.copytree(train_root, roots[tag])
+    jax_script(name).main(["--data_root", roots["jax"], *argv])
+    script(name).main(["--data_root", roots["port"], *argv])
+    assert "Finished" in capsys.readouterr().out or name != \
+        "create_test_set"
+    sub = {t: os.path.join(r, "subset") for t, r in roots.items()}
+    n = 0
+    for d in ("export", "processed"):
+        if os.path.isdir(os.path.join(sub["jax"], d)):
+            n += same_h5_tree(os.path.join(sub["jax"], d),
+                              os.path.join(sub["port"], d))
+    assert n
+
+
+def same_h5_tree(a, b):
+    """same_tree, with HDF5 files compared by their datasets and attrs
+    (the files' bytes hold creation times)."""
+    import h5py
+
+    names = [sorted(os.path.relpath(os.path.join(r, f), d)
+                    for r, _, fs in os.walk(d) for f in fs) for d in (a, b)]
+    assert names[0] == names[1] and names[0]
+    for rel in names[0]:
+        pa, pb = os.path.join(a, rel), os.path.join(b, rel)
+        if rel.endswith(".h5"):
+            with h5py.File(pa, "r") as fa, h5py.File(pb, "r") as fb:
+                assert sorted(fa) == sorted(fb), rel
+                for k in fa:
+                    assert np.array_equal(fa[k][...], fb[k][...]), (rel, k)
+                assert {k: np.asarray(v).tolist()
+                        for k, v in fa.attrs.items()} == \
+                    {k: np.asarray(v).tolist() for k, v in fb.attrs.items()}
+        else:
+            with open(pa, "rb") as fa, open(pb, "rb") as fb:
+                assert fa.read() == fb.read(), rel
+    return len(names[0])
+
+
+@pytest.fixture(scope="module")
+def stores(train_root, bank):
+    """The clean, noisy and Wiener stores of `train_root`."""
+    import unittest.mock as mock
+
+    with mock.patch.object(script("create_noisy_train_set"),
+                           "synthetic_noise_bank", lambda: dict(bank)):
+        script("create_train_set").main(["--data_root", train_root])
+        for labels in ("noisy_labels", "noisy_wiener_labels"):
+            script("create_noisy_train_set").main([
+                "--data_root", train_root, "--synthetic_noise", "1",
+                "--labels", labels])
+    return train_root
+
+
+@pytest.mark.parametrize("name,model_dir,argv", [
+    ("training_M1", "M1_hdim_016_zdim_004_end_epoch_001",
+     ["--z_dim", "4", "--h_dim", "16"]),
+    ("training_M2", "M2_hdim_016_016_zdim_004_end_epoch_001",
+     ["--z_dim", "4", "--h_dim", "16,16"]),
+    ("training_classifier", "Classifier_hdim_016_016_end_epoch_001",
+     ["--h_dim", "16,16"]),
+    ("training_wiener_filter", "Wiener_hdim_5x128_end_epoch_001", []),
+])
+def test_training_scripts_run_small(stores, capsys, name, model_dir, argv):
+    script(name).main(["--data_root", stores, "--end_epoch", "1",
+                       "--batch_size", "32", "--device", "cpu", *argv])
+    assert "done; best valid" in capsys.readouterr().out
+    d = os.path.join(stores, "subset", "models", model_dir)
+    files = sorted(os.listdir(d))
+    assert any(f.endswith(".ckpt.npz") and "_epoch_001_" in f
+               for f in files)
+    assert {"output_batch.log", "output_epoch.log",
+            "resume_state.npz"} <= set(files)
+    if name in ("training_classifier", "training_wiener_filter"):
+        assert {"trainset_mean.npy", "trainset_std.npy"} <= set(files)
+    if name == "training_classifier":
+        assert "classifier_meta.json" in files
