@@ -17,7 +17,10 @@ variant runs K1d).
 Phases, in order; any failure exits nonzero without a result line:
 
 1. device: CUDA is required; prints the card's name and power limit.
-2. build: compiles `guided_vae_nmf_torch/csrc/*.cu` for sm_90a (timed),
+2. build: compiles `guided_vae_nmf_torch/csrc/*.cu` for sm_90a (timed)
+   and the native host loader `csrc/gvnmf_native.cpp` with g++ (timed; a
+   failed build fails the run; its batch rows held bit for bit against
+   `_fill_row`'s Python rows and its STFT power against `stft`),
    with each kernel's registers and spills from ptxas, and K1's launch
    geometry (cluster size, CTAs, threads, shared memory a CTA, registers,
    resident clusters and waves at B=4, N=384 and at B=32, N=512) and K2's
@@ -39,8 +42,14 @@ Phases, in order; any failure exits nonzero without a result line:
    through `enhance_waveform(label_mode="dnn")` with the shipped M2-IBM and
    classifier weights and the default MCEMConfig (100 EM iterations), with
    the launch counters reset before and read after each run; the same
-   mixtures as wav files through `enhance_files`; and one short utterance
-   on the card against the CPU path at var_RW=0.
+   mixtures as wav files through `enhance_files` (its rows assembled by
+   the native loader, counted; its stage report printed); one short
+   utterance on the card against the CPU path at var_RW=0; a profiled
+   batch; the shipped M2-IBM and classifier as reference `.pt` state
+   dicts through `load_model` on the card (the main batch's PCM equal to
+   the `.ckpt.npz` models', 100 / 1 / 100 / 100 launches); and
+   `ops.device_time_ms` on one main batch (its K1 total within 10 % of
+   the profiled batch's) and `ops.profile_trace` (a trace naming K1).
 5. fixed-noise path: the same wav files through
    `enhance_files(profile="real-noise")` (spp2, noise gain, soft
    guidance; 125 K1b E / 2 K1b WF / 125 K2b h / 125 K2b g launches a
@@ -101,13 +110,18 @@ Phases, in order; any failure exits nonzero without a result line:
    `scripts.run_metrics_M2` and `scripts.run_metrics_mixture` through the
    spawn pool (one worker an utterance; every row finite; files/s,
    utterances/s, and the mean SI-SDR / SI-SIR / SI-SAR / ESTOI / PESQ-wb /
-   F1 beside the mixture floor, no quality claim), `energy_ratios_torch`
+   F1 beside the mixture floor, no quality claim), the figures
+   (`run_metrics(make_figures=True)`: one PNG an utterance; the
+   `reconstruct_M1`, `reconstruct_dnn_classif`, `reconstruct_timo_classif`
+   and `visualization` scripts on the same root with the shipped M1 and
+   classifier), `energy_ratios_torch`
    on the card over the zero-padded batch against numpy (float32 within
    1e-3 dB, float64 within 1e-9 dB), `gvnmf-torch metrics` on one pair
    against the library's values, `gvnmf-torch stream --profile
    streaming-low-latency` on the 2.5 s burst mixture (0 K1 / K2 launches,
    PCM equal to `StreamingM2Enhancer` pushed the same chunks), and
-   `gvnmf-torch doctor` (the card and both kernel libraries found).
+   `gvnmf-torch doctor` (the card, both kernel libraries and the native
+   loader found).
 10. training, at the shipped widths (M1 513/32/(128, 128), M2
    513/513/32/(128, 128), classifier 513/(128, 128)/513, Wiener
    513/(128 x 5)/513), batch 128, Adam 1e-3: 48 speech-like clean
@@ -871,13 +885,17 @@ def phase_main(torch, model, classifier, mean, std, cfg, batch, seed, dev,
 
 
 def phase_files(torch, model, classifier, mean, std, pairs, cfg, seed,
-                dev, launches, profile=None, classif_type="dnn"):
+                dev, launches, profile=None, classif_type="dnn",
+                stages=False, gpu=""):
     """The same mixtures as wav files through enhance_files (with
     `profile`, if given; with classif_type="oracle" also the clean tracks
-    as `_s.wav`); `launches` are the expected counts per batch. Returns
-    the sweep's wall seconds."""
+    as `_s.wav`); `launches` are the expected counts per batch, and every
+    wav the sweep reads must be one native row assembly (counted). With
+    `stages`, logs the sweep's stage report (`verbose=True`). Returns the
+    sweep's wall seconds."""
     import guided_vae_nmf_torch as port
-    from guided_vae_nmf_torch.data import read_wav_int16, write_wav
+    from guided_vae_nmf_torch.data import native_loader, read_wav_int16, \
+        write_wav
     from guided_vae_nmf_torch.pipeline import enhance_files, plan_batches
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -889,11 +907,22 @@ def phase_files(torch, model, classifier, mean, std, pairs, cfg, seed,
             write_wav(os.path.join(src, f"utt{j}_s.wav"), clean, 16000)
             files.append(f"utt{j}.wav")
         port.reset_launch_counts()
-        res = enhance_files(files, src, dst, model,
-                            classif_type=classif_type,
-                            classifier=classifier, mean=mean, std=std,
-                            cfg=cfg, seed=seed, device=dev, profile=profile)
+        native_loader.reset_call_counts()
+        res, out = captured(lambda: enhance_files(
+            files, src, dst, model, classif_type=classif_type,
+            classifier=classifier, mean=mean, std=std, cfg=cfg, seed=seed,
+            device=dev, profile=profile, verbose=stages))
         counts = port.launch_counts()
+        native = native_loader.call_counts()
+        reads = len(pairs) * (2 if classif_type == "oracle" else 1)
+        check(native == {"assemble_utt": reads},
+              f"enhance_files did not assemble its {reads} rows with the "
+              f"native loader: its calls {native}")
+        if stages:
+            report = out[out.index("STAGE"):].rstrip().splitlines()
+            log(f" enhance_files stage report (verbose=True; {gpu}):")
+            for line in report:
+                log(f"   {line}")
         from guided_vae_nmf_torch.dsp import frame_count
 
         n_batches = len(plan_batches(
@@ -902,7 +931,8 @@ def phase_files(torch, model, classifier, mean, std, pairs, cfg, seed,
         log(f" enhance_files(profile={profile!r}, classif_type="
             f"{classif_type!r}): {res.n_processed} files "
             f"in {float(res):.3f} s ({audio_s / float(res):.2f}x realtime, "
-            f"wav I/O included), {n_batches} batches, launches {counts}")
+            f"wav I/O included), {n_batches} batches, launches {counts}, "
+            f"native loader calls {native}")
         check(counts == expected_launches(n_batches=n_batches, **launches),
               f"enhance_files did not run {launches} launches a batch")
         for j, (_, x) in enumerate(pairs):
@@ -1069,6 +1099,140 @@ def phase_profile(torch, model, classifier, mean, std, x_b, mask, cfg,
     return {"wall_ms": wall_ms, "device_ms": groups, "busy_ms": busy,
             "device_activities": n_device, "top_other": top,
             "loops": loops}
+
+
+def phase_native(pairs, gpu):
+    """The native host loader on the card's machine: its g++ build (timed;
+    a failed build fails the run), its batch rows against `_fill_row`'s
+    Python rows (bit for bit) and its STFT power against the port's
+    `stft` (the JAX package's tests/data/test_native.py tolerances), on
+    the main batch's mixtures and a 300-sample tail. Returns the record."""
+    from guided_vae_nmf_torch.data import native_loader, write_wav
+    from guided_vae_nmf_torch.dsp import frame_count, stft
+    from guided_vae_nmf_torch.pipeline import (
+        HOP, NFFT, _fill_row, bucket_frames)
+
+    build_s = native_loader.build()
+    log(f" native loader: g++ {' '.join(native_loader.CXX_FLAGS)} into "
+        f"{native_loader.lib_path()} in {build_s:.2f} s")
+    sigs = [x for _, x in pairs] + [pairs[0][1][:300]]
+    worst_pow = 0.0
+    with tempfile.TemporaryDirectory() as tmp:
+        for j, x in enumerate(sigs):
+            path = os.path.join(tmp, f"u{j}.wav")
+            write_wav(path, x, 16000)
+            L = (bucket_frames(frame_count(len(x))) - 1) * HOP + NFFT
+            rows = np.zeros((2, L), np.int16)
+            got = native_loader.assemble_utt_native(path, rows[0])
+            saved = native_loader.is_available
+            native_loader.is_available = lambda: False
+            try:
+                ref = _fill_row(path, rows[1])
+            finally:
+                native_loader.is_available = saved
+            check(got == ref and np.array_equal(rows[0], rows[1]),
+                  f"native row {j} ({len(x)} samples) differs from "
+                  "_fill_row's")
+            xf = x.astype(np.float64) / 32768.0
+            want = (np.abs(stft(xf)) ** 2).astype(np.float32)
+            power = native_loader.stft_power_native(xf)
+            err = np.abs(power - want)
+            check(power.shape == want.shape and bool(np.all(
+                err <= 1e-5 * np.abs(want) + 1e-7 * want.max())),
+                f"stft_power_native off the port's stft on row {j}")
+            worst_pow = max(worst_pow, float((err / want.max()).max()))
+    log(f" native loader: {len(sigs)} batch rows equal to _fill_row's bit "
+        f"for bit; stft_power_native within rtol 1e-5 / atol 1e-7 max of "
+        f"stft (max |diff| / max {worst_pow:.2e}); host work ({gpu})")
+    return {"build_s": build_s, "rows": len(sigs),
+            "stft_power_max_rel_to_peak": worst_pow}
+
+
+def phase_pt(torch, mods, mean, std, cfg, batch, seed, dev, main_res):
+    """Reference `.pt` state dicts on the card: the shipped M2-IBM by
+    `export_vae`, the classifier in the reference's key naming, loaded by
+    `load_model` on the card, run the main batch with the main path's
+    last run's seed: PCM equal (torch.equal) to the `.ckpt.npz` models',
+    at the main path's launch counts."""
+    import guided_vae_nmf_torch as port
+    from guided_vae_nmf_torch.models import export_vae
+    from guided_vae_nmf_torch.pipeline import enhance_waveform
+    from guided_vae_nmf_torch.train import load_model
+
+    model, classifier = mods
+    _, x_b, mask = batch
+    with tempfile.TemporaryDirectory() as tmp:
+        m2_pt, cls_pt = (os.path.join(tmp, f) for f in ("M2.pt", "cls.pt"))
+        torch.save({k: torch.from_numpy(v)
+                    for k, v in export_vae(model).items()}, m2_pt)
+        sd = {}
+        for i, layer in enumerate(classifier.hidden):
+            sd[f"hidden.{i}.weight"] = layer.w.detach().T.cpu()
+            sd[f"hidden.{i}.bias"] = layer.b.detach().cpu()
+        sd["output_layer.weight"] = classifier.out.w.detach().T.cpu()
+        sd["output_layer.bias"] = classifier.out.b.detach().cpu()
+        torch.save(sd, cls_pt)
+        m2 = load_model(m2_pt, kind="dgm", y_dim=513, device=dev)
+        cls = load_model(cls_pt, kind="classifier", device=dev)
+    port.reset_launch_counts()
+    s16 = enhance_waveform(
+        m2, x_b, mask, cfg, classifier=cls, mean=mean, std=std,
+        label_mode="dnn", return_noise=True, device=dev,
+        generator=torch.Generator(device=dev).manual_seed(seed + 2))[0]
+    torch.cuda.synchronize()
+    counts = port.launch_counts()
+    same = torch.equal(s16.cpu(), torch.from_numpy(main_res["s16"]))
+    log(f" .pt models (export_vae M2-IBM, reference-named classifier) on "
+        f"the card: main batch PCM equal to the .ckpt.npz models': {same}; "
+        f"launches {counts}")
+    check(counts == expected_launches(**MAIN_LAUNCHES),
+          f".pt main batch launches {counts}, expected {MAIN_LAUNCHES}")
+    check(same, "the .pt models' main batch differs from the .ckpt.npz "
+          "models'")
+    return {"pcm_equal": same, "launches": counts}
+
+
+def phase_profiling(torch, mods, mean, std, x_b, mask, cfg, dev, gpu, prof):
+    """The port's profiling hooks on one main batch: `device_time_ms`
+    (its top rows; its K1 total within 10 % of `phase_profile`'s K1 ms,
+    measured in the same call) and `profile_trace` (a trace file that
+    names the K1 kernel). Returns the record."""
+    from guided_vae_nmf_torch.ops import device_time_ms, profile_trace
+    from guided_vae_nmf_torch.pipeline import enhance_waveform
+
+    model, classifier = mods
+
+    def batch():
+        return enhance_waveform(model, x_b, mask, cfg, classifier=classifier,
+                                mean=mean, std=std, label_mode="dnn",
+                                device=dev)
+
+    log(" device_time_ms(one main batch), top rows:")
+    total, table = device_time_ms(batch, top=6)
+    k1 = sum(ms for ms, _, name in table
+             if "mh_chain_kernel" in name or "sum_tiles_kernel" in name)
+    k1_prof = prof.get("device_ms", {}).get("mh_chain", 0.0)
+    rel = abs(k1 - k1_prof) / k1_prof if k1_prof else float("inf")
+    log(f" device_time_ms: device {total:.2f} ms (union of kernel and copy "
+        f"intervals), K1 {k1:.2f} ms against phase_profile's K1 "
+        f"{k1_prof:.2f} ms ({100 * rel:.1f} % apart, needs <= 10 %); {gpu}")
+    check(rel <= 0.10, "device_time_ms's K1 total is more than 10 % from "
+          "phase_profile's")
+    with tempfile.TemporaryDirectory() as tmp:
+        with profile_trace(tmp):
+            batch()
+            torch.cuda.synchronize()
+        traces = [os.path.join(tmp, f) for f in os.listdir(tmp)
+                  if f.endswith(".json")]
+        check(len(traces) == 1, f"profile_trace wrote {traces}")
+        with open(traces[0]) as f:
+            text = f.read()
+        named = "mh_chain_kernel" in text
+        log(f" profile_trace: {os.path.basename(traces[0])}, "
+            f"{len(text) / 1e6:.1f} MB, names mh_chain_kernel: {named}")
+        check(named, "profile_trace's trace does not name mh_chain_kernel")
+    return {"device_ms": total, "k1_ms": k1, "k1_profile_ms": k1_prof,
+            "k1_rel_diff": rel, "top": table[:6]}
 
 
 def phase_fast(torch, model, classifier, mean, std, cfg, batch, seed, dev,
@@ -2078,6 +2242,63 @@ def captured(fn, *args):
     return out, buf.getvalue()
 
 
+def figures_and_scripts(torch, root, raw, proc, est, bases, art, tmp, gpu):
+    """Figures on the evaluation root: `run_metrics(make_figures=True)`
+    (serial, in this process; one `<utt>_fig.png` an utterance beside the
+    estimates), then `reconstruct_M1` (the shipped M1's forward on the
+    card), `reconstruct_dnn_classif` (the shipped classifier on the card),
+    `reconstruct_timo_classif` (the SPP tracker on the card) and
+    `visualization` (host) on the same root. Every figure must be a PNG
+    that Pillow opens, of more than 16 colours. Returns the record."""
+    from PIL import Image
+
+    from guided_vae_nmf_torch.metrics import run_metrics
+    from guided_vae_nmf_torch.scripts import (
+        reconstruct_M1, reconstruct_dnn_classif, reconstruct_timo_classif,
+        visualization)
+
+    def figure_ok(path):
+        if not os.path.exists(path) or os.path.getsize(path) == 0:
+            return False
+        with Image.open(path) as im:
+            px = np.asarray(im.convert("RGB")).reshape(-1, 3)
+        return len(np.unique(px[::97], axis=0)) > 16
+
+    rec = {}
+    t0 = time.perf_counter()
+    captured(lambda: run_metrics(raw, proc, est, with_f1=True, serial=True,
+                                 make_figures=True))
+    figs = [os.path.join(est, b) + "_fig.png" for b in bases]
+    rec["run_metrics_s"] = time.perf_counter() - t0
+    check(all(figure_ok(f) for f in figs),
+          f"run_metrics(make_figures=True) did not write {figs}")
+    log(f" run_metrics(make_figures=True, serial): {len(figs)} figures, "
+        f"{rec['run_metrics_s']:.2f} s with the metrics")
+    out = os.path.join(tmp, "figs") + "/"
+    cdir = os.path.join(art, "classifier_ibm")
+    for name, fn, argv, n in (
+            ("reconstruct_M1", reconstruct_M1.main,
+             ["--model", os.path.join(art, "M1")], len(bases)),
+            ("reconstruct_dnn_classif", reconstruct_dnn_classif.main,
+             ["--classifier", cdir], len(bases)),
+            ("reconstruct_timo_classif", reconstruct_timo_classif.main, [],
+             2 * len(bases)),
+            ("visualization", visualization.main,
+             ["--dataset_type", "test"], len(bases))):
+        t0 = time.perf_counter()
+        written, _ = captured(lambda: fn(["--data_root", root, "--output",
+                                          out + name + "/", *argv]))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        written = list(written)
+        check(len(written) == n and all(figure_ok(f) for f in written),
+              f"{name} wrote {written}, expected {n} figures")
+        rec[name] = {"figures": len(written), "wall_s": wall}
+        log(f" {name} (--data_root, shipped weights): {len(written)} "
+            f"figures in {wall:.2f} s ({gpu})")
+    return rec
+
+
 def phase_evaluation(torch, mods, mean, std, meta, batch, dev, gpu, art,
                      seed):
     """The evaluation protocol on the card with the main batch's mixtures
@@ -2217,6 +2438,8 @@ def phase_evaluation(torch, mods, mean, std, meta, batch, dev, gpu, art,
                                   "files_per_s": len(pairs) / float(res),
                                   "launches": counts}
         rec["metrics"] = sweeps
+        rec["figures"] = figures_and_scripts(
+            torch, root, raw, proc, est, bases, art, tmp, gpu)
 
         # -- energy_ratios_torch on the card over the padded batch ---------
         sigs = []
@@ -2318,6 +2541,9 @@ def phase_evaluation(torch, mods, mean, std, meta, batch, dev, gpu, art,
               and any(r.startswith("ok  cuda: 1 device(s)") for r in rows),
               "gvnmf-torch doctor did not find the card and both kernel "
               "libraries")
+        check(any(r.startswith("ok  native C++ loader: loaded")
+                  for r in rows),
+              "gvnmf-torch doctor did not find the native loader")
     rec["seconds"] = time.perf_counter() - t_phase
     log(f" evaluation-protocol phase: {rec['seconds']:.1f} s in all")
     return rec
@@ -3086,6 +3312,8 @@ def main(argv=None):
 
     batch = main_batch(args.seed)
     pairs, x_b, mask = batch
+    log("native host loader (csrc/gvnmf_native.cpp, g++):")
+    native = phase_native(pairs, gpu)
     log("kernels vs plain versions (full width, M2-IBM decoder):")
     err, k1d_past = phase_kernels(torch, model, dev, [(2, 256), mask.shape])
     log("main path (enhance_waveform, label_mode='dnn', MCEMConfig()):")
@@ -3093,10 +3321,16 @@ def main(argv=None):
     main_res = phase_main(torch, model, classifier, mean, std, cfg, batch,
                           args.seed, dev, gpu)
     phase_files(torch, model, classifier, mean, std, pairs, cfg, args.seed,
-                dev, MAIN_LAUNCHES)
+                dev, MAIN_LAUNCHES, stages=True, gpu=gpu)
     phase_reference(torch, model, classifier, mean, std, pairs, dev)
     prof = phase_profile(torch, model, classifier, mean, std, x_b, mask, cfg,
                          dev, gpu)
+    log("reference .pt import (load_model on .pt state dicts):")
+    pt = phase_pt(torch, (model, classifier), mean, std, cfg, batch,
+                  args.seed, dev, main_res)
+    log("profiling hooks (ops.device_time_ms, ops.profile_trace):")
+    profiling = phase_profiling(torch, (model, classifier), mean, std, x_b,
+                                mask, cfg, dev, gpu, prof)
 
     log("fixed-noise path, real-noise profile (spp2, noise gain, soft "
         "guidance):")
@@ -3201,7 +3435,9 @@ def main(argv=None):
     record = {
         "gpu": gpu, "torch": torch.__version__, "build_s": build_s,
         "ptxas": ptxas, "k1_geometry": geometry,
-        "k2_geometry": sums_geometry, "main_path": main_res, "profile": prof,
+        "k2_geometry": sums_geometry, "native_loader": native,
+        "main_path": main_res, "profile": prof, "pt_import": pt,
+        "profiling": profiling,
         "paths": paths, "fast": fast, "offline_rest": rest,
         "serving": serving, "streaming": streaming,
         "evaluation": evaluation, "training": training, "hybrid": hybrid,

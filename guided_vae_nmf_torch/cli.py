@@ -487,8 +487,10 @@ def nvidia_smi(timeout_s):
 
 def cmd_doctor(a):
     """Reports torch and CUDA, the card (a probe in a subprocess bounded by
-    --probe_s, and nvidia-smi's name and power limit), nvcc and the kernel
-    libraries in the build directory. The port has no CPU fallback, so
+    --probe_s, and nvidia-smi's name and power limit), nvcc, the kernel
+    libraries in the build directory and the native loader (built with g++
+    there on first use; optional: without it the host runs its Python
+    path). The port has no CPU fallback, so
     there is no fallback row; `scripts/doctor.py` is the variant that fails
     on a missing card or kernel build."""
     import subprocess
@@ -522,6 +524,11 @@ def cmd_doctor(a):
         built = _build._lib_path(src).exists()
         row(f"kernel library {src.stem}", "built" if built else
             "not built (builds at first use)", ok=built)
+    from .data import native_loader
+
+    row("native C++ loader", f"loaded ({native_loader.lib_path()})"
+        if native_loader.is_available() else "absent, pure-Python path "
+        f"(the same rows): {native_loader.unavailable_reason()}")
     return 0
 
 

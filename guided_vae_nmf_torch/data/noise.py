@@ -91,11 +91,18 @@ def noise_segment(noise_audios, noise_type, speech):
     """Random window of the preprocessed noise matching the speech length
     (reference qut_database.py:115-127). Uses the global numpy RNG to honor
     the reference's seeded-synthesis convention (SURVEY §2.8)."""
+    start = noise_start(noise_audios, noise_type, len(speech))
+    return noise_audios[noise_type][start: start + len(speech)]
+
+
+def noise_start(noise_audios, noise_type, n):
+    """The start of :func:`noise_segment`'s window for `n` speech samples:
+    one draw from the global numpy RNG, the same call in the same order as
+    :func:`noise_segment` makes."""
     noise = noise_audios[noise_type]
-    if len(noise) < len(speech):
+    if len(noise) < n:
         raise ValueError(f"noise recording shorter than speech: {noise_type}")
-    start = np.random.randint(len(noise) - len(speech) + 1)
-    return noise[start: start + len(speech)]
+    return np.random.randint(len(noise) - n + 1)
 
 
 def noise_list_preprocessed(output_noise_dir, dataset_type=None,

@@ -25,7 +25,7 @@ import numpy as np
 from .wav import read_wav, write_wav
 from .file_lists import speech_list, write_dataset
 from .h5io import H5FrameWriter
-from .noise import noise_segment
+from .noise import noise_segment, noise_start
 from ..dsp import (
     stft,
     clean_speech_IBM,
@@ -272,9 +272,9 @@ def create_noisy_frames(input_speech_dir, output_file, noise_audios_by_type,
 
 def _make_test_utt(args):
     (input_speech_dir, output_wav_dir, path, noise_audios, noise_type,
-     snr_dB, fs) = args
+     snr_dB, fs, start) = args
     speech = _load_speech(os.path.join(input_speech_dir, path), fs)
-    noise = noise_segment(noise_audios, noise_type, speech)
+    noise = noise_audios[noise_type][start: start + len(speech)]
     k = np.sum(speech**2) * 10 ** (-snr_dB / 10) / np.sum(noise**2)
     noise = noise * np.sqrt(k)
     # Joint max-normalization of s, n, x (create_test_set.py:99-103)
@@ -294,9 +294,13 @@ def create_test_mixtures(input_speech_dir, output_wav_dir, noise_audios,
                          noise_types=("cafe", "home", "street", "car"),
                          fs=FS, seed=0, max_workers=8):
     """Test mixtures as jointly normalized wav triplets + pickled snr_db
-    list (reference create_test_set.py:60-178). The per-utterance random
-    noise window is drawn inside the worker like the reference, but the
-    noise-type and SNR assignment is fixed up front under seed 0."""
+    list (reference create_test_set.py:60-178). The noise types, SNRs and
+    every utterance's noise window are drawn under `seed` in file order
+    before the pool starts (each window by :func:`noise_start`, the draw
+    :func:`noise_segment` makes), so the output does not depend on
+    `max_workers` or on thread scheduling. It equals the JAX package's
+    run with its pool made serial: JAX draws each window inside its pool
+    workers, where the order follows the scheduling."""
     files = speech_list(input_speech_dir, dataset_type)
     np.random.seed(seed)
     noise_types = list(noise_types)
@@ -307,11 +311,13 @@ def create_test_mixtures(input_speech_dir, output_wav_dir, noise_audios,
     all_snr_dB = [snrs[snrs_index[i]] for i in range(len(files))]
     write_dataset(all_snr_dB, output_wav_dir, dataset_type, "snr_db")
 
-    args = [
-        (input_speech_dir, output_wav_dir, path, noise_audios,
-         noise_types[noise_index[i]], all_snr_dB[i], fs)
-        for i, path in enumerate(files)
-    ]
+    args = []
+    for i, path in enumerate(files):
+        n = len(_load_speech(os.path.join(input_speech_dir, path), fs))
+        noise_type = noise_types[noise_index[i]]
+        args.append((input_speech_dir, output_wav_dir, path, noise_audios,
+                     noise_type, all_snr_dB[i], fs,
+                     noise_start(noise_audios, noise_type, n)))
     with ThreadPoolExecutor(max_workers=max_workers) as ex:
         list(ex.map(_make_test_utt, args))
     return all_snr_dB

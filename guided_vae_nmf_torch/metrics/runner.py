@@ -11,8 +11,9 @@ never open the card (:func:`metrics_pool`): the metrics are numpy.
 
 PESQ is the ITU `pesq` wheel when it can be imported (`HAS_PESQ_NATIVE`),
 else the first-party P.862.2 implementation (`metrics/pesq.py`); the chosen
-function is :data:`pesq_score`. Figures (`make_figures=True`) wait for the
-`viz` port (ROADMAP Queue 1, item 6).
+function is :data:`pesq_score`. `make_figures=True` also writes each
+utterance's inspection figure, `<utt>_fig.png` beside its estimate
+(`viz.display_multiple_signals`, rendered with Pillow in the worker).
 """
 
 import os
@@ -45,10 +46,6 @@ METRIC_KEYS_F1 = ["ACC", "PRECISION", "RECALL", "F1"]
 # WSS are distortion measures (lower is better), the two SNRs higher-better.
 METRIC_KEYS_OBJECTIVE = ["SSNR", "FWSSNR", "LLR", "WSS"]
 
-_FIGURES_NOT_PORTED = ("per-utterance figures are not ported yet (ROADMAP "
-                       "Queue 1, item 6: viz)")
-
-
 def _objective_row(s, s_hat):
     from .objective import fw_seg_snr, llr, seg_snr, wss
 
@@ -70,12 +67,13 @@ def compute_metrics_utt(args):
     """One utterance: (SI-SDR, SI-SIR, SI-SAR, ESTOI, PESQ[, SSNR, FWSSNR,
     LLR, WSS][, ACC, PRECISION, RECALL, F1]). `args` is (processed_dir,
     est_dir, path, with_f1, target, quantile_fraction, quantile_weight,
-    make_figures[, with_objective]); make_figures must be false."""
+    make_figures[, with_objective]); with make_figures, also writes the
+    reference's inspection figure with the metrics in its title
+    (reference run_metrics_M1.py:117-139, run_metrics_M2.py:102-200) as
+    `<est_dir>/<utt>_fig.png`."""
     (processed_dir, est_dir, path, with_f1, target, quantile_fraction,
      quantile_weight, make_figures) = args[:8]
     with_objective = args[8] if len(args) > 8 else False
-    if make_figures:
-        raise NotImplementedError(_FIGURES_NOT_PORTED)
     base_p = os.path.join(processed_dir, os.path.splitext(path)[0])
     base_e = os.path.join(est_dir, os.path.splitext(path)[0])
 
@@ -91,6 +89,22 @@ def compute_metrics_utt(args):
     row = [si_sdr, si_sir, si_sar, estoi_v, pesq_v]
     if with_objective:
         row.extend(_objective_row(s, s_hat))
+
+    if make_figures:
+        from ..viz import display_multiple_signals
+
+        x, _ = read_wav(base_p + "_x.wav")
+        fig = display_multiple_signals(
+            [[s, stft(s), None], [x[:ln], stft(x[:ln]), None],
+             [s_hat, stft(s_hat), None]],
+            titles=["clean", "mixture", "enhanced"],
+        )
+        fig.suptitle(
+            f"SI-SDR {si_sdr:.1f} dB | SI-SIR {si_sir:.1f} | "
+            f"SI-SAR {si_sar:.1f} | ESTOI {estoi_v:.3f} | "
+            f"PESQ {pesq_v:.2f}"
+        )
+        fig.savefig(base_e + "_fig.png", dpi=40)
 
     if with_f1:
         y_hard = np.load(base_e + "_ibm_hard_est.npy")
@@ -156,10 +170,8 @@ def run_metrics(input_speech_dir, processed_dir, est_dir=None,
                 max_workers=8, confidence=0.95, save_json=False,
                 mixture_floor=False, serial=False, make_figures=False):
     """Sweep the test list, aggregate, print tables; returns
-    (metric_keys, rows, snr_list, stats). `make_figures=True` raises
-    NotImplementedError before any work."""
-    if make_figures:
-        raise NotImplementedError(_FIGURES_NOT_PORTED)
+    (metric_keys, rows, snr_list, stats). `make_figures=True` writes each
+    utterance's `<utt>_fig.png` into `est_dir`."""
     files = speech_list(input_speech_dir, dataset_type)
     snr_list = read_dataset(processed_dir, dataset_type, "snr_db")
 
@@ -173,7 +185,7 @@ def run_metrics(input_speech_dir, processed_dir, est_dir=None,
     else:
         args = [
             (processed_dir, est_dir, p, with_f1, target, quantile_fraction,
-             quantile_weight, False)
+             quantile_weight, make_figures)
             for p in files
         ]
         fn = compute_metrics_utt

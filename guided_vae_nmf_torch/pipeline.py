@@ -41,7 +41,8 @@ import torch.nn.functional as Fn
 
 from ._build import KernelError, build_all
 from ._device import resolve_device
-from .data import read_wav, read_wav_int16, wav_num_samples, write_wav
+from .data import (native_loader, read_wav, read_wav_int16,
+                   wav_num_samples, write_wav)
 from .dsp import (
     clean_speech_IBM,
     clean_speech_IBM_torch,
@@ -77,7 +78,9 @@ from .mcem.spp import (
     timo_vad_estimation,
 )
 from .models.nets import classifier_features
+from .ops.profiling import StageTimer
 from .profiles import apply_profile_cfg, offline_settings
+from .utils import device_warmup
 
 FS = 16000
 NFFT = 1024
@@ -96,13 +99,20 @@ def bucket_frames(n_frames, bucket_multiple=128):
 
 
 def load_mixture(path_base):
-    """Read `<base>_x.wav` -> (x_t, T_orig, X_tf (F, N) complex64), by the
-    host STFT (the port has no native loader)."""
-    x_t, fs = read_wav(path_base + "_x.wav")
+    """Read `<base>_x.wav` -> (x_t, T_orig, X_tf (F, N) complex64): the
+    native decode and STFT when the native loader builds (the same
+    samples; the STFT equal within float32 rounding), else the numpy
+    path."""
+    native = native_loader.is_available()
+    read = native_loader.read_wav_native if native else read_wav
+    x_t, fs = read(path_base + "_x.wav")
     if fs != FS:
         raise ValueError(f"{path_base}_x.wav: sample rate {fs}, expected "
                          f"{FS}")
-    X_tf = stft(x_t, fs=FS, wlen_sec=NFFT / FS, hop_percent=HOP / NFFT)
+    if native:
+        X_tf = native_loader.stft_complex_native(x_t)
+    else:
+        X_tf = stft(x_t, fs=FS, wlen_sec=NFFT / FS, hop_percent=HOP / NFFT)
     return x_t, len(x_t), X_tf
 
 
@@ -546,7 +556,10 @@ def plan_batches(file_paths, n_frames_all, batch_size=16,
 def _fill_row(path, row):
     """Decode one int16 wav, end-pad and reflect-pad it into `row` (samples
     past the row's frames belong to no frame); returns (valid frames,
-    samples)."""
+    samples). The native assembler does it when it builds: the same int16
+    row."""
+    if native_loader.is_available():
+        return native_loader.assemble_utt_native(path, row, FS, NFFT, HOP)
     x_t, fs = read_wav_int16(path)
     if fs != FS:
         raise ValueError(f"{path}: sample rate {fs}, expected {FS}")
@@ -594,7 +607,16 @@ def enhance_files(file_paths, processed_dir, output_dir, model,
     utterance that still fails is written as mixture passthrough; a
     :class:`KernelError` (a kernel that does not build or launch) is not
     retried but raised. On a CUDA device the kernels are built before the
-    sweep starts. Returns a :class:`SweepResult`.
+    sweep starts. Returns a :class:`SweepResult`. A row is assembled by
+    the native loader when it builds (:func:`_fill_row`).
+
+    A :class:`ops.profiling.StageTimer` times the sweep's stages under the
+    JAX package's names, and `verbose` prints its report: `assemble_wait`
+    (waiting for the prefetch pool), `dispatch` (enqueuing a batch on the
+    device), `d2h_fetch` (waiting for the device and copying its output),
+    `finish_wait` (the host's finish of a batch: labels, n = x - s, the
+    hand-off to the writers) and `writer_drain` (waiting for the last
+    writes).
 
     profile: name of a validated operating point (:mod:`.profiles`),
     authoritative for noise_model, soft_guidance and the cfg's noise_gain /
@@ -618,9 +640,11 @@ def enhance_files(file_paths, processed_dir, output_dir, model,
             return SweepResult(0.0, 0, n_listed)
     n_skipped = n_listed - len(file_paths)
     t_start = time.perf_counter()
+    device_warmup(dev)
     if dev.type == "cuda":
         build_all()     # a toolchain fault fails here, not once per batch
     PREFETCH = 3
+    timer = StageTimer()
 
     def base_in(path):
         return os.path.join(processed_dir, os.path.splitext(path)[0])
@@ -654,18 +678,21 @@ def enhance_files(file_paths, processed_dir, output_dir, model,
         y_soft, y_hard) on the host."""
         eager = _eager(engine, model, a["mask"].shape[1], cfg, noise_model)
         gen = torch.Generator(device=dev).manual_seed(int(seeds[0]))
-        out = enhance_waveform(
-            model, a["x"][rows], a["mask"][rows], cfg,
-            classifier=classifier, mean=mean, std=std,
-            s_pad=None if a["s"] is None else a["s"][rows], generator=gen,
-            seeds=[int(v) for v in seeds], label_mode=label_mode,
-            noise_model=noise_model, fast=fast, engine=engine, target=target,
-            quantile_fraction=quantile_fraction,
-            quantile_weight=quantile_weight, return_noise=eager,
-            soft_guidance=soft_guidance, features=features,
-            dnn_threshold=dnn_threshold, device=dev)
-        s, n, y_soft, y_hard, ok = (None if o is None else o.cpu().numpy()
-                                    for o in out)
+        with timer.stage("dispatch"):
+            out = enhance_waveform(
+                model, a["x"][rows], a["mask"][rows], cfg,
+                classifier=classifier, mean=mean, std=std,
+                s_pad=None if a["s"] is None else a["s"][rows],
+                generator=gen, seeds=[int(v) for v in seeds],
+                label_mode=label_mode, noise_model=noise_model, fast=fast,
+                engine=engine, target=target,
+                quantile_fraction=quantile_fraction,
+                quantile_weight=quantile_weight, return_noise=eager,
+                soft_guidance=soft_guidance, features=features,
+                dnn_threshold=dnn_threshold, device=dev)
+        with timer.stage("d2h_fetch"):
+            s, n, y_soft, y_hard, ok = (None if o is None
+                                        else o.cpu().numpy() for o in out)
         if not np.all(ok):
             raise FloatingPointError("non-finite enhancement output")
         return s, n, y_soft, y_hard
@@ -700,7 +727,8 @@ def enhance_files(file_paths, processed_dir, output_dir, model,
         pending = deque(loader.submit(assemble, p, n)
                         for p, n, _ in batches[:PREFETCH])
         for i, (paths, n_pad, seeds) in enumerate(batches):
-            a = pending.popleft().result()
+            with timer.stage("assemble_wait"):
+                a = pending.popleft().result()
             if i + PREFETCH < len(batches):
                 nxt = batches[i + PREFETCH]
                 pending.append(loader.submit(assemble, nxt[0], nxt[1]))
@@ -736,18 +764,22 @@ def enhance_files(file_paths, processed_dir, output_dir, model,
                             np.zeros((y_dim, nf), np.uint8))
                         rows.append((a["x"][j][off:off + t].copy(), None)
                                     + zeros)
-            for j, (s, n, ys, yh) in enumerate(rows):
-                t = a["t_origs"][j]
-                if n is None:
-                    n = np.clip(a["x"][j][off:off + t].astype(np.int32)
-                                - s.astype(np.int32), -32768,
-                                32767).astype(np.int16)
-                write_futs.append(writer.submit(write_utt, paths[j], s, n,
-                                                ys, yh))
+            with timer.stage("finish_wait"):
+                for j, (s, n, ys, yh) in enumerate(rows):
+                    t = a["t_origs"][j]
+                    if n is None:
+                        n = np.clip(a["x"][j][off:off + t].astype(np.int32)
+                                    - s.astype(np.int32), -32768,
+                                    32767).astype(np.int16)
+                    write_futs.append(writer.submit(write_utt, paths[j], s,
+                                                    n, ys, yh))
             if verbose:
                 print(f"batch {i}: enhanced {len(paths)} utterances")
-        for f in write_futs:
-            f.result()
+        with timer.stage("writer_drain"):
+            for f in write_futs:
+                f.result()
+    if verbose:
+        print(timer.report())
     return SweepResult(time.perf_counter() - t_start, len(file_paths),
                        n_skipped)
 

@@ -6,6 +6,8 @@ Checks, without hanging on a wedged driver:
     count and name), with nvidia-smi's name and power limit,
   - nvcc, and the CUDA kernels: each `csrc/*.cu` is built (or found
     built) in the build directory and its library loads,
+  - the native host loader (`csrc/gvnmf_native.cpp`, built with g++ into
+    the same directory; optional) and a decode self-test,
   - the pretrained artifacts and the data root,
   - that the serving and streaming modules import.
 
@@ -20,6 +22,9 @@ Usage: python -m guided_vae_nmf_torch.scripts.doctor [--probe_s 30]
 import os
 import subprocess
 import sys
+import tempfile
+
+import numpy as np
 
 from ..config import PathsConfig, apply_overrides
 from ._common import flag
@@ -81,6 +86,23 @@ def main(argv=None):
     except _build.KernelError as e:
         check("nvcc", False, str(e))
         check("CUDA kernels", False, "need nvcc")
+
+    # --- the native host loader (optional: the Python path stays) -------------
+    from ..data import native_loader as nl
+    from ..data import write_wav
+
+    try:
+        secs = nl.build()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "t.wav")
+            write_wav(path, np.linspace(-0.5, 0.5, 333).astype(np.float32),
+                      16000)
+            y, fs = nl.read_wav_native(path)
+        check("native C++ loader", fs == 16000 and len(y) == 333,
+              f"g++ build in {nl.lib_path().parent} ({secs:.1f} s), decode "
+              "self-test", required=False)
+    except (nl.NativeBuildError, OSError) as e:
+        check("native C++ loader", False, str(e)[-300:], required=False)
 
     # --- artifacts + data -------------------------------------------------------
     names = ("M1", "M2_ibm", "M2_vad", "classifier_ibm", "classifier_vad",

@@ -25,6 +25,7 @@ import numpy as np
 from .._device import resolve_device
 from ..models.convert import (_flatten, leaf_order, module_from_params,
                               params_from_module, unflatten)
+from ..models.torch_import import import_classifier, import_dgm, import_vae
 
 
 def checkpoint_name(name, epoch, vloss):
@@ -142,8 +143,9 @@ def _static_leaves(kind, y_dim):
 
 
 def load_model(path_or_dir, kind="vae", y_dim=513, device=None):
-    """Load a `.ckpt.npz` (or, given a directory, its lowest-vloss
-    checkpoint) as a module on `device` (the GPU unless named). `kind`:
+    """Load a `.ckpt.npz`, a reference PyTorch `.pt` state dict
+    (`models.torch_import`) or, given a directory, its lowest-vloss
+    `.ckpt.npz`, as a module on `device` (the GPU unless named). `kind`:
     'vae' | 'dgm' | 'classifier'."""
     device = resolve_device(device)
     path = path_or_dir
@@ -152,10 +154,14 @@ def load_model(path_or_dir, kind="vae", y_dim=513, device=None):
         if path is None:
             raise FileNotFoundError(f"no checkpoints in {path_or_dir}")
     if path.endswith(".pt"):
-        raise NotImplementedError(
-            "reference .pt import is not ported yet (ROADMAP Queue 1, "
-            "item 6); convert it with the JAX package to .ckpt.npz")
-    tree = load_params(path, static=_static_leaves(kind, y_dim))
+        if kind == "classifier":
+            tree = import_classifier(path)
+        elif kind == "dgm":
+            tree = import_dgm(path, y_dim)
+        else:
+            tree = import_vae(path)
+    else:
+        tree = load_params(path, static=_static_leaves(kind, y_dim))
     return module_from_params(tree, device=device)
 
 

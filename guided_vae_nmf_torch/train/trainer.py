@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..utils import device_warmup
 from ..data.h5io import frame_batches
 from ..models import (
     binary_cross_entropy_logits,
@@ -272,6 +273,7 @@ def fit(model, family, train_data, valid_data, cfg: TrainConfig, model_dir,
     """
     _no_mesh(mesh)
     dev = resolve_device(device)
+    device_warmup(dev)
     os.makedirs(model_dir, exist_ok=True)
     loss_fn = loss_fn or LOSSES[family]
     model = _as_module(model).to(dev)

@@ -1384,3 +1384,84 @@ def test_card_resume_state_resumes_on_the_cpu(cuda, tmp_path):
                          ref.state_dict().values()):
         assert_allclose(a.numpy(), b.cpu().numpy(), rtol=0, atol=1e-5,
                         err_msg=k)
+
+
+# -- reference .pt import, the warm-up and device_time_ms on the card --------
+
+def _shipped(name):
+    import os
+
+    return os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "artifacts", "pretrained", name)
+
+
+@pytest.mark.cuda
+def test_pt_models_equal_the_npz_ones_on_the_card(cuda, tmp_path):
+    """`.pt` state dicts in the reference naming (M2 by `export_vae`, the
+    classifier by hand) load on the card to the `.ckpt.npz` modules, and a
+    1 s utterance enhances to the same PCM with either pair."""
+    from guided_vae_nmf_torch.dsp import pad_signal_for_stft
+    from guided_vae_nmf_torch.models import export_vae
+    from guided_vae_nmf_torch.pipeline import enhance_waveform
+    from guided_vae_nmf_torch.train import load_model, load_norm_stats
+
+    m2 = load_model(_shipped("M2_ibm"), kind="dgm", device=cuda)
+    cls = load_model(_shipped("classifier_ibm"), kind="classifier",
+                     device=cuda)
+    torch.save({k: torch.from_numpy(v) for k, v in export_vae(m2).items()},
+               tmp_path / "m2.pt")
+    sd = {}
+    for i, layer in enumerate(cls.hidden):
+        sd[f"hidden.{i}.weight"] = layer.w.detach().T.cpu()
+        sd[f"hidden.{i}.bias"] = layer.b.detach().cpu()
+    sd["output_layer.weight"] = cls.out.w.detach().T.cpu()
+    sd["output_layer.bias"] = cls.out.b.detach().cpu()
+    torch.save(sd, tmp_path / "cls.pt")
+    m2_pt = load_model(str(tmp_path / "m2.pt"), kind="dgm", device=cuda)
+    cls_pt = load_model(str(tmp_path / "cls.pt"), kind="classifier",
+                        device=cuda)
+    for a, b in ((m2, m2_pt), (cls, cls_pt)):
+        sa, sb = a.state_dict(), b.state_dict()
+        assert sorted(sa) == sorted(sb)
+        assert all(sb[k].device.type == cuda.type and torch.equal(sa[k], sb[k])
+                   for k in sa)
+    mean, std = load_norm_stats(_shipped("classifier_ibm"))
+    s, n = _speech_like(70, 1.0)
+    xp, nf = pad_signal_for_stft(np.round((s + n) * 32767).astype(np.int16))
+    x_b = np.zeros((1, (128 - 1) * 256 + 1024), np.int16)
+    x_b[0, :min(len(xp), x_b.shape[1])] = xp[:x_b.shape[1]]
+    mask = (np.arange(128)[None] < nf).astype(np.float32)
+    cfg = MCEMConfig(niter=5)
+    outs = [enhance_waveform(m, x_b, mask, cfg, classifier=c, mean=mean,
+                             std=std, label_mode="dnn", device=cuda,
+                             generator=torch.Generator(
+                                 device=cuda).manual_seed(3))[0]
+            for m, c in ((m2, cls), (m2_pt, cls_pt))]
+    assert torch.equal(outs[0], outs[1])
+
+
+@pytest.mark.cuda
+def test_device_warmup_runs_and_refuses_a_bad_index(cuda):
+    from guided_vae_nmf_torch.utils import device_warmup
+
+    assert device_warmup(cuda) is None
+    assert device_warmup("cuda:0") is None
+    with pytest.raises(RuntimeError):
+        device_warmup(f"cuda:{torch.cuda.device_count()}")
+
+
+@pytest.mark.cuda
+def test_device_time_ms_sees_k1_launches(cuda):
+    from guided_vae_nmf_torch.ops import device_time_ms
+
+    c = chain_case(cuda, 12, **SMALL)
+    noise = decisive_noise(cuda, 13, SMALL["B"], SMALL["N"], SMALL["L"], 5)
+
+    def two_chains():
+        return [run_chain(mh_chain, c, mode, 3, 2, 0.01, noise=noise)
+                for mode in ("e", "wf")]
+
+    total, table = device_time_ms(two_chains)
+    k1 = [(ms, n) for ms, n, name in table if "mh_chain_kernel" in name]
+    assert sum(n for _, n in k1) == 2
+    assert 0 < sum(ms for ms, _ in k1) <= total <= sum(r[0] for r in table)

@@ -2,8 +2,8 @@
 the same synthetic data root, on the CPU: the same keys, rows (`==`),
 statistics and printed tables, serial and through the port's spawn pool of
 2 workers, with mask F1 (IBM and VAD targets), the mixture floor and the
-JSON side-cars. The pool's workers see no card, and figures raise
-NotImplementedError before any work.
+JSON side-cars. The pool's workers see no card, and `make_figures=True`
+writes each utterance's figure.
 
 The data root has the reference layout: three speech-like utterances of
 1-2 s under `raw/` and `processed/` (`<utt>_{s,n,x}.wav`), the test split's
@@ -151,10 +151,25 @@ def test_pool_workers_see_no_card():
     assert ex._mp_context.get_start_method() == "spawn"
 
 
-def test_figures_raise_before_any_work(tmp_path):
-    missing = str(tmp_path / "nowhere")
-    with pytest.raises(NotImplementedError, match="Queue 1, item 6"):
-        runner.run_metrics(missing, missing, missing, make_figures=True)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        runner.compute_metrics_utt((missing, missing, "a.wav", False, "ibm",
-                                    0.98, 0.999, True))
+def test_figures_raise_before_any_work(tmp_path, capsys):
+    """Figures are ported: `make_figures=True` no longer raises; it writes
+    one `<utt>_fig.png` an utterance beside the estimates (the reference's
+    three-column montage, 1200 x 600 pixels at dpi 40), as JAX's sweep
+    does, with the same rows."""
+    from PIL import Image
+
+    raw, proc, est = data_root(str(tmp_path / "p"), UTTS[:2])
+    _, _, j_est = data_root(str(tmp_path / "j"), UTTS[:2])
+    got = runner.run_metrics(raw, proc, est, serial=True, make_figures=True)
+    ref = j_runner.run_metrics(raw, proc, j_est, serial=True,
+                               make_figures=True)
+    capsys.readouterr()
+    assert got[1] == ref[1]
+    for spk, utt, _, _ in UTTS[:2]:
+        rel = os.path.join("CSR-1-WSJ-0", "WAV", "wsj0", "si_et_05", spk,
+                           utt + "_fig.png")
+        assert os.path.getsize(os.path.join(j_est, rel)) > 0
+        with Image.open(os.path.join(est, rel)) as im:
+            assert im.size == (1200, 600)
+            assert len(np.unique(np.asarray(im).reshape(-1, 3),
+                                 axis=0)) > 16

@@ -43,7 +43,9 @@ SCRIPTS = ("evaluate_M2_ibm", "evaluate_M2_vad", "evaluate_M1",
            "doctor", "eval_streaming_m2", "bench_multistream",
            "create_train_set", "create_noisy_train_set", "create_test_set",
            "training_M1", "training_M2", "training_classifier",
-           "training_wiener_filter")
+           "training_wiener_filter", "reconstruct_M1",
+           "reconstruct_dnn_classif", "reconstruct_timo_classif",
+           "visualization")
 UTTS = (("440", "440c0201", 1.2, 5.0), ("440", "440c0202", 1.7, 0.0),
         ("441", "441c0203", 1.4, 5.0))
 
@@ -309,9 +311,14 @@ def jax_script(name):
 ])
 def test_create_scripts_write_what_jax_writes(train_root, tmp_path,
                                               short_bank, name, argv,
-                                              capsys):
+                                              capsys, monkeypatch):
+    """JAX's test-set pool runs serially (`serial_jax_pool`); the port
+    runs at its default workers and must write the same bytes."""
     import shutil
 
+    from test_torch_train_helpers import serial_jax_pool
+
+    serial_jax_pool(monkeypatch)
     roots = {}
     for tag in ("jax", "port"):
         roots[tag] = str(tmp_path / tag)

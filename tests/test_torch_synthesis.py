@@ -100,27 +100,53 @@ def test_create_noisy_frames(corpus, tmp_path, labels):
                 assert a.read() == b.read(), rel
 
 
-def test_create_test_mixtures(corpus, tmp_path):
+def noises_of(bank):
+    return dict(zip(("cafe", "home", "street", "car"),
+                    (bank["white"], bank["low"], bank["mid"],
+                     bank["brown"])))
+
+
+def same_files(a, b):
+    """Every file under `a` has the same bytes under `b`; returns the
+    count."""
+    n = 0
+    for dirpath, _, files in os.walk(a):
+        for name in files:
+            rel = os.path.relpath(os.path.join(dirpath, name), a)
+            with open(os.path.join(dirpath, name), "rb") as f, \
+                    open(os.path.join(b, rel), "rb") as g:
+                assert f.read() == g.read(), rel
+            n += 1
+    return n
+
+
+def test_create_test_mixtures(corpus, tmp_path, monkeypatch):
+    """JAX's pool made serial (`serial_jax_pool`) against the port at its
+    default workers, bit for bit."""
+    from test_torch_train_helpers import serial_jax_pool
+
     _, raw, bank = corpus
-    noises = dict(zip(("cafe", "home", "street", "car"),
-                      (bank["white"], bank["low"], bank["mid"],
-                       bank["brown"])))
-    snr = {}
-    for tag, mod in (("j", js), ("p", ts)):
-        snr[tag] = mod.create_test_mixtures(raw, str(tmp_path / tag),
-                                            noises, max_workers=2)
+    serial_jax_pool(monkeypatch)
+    snr = {"j": js.create_test_mixtures(raw, str(tmp_path / "j"),
+                                        noises_of(bank)),
+           "p": ts.create_test_mixtures(raw, str(tmp_path / "p"),
+                                        noises_of(bank))}
     assert snr["j"] == snr["p"] and len(snr["p"]) == 2
     assert read_dataset(str(tmp_path / "p"), "test", "snr_db") == \
         j_read_dataset(str(tmp_path / "j"), "test", "snr_db")
-    n = 0
-    for dirpath, _, files in os.walk(tmp_path / "j"):
-        for name in files:
-            rel = os.path.relpath(os.path.join(dirpath, name), tmp_path / "j")
-            with open(os.path.join(dirpath, name), "rb") as a, \
-                    open(tmp_path / "p" / rel, "rb") as b:
-                assert a.read() == b.read(), rel
-            n += 1
-    assert n == 2 * 3 + 1
+    assert same_files(tmp_path / "j", tmp_path / "p") == 2 * 3 + 1
+
+
+def test_create_test_mixtures_same_bytes_at_any_workers(corpus, tmp_path):
+    """The noise windows follow `seed`, not the pool: 1 and 8 workers
+    write the same files, and another seed other noise."""
+    _, raw, bank = corpus
+    for tag, workers, seed in (("w1", 1, 0), ("w8", 8, 0), ("s1", 8, 1)):
+        ts.create_test_mixtures(raw, str(tmp_path / tag), noises_of(bank),
+                                seed=seed, max_workers=workers)
+    assert same_files(tmp_path / "w1", tmp_path / "w8") == 2 * 3 + 1
+    with pytest.raises(AssertionError):
+        same_files(tmp_path / "w1", tmp_path / "s1")
 
 
 def test_augmentations_match_jax():

@@ -1,8 +1,9 @@
 """Helpers of the training tests (tests/test_torch_train.py,
-test_torch_h5io.py, test_torch_cli.py, test_torch_scripts.py): JAX's
-reparametrisation draws in the order the trainer takes them, their
-injection into the port, the JAX initialisers behind the port's front
-doors, and the comparison of two model directories."""
+test_torch_h5io.py, test_torch_cli.py, test_torch_scripts.py,
+test_torch_synthesis.py): JAX's reparametrisation draws in the order the
+trainer takes them, their injection into the port, the JAX initialisers
+behind the port's front doors, the JAX package's test-set synthesis with
+its pool made serial, and the comparison of two model directories."""
 
 import os
 import re
@@ -73,6 +74,20 @@ def jax_init(monkeypatch):
 
     for name in ("vae_init", "dgm_init", "classifier_init"):
         monkeypatch.setattr(t_trainer, name, wrap(getattr(j_nets, name)))
+
+
+def serial_jax_pool(monkeypatch):
+    """Make the JAX package's test-mixture pool serial. Its workers draw
+    each utterance's noise window from numpy's global RNG, so with more
+    than one thread the window an utterance gets follows the scheduling;
+    with one thread the draws run in file order, the order the port draws
+    them in before its pool."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import guided_vae_nmf_tpu.data.synthesis as j_synthesis
+
+    monkeypatch.setattr(j_synthesis, "ThreadPoolExecutor",
+                        lambda max_workers=None: ThreadPoolExecutor(1))
 
 
 _NUM = re.compile(r"-?\d+\.\d+")
