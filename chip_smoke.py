@@ -138,6 +138,22 @@ Phases, in order; any failure exits nonzero without a result line:
    step with z = mu on each (stated tolerances); a 4th M2 epoch through
    `--resume`, whose best checkpoint then drives the main batch (100 / 1
    / 100 / 100 K1a / K2a launches, |s + n - x| <= 2 LSB).
+   Then multi-device (`parallel/`; one card, so no scaling is measured):
+   `enhance_files(mesh=make_mesh())` on a mesh of the card, PCM equal to
+   the unsharded sweep and its launches; the main batch on a virtual mesh
+   of two shards on cuda:0 (`make_mesh(devices=[cuda:0] * 2)`, each shard
+   its own thread and stream) through `enhance_waveform_sharded`: fused
+   shards equal to their rows' unsharded runs bit for bit, 100 / 1 / 100
+   / 100 launches a shard (`mesh.shard_launches`), |s + n - x| <= 2 LSB,
+   and the eager engine equal to the unsharded batch; `frame_sharded_mcem`
+   on one 10.5 s recording (virtual 2-mesh) and `grid_sharded_mcem` at
+   B=2 on a (2, 2) virtual mesh, at var_RW=0 against single-device
+   `mcem_run` (rtol 2e-4 / atol 1e-6); `EnhancementService(mesh=)` within
+   1 LSB of the unsharded service and `MultiStreamM2Enhancer(mesh=)`
+   lanes against dedicated streams; one data-parallel M2 epoch (equal on
+   a mesh of one, within PR 10's card-against-CPU tolerance on two); and
+   `multihost.initialize` at world size 1 with NCCL, an all-reduce and
+   `shard_file_list`; each with its wall.
 11. paper-config path: `enhance_waveform(cfg=HybridConfig())` on the main
    batch (500 PEEM + 150 MCEM iterations and the WF chain; 150 / 1 / 150
    / 150 launches), with `fast=True` (the same on `_fast`) and with the
@@ -161,6 +177,7 @@ as its last line `{"ok": true, "device": {...}}`.
 """
 
 import argparse
+import contextlib
 import json
 import os
 import re
@@ -2958,6 +2975,492 @@ def phase_training(torch, classifier, mean, std, batch, dev, gpu, seed):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# Multi-device: a mesh of the one card, and a virtual mesh of two shards
+# ---------------------------------------------------------------------------
+
+MD_LONG_SECONDS = 10.5     # the frame-sharded recording
+MD_GRID_SECONDS = (4.0, 5.0)
+MD_GRID_CFG = dict(niter=10)
+MD_STREAMS = 3
+MD_POOL_SECONDS = 1.0
+MD_SWITCH_S = 1e-4         # the probe's interpreter switch interval
+MD_TRAIN_SECONDS = (10.0,) * 16   # 10,016 frames (hop 256)
+MD_TRAIN_FRAMES = 78 * 128        # the training phase's store: 78 batches
+MD_TRAIN_EPOCHS = 3               # epochs 2-3 timed, as training_runs does
+# a data-parallel epoch of the main batches' frames (14 steps) against the
+# single-device one: the CPU test's tolerance (reading 1.64e-7, PR 12).
+# Not held over the timed epochs: float sums' order flips the sign of
+# Adam's near-zero gradients, and the weights drift apart (1.42e-3 after
+# 234 steps)
+MD_TRAIN_TOL = dict(loss_rtol=1e-6, weight_atol=1e-6)
+VAR0_TOL = dict(rtol=2e-4, atol=1e-6)
+
+
+@contextlib.contextmanager
+def shards_in_one_thread():
+    """`parallel.mesh.run_shards` with each shard run to its end in the
+    caller's thread, one after another, as its thread would run it (its
+    device, stream and launch counts): what the shard threads cost, for
+    calls with no all-sum."""
+    import threading
+    import types
+
+    from guided_vae_nmf_torch.parallel import mesh as mesh_mod
+
+    class Inline:
+        def __init__(self, target, args, **_):
+            self.run = lambda: target(*args)
+
+        def start(self):
+            self.run()
+
+        def join(self):
+            pass
+
+    mesh_mod.threading = types.SimpleNamespace(
+        Thread=Inline, Barrier=threading.Barrier,
+        BrokenBarrierError=threading.BrokenBarrierError)
+    try:
+        yield
+    finally:
+        mesh_mod.threading = threading
+
+
+@contextlib.contextmanager
+def switch_interval(seconds):
+    """The interpreter's thread switch interval set to `seconds`."""
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(seconds)
+    try:
+        yield
+    finally:
+        sys.setswitchinterval(old)
+
+
+def nonzero(counts):
+    """The launched variants of `launch_counts()`-layout counts."""
+    return {k: {v: n for v, n in d.items() if n}
+            for k, d in counts.items() if any(d.values())}
+
+
+def phase_multidevice(torch, mods, mean, std, meta, batch, seed, dev, gpu):
+    """The multi-device layer on one card: (a) `enhance_files(mesh=
+    make_mesh())`, a mesh of the one card, against the unsharded sweep,
+    bit for bit; (b) the main batch through `enhance_waveform_sharded` on
+    a virtual mesh of two shards on cuda:0 (each its own thread and
+    stream): the fused engine's shards equal to their rows' unsharded
+    runs with the same generators bit for bit, 100 / 1 / 100 / 100
+    launches a shard, |s + n - x| <= 2 LSB; the eager engine's equal to
+    the unsharded batch; what the threads cost (the shards one after
+    another in one thread, and the threads at a shorter switch interval);
+    (c) `frame_sharded_mcem` on one recording of
+    MD_LONG_SECONDS at the virtual 2-mesh and `grid_sharded_mcem` at B=2 on
+    a (2, 2) virtual mesh, both at var_RW=0 against single-device
+    `mcem_run`; (d) `EnhancementService(mesh=)` and
+    `MultiStreamM2Enhancer(mesh=)` on the virtual 2-mesh against their
+    unsharded forms; (e) one data-parallel M2 epoch on the virtual 2-mesh
+    against the single-device epoch, and steady epochs timed at the
+    training phase's store size; (f) `multihost.initialize` at world
+    size 1 with NCCL, an all-reduce and `shard_file_list`. Returns the
+    record."""
+    import socket
+
+    import guided_vae_nmf_torch as port
+    from guided_vae_nmf_torch.data import read_wav_int16, write_wav
+    from guided_vae_nmf_torch.dsp import frame_count
+    from guided_vae_nmf_torch.mcem import MCEMConfig
+    from guided_vae_nmf_torch.parallel import make_mesh
+    from guided_vae_nmf_torch.pipeline import (
+        enhance_files, enhance_waveform, enhance_waveform_sharded,
+        plan_batches)
+
+    model, classifier = mods
+    pairs, x_b, mask = batch
+    audio_s = sum(len(x) for _, x in pairs) / 16000
+    rec = {}
+    main = nonzero(expected_launches(**MAIN_LAUNCHES))
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    # (a) a mesh of the one card
+    mesh1 = make_mesh()
+    check(mesh1.shape == {"data": torch.cuda.device_count()},
+          f"make_mesh() took {mesh1}")
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "in")
+        os.makedirs(src)
+        files = []
+        for j, (_, x) in enumerate(pairs):
+            write_wav(os.path.join(src, f"utt{j}_x.wav"), x, 16000)
+            files.append(f"utt{j}.wav")
+        kw = dict(classifier=classifier, mean=mean, std=std,
+                  cfg=MCEMConfig(), seed=seed)
+        outs, walls = {}, {}
+        for tag in ("unsharded", "mesh1"):
+            mesh1.reset_shard_launches()
+            port.reset_launch_counts()
+            _, walls[tag] = timed(lambda: enhance_files(
+                files, src, os.path.join(tmp, tag), model,
+                mesh=mesh1 if tag == "mesh1" else None,
+                device=None if tag == "mesh1" else dev, **kw))
+            outs[tag] = [read_wav_int16(os.path.join(
+                tmp, tag, f"utt{j}_s_est.wav"))[0] for j in range(len(pairs))]
+        counts = port.launch_counts()
+        n_b = len(plan_batches(files, [frame_count(len(x)) for _, x in pairs],
+                               n_dev=mesh1.shape["data"]))
+        same = all(np.array_equal(a, b) for a, b in
+                   zip(outs["unsharded"], outs["mesh1"]))
+        log(f" (a) enhance_files(mesh=make_mesh()) {mesh1}: "
+            f"{walls['mesh1']:.3f} s = {audio_s / walls['mesh1']:.2f}x "
+            f"realtime (unsharded {walls['unsharded']:.3f} s); PCM equal to "
+            f"the unsharded sweep: {same}; launches {nonzero(counts)} over "
+            f"{n_b} batches; {gpu}")
+        check(same, "enhance_files on a mesh of one card differs from the "
+              "unsharded sweep")
+        check(counts == expected_launches(n_batches=n_b, **MAIN_LAUNCHES),
+              f"mesh-of-one sweep launches {counts}")
+        rec["a"] = {"wall_s": walls["mesh1"], "unsharded_s":
+                    walls["unsharded"], "x_realtime": audio_s /
+                    walls["mesh1"], "equal": same, "batches": n_b}
+
+    # (b) the main batch on a virtual mesh of two shards on cuda:0
+    vmesh = make_mesh(devices=[dev, dev])
+    seeds = [seed * 1000 + 7 * j + 1 for j in range(len(pairs))]
+    common = dict(classifier=classifier, mean=mean, std=std,
+                  label_mode="dnn", return_noise=True)
+    vmesh.reset_shard_launches()
+    port.reset_launch_counts()
+    (s_sh, n_sh, _, _, ok_sh), wall_f = timed(lambda: enhance_waveform_sharded(
+        vmesh, model, x_b, mask, MCEMConfig(), seeds=seeds, **common))
+    shard_counts = vmesh.shard_launches
+    total = port.launch_counts()
+    s_sh, n_sh = s_sh.cpu().numpy(), n_sh.cpu().numpy()
+    equal_rows, wall_halves = True, 0.0
+    for lo in (0, 2):
+        ref, w = timed(lambda: enhance_waveform(
+            model, x_b[lo:lo + 2], mask[lo:lo + 2], MCEMConfig(),
+            generator=torch.Generator(device=dev).manual_seed(seeds[lo]),
+            seeds=seeds[lo:lo + 2], device=dev, **common))
+        wall_halves += w
+        equal_rows &= bool(np.array_equal(ref[0].cpu().numpy(),
+                                          s_sh[lo:lo + 2]))
+    worst = max(int(np.abs(s_sh[j][:len(x)].astype(np.int32)
+                           + n_sh[j][:len(x)] - x).max())
+                for j, (_, x) in enumerate(pairs))
+    log(f" (b) main batch on a virtual 2-mesh {vmesh}, fused: {wall_f:.3f} "
+        f"s = {sum(MAIN_SECONDS) / wall_f:.2f}x realtime (its two halves "
+        f"one after another, unsharded: {wall_halves:.3f} s); shards equal to "
+        f"their rows' unsharded runs: {equal_rows}; launches a shard "
+        f"{shard_counts}; |s + n - x| max {worst} LSB; {gpu}")
+    check(bool(ok_sh.cpu().all()), "non-finite sharded output")
+    check(equal_rows, "a fused shard differs from its rows' unsharded run")
+    check(shard_counts == [main, main],
+          f"shard launches {shard_counts}, expected {main} each")
+    check(total == expected_launches(n_batches=2, **MAIN_LAUNCHES),
+          f"sharded batch launches {total}")
+    check(worst <= 2, "sharded Wiener gains do not sum to one")
+    eager = dict(common, engine="xla")
+    port.reset_launch_counts()
+    ref_e, wall_eu = timed(lambda: enhance_waveform(
+        model, x_b, mask, MCEMConfig(), seeds=seeds, device=dev, **eager))
+    sh_e, wall_e = timed(lambda: enhance_waveform_sharded(
+        vmesh, model, x_b, mask, MCEMConfig(), seeds=seeds, **eager))
+    diff = int(np.abs(ref_e[0].cpu().numpy().astype(np.int32)
+                      - sh_e[0].cpu().numpy()).max())
+    log(f" (b) eager engine (engine='xla'): sharded {wall_e:.3f} s, "
+        f"unsharded {wall_eu:.3f} s; max |s16 diff| {diff} LSB (needs 0); "
+        f"launches {nonzero(port.launch_counts())}")
+    check(diff == 0, "the eager sharded batch differs from the unsharded")
+    check_no_launches("the eager engine")
+    # what the shard threads cost: the fused batch (median of three) and
+    # the eager one with the shards one after another in the caller's
+    # thread, and the fused batch with the threads at an interpreter
+    # switch interval of MD_SWITCH_S (CPython's default 5 ms)
+    def fused():
+        return enhance_waveform_sharded(vmesh, model, x_b, mask,
+                                        MCEMConfig(), seeds=seeds, **common)
+
+    def eager_sh():
+        return enhance_waveform_sharded(vmesh, model, x_b, mask,
+                                        MCEMConfig(), seeds=seeds, **eager)
+
+    probe = {}
+    for tag, ctx in (("threads", contextlib.nullcontext),
+                     ("one_thread", shards_in_one_thread),
+                     ("switch", lambda: switch_interval(MD_SWITCH_S))):
+        with ctx():
+            runs = [timed(fused) for _ in range(3)]
+            same = all(np.array_equal(out[0].cpu().numpy(), s_sh)
+                       for out, _ in runs)
+            e_wall = {"threads": wall_e, "switch": None}.get(tag)
+            if tag == "one_thread":
+                e_out, e_wall = timed(eager_sh)
+                same &= bool(np.array_equal(e_out[0].cpu().numpy(),
+                                            sh_e[0].cpu().numpy()))
+        probe[tag] = {"fused_s": sorted(w for _, w in runs)[1],
+                      "fused_runs_s": [w for _, w in runs],
+                      "eager_s": e_wall, "same_pcm": same}
+        check(same, f"the sharded batch changed under the probe's {tag}")
+    port.reset_launch_counts()
+    log(f" (b) what the shard threads cost, virtual 2-mesh, fused (median "
+        f"of 3) / eager: threads {probe['threads']['fused_s']:.3f} / "
+        f"{wall_e:.3f} s; shards one after another in one thread "
+        f"{probe['one_thread']['fused_s']:.3f} / "
+        f"{probe['one_thread']['eager_s']:.3f} s; threads at a "
+        f"{MD_SWITCH_S * 1e3:g} ms switch interval, fused "
+        f"{probe['switch']['fused_s']:.3f} s (unsharded: the halves "
+        f"{wall_halves:.3f}, eager B=4 {wall_eu:.3f} s); PCM unchanged; "
+        f"{gpu}")
+    rec["b"] = {"fused_wall_s": wall_f, "halves_serial_s": wall_halves,
+                "fused_x_realtime":
+                sum(MAIN_SECONDS) / wall_f, "shard_launches": shard_counts,
+                "rows_equal": equal_rows, "lsb": worst,
+                "eager_wall_s": wall_e, "eager_unsharded_s": wall_eu,
+                "eager_lsb": diff, "thread_probe": probe}
+
+    # (c) frame- and grid-sharded MCEM at var_RW=0
+    from guided_vae_nmf_torch.dsp import pad_signal_for_stft, \
+        stft_batch_padded
+    from guided_vae_nmf_torch.mcem.engine import mcem_run, pad_power
+    from guided_vae_nmf_torch.parallel import (frame_sharded_mcem,
+                                               grid_sharded_mcem)
+    from guided_vae_nmf_torch.pipeline import make_labels
+
+    def spectrum(x, n_pad):
+        xp, nf = pad_signal_for_stft(x)
+        X = stft_batch_padded(torch.tensor(xp[None], device=dev)
+                              .float() / 32768.0)[0]
+        P = (X.real**2 + X.imag**2)[:, :nf]
+        yh = make_labels("dnn", P.cpu().numpy(), classifier=classifier,
+                         mean=mean, std=std)[1]
+        Pp, m = pad_power(P, n_pad)
+        y = torch.zeros((yh.shape[0], n_pad), device=dev)
+        y[:, :nf] = torch.tensor(yh, device=dev)
+        return Pp, m, y, nf
+
+    (_, long_x), = speech_like_mixtures(seed + 9, (MD_LONG_SECONDS,))
+    nf_long = frame_count(len(long_x))
+    Pp, m, y, _ = spectrum(long_x, -(-nf_long // 2) * 2)
+    cfg0 = MCEMConfig(var_RW=0.0)
+    out_f, wall_fs = timed(lambda: frame_sharded_mcem(
+        vmesh, model, Pp, m, y, seed + 11, cfg0))
+    ref_f, wall_f1 = timed(lambda: mcem_run(model, Pp[None], m[None],
+                                            y[None], [seed + 11], cfg0))
+    err_f = max(float(np.max(np.abs(out_f[k].cpu().numpy()
+                                    - ref_f[k][0].cpu().numpy())
+                             / (VAR0_TOL["atol"] + VAR0_TOL["rtol"]
+                                * np.abs(ref_f[k][0].cpu().numpy()))))
+                for k in ("WFs", "WFn", "g", "W", "H", "cost"))
+    log(f" (c) frame_sharded_mcem, one {MD_LONG_SECONDS} s recording "
+        f"({Pp.shape[1]} frames), virtual 2-mesh, MCEMConfig(var_RW=0): "
+        f"{wall_fs:.3f} s = {MD_LONG_SECONDS / wall_fs:.2f}x realtime "
+        f"(single-device mcem_run {wall_f1:.3f} s); worst element at "
+        f"{err_f:.3f} of {VAR0_TOL}; {gpu}")
+    check(err_f <= 1, "frame-sharded MCEM differs from single-device")
+    check_no_launches("frame-sharded MCEM (the eager engine)")
+    grid_pairs = speech_like_mixtures(seed + 12, MD_GRID_SECONDS)
+    n_pad = -(-max(frame_count(len(x)) for _, x in grid_pairs) // 2) * 2
+    specs = [spectrum(x, n_pad) for _, x in grid_pairs]
+    Xg, mg, yg = (torch.stack([s[i] for s in specs]) for i in range(3))
+    gmesh = make_mesh(devices=[dev] * 4, axis_names=("data", "frame"),
+                      shape=(2, 2))
+    cfg_g = MCEMConfig(var_RW=0.0, **MD_GRID_CFG)
+    gseeds = [seed + 13, seed + 14]
+    out_g, wall_g = timed(lambda: grid_sharded_mcem(
+        gmesh, model, Xg, mg, yg, gseeds, cfg_g))
+    err_g = 0.0
+    for b in range(2):
+        ref = mcem_run(model, Xg[b:b + 1], mg[b:b + 1], yg[b:b + 1],
+                       [gseeds[b]], cfg_g)
+        for k in ("WFs", "WFn", "g", "W", "H", "cost"):
+            r = ref[k][0].cpu().numpy()
+            err_g = max(err_g, float(np.max(np.abs(
+                out_g[k][b].cpu().numpy() - r) / (
+                VAR0_TOL["atol"] + VAR0_TOL["rtol"] * np.abs(r)))))
+    log(f" (c) grid_sharded_mcem, B=2 of {MD_GRID_SECONDS} s on a (2, 2) "
+        f"virtual mesh, {MD_GRID_CFG} at var_RW=0: {wall_g:.3f} s = "
+        f"{sum(MD_GRID_SECONDS) / wall_g:.2f}x realtime; worst element at "
+        f"{err_g:.3f} of {VAR0_TOL}; {gpu}")
+    check(err_g <= 1, "grid-sharded MCEM differs from single-device")
+    rec["c"] = {"frame_wall_s": wall_fs, "frame_single_s": wall_f1,
+                "frame_frames": int(Pp.shape[1]),
+                "frame_x_realtime": MD_LONG_SECONDS / wall_fs,
+                "frame_err": err_f, "grid_wall_s": wall_g,
+                "grid_err": err_g}
+
+    # (d) the service and the stream pool on the virtual 2-mesh
+    from guided_vae_nmf_torch.serving import EnhancementService, ServeConfig
+    from guided_vae_nmf_torch.streaming import (MultiStreamM2Enhancer,
+                                                StreamingM2Enhancer)
+
+    reqs = [x.astype(np.float32) / 32768.0 for _, x in pairs]
+    got = {}
+    for tag, mesh in (("unsharded", None), ("mesh", vmesh)):
+        with EnhancementService(model, classifier=classifier, mean=mean,
+                                std=std, cfg=MCEMConfig(),
+                                serve=ServeConfig(fast=True), mesh=mesh,
+                                device=None if mesh else dev) as svc:
+            port.reset_launch_counts()
+            vmesh.reset_shard_launches()
+            t0 = time.perf_counter()
+            got[tag] = [svc.enhance(x)["s"] for x in reqs]
+            got[tag + "_s"] = time.perf_counter() - t0
+            got[tag + "_launches"] = nonzero(port.launch_counts())
+    lsb = max(int(np.abs(pcm(a) - pcm(b)).max())
+              for a, b in zip(got["unsharded"], got["mesh"]))
+    log(f" (d) EnhancementService(ServeConfig(fast=True), mesh=virtual "
+        f"2-mesh): {len(reqs)} requests one at a time in "
+        f"{got['mesh_s']:.3f} s (unsharded {got['unsharded_s']:.3f} s); "
+        f"max |diff| {lsb} LSB (needs <= 1); launches a shard "
+        f"{vmesh.shard_launches}; {gpu}")
+    check(lsb <= 1, "the sharded service differs from the unsharded")
+    kw = stream_kwargs("real-noise", classifier, mean, std, meta)
+    sxs = [x.astype(np.float32) / 32768.0 for _, x in speech_like_mixtures(
+        seed + 15, (MD_POOL_SECONDS,) * MD_STREAMS)]
+    pool = MultiStreamM2Enhancer(model, max_streams=4, mesh=vmesh, **kw)
+    sids = [pool.open() for _ in sxs]
+    outs = {s: [] for s in sids}
+    piece = 2048
+    port.reset_launch_counts()
+    t0 = time.perf_counter()
+    for lo in range(0, max(len(x) for x in sxs), piece):
+        for s, x in zip(sids, sxs):
+            if lo < len(x):
+                pool.feed(s, x[lo:lo + piece])
+        for s, o in pool.step().items():
+            outs[s].append(o)
+    for s in sids:
+        outs[s].append(pool.flush(s))
+    wall_p = time.perf_counter() - t0
+    check_no_launches("the sharded stream pool")
+    perr = 0.0
+    for s, x in zip(sids, sxs):
+        enh = StreamingM2Enhancer(model, device=dev, **kw)
+        ref = np.concatenate([enh.push(x[lo:lo + piece])
+                              for lo in range(0, len(x), piece)]
+                             + [enh.flush()])
+        o = np.concatenate(outs[s])
+        check(len(o) == len(x), "pool lane length")
+        perr = max(perr, float(np.max(np.abs(o - ref) / (
+            POOL_TOL["atol"] + POOL_TOL["rtol"] * np.abs(ref)))))
+    log(f" (d) MultiStreamM2Enhancer(max_streams=4, mesh=virtual 2-mesh), "
+        f"{MD_STREAMS} streams of {MD_POOL_SECONDS} s, full-lane ticks: "
+        f"{wall_p:.3f} s = {MD_STREAMS * MD_POOL_SECONDS / wall_p:.2f} "
+        f"audio s per wall s; lanes against dedicated streams at "
+        f"{perr:.3f} of {POOL_TOL}; {gpu}")
+    check(perr <= 1, "a sharded pool lane differs from its dedicated stream")
+    rec["d"] = {"service_lsb": lsb, "service_s": got["mesh_s"],
+                "service_unsharded_s": got["unsharded_s"],
+                "pool_wall_s": wall_p, "pool_err": perr}
+
+    # (e) a data-parallel M2 epoch against the single-device one, then
+    # steady epochs timed at the training phase's store size
+    from guided_vae_nmf_torch.train import TrainConfig, train_m2
+
+    def frames_of(pairs_):
+        frames, labs = [], []
+        for _, x in pairs_:
+            P, _, yv, nf = spectrum(x, frame_count(len(x)))
+            frames.append(P[:, :nf].T.cpu().numpy())
+            labs.append(yv[:, :nf].T.cpu().numpy())
+        X = np.concatenate(frames)
+        X = (X / X.mean(axis=0, keepdims=True)).astype(np.float32)
+        return X, np.concatenate(labs).astype(np.float32)
+
+    def fits(X, Y, epochs, tags, tmp):
+        out = {}
+        for tag in tags:
+            mesh = {"single": None, "mesh1": make_mesh(devices=[dev]),
+                    "virtual2": vmesh}[tag]
+            m, hist = train_m2(
+                (X, Y), (X[:256], Y[:256]),
+                cfg=TrainConfig(end_epoch=epochs),
+                model_dir=os.path.join(tmp, f"{tag}{epochs}"), mesh=mesh,
+                device=None if mesh else dev)
+            out[tag] = ({k: v.detach().cpu() for k, v in
+                         m.state_dict().items()}, hist)
+        return out
+
+    X, Y = frames_of(main_batch(seed + 16)[0] + pairs)
+    Xs, Ys = frames_of(speech_like_mixtures(seed + 16, MD_TRAIN_SECONDS))
+    check(len(Xs) >= MD_TRAIN_FRAMES, f"{len(Xs)} training frames")
+    Xs, Ys = Xs[:MD_TRAIN_FRAMES], Ys[:MD_TRAIN_FRAMES]
+    with tempfile.TemporaryDirectory() as tmp:
+        # the mesh of one first: it also warms the single-device fit
+        timed_runs = fits(Xs, Ys, MD_TRAIN_EPOCHS,
+                          ("mesh1", "single", "virtual2"), tmp)
+        short = fits(X, Y, 1, ("single", "virtual2"), tmp)
+    (w1, h1), (w2, h2) = short["single"], short["virtual2"]
+    loss_rel = max(abs(a[k] - b[k]) / abs(a[k]) for a, b in zip(h1, h2)
+                   for k in ("train", "valid"))
+    w_abs = max(float((w1[k] - w2[k]).abs().max()) for k in w1)
+    nb = len(X) // 128
+    log(f" (e) data-parallel M2 epoch ({len(X)} frames, {nb} steps of 128, "
+        f"full width), virtual 2-mesh against one device: losses "
+        f"{loss_rel:.2e} apart (rel), weights {w_abs:.2e} (abs); "
+        f"tolerance {MD_TRAIN_TOL}")
+    check(loss_rel <= MD_TRAIN_TOL["loss_rtol"]
+          and w_abs <= MD_TRAIN_TOL["weight_atol"],
+          "the data-parallel epoch differs from the single-device one")
+    (ws, hs), (wm, _), (wv, hv) = (timed_runs[k] for k in (
+        "single", "mesh1", "virtual2"))
+    exact = all(torch.equal(ws[k], wm[k]) for k in ws)
+    t1, t2 = (float(np.mean([h["time_s"] for h in hist[1:]]))
+              for hist in (hs, hv))
+    drift = max(float((ws[k] - wv[k]).abs().max()) for k in ws)
+    log(f" (e) data-parallel M2, {MD_TRAIN_EPOCHS} epochs of "
+        f"{MD_TRAIN_FRAMES} frames ({MD_TRAIN_FRAMES // 128} steps of 128), "
+        f"steady epochs 2-{MD_TRAIN_EPOCHS}: virtual 2-mesh {t2:.4f} s "
+        f"({MD_TRAIN_FRAMES / t2:.0f} training frames/s), single device "
+        f"{t1:.4f} s ({MD_TRAIN_FRAMES / t1:.0f}); mesh of one equal bit "
+        f"for bit: {exact}; virtual 2-mesh weights {drift:.2e} from the "
+        f"single device's (abs, not held); {gpu}")
+    check(exact, "data-parallel epochs on a mesh of one differ")
+    check(all(np.isfinite(h[k]) for h in hv for k in ("train", "valid")),
+          "non-finite data-parallel losses")
+    rec["e"] = {"frames": len(X), "loss_rel": loss_rel, "weight_abs": w_abs,
+                "timed_frames": MD_TRAIN_FRAMES, "epochs": MD_TRAIN_EPOCHS,
+                "steady_epoch_s": t2, "single_steady_epoch_s": t1,
+                "frames_per_s": MD_TRAIN_FRAMES / t2,
+                "single_frames_per_s": MD_TRAIN_FRAMES / t1,
+                "mesh1_exact": exact, "timed_weight_drift": drift}
+
+    # (f) the multi-process runtime at world size 1 with NCCL
+    import torch.distributed as dist
+
+    from guided_vae_nmf_torch.parallel import multihost, shard_file_list
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port_no = s.getsockname()[1]
+    t0 = time.perf_counter()
+    multihost.initialize(f"127.0.0.1:{port_no}", num_processes=1,
+                         process_id=0, timeout_s=60)
+    try:
+        backend = dist.get_backend()
+        total = multihost.DistGroup().all_sum(
+            torch.tensor([1.0, 2.0], device=dev))
+        files = [f"u{i}" for i in range(5)]
+        shard = [str(f) for f in shard_file_list(files)]
+        ok = (backend == "nccl" and multihost.process_count() == 1
+              and total.tolist() == [1.0, 2.0] and shard == files)
+    finally:
+        multihost.shutdown()
+    wall_m = time.perf_counter() - t0
+    log(f" (f) multihost.initialize at world size 1: backend {backend}, "
+        f"all_reduce {total.tolist()}, shard_file_list at rank 0 of 1 "
+        f"{shard}; {wall_m:.3f} s")
+    check(ok, "the multi-process runtime at world size 1 failed")
+    rec["f"] = {"backend": backend, "wall_s": wall_m}
+    return rec
+
+
 SOURCES = {
     "mh_chain": ("guided_vae_nmf_torch/csrc/mh_chain.cu",
                  "guided_vae_nmf_tpu/mcem/pallas_engine.py:494"),
@@ -3403,6 +3906,14 @@ def main(argv=None):
         "driving the main path):")
     training = phase_training(torch, classifier, mean, std, batch, dev, gpu,
                               args.seed)
+    log("multi-device (parallel/: a mesh of the card, a virtual 2-mesh on "
+        "cuda:0; sharded sweeps, frame- and grid-sharded MCEM, the service, "
+        "the pool, a data-parallel epoch, the multi-process runtime):")
+    t_md = time.perf_counter()
+    multidevice = phase_multidevice(torch, (model, classifier), mean, std,
+                                    meta, batch, args.seed, dev, gpu)
+    multidevice["seconds"] = time.perf_counter() - t_md
+    log(f" multi-device phase: {multidevice['seconds']:.1f} s")
 
     hybrid = phase_hybrid(torch, model, classifier, mean, std, batch,
                           args.seed, dev, gpu)
@@ -3440,7 +3951,8 @@ def main(argv=None):
         "profiling": profiling,
         "paths": paths, "fast": fast, "offline_rest": rest,
         "serving": serving, "streaming": streaming,
-        "evaluation": evaluation, "training": training, "hybrid": hybrid,
+        "evaluation": evaluation, "training": training,
+        "multidevice": multidevice, "hybrid": hybrid,
         "harness": harness, "kernels": kernels, "kernels_b32_n512": large,
         "seconds": time.perf_counter() - t_start,
     }

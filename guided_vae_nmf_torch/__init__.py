@@ -29,8 +29,10 @@ def _wrappers():
 
 def reset_launch_counts():
     """Set every kernel wrapper's launch counts to 0."""
+    from . import _launches
+
     for fn in _wrappers().values():
-        fn.launches = dict.fromkeys(fn.launches, 0)
+        _launches.reset(fn)
 
 
 def launch_counts():

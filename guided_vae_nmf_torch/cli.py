@@ -15,8 +15,10 @@ same subcommands, flags, choices and defaults, over the port's library:
 also run as `python -m guided_vae_nmf_torch.cli`. `enhance`, `stream`,
 `serve` and `train` run on the GPU unless `--device` names another device
 (`--device cpu` runs the kernels' plain versions); without a GPU they
-raise. `dataset` is host code (numpy, scipy, h5py); `train
---data_parallel` raises (ROADMAP Queue 1, item 5).
+raise. `dataset` is host code (numpy, scipy, h5py). `serve` and `train`
+take `--data_parallel`: a mesh over every visible card (over the one
+`--device` otherwise) shards the request batches and pooled streams, or
+each training batch's rows.
 """
 
 import argparse
@@ -400,9 +402,11 @@ def cmd_train(a):
         TrainConfig, train_classifier, train_m1, train_m2, train_wiener,
     )
 
+    mesh = None
     if a.data_parallel:
-        raise NotImplementedError(
-            "--data_parallel is not ported yet (ROADMAP Queue 1, item 5)")
+        from .parallel import data_parallel_mesh
+
+        mesh = data_parallel_mesh(a.device)
     dev = _device(a)
     cfg = TrainConfig(end_epoch=a.epochs, batch_size=a.batch_size,
                       learning_rate=a.lr, seed=a.seed)
@@ -421,13 +425,13 @@ def cmd_train(a):
     if a.family == "m1":
         _, hist = train_m1(
             Xtr, Xva, dims=(513, a.z_dim, h_dim), cfg=cfg,
-            model_dir=a.out, name="M1", resume=a.resume, verbose=True,
-            device=dev)
+            model_dir=a.out, name="M1", mesh=mesh, resume=a.resume,
+            verbose=True, device=dev)
     elif a.family == "m2":
         _, hist = train_m2(
             (Xtr, Ytr), (Xva, Yva), dims=(513, y_dim, a.z_dim, h_dim),
-            cfg=cfg, model_dir=a.out, name="M2", resume=a.resume,
-            verbose=True, device=dev)
+            cfg=cfg, model_dir=a.out, name="M2", mesh=mesh,
+            resume=a.resume, verbose=True, device=dev)
     else:
         # classifier / wiener standardize with the H5 train stats
         # (reference training_classifier.py:97-108) and save .npy
@@ -439,7 +443,7 @@ def cmd_train(a):
         name = "Classifier" if a.family == "classifier" else "Wiener"
         _, hist = fn(
             (Xtr, Ytr), (Xva, Yva), dims=(513, h_dim, y_dim), cfg=cfg,
-            model_dir=a.out, name=name, mean=mean, std=std,
+            model_dir=a.out, name=name, mean=mean, std=std, mesh=mesh,
             resume=a.resume, verbose=True, device=dev)
     best = min(h["valid"] for h in hist)
     print(f"done; best valid {best:.2f}; checkpoints in {a.out}")
@@ -651,8 +655,10 @@ def build_parser():
     p.add_argument("--max_streams", type=int, default=8)
     p.add_argument("--tick_ms", type=float, default=5.0)
     p.add_argument("--data_parallel", action="store_true",
-                   help="multi-GPU serving (not ported yet: ROADMAP "
-                        "Queue 1, item 5)")
+                   help="shard requests + pooled streams over all "
+                        "devices of the mesh (a thread a shard: on "
+                        "host-paced paths, the eager engine and streams, "
+                        "it can be slower than one card)")
     p.add_argument("--chunk_frames", type=int, default=8)
     p.add_argument("--stream_residual", action="store_true")
     # the real-noise serving point, as build_server's defaults
@@ -699,8 +705,9 @@ def build_parser():
     p.add_argument("--h_dim", default="128,128")
     p.add_argument("--resume", action="store_true")
     p.add_argument("--data_parallel", action="store_true",
-                   help="shard the frame batch over all devices (not "
-                        "ported yet: ROADMAP Queue 1, item 5)")
+                   help="shard the frame batch over all devices of the "
+                        "mesh (a thread a shard: training steps are "
+                        "host-paced, so it can be slower than one card)")
     _add_device_flag(p)
     p.set_defaults(fn=cmd_train)
 

@@ -464,16 +464,22 @@ def build_server(models_dir, host="127.0.0.1", port=8571, niter=100,
     and its streaming settings the stream knobs (chunk_frames,
     stream_residual, soft guidance, the noise gain and its bands, the
     adaptive budget). Stream connections keep no mask history.
-    `data_parallel` raises NotImplementedError (ROADMAP Queue 1, item 5)."""
+    `data_parallel` shards both serving paths over a mesh
+    (`parallel.data_parallel_mesh(device)`: every visible card, or the one
+    named device): request batches through the service's sharded
+    dispatch, and the pool's slot rows and their state over the mesh
+    (max_streams is rounded up to a multiple of the mesh's size)."""
     from .mcem.engine import MCEMConfig
     from .profiles import get_profile
     from .serving import EnhancementService, ServeConfig
     from .train import load_classifier_meta, load_model, load_norm_stats
 
+    mesh = None
     if data_parallel:
-        raise NotImplementedError(
-            "data-parallel serving is not ported yet (ROADMAP Queue 1, "
-            "item 5)")
+        from .parallel import data_parallel_mesh, pad_to_multiple
+
+        mesh = data_parallel_mesh(device)
+        max_streams = pad_to_multiple(max_streams, mesh.shape["data"])
     device = resolve_device(device)
     # the stream lanes may differ from the batch service under a
     # streaming-only profile
@@ -508,7 +514,7 @@ def build_server(models_dir, host="127.0.0.1", port=8571, niter=100,
                           noise_model=noise_model, soft_guidance=soft_labels,
                           fast=fast, features=cmeta["features"],
                           dnn_threshold=cmeta["threshold"]),
-        device=device)
+        mesh=mesh, device=device)
     if warmup:
         print(f"warmup: {svc.warmup():.1f}s", flush=True)
         svc.reset_stats()
@@ -533,7 +539,8 @@ def build_server(models_dir, host="127.0.0.1", port=8571, niter=100,
         )
 
         driver = StreamPoolDriver(
-            MultiStreamM2Enhancer(m2, max_streams=max_streams, **stream_kw),
+            MultiStreamM2Enhancer(m2, max_streams=max_streams, mesh=mesh,
+                                  **stream_kw),
             tick_ms=tick_ms)
 
         def stream_factory():
@@ -564,7 +571,8 @@ def _fast_flag(v):
 def main(argv=None):
     """The flags of the JAX package's scripts/serve_http.py (`--fast` also
     takes `trans`, `--device` names another device than the GPU);
-    `--data_parallel 1` raises NotImplementedError."""
+    `--data_parallel 1` shards both serving paths over every visible card
+    (over the one `--device` otherwise)."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8571)
@@ -589,7 +597,10 @@ def main(argv=None):
                     help="concurrent stream cap (429 beyond)")
     ap.add_argument("--tick_ms", type=float, default=5.0,
                     help="pool co-batching window")
-    ap.add_argument("--data_parallel", type=_flag01, default=False)
+    ap.add_argument("--data_parallel", type=_flag01, default=False,
+                    help="shard requests + pooled streams over every card "
+                         "(a thread a shard: on host-paced paths it can be "
+                         "slower than one card)")
     ap.add_argument("--profile", default=None)
     ap.add_argument("--device", default=None)
     a = ap.parse_args(argv)

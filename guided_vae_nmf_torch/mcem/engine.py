@@ -222,7 +222,7 @@ def _noise_var(W, H, update_nmf, Vb_fixed):
 
 
 def nmf_m_step(X_abs2, mask, W, H, g, Vs_samples, update_nmf=True,
-               Vb_fixed=None, b=None, band_map=None):
+               Vb_fixed=None, b=None, band_map=None, group=None):
     """Multiplicative W, H, g updates in the reference order: W; Vb; H;
     L1-normalise W with the compensating H rescale; Vb; g. Batched: X_abs2
     (B, F, N), mask (B, N) (pad frames out of the W sums), W (B, F, K), H
@@ -233,7 +233,12 @@ def nmf_m_step(X_abs2, mask, W, H, g, Vs_samples, update_nmf=True,
     with band_map (n_bands, F); Vb = scale(b) * Vb_fixed. b takes the
     gradient-split update of g (its coefficient in Vx is Vb_fixed, with
     the f-sums restricted to its band) before g does. Returns (W, H, g, b)
-    when b is given, (W, H, g) otherwise."""
+    when b is given, (W, H, g) otherwise.
+
+    group: when the frame axis is sharded (`parallel.frame_sharded_mcem`),
+    the shard's group; the W update's num / den, the only sums across
+    frames, go through `group.all_sum`. H, g, b and W's L1 normalisation
+    over F stay local."""
 
     def vx(Vb):                                      # (B, R, F, N)
         return torch.clamp_min(g[:, None, None, :] * Vs_samples
@@ -274,6 +279,8 @@ def nmf_m_step(X_abs2, mask, W, H, g, Vs_samples, update_nmf=True,
         s1 = torch.sum(Vx**-1, dim=1)
         num = torch.einsum("bfn,bkn->bfk", X_abs2 * s2 * m, H)
         den = torch.einsum("bfn,bkn->bfk", s1 * m, H)
+        if group is not None:
+            num, den = group.all_sum(num), group.all_sum(den)
         W = W * torch.sqrt(num / den)
 
         Vx = vx(_noise_var(W, H, True, Vb_fixed))
@@ -290,14 +297,17 @@ def nmf_m_step(X_abs2, mask, W, H, g, Vs_samples, update_nmf=True,
     return W, H, g_update(vx(Vb))
 
 
-def _masked_cost(X_abs2, mask, Vb, g, Vs_samples):
+def _masked_cost(X_abs2, mask, Vb, g, Vs_samples, group=None):
     """(B,) expected negative log-likelihood over the valid frames; X_abs2
     and Vb (B, F, N), Vs_samples (B, R, F, N). Unfloored, as in the
-    reference."""
+    reference. With a frame-sharded `group`, the total and the count are
+    summed over the shards."""
     Vx = g[:, None, None, :] * Vs_samples + Vb[:, None]
     per_bin = torch.log(Vx) + X_abs2[:, None] / Vx
     total = torch.sum(per_bin * mask[:, None, None, :], dim=(1, 2, 3))
     count = Vs_samples.shape[1] * X_abs2.shape[1] * torch.sum(mask, dim=1)
+    if group is not None:
+        total, count = group.all_sum(total), group.all_sum(count)
     return total / count
 
 
@@ -459,8 +469,10 @@ class _Run:
     model, the spectrogram, the labels' projection and the noise model)
     and its EM iteration."""
 
-    def __init__(self, model, X_abs2, mask, y, cfg, update_nmf, Vb_fixed):
+    def __init__(self, model, X_abs2, mask, y, cfg, update_nmf, Vb_fixed,
+                 group=None):
         self.out_dtype = X_abs2.dtype
+        self.group = group
         wide = copy.deepcopy(model).to(_WIDE)
         self.enc, self.dec = wide.encoder, wide.decoder
         self.X, self.mask, self.y = _wide(X_abs2), _wide(mask), _wide(y)
@@ -525,9 +537,10 @@ class _Run:
         else:
             new["W"], new["H"], new["g"] = nmf_m_step(
                 self.X, self.mask, state["W"], state["H"], state["g"],
-                samples, update_nmf=self.update_nmf, Vb_fixed=self.Vb_fixed)
+                samples, update_nmf=self.update_nmf, Vb_fixed=self.Vb_fixed,
+                group=self.group)
         cost = _masked_cost(self.X, self.mask, self.noise_var(new), new["g"],
-                            samples)
+                            samples, group=self.group)
         return new, cost
 
     def wiener(self, state, ckeys=None, noise=None):
@@ -550,7 +563,7 @@ class _Run:
 @torch.no_grad()
 def mcem_run(model, X_abs2, mask, y, seeds, cfg: MCEMConfig = MCEMConfig(),
              update_nmf=True, Vb_fixed=None, init_nmf=None, init_Z=None,
-             noise=None):
+             noise=None, group=None):
     """The full MCEM loop on the eager engine, over a batch.
 
     X_abs2 (B, F, N) power with benign pad frames (:func:`pad_power`),
@@ -563,7 +576,10 @@ def mcem_run(model, X_abs2, mask, y, seeds, cfg: MCEMConfig = MCEMConfig(),
     the encoder's posterior mean. noise: optional recorded streams
     replacing every draw, (Zn_E (B, niter, sE, L, N), U_E (B, niter, sE,
     N), Zn_WF (B, sWF, L, N), U_WF (B, sWF, N)) with sE / sWF the E / WF
-    chain lengths; not with the noise gain.
+    chain lengths; not with the noise gain. group: the frame shard's group
+    when the frame axis is sharded over a mesh (see
+    `parallel.frame_sharded_mcem`): the W update's sums and the cost's
+    total and count are summed over the shards, the rest stays local.
 
     Computes in float64 (see the module docstring). Returns {"WFs", "WFn"
     (B, F, N), "cost" (B, niter), "W", "H", "g", "Z" (B, L, N)}, and "b"
@@ -573,7 +589,7 @@ def mcem_run(model, X_abs2, mask, y, seeds, cfg: MCEMConfig = MCEMConfig(),
         raise ValueError("fixed-randomness injection (noise=) is not "
                          "supported with noise_gain")
     keys = _row_keys(seeds, X_abs2.device)
-    run = _Run(model, X_abs2, mask, y, cfg, update_nmf, Vb_fixed)
+    run = _Run(model, X_abs2, mask, y, cfg, update_nmf, Vb_fixed, group)
     state = run.init_state(keys, init_nmf, init_Z)
     costs = []
     for it in range(cfg.niter):

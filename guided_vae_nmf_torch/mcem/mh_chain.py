@@ -46,7 +46,7 @@ import ctypes
 import numpy as np
 import torch
 
-from .. import _build
+from .. import _build, _launches
 from .engine import VX_FLOOR
 
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -479,8 +479,8 @@ def mh_chain(dec_w, X2, WH, g, ypre, Z, Vs, seed=0, mode="e", nsamples=10,
             int(seed) & (2**64 - 1), int(bf16), int(bool(approx_recip)),
             int(bool(approx_trans)), int(mm16), _stream(dev))
     _build.check(status, "mh_chain kernel")
-    mh_chain.launches[_variant(mode, "wh" if WH is not None else "vb",
-                               **fast_kw)] += 1
+    _launches.count(mh_chain, "mh_chain", _variant(
+        mode, "wh" if WH is not None else "vb", **fast_kw))
     if mode == "wf":
         return z_out, vs_out, (out1, out2)
     return z_out, vs_out, (out1, out2, out3)

@@ -23,7 +23,7 @@ import ctypes
 
 import torch
 
-from .. import _build
+from .. import _build, _launches
 from .engine import VX_FLOOR
 
 _VP, _I = ctypes.c_void_p, ctypes.c_int
@@ -168,7 +168,8 @@ def nmf_sums(samples, WH, g, X2=None, mode="h", Vb=None, approx_recip=False):
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(status, "nmf_sums kernel")
     key = f"{mode}_{'wh' if WH is not None else 'vb'}"
-    nmf_sums.launches[key + ("_fast" if bf16 or approx_recip else "")] += 1
+    _launches.count(nmf_sums, "nmf_sums",
+                    key + ("_fast" if bf16 or approx_recip else ""))
     return o1, o2
 
 

@@ -71,22 +71,28 @@ class Encoder(nn.Module):
         self.mu = Linear(h_dim[-1], z_dim)
         self.log_var = Linear(h_dim[-1], z_dim)
 
-    def forward(self, x, generator=None):
-        """Returns (z, mu, log_var); z = mu when no generator is given."""
+    def forward(self, x, generator=None, noise=None):
+        """Returns (z, mu, log_var); z = mu when neither a generator nor
+        `noise` (reparametrize's) is given."""
         h = x
         for layer in self.hidden:
             h = torch.tanh(layer(h))
         mu = self.mu(h)
         log_var = self.log_var(h)
-        z = mu if generator is None else reparametrize(generator, mu,
-                                                       log_var)
+        if generator is None and noise is None:
+            z = mu
+        else:
+            z = reparametrize(generator, mu, log_var, noise)
         return z, mu, log_var
 
 
-def reparametrize(generator, mu, log_var):
-    """z = mu + exp(0.5*log_var) * eps."""
-    eps = torch.randn(mu.shape, generator=generator, dtype=mu.dtype,
-                      device=mu.device)
+def reparametrize(generator, mu, log_var, noise=None):
+    """z = mu + exp(0.5*log_var) * eps, eps drawn from `generator`, or
+    `noise` when given: standard-normal draws of mu's shape (the
+    data-parallel trainer draws a whole batch's once and hands each shard
+    its rows)."""
+    eps = noise if noise is not None else torch.randn(
+        mu.shape, generator=generator, dtype=mu.dtype, device=mu.device)
     return mu + torch.exp(0.5 * log_var) * eps
 
 
@@ -124,8 +130,8 @@ class VAE(nn.Module):
         self.encoder = Encoder(x_dim, h_dim, z_dim)
         self.decoder = Decoder(z_dim, list(reversed(h_dim)), x_dim)
 
-    def forward(self, x, generator=None):
-        z, mu, log_var = self.encoder(x, generator)
+    def forward(self, x, generator=None, noise=None):
+        z, mu, log_var = self.encoder(x, generator, noise)
         return self.decoder(z), mu, log_var
 
 
@@ -140,8 +146,9 @@ class DGM(nn.Module):
         self.encoder = Encoder(x_dim + y_dim, h_dim, z_dim)
         self.decoder = Decoder(z_dim + y_dim, list(reversed(h_dim)), x_dim)
 
-    def forward(self, x, y, generator=None):
-        z, mu, log_var = self.encoder(torch.cat([x, y], dim=-1), generator)
+    def forward(self, x, y, generator=None, noise=None):
+        z, mu, log_var = self.encoder(torch.cat([x, y], dim=-1), generator,
+                                      noise)
         r = self.decoder(torch.cat([z, y], dim=-1))
         return r, mu, log_var
 
@@ -156,16 +163,16 @@ def dgm_init(generator, dims):
     return _init(DGM(dims), generator)
 
 
-def vae_apply(model, x, generator=None):
-    return model(x, generator)
+def vae_apply(model, x, generator=None, noise=None):
+    return model(x, generator, noise)
 
 
 def vae_sample(model, z):
     return model.decoder(z)
 
 
-def dgm_apply(model, x, y, generator=None):
-    return model(x, y, generator)
+def dgm_apply(model, x, y, generator=None, noise=None):
+    return model(x, y, generator, noise)
 
 
 def dgm_sample(model, z, y):

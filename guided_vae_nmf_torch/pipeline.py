@@ -79,6 +79,13 @@ from .mcem.spp import (
 )
 from .models.nets import classifier_features
 from .ops.profiling import StageTimer
+from .parallel.mesh import (
+    ShardError,
+    data_size,
+    replicate,
+    row_slices,
+    run_shards,
+)
 from .profiles import apply_profile_cfg, offline_settings
 from .utils import device_warmup
 
@@ -478,6 +485,50 @@ def enhance_waveform(model, x_pad, mask, cfg: MCEMConfig = MCEMConfig(), *,
     return _to_pcm16(s_est), out_n, out_soft, out_hard, finite_ok
 
 
+def _row_slice(a, s):
+    return None if a is None else a[s]
+
+
+def enhance_waveform_sharded(mesh, model, x_pad, mask, cfg=MCEMConfig(), *,
+                             seeds, classifier=None, y_in=None, s_pad=None,
+                             axis="data", **kw):
+    """:func:`enhance_waveform` with the batch split over the mesh's
+    `axis` (the JAX package's `_enhance_waveform_sharded`): every stage
+    (STFT, labels, MCEM, the Wiener filter, ISTFT) is per utterance, so
+    each shard runs its rows on its device in a thread of its own with no
+    communication. The batch must divide the axis (:func:`enhance_files`
+    pads it with copies of its last row). `seeds` (B ints) are the rows'
+    seeds: a shard's generator is seeded from its first row's (mod 2^63),
+    the eager engine takes every row's. `model` and `classifier` are
+    modules or `parallel.replicate` dicts; `kw` are enhance_waveform's
+    other arguments (not `generator` or `device`). Returns its tuple,
+    gathered on the axis's first device."""
+    devs = mesh.axis_devices(axis)
+    B = len(x_pad)
+    if B % len(devs):
+        raise ValueError(f"batch {B} must divide the mesh axis "
+                         f"({len(devs)})")
+    models = model if isinstance(model, dict) else replicate(mesh, model)
+    classifiers = (classifier if isinstance(classifier, dict)
+                   else replicate(mesh, classifier))
+    seeds = [int(v) for v in seeds]
+    slices = row_slices(B, len(devs))
+
+    def shard(i, d):
+        sl = slices[i]
+        return enhance_waveform(
+            models[d], x_pad[sl], mask[sl], cfg, classifier=classifiers[d],
+            y_in=_row_slice(y_in, sl), s_pad=_row_slice(s_pad, sl),
+            generator=torch.Generator(device=d).manual_seed(
+                seeds[sl.start] % 2**63),
+            seeds=seeds[sl], device=d, **kw)
+
+    parts = run_shards(mesh, shard, mesh.cells(axis))
+    return tuple(None if parts[0][j] is None
+                 else torch.cat([p[j].to(devs[0]) for p in parts])
+                 for j in range(len(parts[0])))
+
+
 @torch.no_grad()
 def enhance_to_audio(model, X_tfs, t_origs, ys=None, generator=None,
                      cfg: MCEMConfig = MCEMConfig(), bucket_multiple=128,
@@ -532,24 +583,45 @@ def enhance_batch(model, X_tfs, ys=None, generator=None, seeds=None,
 
 
 def plan_batches(file_paths, n_frames_all, batch_size=16,
-                 bucket_multiple=128, seed=0):
+                 bucket_multiple=128, n_dev=1, seed=0):
     """Bucket utterances by padded frame count and cut batches; returns
     [(paths, n_pad, seeds)]. Batch sizes scale inversely with bucket length
     (the (B, R, N, F) sample buffer must fit device memory). Per-utterance
     seeds derive from the utterance's list index; a batch's generator is
-    seeded from its first member's seed."""
+    seeded from its first member's seed, so the fused engine's output
+    depends on the plan, and the eager engine's (per-row seeds) does not.
+
+    With n_dev > 1 (a mesh's data axis) the plan is the JAX package's
+    mesh-aware one: every batch size is a multiple of n_dev, and bucket
+    tails smaller than the mesh are pooled across buckets, in descending
+    n_pad, into batches at the largest n_pad of their members, so only
+    the last pooled chunk is padded with duplicate rows when it is
+    sharded (`scripts.bench_shard_balance` measures the waste)."""
     groups = defaultdict(list)
     for i, nf in enumerate(n_frames_all):
         groups[bucket_frames(nf, bucket_multiple)].append(i)
     seeds_all = np.random.default_rng(seed).integers(
         0, 2**62, size=max(len(file_paths), 1))
     batches = []
+    leftovers = []      # (index, n_pad) of bucket tails smaller than n_dev
     for n_pad, idxs in sorted(groups.items()):
         eff_batch = max(1, batch_size * 512 // max(n_pad, 512))
+        if n_dev > 1:
+            eff_batch = max(n_dev, (eff_batch // n_dev) * n_dev)
+            tail = len(idxs) % n_dev
+            if tail:
+                leftovers.extend((i, n_pad) for i in idxs[-tail:])
+                idxs = idxs[:-tail]
         for lo in range(0, len(idxs), eff_batch):
             sel = idxs[lo: lo + eff_batch]
             batches.append(([file_paths[i] for i in sel], n_pad,
                             seeds_all[np.asarray(sel)]))
+    leftovers.sort(key=lambda t: -t[1])
+    for lo in range(0, len(leftovers), n_dev):
+        chunk = leftovers[lo: lo + n_dev]
+        sel = np.asarray([i for i, _ in chunk])
+        batches.append(([file_paths[i] for i, _ in chunk],
+                        max(p for _, p in chunk), seeds_all[sel]))
     return batches
 
 
@@ -587,7 +659,7 @@ def enhance_files(file_paths, processed_dir, output_dir, model,
                   cfg: MCEMConfig = MCEMConfig(), batch_size=16,
                   bucket_multiple=128, quantile_fraction=0.98,
                   quantile_weight=0.999, seed=0, verbose=False,
-                  engine="auto", noise_model="nmf", fast=False,
+                  engine="auto", noise_model="nmf", fast=False, mesh=None,
                   soft_guidance=False, skip_existing=False, profile=None,
                   features="power", dnn_threshold=0.5, device=None):
     """Sweep over a file list: reads `<utt>_x.wav` (and `<utt>_s.wav` for
@@ -620,7 +692,17 @@ def enhance_files(file_paths, processed_dir, output_dir, model,
 
     profile: name of a validated operating point (:mod:`.profiles`),
     authoritative for noise_model, soft_guidance and the cfg's noise_gain /
-    noise_gain_bands; every other argument keeps its value."""
+    noise_gain_bands; every other argument keeps its value.
+
+    mesh: a `parallel.Mesh`; each batch is split over its "data" axis
+    (:func:`enhance_waveform_sharded`, on the mesh's devices; `device` is
+    then unused), the plan is mesh-aware (:func:`plan_batches` with
+    n_dev), and a batch that does not divide the axis is padded with
+    copies of its last row, whose outputs are not written. A shard that
+    fails raises `parallel.ShardError` out of the sweep (no retry, no
+    passthrough); non-finite rows are retried one utterance at a time on
+    the mesh. With a mesh of one device the sweep is the unsharded one,
+    bit for bit."""
     if profile is not None:
         noise_model, soft_guidance = offline_settings(profile)
         cfg = apply_profile_cfg(cfg, profile)
@@ -628,7 +710,12 @@ def enhance_files(file_paths, processed_dir, output_dir, model,
     if label_mode not in ("none", "dnn", "oracle", "timo", "ones", "zeros"):
         raise ValueError(f"unknown classif_type: {classif_type!r}")
     _check_supported(noise_model, fast, cfg, engine)
-    dev = resolve_device(device)
+    if mesh is None:
+        dev, n_dev = resolve_device(device), 1
+    else:
+        n_dev = data_size(mesh)
+        dev = mesh.axis_devices("data")[0]
+        models = (replicate(mesh, model), replicate(mesh, classifier))
     n_listed = len(file_paths)
     if skip_existing:
         file_paths = [
@@ -640,7 +727,8 @@ def enhance_files(file_paths, processed_dir, output_dir, model,
             return SweepResult(0.0, 0, n_listed)
     n_skipped = n_listed - len(file_paths)
     t_start = time.perf_counter()
-    device_warmup(dev)
+    for d in ({dev} if mesh is None else set(mesh.devices.ravel())):
+        device_warmup(d)
     if dev.type == "cuda":
         build_all()     # a toolchain fault fails here, not once per batch
     PREFETCH = 3
@@ -654,7 +742,7 @@ def enhance_files(file_paths, processed_dir, output_dir, model,
             lambda p: frame_count(wav_num_samples(base_in(p) + "_x.wav")),
             file_paths))
     batches = plan_batches(file_paths, n_frames_all, batch_size,
-                           bucket_multiple, seed)
+                           bucket_multiple, n_dev, seed)
 
     oracle = label_mode == "oracle"
 
@@ -677,22 +765,39 @@ def enhance_files(file_paths, processed_dir, output_dir, model,
         """enhance_waveform over a["..."][rows]; returns (s, n | None,
         y_soft, y_hard) on the host."""
         eager = _eager(engine, model, a["mask"].shape[1], cfg, noise_model)
-        gen = torch.Generator(device=dev).manual_seed(int(seeds[0]))
+        x, m = a["x"][rows], a["mask"][rows]
+        sp = None if a["s"] is None else a["s"][rows]
+        seeds = [int(v) for v in seeds]
+        kw = dict(mean=mean, std=std, label_mode=label_mode,
+                  noise_model=noise_model, fast=fast, engine=engine,
+                  target=target, quantile_fraction=quantile_fraction,
+                  quantile_weight=quantile_weight, return_noise=eager,
+                  soft_guidance=soft_guidance, features=features,
+                  dnn_threshold=dnn_threshold)
+        B = len(x)
         with timer.stage("dispatch"):
-            out = enhance_waveform(
-                model, a["x"][rows], a["mask"][rows], cfg,
-                classifier=classifier, mean=mean, std=std,
-                s_pad=None if a["s"] is None else a["s"][rows],
-                generator=gen, seeds=[int(v) for v in seeds],
-                label_mode=label_mode, noise_model=noise_model, fast=fast,
-                engine=engine, target=target,
-                quantile_fraction=quantile_fraction,
-                quantile_weight=quantile_weight, return_noise=eager,
-                soft_guidance=soft_guidance, features=features,
-                dnn_threshold=dnn_threshold, device=dev)
+            if mesh is None:
+                out = enhance_waveform(
+                    model, x, m, cfg, classifier=classifier, s_pad=sp,
+                    generator=torch.Generator(device=dev).manual_seed(
+                        seeds[0]),
+                    seeds=seeds, device=dev, **kw)
+            else:
+                # duplicate the last row up to the mesh; never written
+                pad = (-B) % n_dev
+
+                def padb(v):
+                    return None if v is None else np.concatenate(
+                        [v, np.repeat(v[-1:], pad, axis=0)])
+
+                out = enhance_waveform_sharded(
+                    mesh, models[0], padb(x), padb(m), cfg,
+                    classifier=models[1], s_pad=padb(sp),
+                    seeds=seeds + seeds[-1:] * pad, **kw)
         with timer.stage("d2h_fetch"):
             s, n, y_soft, y_hard, ok = (None if o is None
-                                        else o.cpu().numpy() for o in out)
+                                        else o[:B].cpu().numpy()
+                                        for o in out)
         if not np.all(ok):
             raise FloatingPointError("non-finite enhancement output")
         return s, n, y_soft, y_hard
@@ -740,7 +845,7 @@ def enhance_files(file_paths, processed_dir, output_dir, model,
                                  None if n_b is None else n_b[j][:t])
                                 + labels_host(ys_b, yh_b, j,
                                               a["n_frames"][j]))
-            except KernelError:
+            except (KernelError, ShardError):
                 raise
             except (RuntimeError, FloatingPointError) as exc:
                 print(f"batch of {len(paths)} failed ({exc!r}); retrying "
@@ -753,7 +858,7 @@ def enhance_files(file_paths, processed_dir, output_dir, model,
                                      None if n1 is None else n1[0][:t])
                                     + labels_host(ys1, yh1, 0,
                                                   a["n_frames"][j]))
-                    except KernelError:
+                    except (KernelError, ShardError):
                         raise
                     except (RuntimeError, FloatingPointError) as exc2:
                         print(f"utterance {paths[j]} failed ({exc2!r}); "

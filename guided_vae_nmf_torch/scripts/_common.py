@@ -48,12 +48,15 @@ def device(rest):
     return resolve_device(flag(rest, "device"))
 
 
-def no_data_parallel(rest):
-    """`--data_parallel 1` raises: multi-GPU sweeps are ROADMAP Queue 1,
-    item 5."""
-    if flag(rest, "data_parallel", "0") in ("1", "true"):
-        raise NotImplementedError(
-            "--data_parallel is not ported yet (ROADMAP Queue 1, item 5)")
+def data_parallel(rest):
+    """The mesh of `--data_parallel 1` (`parallel.data_parallel_mesh`:
+    every visible card, raising without one, or the one `--device`), or
+    None."""
+    if flag(rest, "data_parallel", "0") not in ("1", "true"):
+        return None
+    from ..parallel import data_parallel_mesh
+
+    return data_parallel_mesh(flag(rest, "device"))
 
 
 def engine_config(rest):

@@ -9,8 +9,8 @@ import time
 from ..config import PathsConfig, apply_overrides
 from ..data import speech_list
 from ..pipeline import enhance_files
-from ._common import (device, engine_config, flag, load_model,
-                      load_norm_stats, no_data_parallel)
+from ._common import (data_parallel, device, engine_config, flag,
+                      load_model, load_norm_stats)
 
 
 def run(argv, target):
@@ -27,7 +27,7 @@ def run(argv, target):
                   + f"M2_{target}_{classif_type}_enhanced/")
     batch_size = flag(rest, "batch_size", 16, int)
     skip_existing = flag(rest, "skip_existing", "0") in ("1", "true")
-    no_data_parallel(rest)
+    mesh = data_parallel(rest)
     dev = device(rest)
 
     dgm = load_model(model_path, kind="dgm",
@@ -62,7 +62,7 @@ def run(argv, target):
                         soft_guidance=soft_labels,
                         skip_existing=skip_existing, profile=profile,
                         features=features, dnn_threshold=dnn_threshold,
-                        device=dev)
+                        mesh=mesh, device=dev)
     skipped = f", {res.n_skipped} skipped" if res.n_skipped else ""
     print(f"Finished in {time.perf_counter() - t0:.1f} seconds "
           f"({res.n_processed} utterances{skipped})")

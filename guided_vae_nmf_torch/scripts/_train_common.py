@@ -1,18 +1,19 @@
 """Shared parsing of the training scripts: the path and TrainConfig
-overrides, `--resume`, `--data_parallel` (raises) and `--device`."""
+overrides, `--resume`, `--data_parallel` (the batch's rows over a mesh,
+`_common.data_parallel`) and `--device`."""
 
 from ..config import PathsConfig, TrainConfig, apply_overrides
 from ..data.h5io import H5FrameReader
-from ._common import device, flag, no_data_parallel
+from ._common import data_parallel, device, flag
 
 
 def parse(argv, end_epoch):
-    """(paths, cfg, resume, device, rest) of a training script."""
+    """(paths, cfg, resume, device, mesh, rest) of a training script."""
     paths, rest = apply_overrides(PathsConfig(), argv)
     cfg, rest = apply_overrides(TrainConfig(end_epoch=end_epoch), rest)
     resume = flag(rest, "resume", "0") in ("1", "true")
-    no_data_parallel(rest)
-    return paths, cfg, resume, device(rest), rest
+    mesh = data_parallel(rest)
+    return paths, cfg, resume, device(rest), mesh, rest
 
 
 def h_dim(rest, default):

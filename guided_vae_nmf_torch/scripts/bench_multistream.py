@@ -12,9 +12,12 @@ each); a realtime factor >= B means the card sustains B live streams.
 Usage: python -m guided_vae_nmf_torch.scripts.bench_multistream
        [--streams 2,4,8] [--seconds 8] [--max_streams 0]
        [--chunk_frames 4] [--context_frames 24] [--label_mode timo]
-       [--block_iters 6] [--e_steps 4] [--device cuda|cpu]
+       [--block_iters 6] [--e_steps 4] [--data_parallel 0]
+       [--device cuda|cpu]
 
-`--data_parallel 1` raises NotImplementedError (ROADMAP Queue 1, item 5).
+`--data_parallel 1` splits the pool's slot rows and their state over every
+visible card (full-lane ticks; the pool is rounded up to a multiple of the
+card count), over the one `--device` otherwise.
 """
 
 import json
@@ -23,8 +26,8 @@ import time
 
 import numpy as np
 
-from ._common import (backend_info, device, flag, load_model,
-                      load_norm_stats, no_data_parallel)
+from ._common import (backend_info, data_parallel, device, flag,
+                      load_model, load_norm_stats)
 
 FS = 16000
 
@@ -45,10 +48,11 @@ def _sync(dev):
         torch.cuda.synchronize(dev)
 
 
-def _run_pooled(dgm, kw, sigs, chunk_samples, max_streams):
+def _run_pooled(dgm, kw, sigs, chunk_samples, max_streams, mesh=None):
     from ..streaming import MultiStreamM2Enhancer
 
-    pool = MultiStreamM2Enhancer(dgm, max_streams=max_streams, **kw)
+    pool = MultiStreamM2Enhancer(dgm, max_streams=max_streams, mesh=mesh,
+                                 **kw)
     sids = [pool.open() for _ in sigs]
     n = len(sigs[0])
     t0 = time.perf_counter()
@@ -89,9 +93,10 @@ def main(argv=None):
     label_mode = flag(argv, "label_mode", "timo")
     block_iters = flag(argv, "block_iters", 6, int)
     e_steps = flag(argv, "e_steps", 4, int)
-    no_data_parallel(argv)
+    mesh = data_parallel(argv)
     dev = device(argv)
 
+    from ..parallel import pad_to_multiple
     from ..streaming import HOP
 
     kw = dict(label_mode=label_mode, chunk_frames=chunk_frames,
@@ -111,11 +116,13 @@ def main(argv=None):
     for B in streams:
         sigs = [_signal(7 + i, n) for i in range(B)]
         pool_size = max_streams or B
+        if mesh is not None:
+            pool_size = pad_to_multiple(pool_size, mesh.shape["data"])
         # warm both paths (the pool's and a dedicated stream's)
         _run_pooled(dgm, kw, [s[: 4 * chunk_samples] for s in sigs],
-                    chunk_samples, pool_size)
+                    chunk_samples, pool_size, mesh)
         _run_serial(dgm, kw, [sigs[0][: 4 * chunk_samples]], chunk_samples)
-        t_pool = _run_pooled(dgm, kw, sigs, chunk_samples, pool_size)
+        t_pool = _run_pooled(dgm, kw, sigs, chunk_samples, pool_size, mesh)
         t_serial = _run_serial(dgm, kw, sigs, chunk_samples)
         audio_s = B * seconds
         rows.append({

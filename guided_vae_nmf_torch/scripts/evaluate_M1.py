@@ -5,7 +5,8 @@ Usage: python -m guided_vae_nmf_torch.scripts.evaluate_M1
        --model <ckpt-or-dir> [--algorithm mcem|peem|hybrid]
        [--dataset_size subset] [--data_root data] [--niter 100]
        [--batch_size 16] [--output <dir>] [--noise_model nmf|spp|spp2|hybrid]
-       [--profile <name>] [--skip_existing 0] [--device cuda|cpu]
+       [--profile <name>] [--skip_existing 0] [--data_parallel 0]
+       [--device cuda|cpu]
 """
 
 import sys
@@ -14,7 +15,8 @@ import time
 from ..config import PathsConfig, apply_overrides
 from ..data import speech_list
 from ..pipeline import enhance_files
-from ._common import device, engine_config, flag, load_model, no_data_parallel
+from ._common import (data_parallel, device, engine_config, flag,
+                      load_model)
 
 
 def main(argv=None):
@@ -27,7 +29,7 @@ def main(argv=None):
     noise_model = flag(rest, "noise_model", "nmf")
     profile = flag(rest, "profile", None)
     skip_existing = flag(rest, "skip_existing", "0") in ("1", "true")
-    no_data_parallel(rest)
+    mesh = data_parallel(rest)
     dev = device(rest)
 
     vae = load_model(model_path, kind="vae", device=dev)
@@ -37,7 +39,7 @@ def main(argv=None):
                         model_type="m1", cfg=cfg, batch_size=batch_size,
                         verbose=True, noise_model=noise_model,
                         skip_existing=skip_existing, profile=profile,
-                        device=dev)
+                        mesh=mesh, device=dev)
     skipped = f", {res.n_skipped} skipped" if res.n_skipped else ""
     print(f"Finished in {time.perf_counter() - t0:.1f} seconds "
           f"({res.n_processed} utterances{skipped})")

@@ -14,7 +14,8 @@ Usage: python -m guided_vae_nmf_torch.scripts.serve_http [--host 0.0.0.0]
        [--pooled_streams 0] [--max_streams 8] [--tick_ms 5]
        [--profile <name>] [--data_parallel 0] [--device cuda|cpu]
 
-`--data_parallel 1` raises NotImplementedError (ROADMAP Queue 1, item 5).
+`--data_parallel 1` shards the request batches and the pooled streams over
+every visible card (over the one `--device` otherwise).
 """
 
 from ..http_serving import main

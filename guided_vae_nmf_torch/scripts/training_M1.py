@@ -5,7 +5,7 @@ Usage: python -m guided_vae_nmf_torch.scripts.training_M1
        [--dataset_size subset] [--data_root data] [--z_dim 16]
        [--h_dim 128] [--end_epoch 200] [--batch_size 128]
        [--learning_rate 1e-3] [--seed 0] [--resume true]
-       [--device cuda|cpu]
+       [--data_parallel 0] [--device cuda|cpu]
 """
 
 import os
@@ -19,7 +19,7 @@ from ._common import flag
 
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
-    paths, cfg, resume, dev, rest = tc.parse(argv, end_epoch=200)
+    paths, cfg, resume, dev, mesh, rest = tc.parse(argv, end_epoch=200)
     z_dim = flag(rest, "z_dim", 16, int)
     h_dim = tc.h_dim(rest, (128,))
 
@@ -37,7 +37,7 @@ def main(argv=None):
     model_dir = os.path.join(paths.models_dir, name)
     model, hist = train_m1(
         Xtr, Xva, dims=(513, z_dim, h_dim), cfg=cfg, model_dir=model_dir,
-        name="M1", resume=resume, verbose=True, device=dev)
+        name="M1", mesh=mesh, resume=resume, verbose=True, device=dev)
     print(f"done; best valid {min(h['valid'] for h in hist):.2f}; "
           f"checkpoints in {model_dir}")
     return model_dir

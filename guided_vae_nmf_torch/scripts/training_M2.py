@@ -6,7 +6,7 @@ Usage: python -m guided_vae_nmf_torch.scripts.training_M2
        [--labels noisy_labels|noisy_vad_labels] [--z_dim 32]
        [--h_dim 128,128] [--end_epoch 200] [--batch_size 128]
        [--learning_rate 1e-3] [--seed 0] [--resume true]
-       [--device cuda|cpu]
+       [--data_parallel 0] [--device cuda|cpu]
 """
 
 import os
@@ -19,7 +19,7 @@ from ._common import flag
 
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
-    paths, cfg, resume, dev, rest = tc.parse(argv, end_epoch=200)
+    paths, cfg, resume, dev, mesh, rest = tc.parse(argv, end_epoch=200)
     labels = flag(rest, "labels", "noisy_labels")
     z_dim = flag(rest, "z_dim", 32, int)
     h_dim = tc.h_dim(rest, (128, 128))
@@ -31,8 +31,8 @@ def main(argv=None):
     model_dir = os.path.join(paths.models_dir, name)
     model, hist = train_m2(
         train, valid, dims=(513, y_dim, z_dim, h_dim), cfg=cfg,
-        model_dir=model_dir, name="M2", resume=resume, verbose=True,
-        device=dev)
+        model_dir=model_dir, name="M2", mesh=mesh, resume=resume,
+        verbose=True, device=dev)
     print(f"done; best valid {min(h['valid'] for h in hist):.2f}; "
           f"checkpoints in {model_dir}")
     return model_dir

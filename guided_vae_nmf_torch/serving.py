@@ -22,8 +22,11 @@ same PCM alone or co-batched (the tests allow 1 LSB); its noise track is
 the device's n, not x - s. At var_RW=0 with the 'spp' noise model
 nothing is drawn at random and the output is deterministic.
 
-Not ported yet: mesh-sharded serving (`mesh=`, ROADMAP Queue 1 item 5)
-raises NotImplementedError.
+With `mesh=` (a `parallel.Mesh`) each batch is split over the mesh's
+"data" axis (`pipeline.enhance_waveform_sharded`): a batch is padded to a
+lattice entry of at least the axis's size, and each shard's generator is
+seeded from its first request's seed, so on a mesh of one device the
+service is the unsharded one.
 """
 
 import contextlib
@@ -41,7 +44,15 @@ from ._build import build_all
 from ._device import resolve_device
 from .dsp import frame_count, pad_signal_for_stft
 from .mcem.engine import MCEMConfig
-from .pipeline import HOP, NFFT, _check_supported, _eager, enhance_waveform
+from .parallel.mesh import data_size, pad_to_multiple, replicate
+from .pipeline import (
+    HOP,
+    NFFT,
+    _check_supported,
+    _eager,
+    enhance_waveform,
+    enhance_waveform_sharded,
+)
 
 SERVE_LABEL_MODES = ("dnn", "timo", "none", "ones", "zeros")
 
@@ -109,15 +120,16 @@ class EnhancementService:
     `enhance(x)` is the blocking form. Thread-safe: any number of producer
     threads may submit concurrently. The model and classifier must live on
     `device` (the GPU unless named); on CUDA the kernels are built here, so
-    a toolchain fault fails the constructor and not each request."""
+    a toolchain fault fails the constructor and not each request.
+
+    mesh: optional `parallel.Mesh` whose "data" axis the batches are split
+    over (the largest batch_lattice entry must divide by it; single
+    requests then pay duplicate rows); the service's device is then the
+    axis's first and `device` is unused."""
 
     def __init__(self, model, classifier=None, mean=None, std=None,
                  cfg: MCEMConfig = MCEMConfig(),
                  serve: ServeConfig = ServeConfig(), mesh=None, device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh-sharded serving is not ported yet (ROADMAP Queue 1, "
-                "item 5)")
         if serve.label_mode not in SERVE_LABEL_MODES:
             raise ValueError(f"label_mode must be one of {SERVE_LABEL_MODES},"
                              f" got {serve.label_mode!r}")
@@ -135,7 +147,18 @@ class EnhancementService:
         if serve.bucket_multiple < 16 or serve.bucket_multiple % 16:
             raise ValueError("bucket_multiple must be a multiple of 16 (the "
                              "chain kernel's frame tile)")
-        self._dev = resolve_device(device)
+        self._mesh = mesh
+        self._n_dev = 1
+        if mesh is None:
+            self._dev = resolve_device(device)
+        else:
+            self._n_dev = data_size(mesh)
+            if lat[-1] % self._n_dev:
+                raise ValueError("the largest batch_lattice entry must "
+                                 "divide by the mesh data axis")
+            self._dev = mesh.axis_devices("data")[0]
+            self._replicas = (replicate(mesh, model),
+                              replicate(mesh, classifier))
         if self._dev.type == "cuda":
             build_all()
         self._model = model
@@ -352,7 +375,8 @@ class EnhancementService:
         them."""
         sv = self._serve
         B = len(reqs)
-        Bp = next(b for b in sv.batch_lattice if b >= B)
+        Bp = next(b for b in sv.batch_lattice if b >= max(B, self._n_dev))
+        Bp = pad_to_multiple(Bp, self._n_dev)
         Lw = (n_pad - 1) * HOP + NFFT
         x_b = np.zeros((Bp, Lw), np.int16)
         mask_b = np.zeros((Bp, n_pad), np.float32)
@@ -365,22 +389,29 @@ class EnhancementService:
         mask_b[B:] = mask_b[B - 1]
         seeds = [sv.seed * 1_000_003 + r.rid
                  for r in reqs + [reqs[-1]] * (Bp - B)]
-        gen = torch.Generator(device=self._dev).manual_seed(
-            seeds[0] % 2**63)
         # the eager engine's Vx floor can break WFs + WFn = 1 in near-silent
         # bins, so its rows return the device's n
         eager = _eager(sv.engine, self._model, n_pad, self._cfg,
                        sv.noise_model)
         dnn = sv.label_mode == "dnn"
-        s_i16, n_i16, _, _, finite_ok = enhance_waveform(
-            self._model, x_b, mask_b, self._cfg,
-            classifier=self._cls if dnn else None,
-            mean=self._mean if dnn else None, std=self._std if dnn else None,
-            generator=gen, seeds=seeds, label_mode=sv.label_mode,
-            noise_model=sv.noise_model, fast=sv.fast, engine=sv.engine,
-            target=sv.target, return_noise=eager,
-            soft_guidance=sv.soft_guidance, features=sv.features,
-            dnn_threshold=sv.dnn_threshold, device=self._dev)
+        kw = dict(mean=self._mean if dnn else None,
+                  std=self._std if dnn else None, label_mode=sv.label_mode,
+                  noise_model=sv.noise_model, fast=sv.fast, engine=sv.engine,
+                  target=sv.target, return_noise=eager,
+                  soft_guidance=sv.soft_guidance, features=sv.features,
+                  dnn_threshold=sv.dnn_threshold)
+        if self._mesh is None:
+            s_i16, n_i16, _, _, finite_ok = enhance_waveform(
+                self._model, x_b, mask_b, self._cfg,
+                classifier=self._cls if dnn else None,
+                generator=torch.Generator(device=self._dev).manual_seed(
+                    seeds[0] % 2**63),
+                seeds=seeds, device=self._dev, **kw)
+        else:
+            models, classifiers = self._replicas
+            s_i16, n_i16, _, _, finite_ok = enhance_waveform_sharded(
+                self._mesh, models, x_b, mask_b, self._cfg,
+                classifier=classifiers if dnn else None, seeds=seeds, **kw)
         return s_i16, n_i16, finite_ok
 
     def _resolve_bucket(self, handles, reqs):

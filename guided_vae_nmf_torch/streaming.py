@@ -70,6 +70,7 @@ from .mcem.engine import (
 )
 from .mcem.spp import spp_state_init, spp_track_chunk
 from .models.nets import classifier_features
+from .parallel.mesh import data_size, replicate, run_shards
 
 FS = 16000
 NFFT, HOP = stft_params()
@@ -876,8 +877,7 @@ class StreamingM2Enhancer(_StreamingOLA):
         row of the pool's resident state (ticks update only that row)."""
         pool = getattr(self, "_pool", None)
         if pool is not None and pool._pool_state is not None:
-            row = self._pool_row
-            return _tree_map(lambda a: a[row], pool._pool_state)
+            return pool._row_state(self._pool_row)
         return _tree_map(lambda a: a[0], self._dstate)
 
     # state views for tests and introspection
@@ -915,14 +915,19 @@ class StreamingM2Enhancer(_StreamingOLA):
                     features=self.features,
                     dnn_threshold=self.dnn_threshold)
 
-    def _run_tick(self, frames, ks, state):
-        """`_m2_tick` in float64 on this stream's models and settings;
-        frames (P, K, nfft) host float32."""
+    def _wide_models(self):
+        """The float64 copies of the model and the classifier the tick
+        runs on, made at the first call."""
         if self._models64 is None:
             self._models64 = tuple(
                 None if m is None else copy.deepcopy(m).double()
                 for m in (self.model, self.cls))
-        return _m2_tick(*self._models64, self.mean, self.std,
+        return self._models64
+
+    def _run_tick(self, frames, ks, state):
+        """`_m2_tick` in float64 on this stream's models and settings;
+        frames (P, K, nfft) host float32."""
+        return _m2_tick(*self._wide_models(), self.mean, self.std,
                         self._band_map, self._window,
                         torch.as_tensor(frames, dtype=torch.float64,
                                         device=self._dev),
@@ -1037,21 +1042,30 @@ class MultiStreamM2Enhancer:
     flip an escalation; soft guidance has the first edge nowhere.
 
     The pool runs causal lanes: `lookahead=True` raises (its delayed
-    emission is a dedicated stream's). `mesh=` (multi-GPU pools) raises
-    NotImplementedError (ROADMAP Queue 1, item 5). `device` as for the
-    stream."""
+    emission is a dedicated stream's). `device` as for the stream.
+
+    mesh: a `parallel.Mesh` whose "data" axis the slot rows are split over
+    (max_streams must divide by it): each device holds its rows' stacked
+    state, and a tick runs EVERY slot row, as the JAX package's sharded
+    tick does (idle rows at k=0 on zero frames, their state kept), one
+    shard a device in a thread of its own. The slots' enhancers live on
+    the axis's first device; `device` is then unused."""
 
     def __init__(self, model, classifier=None, mean=None, std=None,
                  max_streams=8, mesh=None, device=None, **enhancer_kwargs):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh-sharded stream pools are not ported yet (ROADMAP "
-                "Queue 1, item 5)")
         if max_streams < 1:
             raise ValueError("max_streams must be >= 1")
         if enhancer_kwargs.get("lookahead"):
             raise ValueError("the pool runs causal lanes; lookahead is a "
                              "dedicated StreamingM2Enhancer's")
+        self.mesh = mesh
+        if mesh is not None:
+            n_dev = data_size(mesh)
+            if max_streams % n_dev:
+                raise ValueError(
+                    f"max_streams ({max_streams}) must be a multiple of "
+                    f"the mesh data axis ({n_dev})")
+            device = mesh.axis_devices("data")[0]
         self.max_streams = max_streams
         self.chunk_frames = enhancer_kwargs.get("chunk_frames", 8)
         self._dev = resolve_device(device)
@@ -1060,6 +1074,16 @@ class MultiStreamM2Enhancer:
         # runs every tick (and the constructor's checks, now); the slots'
         # enhancers only frame, overlap-add and emit
         self._proto = StreamingM2Enhancer(**self._kw)
+        if mesh is not None:
+            # one tick runner a distinct device, with its models' float64
+            # copies made here (shard threads share a device's runner)
+            models, classifiers = (replicate(mesh, model),
+                                   replicate(mesh, classifier))
+            self._protos = {d: StreamingM2Enhancer(**{
+                **self._kw, "model": models[d], "classifier": classifiers[d],
+                "device": d}) for d in models}
+            for p in self._protos.values():
+                p._wide_models()
         self._slots = {}        # sid -> StreamingM2Enhancer
         self._free = []         # closed enhancers, recycled by open()
         self._next_sid = 0
@@ -1094,20 +1118,40 @@ class MultiStreamM2Enhancer:
             self._n_created += 1
         if self._pool_state is None:
             # every row starts fresh (enh's just-reset state)
-            self._pool_state = _tree_map(
-                lambda a: a.repeat((self.max_streams,)
-                                   + (1,) * (a.dim() - 1)), enh._dstate)
+            if self.mesh is None:
+                self._pool_state = _tree_map(
+                    lambda a: a.repeat((self.max_streams,)
+                                       + (1,) * (a.dim() - 1)), enh._dstate)
+            else:
+                devs = self.mesh.axis_devices("data")
+                per = self.max_streams // len(devs)
+                self._pool_state = [
+                    _tree_map(lambda a, d=d: a.repeat(
+                        (per,) + (1,) * (a.dim() - 1)).to(d), enh._dstate)
+                    for d in devs]
         else:
-            row = enh._pool_row
+            state, row = self._locate(enh._pool_row)
 
             def put(a, f):
-                a[row] = f[0]
-            _tree_map(put, self._pool_state, enh._dstate)
+                a[row] = f[0].to(a.device)
+            _tree_map(put, state, enh._dstate)
         sid = self._next_sid
         self._next_sid += 1
         self._slots[sid] = enh
         self._buffered[sid] = []
         return sid
+
+    def _locate(self, row):
+        """(stacked state holding slot `row`, its index there)."""
+        if self.mesh is None:
+            return self._pool_state, row
+        per = self.max_streams // len(self._pool_state)
+        return self._pool_state[row // per], row % per
+
+    def _row_state(self, row):
+        """Slot `row`'s recurrent state, without the lane axis."""
+        state, r = self._locate(row)
+        return _tree_map(lambda a: a[r], state)
 
     def close(self, sid):
         """Release a stream's slot (its enhancer is recycled). Un-flushed
@@ -1148,6 +1192,8 @@ class MultiStreamM2Enhancer:
         The host work a tick is frame extraction and overlap-add."""
         lanes = [(s, s._t_done, min(s.chunk_frames, t_end - s._t_done))
                  for _, s, t_end in ready]
+        if self.mesh is not None:
+            return self._tick_sharded(lanes)
         dev = self._dev
         frames = np.stack([s._take_frames(s._pad, t0, k)
                            for s, t0, k in lanes])
@@ -1163,6 +1209,40 @@ class MultiStreamM2Enhancer:
             y_np, m_np = _to_host(y, m)
         for i, (s, t0, k) in enumerate(lanes):
             s._ola_accumulate(t0, y_np[i], m_np[i].astype(np.float16), k)
+
+    def _tick_sharded(self, lanes):
+        """One full-lane tick over the mesh: every slot row runs (rows with
+        no ready chunk at k=0 on zero frames), each shard on its device's
+        rows and stacked state; a row's new state is kept only where it
+        had frames (k > 0)."""
+        devs = self.mesh.axis_devices("data")
+        per = self.max_streams // len(devs)
+        frames = np.zeros((self.max_streams, self.chunk_frames, NFFT),
+                          np.float32)
+        ks = np.zeros((self.max_streams,), np.int64)
+        for s, t0, k in lanes:
+            frames[s._pool_row] = s._take_frames(s._pad, t0, k)
+            ks[s._pool_row] = k
+
+        def shard(i, d):
+            rows = slice(i * per, (i + 1) * per)
+            k_d = torch.as_tensor(ks[rows], device=d)
+            state = self._pool_state[i]
+            y, m, new, _ = self._protos[d]._run_tick(frames[rows], k_d,
+                                                     state)
+            keep = k_d > 0
+            self._pool_state[i] = _tree_map(
+                lambda n, o: torch.where(
+                    keep.reshape((-1,) + (1,) * (n.dim() - 1)), n, o),
+                new, state)
+            return _to_host(y, m)
+
+        parts = run_shards(self.mesh, shard, self.mesh.cells("data"))
+        y_np = np.concatenate([p[0] for p in parts])
+        m_np = np.concatenate([p[1] for p in parts])
+        for s, t0, k in lanes:
+            r = s._pool_row
+            s._ola_accumulate(t0, y_np[r], m_np[r].astype(np.float16), k)
 
     def step(self):
         """Process every ready chunk of every live stream in batched ticks

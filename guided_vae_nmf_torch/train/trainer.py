@@ -19,8 +19,15 @@ while the next epoch runs. The reparametrisation draws of M1 / M2 come
 from a `torch.Generator` seeded by `cfg.seed`: the same distribution as
 JAX's key chain, not the same bits.
 
-Data-parallel training (`mesh=`) is not ported yet (ROADMAP Queue 1,
-item 5).
+Data-parallel training (`mesh=`, a `parallel.Mesh`) changes where a step
+runs, not what it computes, as in the JAX package: the step's
+reparametrisation draws are taken once for the whole batch and split by
+rows, each shard runs the forward and backward pass on its rows on a
+replica of the model (one a distinct device) in a thread of its own, the
+shards' gradients are weighted by their share of the batch and summed in
+shard order on the first device, and one Adam step there is copied to
+every replica. The losses are batch means, so this is the single-device
+step up to the order of its float sums.
 """
 
 import copy
@@ -36,6 +43,7 @@ import torch
 from .._device import resolve_device
 from ..utils import device_warmup
 from ..data.h5io import frame_batches
+from ..parallel.mesh import data_size, replicate, row_slices, run_shards
 from ..models import (
     binary_cross_entropy_logits,
     classifier_apply,
@@ -78,13 +86,6 @@ class TrainConfig:
     seed: int = 0
 
 
-def _no_mesh(mesh):
-    if mesh is not None:
-        raise NotImplementedError(
-            "data-parallel training (mesh=) is not ported yet (ROADMAP "
-            "Queue 1, item 5)")
-
-
 def make_optimizer(cfg: TrainConfig, params):
     """Adam over `params` with optax.adam's semantics: lr, betas, eps 1e-8
     (the fused update when every tensor lies on the GPU)."""
@@ -100,16 +101,16 @@ def make_optimizer(cfg: TrainConfig, params):
 # ---------------------------------------------------------------------------
 
 
-def m1_loss(model, batch, generator, eps):
+def m1_loss(model, batch, generator, eps, noise=None):
     x, _ = batch
-    r, mu, logvar = vae_apply(model, x, generator)
+    r, mu, logvar = vae_apply(model, x, generator, noise)
     loss, recon, KL = elbo(x, r, mu, logvar, eps)
     return loss, {"recon": recon, "KL": KL}
 
 
-def m2_loss(model, batch, generator, eps):
+def m2_loss(model, batch, generator, eps, noise=None):
     x, y = batch
-    r, mu, logvar = dgm_apply(model, x, y, generator)
+    r, mu, logvar = dgm_apply(model, x, y, generator, noise)
     loss, recon, KL = elbo(x, r, mu, logvar, eps)
     return loss, {"recon": recon, "KL": KL}
 
@@ -148,10 +149,100 @@ LOSSES = {
 # ---------------------------------------------------------------------------
 
 
+# classifier_loss's aux entries are counts, which add over shards; the
+# others (M1 / M2's recon, KL) are batch means, weighted like the loss
+_COUNT_AUX = ("tp", "tn", "fp", "fn")
+
+
+class _Shards:
+    """The data-parallel pass over a mesh's "data" axis for one model:
+    its replicas (the model itself on its own device, a copy on each other
+    device) and (loss, aux, gradients) of a batch as the weighted sum of
+    the shards' in shard order."""
+
+    def __init__(self, mesh, model):
+        self.mesh, self.n = mesh, data_size(mesh)
+        self.cells = mesh.cells("data")
+        self.model = model
+        self.replicas = replicate(mesh, model)
+        for m in self.replicas.values():
+            if m is not model:
+                for _, t in _trainable(m):
+                    t.requires_grad_(True)
+
+    def sync(self):
+        """Copy the model's trained tensors into the other replicas."""
+        src = [t for _, t in _trainable(self.model)]
+        with torch.no_grad():
+            for m in self.replicas.values():
+                if m is not self.model:
+                    for (_, t), v in zip(_trainable(m), src):
+                        t.copy_(v)
+
+    def __call__(self, loss_fn, batch, generator, eps, grad):
+        x, y = batch
+        B = len(x)
+        dev0 = x.device
+        noise = None
+        if generator is not None:
+            # one draw for the whole batch, through reparametrize (at
+            # mu = log_var = 0 it returns the draw itself)
+            from ..models import nets
+
+            zero = torch.zeros((B, self.model.encoder.mu.w.shape[1]),
+                               device=dev0)
+            noise = nets.reparametrize(generator, zero, zero)
+        slices = row_slices(B, self.n)
+
+        def shard(i, d):
+            s, m = slices[i], self.replicas[d]
+            part = (x[s].to(d), None if y is None else y[s].to(d))
+            kw = {} if noise is None else {"noise": noise[s].to(d)}
+            if not grad:
+                with torch.no_grad():
+                    return loss_fn(m, part, None, eps, **kw) + (None,)
+            loss, aux = loss_fn(m, part, None, eps, **kw)
+            g = torch.autograd.grad(loss, [t for _, t in _trainable(m)],
+                                    allow_unused=True)
+            return loss.detach(), {k: v.detach() for k, v in aux.items()}, g
+
+        parts = run_shards(self.mesh, shard, self.cells)
+        w = [(s.stop - s.start) / B for s in slices]
+        loss = sum(wi * p[0].to(dev0) for wi, p in zip(w, parts))
+        aux = {k: sum((1.0 if k in _COUNT_AUX else wi) * p[1][k].to(dev0)
+                      for wi, p in zip(w, parts)) for k in parts[0][1]}
+        grads = None
+        if grad:
+            grads = []
+            for j, (_, t) in enumerate(_trainable(self.model)):
+                grads.append(sum(wi * (torch.zeros_like(t) if p[2][j] is None
+                                       else p[2][j].to(dev0))
+                                 for wi, p in zip(w, parts)))
+        return loss, aux, grads
+
+
 def make_train_step(loss_fn, optimizer, eps, mesh=None):
     """step(model, batch, generator) -> (loss, aux): one Adam update of
-    the optimizer's tensors from the gradient of `loss_fn`."""
-    _no_mesh(mesh)
+    the optimizer's tensors from the gradient of `loss_fn`. With a mesh,
+    the batch's rows are split over its "data" axis (see the module
+    docstring); `optimizer` holds the tensors of the `model` given to
+    the step."""
+    if mesh is not None:
+        shards = {}
+
+        def sharded(model, batch, generator=None):
+            sh = shards.get(id(model))
+            if sh is None:
+                sh = shards[id(model)] = _Shards(mesh, model)
+            loss, aux, grads = sh(loss_fn, batch, generator, eps, grad=True)
+            for (_, t), g in zip(_trainable(model), grads):
+                t.grad = g
+            optimizer.step()
+            optimizer.zero_grad(set_to_none=True)
+            sh.sync()
+            return loss, aux
+
+        return sharded
 
     def step(model, batch, generator=None):
         loss, aux = loss_fn(model, batch, generator, eps)
@@ -164,8 +255,19 @@ def make_train_step(loss_fn, optimizer, eps, mesh=None):
 
 
 def make_eval_step(loss_fn, eps, mesh=None):
-    """step(model, batch, generator) -> (loss, aux) without gradients."""
-    _no_mesh(mesh)
+    """step(model, batch, generator) -> (loss, aux) without gradients;
+    with a mesh, over its "data" axis."""
+    if mesh is not None:
+        shards = {}
+
+        def sharded(model, batch, generator=None):
+            sh = shards.get(id(model))
+            if sh is None:
+                sh = shards[id(model)] = _Shards(mesh, model)
+            sh.sync()
+            return sh(loss_fn, batch, generator, eps, grad=False)[:2]
+
+        return sharded
 
     def step(model, batch, generator=None):
         with torch.no_grad():
@@ -262,18 +364,31 @@ def fit(model, family, train_data, valid_data, cfg: TrainConfig, model_dir,
     train_data / valid_data: (X, Y) with X (n_frames, x_dim) float32 and Y
     (n_frames, y_dim) or None (M1), numpy arrays or tensors; train_data
     may also be an `H5StreamSource`. `loss_fn` overrides the family's
-    objective (same signature), e.g. a pos_weighted classifier BCE.
-    Returns (module, history): the trained module, frozen, on `device`.
+    objective (same signature), e.g. a pos_weighted classifier BCE; on a
+    mesh an M1 / M2 objective also takes `noise=`, its shard's rows of
+    the batch's reparametrisation draws. Returns (module, history): the trained module, frozen, on `device`.
 
     Paths, as in the JAX package: the device-resident epoch when the
     training set holds a batch, the stream when given a source, else the
     small-set batch loop (which trains on no batch: it drops the
     remainder). Validation takes the first nb_va * bs_va frames
     unshuffled; an empty set gives va_loss 0.0.
+
+    mesh: a `parallel.Mesh` for data-parallel steps (module docstring);
+    the model then lives on its "data" axis's first device and `device`
+    is unused. As in the JAX package, the device-resident epoch needs the
+    batch size to divide by the axis, and the small-set loop runs
+    otherwise.
     """
-    _no_mesh(mesh)
-    dev = resolve_device(device)
-    device_warmup(dev)
+    if mesh is None:
+        dev = resolve_device(device)
+        devices = [dev]
+    else:
+        n_dev = data_size(mesh)
+        dev = mesh.axis_devices("data")[0]
+        devices = set(mesh.devices.ravel())
+    for d in devices:
+        device_warmup(d)
     os.makedirs(model_dir, exist_ok=True)
     loss_fn = loss_fn or LOSSES[family]
     model = _as_module(model).to(dev)
@@ -282,8 +397,8 @@ def fit(model, family, train_data, valid_data, cfg: TrainConfig, model_dir,
     for _, t in leaves:
         t.requires_grad_(True)
     optimizer = make_optimizer(cfg, [t for _, t in leaves])
-    train_step = make_train_step(loss_fn, optimizer, cfg.eps)
-    eval_step = make_eval_step(loss_fn, cfg.eps)
+    train_step = make_train_step(loss_fn, optimizer, cfg.eps, mesh)
+    eval_step = make_eval_step(loss_fn, cfg.eps, mesh)
 
     start_epoch = cfg.start_epoch
     count = 0
@@ -318,7 +433,8 @@ def fit(model, family, train_data, valid_data, cfg: TrainConfig, model_dir,
     else:
         Xtr, Ytr = train_data
     Xva, Yva = valid_data
-    use_epoch = use_stream or len(Xtr) >= bs
+    use_epoch = use_stream or (len(Xtr) >= bs and (
+        mesh is None or bs % n_dev == 0))
     if use_epoch:
         if not use_stream:
             X_tr_d = _to_device(Xtr, dev)

@@ -17,8 +17,10 @@ so weights whose gradient is at float32 rounding level move apart
 moments, gradients at weights that already differ, differ by up to 84x
 where that layer's gradients are at rounding level; the 33-bin fits of
 tests/test_torch_train.py hold M2's moments to rtol 1e-3;
-`train --data_parallel` raising; and the default device raising without
-a card."""
+`train --data_parallel` / `serve --data_parallel` raising without a card
+(their mesh takes every card; the sharded runs are in
+tests/test_torch_parallel.py); and the default device raising without a
+card."""
 
 import argparse
 import os
@@ -187,10 +189,13 @@ def test_train_writes_what_jax_writes(store, tmp_path, monkeypatch, capsys,
     assert load_model(pdir, kind=kind, device="cpu") is not None
 
 
-def test_train_data_parallel_raises(store, tmp_path):
-    with pytest.raises(NotImplementedError, match="item 5"):
+def test_train_data_parallel_raises(store, tmp_path, monkeypatch):
+    # --data_parallel's mesh takes every card: without one it raises and
+    # never falls back to the CPU
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
         cli.main(["train", "wiener", "--h5", store, "--out",
-                  str(tmp_path), "--data_parallel", "--device", "cpu"])
+                  str(tmp_path), "--data_parallel"])
 
 
 def test_default_device_raises_without_a_card(tmp_path, monkeypatch):
@@ -207,10 +212,10 @@ def test_default_device_raises_without_a_card(tmp_path, monkeypatch):
             cli.main(argv)
 
 
-def test_serve_data_parallel_raises():
-    with pytest.raises(NotImplementedError, match="item 5"):
-        cli.main(["serve", "--models", ART, "--data_parallel",
-                  "--device", "cpu"])
+def test_serve_data_parallel_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli.main(["serve", "--models", ART, "--data_parallel"])
 
 
 def test_doctor_reports_and_returns_zero(capsys):

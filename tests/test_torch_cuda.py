@@ -15,7 +15,12 @@ the card against `enhance_to_audio` with its launch counts, and the
 metric pool started from a process that holds a CUDA context; and
 training: one step of each family on the card against the CPU (z = mu),
 `fit` on the card leaving `load_model`'s modules frozen, and a card's
-`resume_state.npz` resumed on the CPU.
+`resume_state.npz` resumed on the CPU; and the multi-device layer on a
+virtual mesh of two shards on the card (`make_mesh(devices=[cuda] * 2)`):
+fused shards equal to their rows' runs with per-shard launch counts, the
+eager engine's batch equal to the unsharded one, frame-sharded MCEM at
+var_RW = 0 against single-device `mcem_run`, and a data-parallel epoch
+against the single-device one.
 
 Every test here needs an NVIDIA GPU and skips without one. The file
 imports neither JAX nor the JAX package, so it also runs on a GPU machine
@@ -1465,3 +1470,127 @@ def test_device_time_ms_sees_k1_launches(cuda):
     k1 = [(ms, n) for ms, n, name in table if "mh_chain_kernel" in name]
     assert sum(n for _, n in k1) == 2
     assert 0 < sum(ms for ms, _ in k1) <= total <= sum(r[0] for r in table)
+
+
+# ---------------------------------------------------------------------------
+# Multi-device: a virtual mesh of two shards on the one card
+# ---------------------------------------------------------------------------
+
+
+def _virtual_mesh(cuda, n=2):
+    from guided_vae_nmf_torch.parallel import make_mesh
+
+    return make_mesh(devices=[cuda] * n)
+
+
+@pytest.mark.cuda
+def test_virtual_mesh_fused_shards_equal_their_rows(cuda):
+    """Each shard of `sharded_mcem_fused` (its own thread and stream) is
+    the fused engine on its rows with its first row's generator, bit for
+    bit, and launched K1 / K2 once an E chain and sums pass in its own
+    thread (`mesh.shard_launches`)."""
+    from guided_vae_nmf_torch.parallel import sharded_mcem_fused
+
+    dims = SMALL
+    rng = np.random.RandomState(31)
+    model = module_from_params(random_dgm(rng, dims["F"], dims["Y"],
+                                          dims["L"], dims["H"]), device=cuda)
+    B, F, N = 4, dims["F"], dims["N"]
+    t = lambda a: torch.tensor(a, device=cuda)  # noqa: E731
+    X = t(rng.uniform(0.05, 1.05, (B, F, N)).astype(np.float32))
+    y = t((rng.uniform(size=(B, dims["Y"], N)) > 0.5).astype(np.float32))
+    mask = torch.ones((B, N), device=cuda)
+    cfg = MCEMConfig(niter=3, nsamples_E_step=2, burnin_E_step=1,
+                     nsamples_WF=2, burnin_WF=1, nmf_rank=dims["K"])
+    seeds = [5, 6, 7, 8]
+    mesh = _virtual_mesh(cuda)
+    reset_launch_counts()
+    out = sharded_mcem_fused(mesh, model, X, mask, y, seeds, cfg)
+    per = {"mh_chain": {"e_wh": 3, "wf_wh": 1},
+           "nmf_sums": {"h_wh": 3, "g_wh": 3}}
+    assert mesh.shard_launches == [per, per]
+    for lo in (0, 2):
+        s = slice(lo, lo + 2)
+        ref = mcem_batch_fused(model, X[s], mask[s], y[s],
+                               torch.Generator(device=cuda).manual_seed(
+                                   seeds[lo]), cfg)
+        for k in ("WFs", "WFn", "W", "H", "g", "Z"):
+            assert torch.equal(out[k][s], ref[k]), k
+
+
+@pytest.mark.cuda
+def test_virtual_mesh_eager_equals_unsharded(cuda):
+    """The eager engine's rows are their own (float64 EM): the batch split
+    over two shard threads equals the unsharded batch bit for bit."""
+    from guided_vae_nmf_torch.mcem.engine import mcem_m2_batch
+    from guided_vae_nmf_torch.parallel import sharded_mcem_m2
+
+    dims = SMALL
+    rng = np.random.RandomState(32)
+    model = module_from_params(random_dgm(rng, dims["F"], dims["Y"],
+                                          dims["L"], dims["H"]), device=cuda)
+    B, F, N = 5, dims["F"], 48
+    t = lambda a: torch.tensor(a, device=cuda)  # noqa: E731
+    X = t(rng.uniform(0.05, 1.05, (B, F, N)).astype(np.float32))
+    y = t((rng.uniform(size=(B, dims["Y"], N)) > 0.5).astype(np.float32))
+    mask = torch.ones((B, N), device=cuda)
+    cfg = MCEMConfig(niter=3, nsamples_E_step=2, burnin_E_step=2,
+                     nsamples_WF=2, burnin_WF=2, nmf_rank=3)
+    seeds = list(range(10, 10 + B))
+    ref = mcem_m2_batch(model, X, mask, y, seeds, cfg)
+    out = sharded_mcem_m2(_virtual_mesh(cuda), model, X, mask, y, seeds, cfg)
+    for k in ref:
+        assert torch.equal(out[k], ref[k]), k
+
+
+@pytest.mark.cuda
+def test_virtual_mesh_frame_sharded_var0(cuda):
+    """One recording's frames over two shards (their W / cost sums in the
+    in-process group) against single-device mcem_run at var_RW = 0."""
+    from guided_vae_nmf_torch.mcem.engine import mcem_run
+    from guided_vae_nmf_torch.parallel import frame_sharded_mcem
+
+    dims = SMALL
+    rng = np.random.RandomState(33)
+    model = module_from_params(random_dgm(rng, dims["F"], dims["Y"],
+                                          dims["L"], dims["H"]), device=cuda)
+    F, N = dims["F"], 256
+    X = torch.tensor(rng.uniform(0.05, 1.05, (F, N)).astype(np.float32),
+                     device=cuda)
+    y = torch.tensor((rng.uniform(size=(dims["Y"], N)) > 0.5)
+                     .astype(np.float32), device=cuda)
+    mask = torch.ones(N, device=cuda)
+    cfg = MCEMConfig(niter=4, nsamples_E_step=2, burnin_E_step=2,
+                     nsamples_WF=2, burnin_WF=2, nmf_rank=3, var_RW=0.0)
+    out = frame_sharded_mcem(_virtual_mesh(cuda), model, X, mask, y, 9, cfg)
+    ref = mcem_run(model, X[None], mask[None], y[None], [9], cfg)
+    for k in ("WFs", "WFn", "g", "W", "H", "cost"):
+        assert_allclose(out[k].cpu().numpy(), ref[k][0].cpu().numpy(),
+                        rtol=2e-4, atol=1e-6, err_msg=k)
+
+
+@pytest.mark.cuda
+def test_data_parallel_step_on_the_card(cuda, tmp_path):
+    """An M2 epoch on a virtual mesh of one shard equals the single-device
+    epoch bit for bit, on two within 1e-5 (the order of the gradient
+    sums)."""
+    from guided_vae_nmf_torch.train import TrainConfig, train_m2
+
+    rng = np.random.RandomState(34)
+    X = (rng.rand(512, 65) * 2).astype(np.float32)
+    Y = (rng.rand(512, 10) > 0.5).astype(np.float32)
+    cfg = TrainConfig(batch_size=128, end_epoch=1)
+    dims = (65, 10, 8, (32,))
+    base, _ = train_m2((X, Y), (X[:128], Y[:128]), dims=dims, cfg=cfg,
+                       model_dir=str(tmp_path / "a"), device=cuda)
+    want = dict(base.named_parameters())
+    for n in (1, 2):
+        dp, _ = train_m2((X, Y), (X[:128], Y[:128]), dims=dims, cfg=cfg,
+                         model_dir=str(tmp_path / f"m{n}"),
+                         mesh=_virtual_mesh(cuda, n))
+        for k, p in dp.named_parameters():
+            if n == 1:
+                assert torch.equal(p, want[k]), k
+            else:
+                assert_allclose(p.cpu().numpy(), want[k].cpu().numpy(),
+                                atol=1e-5, err_msg=k)

@@ -81,6 +81,21 @@ def test_default_device_entry_points_raise_without_a_gpu(no_gpu):
     assert resolve_device("cpu") == torch.device("cpu")
 
 
+def test_meshes_take_the_cards_or_raise(no_gpu):
+    """The multi-device package is guarded like the rest, and its default
+    mesh takes the cards: without one it raises, never a CPU mesh."""
+    from guided_vae_nmf_torch.parallel import data_parallel_mesh, make_mesh
+
+    guarded = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    assert {"guided_vae_nmf_torch/parallel/mesh.py",
+            "guided_vae_nmf_torch/parallel/sweep.py",
+            "guided_vae_nmf_torch/parallel/multihost.py"} <= guarded
+    for make in (make_mesh, data_parallel_mesh):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    assert data_parallel_mesh("cpu").shape == {"data": 1}
+
+
 def _load_smoke(path):
     spec = importlib.util.spec_from_file_location("chip_smoke_copy", path)
     mod = importlib.util.module_from_spec(spec)

@@ -209,9 +209,11 @@ def test_build_server_serves_the_shipped_weights():
 
 
 @pytest.mark.parametrize("kw", [dict(data_parallel=True)])
-def test_build_server_refuses_what_is_not_ported(kw):
-    with pytest.raises(NotImplementedError, match="item 5"):
-        build_server(MODELS, port=0, device="cpu", **kw)
+def test_build_server_refuses_what_is_not_ported(kw, monkeypatch):
+    # data_parallel is ported; its mesh of every card raises without one
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_server(MODELS, port=0, **kw)
 
 
 def test_main_takes_the_stream_flags(monkeypatch):

@@ -166,7 +166,8 @@ def inject(monkeypatch, draws):
     reparametrisation instead of its generator's."""
     queue = list(draws)
 
-    def fake(generator, mu, log_var):
+    def fake(generator, mu, log_var, noise=None):
+        assert noise is None
         eps = torch.from_numpy(np.array(queue.pop(0))).to(mu)
         assert eps.shape == mu.shape
         return mu + torch.exp(0.5 * log_var) * eps

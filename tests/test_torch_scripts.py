@@ -6,7 +6,9 @@ three speech-like utterances of 1-2 s and the SNR pickle): every script's
 / `enhance_files_wiener` write for the same arguments (full width, shipped
 weights, `--niter 2`, `--device cpu`); each `run_metrics_*` gives the JAX
 package's `run_metrics` rows and statistics on the same tree;
-`--data_parallel 1` raises; the doctor fails without a card; and the
+`--data_parallel 1` raises without a card (its mesh takes every card;
+the sharded runs are in tests/test_torch_parallel.py); the doctor fails
+without a card; and the
 streaming scripts run at a tiny size. The metric scripts run their sweep
 on a thread pool here (`thread_pool`): the spawn pool itself, which costs
 seconds a worker to start on the CPU, is held against JAX in
@@ -126,10 +128,12 @@ def test_help_exits_zero(name, capsys):
     ("serve_http", ["--models", ART]),
     ("training_M2", ["--data_root", "d"]),
 ])
-def test_data_parallel_raises(name, argv):
-    with pytest.raises(NotImplementedError, match="item 5"):
-        script(name).main(["--data_parallel", "1", "--device", "cpu",
-                           *argv])
+def test_data_parallel_raises(name, argv, monkeypatch):
+    # `--data_parallel 1` builds a mesh of every card: without one it
+    # raises, with no fallback to the CPU
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        script(name).main(["--data_parallel", "1", *argv])
 
 
 def test_doctor_fails_without_a_card(capsys):

@@ -188,7 +188,13 @@ def test_serveconfig_rejected_at_init(m1, bad, exc):
 
 
 def test_mesh_and_missing_classifier_rejected(m1):
-    with pytest.raises(NotImplementedError, match="item 5"):
+    from guided_vae_nmf_torch.parallel import make_mesh
+
+    # the largest lattice entry (8) must divide by the mesh's data axis
+    with pytest.raises(ValueError, match="mesh"):
+        EnhancementService(m1, cfg=CFG, serve=SV,
+                           mesh=make_mesh(devices=["cpu"] * 3))
+    with pytest.raises(TypeError, match="Mesh"):
         EnhancementService(m1, cfg=CFG, serve=SV, mesh=object(),
                            device="cpu")
     with pytest.raises(ValueError, match="classifier"):

@@ -208,7 +208,12 @@ def test_bounded_memory_trim_matches_untrimmed_single():
 
 
 def test_pool_refusals():
-    with pytest.raises(NotImplementedError, match="item 5"):
+    from guided_vae_nmf_torch.parallel import make_mesh
+
+    with pytest.raises(ValueError, match="multiple of the mesh"):
+        MultiStreamM2Enhancer(_m2(), max_streams=3,
+                              mesh=make_mesh(devices=["cpu"] * 2), **KW)
+    with pytest.raises(TypeError, match="Mesh"):
         MultiStreamM2Enhancer(_m2(), mesh=object(), device="cpu", **KW)
     with pytest.raises(ValueError, match="max_streams"):
         _pool(0)

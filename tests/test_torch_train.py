@@ -437,7 +437,8 @@ def test_each_package_loads_the_others_checkpoints(tmp_path):
 
 
 def test_mesh_raises():
-    with pytest.raises(NotImplementedError, match="item 5"):
+    # a mesh= that is not a parallel.Mesh
+    with pytest.raises(TypeError, match="Mesh"):
         tt.fit(host(jax_tree("wiener")), "wiener", (None, None),
                (None, None), pcfg(1), "unused", "W", mesh=object(),
                device="cpu")

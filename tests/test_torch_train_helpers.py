@@ -52,7 +52,8 @@ def inject(monkeypatch, draws):
     place of its generator's; returns the queue (empty once all taken)."""
     queue = [np.array(d) for d in draws]
 
-    def fake(generator, mu, log_var):
+    def fake(generator, mu, log_var, noise=None):
+        assert noise is None
         eps = torch.from_numpy(queue.pop(0)).to(mu)
         assert eps.shape == mu.shape
         return mu + torch.exp(0.5 * log_var) * eps
