@@ -154,6 +154,24 @@ Phases, in order; any failure exits nonzero without a result line:
    a mesh of one, within PR 10's card-against-CPU tolerance on two); and
    `multihost.initialize` at world size 1 with NCCL, an all-reduce and
    `shard_file_list`; each with its wall.
+   Then the remaining scripts (`guided_vae_nmf_torch/scripts/`), each
+   through its `main(argv)` on the card with the launch counters read
+   around it, on the main batch as a data root (`write_eval_root`) and on
+   a campaign-layout root of 21 utterances (`write_campaign_root`): (a)
+   `bench_niter500` at B=32, N=512, 50 iterations with `--quality 1
+   --seeds 1` (each variant's launches, K1d's on the `_mm16` keys); (b)
+   `bench_long`, one 30-minute recording (112,501 frames, N=112,512 in
+   one K1c / K2c launch a step), twice, the warm run's files equal to the
+   cold run's, its peak device memory; (c) `bench_serving` at 2 and 8
+   requests/s, 16 requests each, all answered; (d) `eval_real_noise`
+   system by system, whole spp batches a system, its files equal to
+   `enhance_files` / `enhance_files_wiener`'s; (e) `warm_cache` (12
+   programs); (f) `eval_campaign --smoke 1` and `campaign_tables` on its
+   record; (g) `eval_classifier_context`; (h) `pretrain_subset` and
+   `bench_train`; (i) `validate_parity` (the port's half, fused and
+   replayed-stream eager); (j) `pesq_battery` against the committed
+   expectations; (k) `bench_vpu` at its default size and at 2^28
+   elements, every streamed share of the HBM peak at 105 % or under.
 11. paper-config path: `enhance_waveform(cfg=HybridConfig())` on the main
    batch (500 PEEM + 150 MCEM iterations and the WF chain; 150 / 1 / 150
    / 150 launches), with `fast=True` (the same on `_fast`) and with the
@@ -287,7 +305,7 @@ def harness_launches(niter, hybrid):
         out["nmf_sums"][f"h_wh{sums}"] += runs * niter
         out["nmf_sums"][f"g_wh{sums}"] += runs * niter
     out["mh_chain"]["e_wh_fast"] += 2 * hybrid
-    out["mh_chain"]["wf_wh_fast"] += 2
+    out["mh_chain"]["wf_wh_fast"] += 2 if hybrid else 0
     out["nmf_sums"]["h_wh_fast"] += 2 * hybrid
     out["nmf_sums"]["g_wh_fast"] += 2 * hybrid
     return out
@@ -2248,6 +2266,37 @@ def write_eval_root(pairs, root):
     return raw, proc, bases
 
 
+# the campaign's speakers (scripts/eval_campaign.py's splits): WSJ0 split /
+# speaker, then NTCD-TIMIT group / speaker; three utterances each
+CAMPAIGN_WSJ = (("si_tr_s", "011"), ("si_dt_05", "050"), ("si_et_05", "440"))
+CAMPAIGN_NTCD = (("lipspeakers", "Lipspkr1"), ("volunteers", "01M"),
+                 ("volunteers", "08F"), ("volunteers", "34M"))
+
+
+def write_campaign_root(root, seed, seconds=(1.5, 2.5)):
+    """21 speech-like clean utterances (int16, lengths drawn from
+    `seconds`) in the campaign's layout under `<root>/subset/raw/`:
+    `CSR-1-WSJ-0/WAV/wsj0/<split>/<spk>/<spk>c020<j>.wav` and
+    `ntcd_timit/Clean/<group>/<spk>/straightcam/s<j>.wav` (NTCD basenames
+    repeat across speakers, as in the corpus). Returns the subset dir."""
+    from guided_vae_nmf_torch.data import write_wav
+
+    raw = os.path.join(root, "subset", "raw")
+    dirs = [(os.path.join(raw, "CSR-1-WSJ-0", "WAV", "wsj0", split, spk),
+             spk + "c020") for split, spk in CAMPAIGN_WSJ]
+    dirs += [(os.path.join(raw, "ntcd_timit", "Clean", group, spk,
+                           "straightcam"), "s") for group, spk in
+             CAMPAIGN_NTCD]
+    lengths = np.random.RandomState(seed).uniform(*seconds, 3 * len(dirs))
+    pairs = speech_like_mixtures(seed, lengths)
+    for i, (d, stem) in enumerate(dirs):
+        os.makedirs(d, exist_ok=True)
+        for j in range(3):
+            write_wav(os.path.join(d, f"{stem}{j + 1}.wav"),
+                      pairs[3 * i + j][0], 16000)
+    return os.path.join(root, "subset")
+
+
 def captured(fn, *args):
     """(fn(*args), what it printed)."""
     import contextlib
@@ -2972,6 +3021,393 @@ def phase_training(torch, classifier, mean, std, batch, dev, gpu, seed):
         rec["enhance"].pop("y_hard")
     rec["seconds"] = time.perf_counter() - t_phase
     log(f" training phase: {rec['seconds']:.1f} s in all")
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# The remaining scripts: bench_niter500 (with its quality gate), bench_long,
+# bench_serving, eval_real_noise, warm_cache, eval_campaign, campaign_tables,
+# eval_classifier_context, pretrain_subset, bench_train, validate_parity,
+# pesq_battery, bench_vpu
+# ---------------------------------------------------------------------------
+
+# cut from the scripts' defaults for time (PERF.md §4); widths are the
+# shipped models'
+SCRIPT_HARNESS = dict(batch=32, n=512, niter=50)    # from niter 500
+LONG_MINUTES, LONG_NITER = 30, 100
+SERVING_ARGS = dict(rates="2,8", n=16)              # from 2,8,24 and 40
+REAL_NOISE_NITER = 100
+REAL_NOISE_SYSTEMS = ("m2dnn_spp", "m2oracle_spp", "wiener", "m1_spp")
+SPP_LAUNCHES = dict(form="vb", e=100, wf=1, h=0, g=100)
+CAMPAIGN_SECONDS = (1.5, 2.5)      # the campaign root's utterances
+VPU_M = 1 << 28                    # 1 GiB of float32: past the 50 MB L2
+VPU_ITERS = 100                    # at VPU_M, from 400
+VPU_MAX_SHARE = 1.05
+
+
+def add_counts(*counts):
+    """The sum of `launch_counts()`-layout dicts."""
+    out = expected_launches("wh", 0, 0, 0, 0)
+    for c in counts:
+        for k, d in c.items():
+            for v, n in d.items():
+                out[k][v] += n
+    return out
+
+
+def whole_batches(what, counts, form, niter, h=True, level=""):
+    """The fused batches of `niter` EM iterations in a run's launch counts
+    (one WF launch a batch), checked against `expected_launches` for that
+    many batches of the form and level."""
+    k = counts["mh_chain"][f"wf_{form}{level}"]
+    want = expected_launches(form, niter, 1, niter if h else 0, niter,
+                             n_batches=k, level=level)
+    check(k > 0 and counts == want, f"{what} launches {nonzero(counts)}, "
+          f"expected whole batches of {niter} iterations ({form}{level})")
+    return k
+
+
+def script_argv(**kw):
+    return [a for k, v in kw.items() for a in (f"--{k}", str(v))]
+
+
+def counted(port, torch, fn, *args):
+    """(fn(*args), its stdout, the launches it made, its wall s)."""
+    port.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, text = captured(fn, *args)
+    torch.cuda.synchronize()
+    return out, text, port.launch_counts(), time.perf_counter() - t0
+
+
+def same_files(a, b):
+    """The relative paths under `a`, each file equal to its namesake under
+    `b` (and `b` holding no other)."""
+    names = [sorted(os.path.relpath(os.path.join(r, f), d)
+                    for r, _, fs in os.walk(d) for f in fs) for d in (a, b)]
+    check(names[0] == names[1] and names[0], f"{a} and {b} hold other files")
+    for rel in names[0]:
+        with open(os.path.join(a, rel), "rb") as fa, \
+                open(os.path.join(b, rel), "rb") as fb:
+            check(fa.read() == fb.read(), f"{rel} differs in {a} and {b}")
+    return names[0]
+
+
+def scripts_harness(torch, port, root, dev):
+    """(a) the bench_niter500 script at SCRIPT_HARNESS with its quality gate
+    (one seed) on the evaluation root: each of the four variants twice
+    (warm-up, timed) at B=32, N=512, then each test utterance in exact mode
+    and in fast_bf16mm (K1d)."""
+    from guided_vae_nmf_torch.data import speech_list
+    from guided_vae_nmf_torch.scripts import bench_niter500
+
+    niter = SCRIPT_HARNESS["niter"]
+    n_utts = len(speech_list(os.path.join(root, "subset", "raw") + "/",
+                             "test"))
+    out, text, counts, wall = counted(
+        port, torch, bench_niter500.main,
+        script_argv(**SCRIPT_HARNESS, quality=1, seeds=1, data_root=root,
+                    device=dev))
+    gate = expected_launches("wh", n_utts * niter, n_utts, n_utts * niter,
+                             n_utts * niter)
+    k1d = expected_launches("wh", n_utts * niter, n_utts, n_utts * niter,
+                            n_utts * niter, level="_fast_mm16")
+    want = add_counts(harness_launches(niter, 0), gate, k1d)
+    check(counts == want, f"bench_niter500 launches {nonzero(counts)}, "
+          f"expected {nonzero(want)}")
+    times = {k: out[k] for k in out if k.endswith(("_s", "_rtf"))}
+    log(f" (a) bench_niter500 {SCRIPT_HARNESS} (cut from niter 500) + "
+        f"--quality 1 --seeds 1 on {n_utts} utterances: {wall:.1f} s; "
+        f"{times}; quality {out['quality']} (synthetic mixtures: no quality "
+        f"claim); launches {nonzero(counts)}")
+    return {"record": out, "launches": counts, "wall_s": wall}
+
+
+def scripts_long(torch, port, root, tmp, dev):
+    """(b) bench_long: one recording of LONG_MINUTES through K1c / K2c in
+    one launch a step at the bucketed N, twice (cold, warm); the warm
+    run's files equal the cold run's byte for byte."""
+    from guided_vae_nmf_torch.pipeline import bucket_frames
+    from guided_vae_nmf_torch.scripts import bench_long
+
+    work = os.path.join(tmp, "long")
+    torch.cuda.reset_peak_memory_stats()
+    row, _, counts, wall = counted(
+        port, torch, bench_long.main,
+        script_argv(minutes=LONG_MINUTES, niter=LONG_NITER, work=work,
+                    data_root=root, device=dev))
+    peak = torch.cuda.max_memory_allocated()
+    want = expected_launches("wh", LONG_NITER, 1, LONG_NITER, LONG_NITER,
+                             n_batches=2, level="_fast")
+    check(counts == want, f"bench_long launches {nonzero(counts)}, "
+          f"expected {nonzero(want)}: one fused batch a run")
+    files = same_files(os.path.join(work, "est"), os.path.join(work, "est2"))
+    n_pad = bucket_frames(row["frames"])
+    log(f" (b) bench_long {LONG_MINUTES} min, niter {LONG_NITER}: "
+        f"{row['frames']} frames, bucketed N={n_pad} in one K1c launch a "
+        f"step; cold {row['cold_s']} s, warm {row['warm_s']} s, rtf_warm "
+        f"{row['rtf_warm']}x; sample_buffer_gb {row['sample_buffer_gb']}; "
+        f"max_memory_allocated {peak / 1e9:.2f} GB; launches "
+        f"{nonzero(counts)}; warm files equal the cold run's ({files})")
+    return {"row": row, "n_pad": n_pad, "max_memory_allocated": peak,
+            "launches": counts, "wall_s": wall}
+
+
+def scripts_serving(torch, port, dev):
+    """(c) bench_serving: Poisson arrivals at SERVING_ARGS; every request
+    answered (a future that fails raises out of the script)."""
+    from guided_vae_nmf_torch.scripts import bench_serving
+
+    out, _, counts, wall = counted(port, torch, bench_serving.main,
+                                   script_argv(**SERVING_ARGS, device=dev))
+    check(len(out["loads"]) == len(SERVING_ARGS["rates"].split(",")),
+          f"bench_serving loads {out['loads']}")
+    on = nonzero(counts)
+    check(set(on) == {"mh_chain", "nmf_sums"} and set(on["mh_chain"]) ==
+          {"e_vb", "wf_vb"} and set(on["nmf_sums"]) == {"g_vb"},
+          f"bench_serving launched {on} (spp noise model: K1b / K2b)")
+    for load in out["loads"]:
+        log(f" (c) bench_serving {load['offered_req_s']} req/s, "
+            f"{SERVING_ARGS['n']} requests all answered: achieved "
+            f"{load['achieved_req_s']} req/s, p50 {load['p50_ms']} ms, p95 "
+            f"{load['p95_ms']} ms, mean batch {load['mean_batch']}, rtf "
+            f"{load['rtf']}x")
+    return {"record": out, "launches": counts, "wall_s": wall}
+
+
+def scripts_real_noise(torch, port, root, tmp, dev):
+    """(d) eval_real_noise, one default system a run: an MCEM system's
+    launches those of whole spp batches (the four utterances in their
+    buckets), the Wiener baseline none, and each system's files equal to what `enhance_files` /
+    `enhance_files_wiener` write with the same arguments in this call."""
+    from guided_vae_nmf_torch.data import speech_list
+    from guided_vae_nmf_torch.mcem import MCEMConfig
+    from guided_vae_nmf_torch.pipeline import (enhance_files,
+                                               enhance_files_wiener)
+    from guided_vae_nmf_torch.scripts import eval_real_noise
+    from guided_vae_nmf_torch.train import load_model, load_norm_stats
+
+    art = "artifacts/pretrained"
+    sub = os.path.join(root, "subset")
+    files = speech_list(os.path.join(sub, "raw") + "/", "test")
+    proc = os.path.join(sub, "processed") + "/"
+    work = os.path.join(tmp, "real_noise")
+    cfg = MCEMConfig(niter=REAL_NOISE_NITER)
+    kw = dict(cfg=cfg, batch_size=4, noise_model="spp", seed=0, device=dev)
+    rec = {}
+    for name in REAL_NOISE_SYSTEMS:
+        res, text, counts, wall = counted(
+            port, torch, eval_real_noise.main,
+            script_argv(niter=REAL_NOISE_NITER, systems=name, work=work,
+                        data_root=root, device=dev))
+        if name == "wiener":
+            check(not nonzero(counts), f"eval_real_noise wiener launched "
+                  f"{nonzero(counts)}")
+        else:
+            whole_batches(f"eval_real_noise {name}", counts, "vb",
+                          REAL_NOISE_NITER, h=False)
+        ref = os.path.join(tmp, "real_noise_ref", name)
+        if name == "wiener":
+            wdir = os.path.join(art, "wiener")
+            enhance_files_wiener(
+                files, proc, ref, load_model(wdir, kind="classifier",
+                                             device=dev),
+                *load_norm_stats(wdir), device=dev)
+        elif name == "m1_spp":
+            enhance_files(files, proc, ref, load_model(
+                os.path.join(art, "M1"), kind="vae", device=dev),
+                model_type="m1", **kw)
+        else:
+            m2 = load_model(os.path.join(art, "M2_ibm"), kind="dgm",
+                            device=dev)
+            cdir = os.path.join(art, "classifier_ibm")
+            extra = (dict(classif_type="oracle") if name == "m2oracle_spp"
+                     else dict(classif_type="dnn", classifier=load_model(
+                         cdir, kind="classifier", device=dev),
+                         mean=load_norm_stats(cdir)[0],
+                         std=load_norm_stats(cdir)[1]))
+            enhance_files(files, proc, ref, m2, model_type="m2", **extra,
+                          **kw)
+        same = same_files(eval_real_noise.system_dir(work, art, name, "", 0),
+                          ref)
+        cells = [ln for ln in text.splitlines() if ln.startswith(name)]
+        log(f" (d) eval_real_noise {name} (niter {REAL_NOISE_NITER}, "
+            f"{len(files)} utterances): {wall:.1f} s with its metrics; "
+            f"launches {nonzero(counts)}; {len(same)} files equal to the "
+            f"library's; {cells[-1].split(None, 1)[1] if cells else ''}")
+        rec[name] = {"rows": res[name], "launches": counts, "wall_s": wall}
+    return rec
+
+
+def scripts_warm_cache(torch, port, dev):
+    """(e) warm_cache at bucket 384, batch 4, oracle and dnn labels, the
+    serving lattice and the stream ticks: the programs counted and timed."""
+    from guided_vae_nmf_torch.scripts import warm_cache
+
+    n, text, counts, wall = counted(port, torch, warm_cache.main, [
+        "--buckets", "384", "--batch_size", "4", "--labels", "oracle,dnn",
+        "--serving", "1", "--stream", "1", "--device", str(dev)])
+    want = add_counts(
+        expected_launches("wh", 100, 1, 100, 100, n_batches=2,
+                          level="_fast"),
+        expected_launches(**SPP_LAUNCHES, n_batches=5))
+    check(n == 2 + 5 + 1 + 4 and counts == want,
+          f"warm_cache: {n} programs, launches {nonzero(counts)}, expected "
+          f"12 and {nonzero(want)}")
+    for ln in text.splitlines():
+        log(f" (e) {ln}")
+    log(f" (e) warm_cache: {n} programs in {wall:.1f} s")
+    return {"programs": n, "launches": counts, "wall_s": wall}
+
+
+def scripts_campaign(torch, port, croot, tmp, dev):
+    """(f) eval_campaign --smoke 1 on the campaign root (retrains the six
+    families at 2 epochs, 18 mixtures, mixture + m2dnn_reference) and
+    campaign_tables on its record; (g) eval_classifier_context over its
+    work; (h) pretrain_subset and bench_train; (i) validate_parity, the
+    port's half only."""
+    from guided_vae_nmf_torch.scripts import (
+        bench_train, campaign_tables, eval_campaign, eval_classifier_context,
+        pretrain_subset, validate_parity)
+
+    rec = {}
+    work = os.path.join(tmp, "campaign")
+    base = ["--data_root", croot, "--device", str(dev)]
+    res, text, counts, wall = counted(
+        port, torch, eval_campaign.main,
+        ["--smoke", "1", "--work", work, *base])
+    on = nonzero(counts)
+    wf = whole_batches("eval_campaign --smoke 1", counts, "wh", 2,
+                       level="_fast")
+    rows = res["m2dnn_reference"]["rows"]
+    check(len(rows) == 18 and len(res["mixture"]["rows"]) == 18,
+          "eval_campaign smoke: not 18 rows a system")
+    _, tables = captured(campaign_tables.main, [
+        "--json", os.path.join(work, "campaign_results.json")])
+    check("M2 + DNN (reference parity)" in tables,
+          "campaign_tables did not render the smoke record")
+    f1 = res["m2dnn_reference"]["f1_by_family"]
+    log(f" (f) eval_campaign --smoke 1: {wall:.1f} s (corpus, the six "
+        f"families retrained at 2 epochs, {wf} fused batches, two metric "
+        f"sweeps); launches {on}; F1 by family {f1}; campaign_tables "
+        f"{len(tables.splitlines())} lines")
+    rec["campaign"] = {"wall_s": wall, "launches": counts, "f1_by_family": f1,
+                       "stats": res["m2dnn_reference"]["stats"]["overall"]}
+
+    t0 = time.perf_counter()
+    ctx, _ = captured(eval_classifier_context.main, [
+        "--work", work, "--contexts", "0,1", "--epochs", "2",
+        "--train_voices", "2", *base])
+    f1s = {k: ctx[k]["0.5"]["all"]["F1"] for k in ("k0", "k1")}
+    check(all(0.0 <= v <= 1.0 for v in f1s.values()),
+          f"eval_classifier_context F1 {f1s}")
+    rec["classifier_context"] = {"wall_s": time.perf_counter() - t0,
+                                 "f1": f1s}
+    log(f" (g) eval_classifier_context --contexts 0,1 --epochs 2: "
+        f"{rec['classifier_context']['wall_s']:.1f} s; F1 at 0.5 {f1s}")
+
+    t0 = time.perf_counter()
+    out = os.path.join(tmp, "pretrained")
+    captured(pretrain_subset.main, ["--epochs", "2", "--out", out, *base])
+    fams = sorted(os.listdir(out))
+    check(fams == ["M1", "M2_ibm", "M2_vad", "classifier_ibm",
+                   "classifier_vad", "wiener"] and all(
+        any(f.endswith(".ckpt.npz") for f in os.listdir(os.path.join(
+            out, d))) for d in fams), f"pretrain_subset wrote {fams}")
+    rec["pretrain_subset_s"] = time.perf_counter() - t0
+    row, _ = captured(bench_train.main, ["--epochs", "3", *base])
+    check(row["steady_frames_per_s"] > 0 and row["backend"] == "cuda",
+          f"bench_train {row}")
+    rec["bench_train"] = row
+    log(f" (h) pretrain_subset --epochs 2: {rec['pretrain_subset_s']:.1f} s, "
+        f"{len(fams)} families; bench_train --epochs 3: "
+        f"{row['train_frames']} frames, steady {row['steady_frames_per_s']} "
+        f"frames/s, first epoch {row['first_epoch_s']} s")
+
+    vwork = os.path.join(tmp, "parity")
+    vargs = ["--epochs", "2", "--niter", "10", "--work", vwork, *base]
+    _, text, counts, wall = counted(port, torch, validate_parity.main,
+                                    vargs + ["--engine", "ours"])
+    ours = [ln for ln in text.splitlines() if " OURS: " in ln]
+    check(len(ours) == 3, f"validate_parity ours printed {ours}")
+    whole_batches("validate_parity --engine ours", counts, "wh", 10)
+    _, text, counts, pwall = counted(port, torch, validate_parity.main,
+                                     vargs + ["--engine", "paired",
+                                              "--seeds", "1"])
+    paired = [ln for ln in text.splitlines() if ln.startswith("[paired]")]
+    check(len(paired) == 3 and not nonzero(counts),
+          f"validate_parity paired (eager engine): {paired}, launches "
+          f"{nonzero(counts)}")
+    for ln in ours + paired:
+        log(f" (i) {ln}")
+    log(f" (i) validate_parity --engine ours {wall:.1f} s, --engine paired "
+        f"(the reference's recorded streams through mcem_run, its own half "
+        f"skipped without the reference tree) {pwall:.1f} s")
+    rec["validate_parity"] = {"ours_s": wall, "paired_s": pwall}
+    return rec
+
+
+def scripts_pesq_vpu(torch, dev, gpu):
+    """(j) pesq_battery with the first-party engine against the committed
+    expectations; (k) bench_vpu at its default --m and at VPU_M (HBM),
+    every streamed share of the HBM peak at VPU_MAX_SHARE or under."""
+    from guided_vae_nmf_torch.scripts import bench_vpu, pesq_battery
+
+    rc, text = captured(pesq_battery.main, ["--engine", "first-party"])
+    summary = json.loads(text.splitlines()[-1])
+    check(rc == 0 and summary["pass"] and summary["n_cases"] == 18,
+          f"pesq_battery: rc {rc}, {summary}")
+    log(f" (j) pesq_battery --engine first-party: {summary}")
+    rec = {"pesq_battery": summary}
+    for m in (None, VPU_M):
+        argv = ["--device", str(dev)] + ([] if m is None else
+                                         ["--m", str(m), "--iters",
+                                          str(VPU_ITERS)])
+        out, _ = captured(bench_vpu.main, argv)
+        if m is not None:
+            check(max(out["hbm_share"].values()) <= VPU_MAX_SHARE,
+                  f"bench_vpu shares {out['hbm_share']} past "
+                  f"{VPU_MAX_SHARE}")
+        log(f" (k) bench_vpu --m {out['m']} ({out['m'] * 4 / 2**20:.0f} MiB "
+            f"a tensor; {gpu}): streamed Gelem/s {out['streamed_gelem_s']}, "
+            f"share of 3.35 TB/s {out['hbm_share']}; chained (eager, "
+            f"unfused) {out['fused_gelem_s']}")
+        rec[f"bench_vpu_m{out['m']}"] = out
+    return rec
+
+
+def phase_scripts(torch, batch, dev, gpu, seed):
+    """The remaining scripts, in-process through each `main(argv)` on the
+    card with the shipped weights at full width, the launch counters read
+    around each run: (a)-(k) above. Returns the record."""
+    import guided_vae_nmf_torch as port
+
+    t_phase = time.perf_counter()
+    store_backend()
+    rec = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "data")
+        write_eval_root(batch[0], root)
+        croot = os.path.join(tmp, "campaign_data")
+        write_campaign_root(croot, seed, CAMPAIGN_SECONDS)
+        for key, fn, args in (
+                ("harness", scripts_harness, (root, dev)),
+                ("long", scripts_long, (root, tmp, dev)),
+                ("serving", scripts_serving, (dev,)),
+                ("real_noise", scripts_real_noise, (root, tmp, dev)),
+                ("warm_cache", scripts_warm_cache, (dev,)),
+                ("campaign", scripts_campaign, (croot, tmp, dev))):
+            t0 = time.perf_counter()
+            rec[key] = fn(torch, port, *args)
+            rec[key + "_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rec["pesq_vpu"] = scripts_pesq_vpu(torch, dev, gpu)
+        rec["pesq_vpu_s"] = time.perf_counter() - t0
+    rec["seconds"] = time.perf_counter() - t_phase
+    log(f" remaining-scripts phase: {rec['seconds']:.1f} s in all ("
+        + ", ".join(f"{k[:-2]} {v:.1f} s" for k, v in rec.items()
+                    if k.endswith("_s")) + ")")
     return rec
 
 
@@ -3914,6 +4350,11 @@ def main(argv=None):
                                     meta, batch, args.seed, dev, gpu)
     multidevice["seconds"] = time.perf_counter() - t_md
     log(f" multi-device phase: {multidevice['seconds']:.1f} s")
+    log("the remaining scripts (bench_niter500 + quality gate, bench_long, "
+        "bench_serving, eval_real_noise, warm_cache, eval_campaign, "
+        "campaign_tables, eval_classifier_context, pretrain_subset, "
+        "bench_train, validate_parity, pesq_battery, bench_vpu):")
+    scripts = phase_scripts(torch, batch, dev, gpu, args.seed)
 
     hybrid = phase_hybrid(torch, model, classifier, mean, std, batch,
                           args.seed, dev, gpu)
@@ -3952,7 +4393,7 @@ def main(argv=None):
         "paths": paths, "fast": fast, "offline_rest": rest,
         "serving": serving, "streaming": streaming,
         "evaluation": evaluation, "training": training,
-        "multidevice": multidevice, "hybrid": hybrid,
+        "multidevice": multidevice, "scripts": scripts, "hybrid": hybrid,
         "harness": harness, "kernels": kernels, "kernels_b32_n512": large,
         "seconds": time.perf_counter() - t_start,
     }

@@ -1594,3 +1594,78 @@ def test_data_parallel_step_on_the_card(cuda, tmp_path):
             else:
                 assert_allclose(p.cpu().numpy(), want[k].cpu().numpy(),
                                 atol=1e-5, err_msg=k)
+
+
+# the long recording's frames: bench_long's 30 minutes bucketed as the
+# sweep buckets them (pipeline.bucket_frames)
+LONG_N = (30 * 60 * 16000 // 256 + 1 + 127) // 128 * 128
+
+
+def _close_on_card(got, ref, what):
+    """TOL, checked on the card (the arrays are GBs on the host)."""
+    got, ref = got.float(), ref.float()
+    bad = (got - ref).abs() > TOL["atol"] + TOL["rtol"] * ref.abs()
+    n = int(bad.sum())
+    assert n == 0, (f"{what}: {n} of {bad.numel()} elements past {TOL}, "
+                    f"max abs err {float((got - ref).abs().max())}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["e", "wf"])
+def test_long_recording_chain_and_sums_match_plain(cuda, mode):
+    """K1c and K2c as bench_long runs them (fast mode, NMF factors) at
+    the 30-minute recording's bucketed N = 112,512 frames in one launch,
+    against their plain versions on the card: every global offset of
+    both kernels is formed in 64 bits (the bfloat16 sample buffer alone is
+    10 x 112,512 x 513 x 2 B = 1.15 GB). Then the 'h' and 'g' sums over
+    the chain's own dump."""
+    assert LONG_N == 112512
+    c = chain_case(cuda, 51, B=1, F=513, N=LONG_N, L=32, H=128, K=10,
+                   Y=513)
+    nsamples, burnin = 10, 2
+    noise = decisive_noise(cuda, 52, 1, LONG_N, 32, nsamples + burnin)
+    kw = dict(FAST["fast"], noise=noise)
+    ref = run_chain(mh_chain_ref, c, mode, nsamples, burnin, 0.01, **kw)
+    got = run_chain(mh_chain, c, mode, nsamples, burnin, 0.01, **kw)
+    torch.cuda.synchronize()
+    _close_on_card(got[0], ref[0], "Z")
+    _close_on_card(got[1], ref[1], "Vs")
+    for i, (a, b) in enumerate(zip(got[2], ref[2])):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        _close_on_card(a, b, f"out[{i}]")
+    if mode == "wf":
+        return
+    samples = got[2][0]
+    assert samples.shape == (1, nsamples, LONG_N, 513)
+    for smode in ("h", "g"):
+        args = (samples, c["WH"], c["g"], c["X2"])
+        for i, (a, b) in enumerate(zip(
+                nmf_sums(*args, mode=smode, approx_recip=True),
+                nmf_sums_ref(*args, mode=smode))):
+            _close_on_card(a, b, f"{smode}[{i}]")
+
+
+@pytest.mark.cuda
+def test_bench_long_runs_repeat_on_the_card(cuda, tmp_path):
+    """bench_long at 2 minutes (7,501 frames, bucketed to 7,552): the warm
+    run's wavs equal the cold run's byte for byte (K1's contract makes a
+    run deterministic), each run 100 / 1 / 100 / 100 K1c / K2c launches."""
+    import os
+
+    from chip_smoke import speech_like_mixtures, write_eval_root
+    from guided_vae_nmf_torch.scripts import bench_long
+
+    write_eval_root(speech_like_mixtures(3, (2.0, 3.0)), str(tmp_path))
+    work = str(tmp_path / "work")
+    reset_launch_counts()
+    row = bench_long.main(["--minutes", "2", "--work", work, "--data_root",
+                           str(tmp_path)])
+    assert row["frames"] == 7501 and row["backend"] == "cuda"
+    assert nonzero(launch_counts()) == {
+        "mh_chain": {"e_wh_fast": 200, "wf_wh_fast": 2},
+        "nmf_sums": {"h_wh_fast": 200, "g_wh_fast": 200}}
+    base = os.path.splitext(bench_long.REL)[0]
+    for tag in ("_s_est.wav", "_n_est.wav"):
+        with open(os.path.join(work, "est", base + tag), "rb") as a, \
+                open(os.path.join(work, "est2", base + tag), "rb") as b:
+            assert a.read() == b.read(), tag
