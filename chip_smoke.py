@@ -3094,11 +3094,95 @@ def same_files(a, b):
     return names[0]
 
 
-def scripts_harness(torch, port, root, dev):
+def compare_on_card(name, got, ref, k1d=False):
+    """got against ref, reduced on the card (a script's buffers are GBs on
+    the host): every element within TOL or, for K1d, within K1D_TOL with at
+    most K1D_MAX_PAST of them past TOL. Returns (max abs error, elements
+    past TOL, elements)."""
+    g, r = got.float(), ref.float()
+    check(g.shape == r.shape, f"{name}: shape {tuple(g.shape)} vs "
+          f"{tuple(r.shape)}")
+    check(bool(g.isfinite().all()), f"{name}: non-finite kernel output")
+    err = (g - r).abs()
+    past = int((err > TOL["atol"] + TOL["rtol"] * r.abs()).sum())
+    n = err.numel()
+    if k1d:
+        ok = past <= K1D_MAX_PAST * n and bool(
+            (err <= K1D_TOL["atol"] + K1D_TOL["rtol"] * r.abs()).all())
+        tol = f"{K1D_TOL}, at most {K1D_MAX_PAST:.0%} past TOL"
+    else:
+        ok, tol = past == 0, str(TOL)
+    e = float(err.max())
+    log(f"  {name:<10s} max_abs {e:.3e}  past TOL {past} of {n}  tol {tol}"
+        f"  {'ok' if ok else 'FAIL'}")
+    check(ok, f"{name}: kernel disagrees with its plain version")
+    return e, past, n
+
+
+def hold_at_script_shape(torch, model, B, N, levels, dev, what):
+    """K1 in E and WF mode ('wh' form, MCEMConfig()'s chain lengths and
+    step, decisive injected noise) at each of `levels`, and K2 'h' / 'g'
+    over each E chain's own dump, against their plain versions on the same
+    inputs at a script's (B, N), on the shipped decoder. Returns
+    {variant: [max abs error, elements past TOL, elements]}."""
+    from guided_vae_nmf_torch.mcem import (MCEMConfig, mh_chain,
+                                           mh_chain_ref, nmf_sums,
+                                           nmf_sums_ref)
+
+    cfg = MCEMConfig()
+    c = chain_inputs(torch, model, B, N, cfg.nmf_rank, 5, dev)
+    out = {}
+
+    def keep(key, res):
+        o = out.setdefault(key, [0.0, 0, 0])
+        o[0] = max(o[0], res[0])
+        o[1] += res[1]
+        o[2] += res[2]
+
+    for mode, ns, bi in (("e", cfg.nsamples_E_step, cfg.burnin_E_step),
+                         ("wf", cfg.nsamples_WF, cfg.burnin_WF)):
+        noise = decisive_noise(torch, 7, B, N, c["L"], ns + bi, dev)
+        names = ["Z", "Vs"] + (["samples", "numW", "denW"] if mode == "e"
+                               else ["WFs_sum", "WFn_sum"])
+        for level in levels:
+            kw = fast_kw(torch, level)
+            got = run_chain(c, mh_chain, mode, ns, bi, cfg.var_RW,
+                            noise=noise, **kw)
+            ref = run_chain(c, mh_chain_ref, mode, ns, bi, cfg.var_RW,
+                            noise=noise, **kw)
+            key = f"mh_chain_{mode}_wh{level}"
+            log(f" {what}: {key} against its plain version at B={B}, "
+                f"N={N}, {ns} + {bi} steps:")
+            for name, x, y in zip(names, (got[0], got[1]) + tuple(got[2]),
+                                  (ref[0], ref[1]) + tuple(ref[2])):
+                keep(key, compare_on_card(name, x, y,
+                                          k1d=level.endswith("_mm16")))
+            del ref
+            if mode == "wf":
+                continue
+            samples, sums = got[2][0], "_fast" if level else ""
+            skw = dict(approx_recip=True) if level else {}
+            for smode in ("h", "g"):
+                key = f"nmf_sums_{smode}_wh{sums}"
+                log(f" {what}: {key} over the {level or 'exact'} chain's "
+                    f"{samples.dtype} dump {tuple(samples.shape)}:")
+                for name, x, y in zip(
+                        ("num", "den"),
+                        run_sums(c, nmf_sums, samples, smode, **skw),
+                        run_sums(c, nmf_sums_ref, samples, smode)):
+                    keep(key, compare_on_card(name, x, y))
+            del got, samples
+        del noise
+        torch.cuda.empty_cache()
+    return out
+
+
+def scripts_harness(torch, port, model, root, dev):
     """(a) the bench_niter500 script at SCRIPT_HARNESS with its quality gate
     (one seed) on the evaluation root: each of the four variants twice
     (warm-up, timed) at B=32, N=512, then each test utterance in exact mode
-    and in fast_bf16mm (K1d)."""
+    and in fast_bf16mm (K1d). Then K1a, K1c (fast, trans), K1d, K2a and
+    K2c against their plain versions at B=32, N=512."""
     from guided_vae_nmf_torch.data import speech_list
     from guided_vae_nmf_torch.scripts import bench_niter500
 
@@ -3121,13 +3205,18 @@ def scripts_harness(torch, port, root, dev):
         f"--quality 1 --seeds 1 on {n_utts} utterances: {wall:.1f} s; "
         f"{times}; quality {out['quality']} (synthetic mixtures: no quality "
         f"claim); launches {nonzero(counts)}")
-    return {"record": out, "launches": counts, "wall_s": wall}
+    vs_plain = hold_at_script_shape(
+        torch, model, SCRIPT_HARNESS["batch"], SCRIPT_HARNESS["n"],
+        ("", "_fast", "_trans", "_fast_mm16"), dev, "(a)")
+    return {"record": out, "launches": counts, "wall_s": wall,
+            "vs_plain": vs_plain}
 
 
-def scripts_long(torch, port, root, tmp, dev):
+def scripts_long(torch, port, model, root, tmp, dev):
     """(b) bench_long: one recording of LONG_MINUTES through K1c / K2c in
     one launch a step at the bucketed N, twice (cold, warm); the warm
-    run's files equal the cold run's byte for byte."""
+    run's files equal the cold run's byte for byte. Then K1c and K2c
+    against their plain versions at B=1 and that N."""
     from guided_vae_nmf_torch.pipeline import bucket_frames
     from guided_vae_nmf_torch.scripts import bench_long
 
@@ -3150,8 +3239,10 @@ def scripts_long(torch, port, root, tmp, dev):
         f"{row['rtf_warm']}x; sample_buffer_gb {row['sample_buffer_gb']}; "
         f"max_memory_allocated {peak / 1e9:.2f} GB; launches "
         f"{nonzero(counts)}; warm files equal the cold run's ({files})")
+    vs_plain = hold_at_script_shape(torch, model, 1, n_pad, ("_fast",), dev,
+                                    "(b)")
     return {"row": row, "n_pad": n_pad, "max_memory_allocated": peak,
-            "launches": counts, "wall_s": wall}
+            "launches": counts, "wall_s": wall, "vs_plain": vs_plain}
 
 
 def scripts_serving(torch, port, dev):
@@ -3241,24 +3332,27 @@ def scripts_real_noise(torch, port, root, tmp, dev):
 
 
 def scripts_warm_cache(torch, port, dev):
-    """(e) warm_cache at bucket 384, batch 4, oracle and dnn labels, the
-    serving lattice and the stream ticks: the programs counted and timed."""
+    """(e) warm_cache with the JAX script's grid flags (ignored: the
+    kernels take any shape): it loads every `csrc/*.cu` library from the
+    build directory, launches nothing, and names the directory."""
+    from guided_vae_nmf_torch import _build
     from guided_vae_nmf_torch.scripts import warm_cache
 
     n, text, counts, wall = counted(port, torch, warm_cache.main, [
         "--buckets", "384", "--batch_size", "4", "--labels", "oracle,dnn",
         "--serving", "1", "--stream", "1", "--device", str(dev)])
-    want = add_counts(
-        expected_launches("wh", 100, 1, 100, 100, n_batches=2,
-                          level="_fast"),
-        expected_launches(**SPP_LAUNCHES, n_batches=5))
-    check(n == 2 + 5 + 1 + 4 and counts == want,
-          f"warm_cache: {n} programs, launches {nonzero(counts)}, expected "
-          f"12 and {nonzero(want)}")
+    sources = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
+    line = f"warmed {len(sources)} programs into {_build.build_dir()}"
+    check(n == len(sources) and text.splitlines()[-1] == line
+          and not nonzero(counts)
+          and all(_build.build_log(s) for s in sources),
+          f"warm_cache: {n} programs, last line {text.splitlines()[-1:]}, "
+          f"launches {nonzero(counts)}; expected {line!r} and none")
     for ln in text.splitlines():
         log(f" (e) {ln}")
-    log(f" (e) warm_cache: {n} programs in {wall:.1f} s")
-    return {"programs": n, "launches": counts, "wall_s": wall}
+    log(f" (e) warm_cache: {n} libraries ({', '.join(sources)}) in "
+        f"{wall:.1f} s")
+    return {"programs": n, "wall_s": wall}
 
 
 def scripts_campaign(torch, port, croot, tmp, dev):
@@ -3377,7 +3471,7 @@ def scripts_pesq_vpu(torch, dev, gpu):
     return rec
 
 
-def phase_scripts(torch, batch, dev, gpu, seed):
+def phase_scripts(torch, model, batch, dev, gpu, seed):
     """The remaining scripts, in-process through each `main(argv)` on the
     card with the shipped weights at full width, the launch counters read
     around each run: (a)-(k) above. Returns the record."""
@@ -3392,8 +3486,8 @@ def phase_scripts(torch, batch, dev, gpu, seed):
         croot = os.path.join(tmp, "campaign_data")
         write_campaign_root(croot, seed, CAMPAIGN_SECONDS)
         for key, fn, args in (
-                ("harness", scripts_harness, (root, dev)),
-                ("long", scripts_long, (root, tmp, dev)),
+                ("harness", scripts_harness, (model, root, dev)),
+                ("long", scripts_long, (model, root, tmp, dev)),
                 ("serving", scripts_serving, (dev,)),
                 ("real_noise", scripts_real_noise, (root, tmp, dev)),
                 ("warm_cache", scripts_warm_cache, (dev,)),
@@ -4354,7 +4448,14 @@ def main(argv=None):
         "bench_serving, eval_real_noise, warm_cache, eval_campaign, "
         "campaign_tables, eval_classifier_context, pretrain_subset, "
         "bench_train, validate_parity, pesq_battery, bench_vpu):")
-    scripts = phase_scripts(torch, batch, dev, gpu, args.seed)
+    scripts = phase_scripts(torch, model, batch, dev, gpu, args.seed)
+    # the kernels' errors at the scripts' shapes join the kernel line's
+    for run in ("harness", "long"):
+        for key, (e, past, n) in scripts[run]["vs_plain"].items():
+            err[key] = max(err[key], e)
+            if key in k1d_past:
+                k1d_past[key][0] += past
+                k1d_past[key][1] += n
 
     hybrid = phase_hybrid(torch, model, classifier, mean, std, batch,
                           args.seed, dev, gpu)

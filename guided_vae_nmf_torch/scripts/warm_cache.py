@@ -1,142 +1,40 @@
-"""Pay a process's first-use costs on the card ahead of the traffic
-(counterpart of the JAX package's scripts/warm_cache.py, which fills a
-persistent XLA compile cache).
+"""Build the CUDA kernels ahead of the traffic (counterpart of the JAX
+package's scripts/warm_cache.py, which fills a persistent XLA compile
+cache).
 
-The port compiles no programs at run time; what a cold deployment pays on
-the card is the kernels' build (`csrc/*.cu` with nvcc, cached by source
-hash in the build directory, `build/gvnmf_torch/` or
-`$GVNMF_TORCH_BUILD_DIR`) and, in each new process, each shape's first
-run (buffers in PyTorch's caching allocator). This script builds the
-kernels, then runs `enhance_waveform` once per (bucket, batch, label mode,
-noise model) of the sweep's standard grid (the batch shrinks for long
-buckets as the sweep's does), and optionally the online endpoint's
-(batch x bucket) lattice and the streaming ticks. The weights are random:
-the shapes are what is warmed.
+The port compiles no programs per shape: its only first-use cost that
+outlives a process is the kernels' build (`csrc/*.cu` with nvcc, cached by
+source hash in the build directory, `build/gvnmf_torch/` or
+`$GVNMF_TORCH_BUILD_DIR`). This script builds every stale source and
+loads every library; later processes find them there. It launches no
+kernel. On the CPU there is nothing to build.
 
-Usage: python -m guided_vae_nmf_torch.scripts.warm_cache
-       [--buckets 384,512,640] [--batch_size 32] [--labels oracle,dnn]
-       [--noise_models nmf] [--fast 1] [--y_dim 513]
-       [--serving 1]  (online endpoint batch x bucket lattice)
-       [--stream 1]   (streaming ticks, dedicated + pooled)
-       [--chunk_frames 8] [--max_streams 8] [--device cuda|cpu]
+Usage: python -m guided_vae_nmf_torch.scripts.warm_cache [--device cuda|cpu]
 
-MCEMConfig fields take `--field value` overrides (e.g. `--niter 10`); the
-default is the full MCEMConfig(), as the sweep runs it.
+The JAX script's shape-grid flags are accepted and ignored, since the
+kernels take any shape: [--buckets 384,512,640] [--batch_size 32]
+[--labels oracle,dnn] [--noise_models nmf] [--fast 1] [--y_dim 513]
+[--serving 1] [--stream 1].
 """
 
 import sys
 import time
 
-import numpy as np
-
-from ..config import apply_overrides
-from ..mcem import MCEMConfig
-from ._common import device, flag
+from ._common import device
 
 
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
-    cfg, argv = apply_overrides(MCEMConfig(), argv)
-    buckets = [int(v) for v in flag(argv, "buckets", "384,512,640").split(",")]
-    batch_size = flag(argv, "batch_size", 32, int)
-    labels = flag(argv, "labels", "oracle,dnn").split(",")
-    noise_models = flag(argv, "noise_models", "nmf").split(",")
-    fast = bool(flag(argv, "fast", 1, int))
-    y_dim = flag(argv, "y_dim", 513, int)
     dev = device(argv)
 
-    import torch
-
     from .. import _build
-    from ..models import classifier_init, dgm_init
-    from ..pipeline import (HOP, NFFT, _use_fused, bucket_frames,
-                            enhance_waveform)
 
+    n_done = 0
     if dev.type == "cuda":
         t0 = time.perf_counter()
         _build.build_all()
+        n_done = len(list(_build.CSRC.glob("*.cu")))
         print(f"kernels built ({time.perf_counter() - t0:.1f}s)", flush=True)
-    params = dgm_init(torch.Generator().manual_seed(0),
-                      [513, y_dim, 32, [128, 128]]).to(dev)
-    cls = classifier_init(torch.Generator().manual_seed(1),
-                          [513, (128, 128), y_dim]).to(dev)
-    mean = np.zeros((513,), np.float32)
-    std = np.ones((513,), np.float32)
-
-    n_done = 0
-    for n_pad in buckets:
-        n_pad = bucket_frames(n_pad)
-        # the sweep shrinks the batch for long buckets to bound memory
-        B = max(1, batch_size * 512 // max(n_pad, 512))
-        L = (n_pad - 1) * HOP + NFFT
-        x = torch.zeros((B, L), dtype=torch.int16, device=dev)
-        mask = torch.ones((B, n_pad), device=dev)
-        use_fused = _use_fused("auto", params, n_pad)
-        for label_mode in labels:
-            for nm in noise_models:
-                t0 = time.perf_counter()
-                dnn = label_mode == "dnn"
-                out = enhance_waveform(
-                    params, x, mask, cfg,
-                    classifier=cls if dnn else None,
-                    mean=mean if dnn else None, std=std if dnn else None,
-                    s_pad=x if label_mode == "oracle" else None,
-                    generator=torch.Generator(device=dev).manual_seed(2),
-                    label_mode=label_mode, noise_model=nm, fast=fast,
-                    engine="auto",
-                    return_noise=not use_fused,  # the sweep's contract
-                    device=dev)
-                out[0].cpu()
-                n_done += 1
-                print(f"warmed bucket={n_pad} B={B} {label_mode}/{nm} "
-                      f"({time.perf_counter() - t0:.1f}s)", flush=True)
-    if flag(argv, "serving", 0, int):
-        # the online endpoint's (batch x bucket) lattice at its default
-        # config (SPP noise + DNN labels)
-        from ..serving import EnhancementService, ServeConfig
-
-        svc = EnhancementService(
-            params, classifier=cls, mean=mean, std=std, cfg=cfg,
-            serve=ServeConfig(noise_model="spp"), device=dev)
-        try:
-            srv_buckets = tuple(
-                bucket_frames(b) for b in buckets) or (128, 256, 512)
-            dt = svc.warmup(buckets=srv_buckets)
-            n_done += len(srv_buckets) * len(ServeConfig().batch_lattice)
-            print(f"serving lattice warmed ({dt:.1f}s)", flush=True)
-        finally:
-            svc.close()
-
-    if flag(argv, "stream", 0, int):
-        # the streaming tick (dedicated + pooled) at the serving default
-        # chunk shape
-        from ..streaming import (HOP as SHOP, MultiStreamM2Enhancer,
-                                 StreamingM2Enhancer)
-
-        t0 = time.perf_counter()
-        chunk_frames = flag(argv, "chunk_frames", 8, int)
-        max_streams = flag(argv, "max_streams", 8, int)
-        skw = dict(classifier=cls, mean=mean, std=std, label_mode="dnn",
-                   chunk_frames=chunk_frames, device=dev)
-        enh = StreamingM2Enhancer(params, **skw)
-        enh.push(np.zeros(2 * chunk_frames * SHOP, np.float32))
-        n_done += 1
-        # every power-of-two lane count of the pool
-        pool = MultiStreamM2Enhancer(params, max_streams=max_streams, **skw)
-        b = 1
-        while b <= max_streams:
-            sids = [pool.open() for _ in range(b)]
-            for sid in sids:
-                pool.feed(sid, np.zeros(2 * chunk_frames * SHOP,
-                                        np.float32))
-            pool.step()
-            for sid in sids:
-                pool.close(sid)
-            n_done += 1
-            b *= 2
-        print(f"streaming ticks warmed ({time.perf_counter() - t0:.1f}s)",
-              flush=True)
-
     print(f"warmed {n_done} programs into {_build.build_dir()}")
     return n_done
 
