@@ -172,6 +172,21 @@ Phases, in order; any failure exits nonzero without a result line:
    replayed-stream eager); (j) `pesq_battery` against the committed
    expectations; (k) `bench_vpu` at its default size and at 2^28
    elements, every streamed share of the HBM peak at 105 % or under.
+   Then the kernels' whole domain: three seeded M2s from `dgm_init`
+   (F=513, L=32, h_dim (256, 128), 128 x 4 and (256, 256)) whose decoders
+   the cluster chain does not take, each through the main batch with
+   engine="auto" (100 / 1 / 100 / 100 launches on K1g, K2a) and once with
+   engine="fused", a 1 s utterance on the card against the CPU path, and
+   K1g against its plain version under decisive noise at B=4, N=384
+   (exact, fast, trans and bfloat16 products on the first, exact on the
+   others); the first also with fast=True, the real-noise settings exact
+   and fast (K1g's Vb form) and on the eager engine (x realtime beside
+   the fused engine's); then the shipped M2 at nmf_rank=32 (K1a and K2's
+   wide kernel, exact and fast, the card against the CPU, K1a and K2
+   against their plain versions at that rank). Then the five demos
+   (`guided_vae_nmf_torch/examples/`) at their defaults on a synthetic
+   subset root (`write_demo_root`), each printing the JAX demo's lines,
+   with the launch counts read around each.
 11. paper-config path: `enhance_waveform(cfg=HybridConfig())` on the main
    batch (500 PEEM + 150 MCEM iterations and the WF chain; 150 / 1 / 150
    / 150 launches), with `fast=True` (the same on `_fast`) and with the
@@ -188,7 +203,9 @@ Phases, in order; any failure exits nonzero without a result line:
    leaves it (right after a K1 E launch), warm and cold, beside the
    CUDA-event time of back-to-back calls and the wrapper's host time a
    call; and K1a / K1b E and WF and K2a / K2b 'h' and 'g' at bench.py's
-   B=32, N=512 beside their bounds.
+   B=32, N=512 beside their bounds; K1g (exact and fast, E and WF, both
+   forms) on the (256, 128) M2's decoder and K2's wide kernel at rank 32
+   on the shipped decoder, at the paths' shapes.
 
 Prints the card's name and power limit, a `{"kernels": [...]}` line, and
 as its last line `{"ok": true, "device": {...}}`.
@@ -245,9 +262,11 @@ PEEM_LAUNCHES = dict(form="wh", e=0, wf=0, h=0, g=0)
 # The paper-config harness's arguments here (a cut of its B=32, N=512,
 # 500 iterations, so the script stays well inside its time limit).
 HARNESS_ARGS = dict(batch=4, n=384, niter=100, peem=1, hybrid=25)
-# Chain launch keys: mode, form, level ('', '_fast', '_trans'), and
-# '_mm16' for the decoder products on bfloat16 operands (K1d).
-CHAIN_VARIANTS = [f"{m}_{f}{lv}{mm}" for mm in ("", "_mm16")
+# Chain launch keys: mode, form, '_gen' for the general form (K1g),
+# level ('', '_fast', '_trans'), and '_mm16' for the decoder products on
+# bfloat16 operands (K1d).
+CHAIN_VARIANTS = [f"{m}_{f}{gen}{lv}{mm}" for gen in ("", "_gen")
+                  for mm in ("", "_mm16")
                   for lv in ("", "_fast", "_trans")
                   for m, f in (("e", "wh"), ("wf", "wh"), ("e", "vb"),
                                ("wf", "vb"))]
@@ -261,20 +280,32 @@ K1D_VARIANTS = [f"{m}_{f}_fast_mm16" for m, f in (
 OFF_PATH = ("mh_chain_e_vb_fast_mm16", "mh_chain_wf_vb_fast_mm16")
 SUMS_VARIANTS = [f"{m}_{f}{lv}" for lv in ("", "_fast")
                  for m, f in (("h", "wh"), ("g", "wh"), ("h", "vb"),
-                              ("g", "vb"))]
+                              ("g", "vb"), ("h", "wh_wide"),
+                              ("g", "wh_wide"))]
+# The kernels' whole domain: K1g, the chain's general form, exact and fast
+# in both modes and forms, and K2's wide kernel (NMF ranks past 16).
+K1G_VARIANTS = [f"{m}_{f}_gen{lv}" for lv in ("", "_fast")
+                for m, f in (("e", "wh"), ("wf", "wh"), ("e", "vb"),
+                             ("wf", "vb"))]
+WIDE_VARIANTS = [f"{m}_wh_wide{lv}" for lv in ("", "_fast")
+                 for m in ("h", "g")]
 
 
-def expected_launches(form, e, wf, h, g, n_batches=1, level=""):
+def expected_launches(form, e, wf, h, g, n_batches=1, level="", gen=False,
+                      wide=False):
     """The launch counts (`launch_counts()` layout) of a path that runs
-    the given launches a batch at `level`, over `n_batches` batches."""
+    the given launches a batch at `level`, over `n_batches` batches; `gen`:
+    its chains on K1g, `wide`: its sums on K2's wide kernel."""
     out = {"mh_chain": dict.fromkeys(CHAIN_VARIANTS, 0),
            "nmf_sums": dict.fromkeys(SUMS_VARIANTS, 0)}
     sums_level = "_fast" if level else ""
-    for kern, mode, n, lv in (("mh_chain", "e", e, level),
-                              ("mh_chain", "wf", wf, level),
-                              ("nmf_sums", "h", h, sums_level),
-                              ("nmf_sums", "g", g, sums_level)):
-        out[kern][f"{mode}_{form}{lv}"] = n * n_batches
+    chain, sums = form + ("_gen" if gen else ""), form + (
+        "_wide" if wide else "")
+    for kern, mode, n, lv, f in (("mh_chain", "e", e, level, chain),
+                                 ("mh_chain", "wf", wf, level, chain),
+                                 ("nmf_sums", "h", h, sums_level, sums),
+                                 ("nmf_sums", "g", g, sums_level, sums)):
+        out[kern][f"{mode}_{f}{lv}"] = n * n_batches
     return out
 
 
@@ -554,9 +585,10 @@ def si_sdr(ref, est):
 
 def chain_bound(B, N, F, L, Hd, K, R, n_steps, mode, vb=False,
                 sample_bytes=4):
-    """(bound_ms, bound_by, flops, bytes) of one K1 launch. Operations per
-    frame and step: the decoder's 2 (L Hd + Hd Hd + Hd F) multiply-adds,
-    Hd (depth 2: 2 Hd) tanh and F exp, and per bin 8 more (g Vs + Vb,
+    """(bound_ms, bound_by, flops, bytes) of one K1 launch; `Hd` one hidden
+    width (depth 2) or the decoder's widths (H1, ..., Hd). Operations per
+    frame and step: the decoder's 2 (L H1 + sum H_i H_i+1 + Hd F)
+    multiply-adds, sum H_i tanh and F exp, and per bin 8 more (g Vs + Vb,
     floor, reciprocal, log, X2 / Vx, two sums), plus, with the NMF factors
     (K1a), 2 K F per frame to form Vb; transcendentals count as one
     operation. Bytes: every input read once and every output written once;
@@ -565,7 +597,9 @@ def chain_bound(B, N, F, L, Hd, K, R, n_steps, mode, vb=False,
     E-mode dumps take `sample_bytes` an element (2 for K1c's bfloat16).
     Fast mode computes the same function, so its operation count is the
     exact one's (an approximate exp or log counts as one operation)."""
-    per_step = (2 * (L * Hd + Hd * Hd + Hd * F) + 2 * Hd + F + 8 * F
+    ws = (Hd, Hd) if isinstance(Hd, int) else tuple(Hd)
+    mids = sum(a * b for a, b in zip(ws, ws[1:]))
+    per_step = (2 * (L * ws[0] + mids + ws[-1] * F) + sum(ws) + F + 8 * F
                 + 6 * L)
     flops = B * N * n_steps * per_step
     if vb:
@@ -582,8 +616,9 @@ def chain_bound(B, N, F, L, Hd, K, R, n_steps, mode, vb=False,
                      + sample_bytes * B * R * N * F)
     else:
         out_bytes = 4 * (B * N * L + 3 * B * N * F)
-    in_bytes = 4 * (2 * B * N * F + in_noise + B * N + B * N * Hd
-                    + B * N * L + L * Hd + Hd * Hd + Hd + Hd * F + F)
+    in_bytes = 4 * (2 * B * N * F + in_noise + B * N + B * N * ws[0]
+                    + B * N * L + L * ws[0] + mids + sum(ws[1:])
+                    + ws[-1] * F + F)
     nbytes = in_bytes + out_bytes
     t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
     return (1e3 * max(t_ops, t_bytes),
@@ -643,9 +678,11 @@ def sums_bound(B, R, N, F, K, mode, vb=False, sample_bytes=4):
 
 
 VARIANTS = ([f"mh_chain_{v}" for v in CHAIN_VARIANTS
-             if not v.endswith("_mm16")]
+             if not v.endswith("_mm16") and "_gen" not in v]
             + [f"mh_chain_{v}" for v in K1D_VARIANTS]
-            + [f"nmf_sums_{v}" for v in SUMS_VARIANTS])
+            + [f"nmf_sums_{v}" for v in SUMS_VARIANTS if "_wide" not in v]
+            + [f"mh_chain_{v}" for v in K1G_VARIANTS]
+            + [f"nmf_sums_{v}" for v in WIDE_VARIANTS])
 
 
 def run_chain(c, fn, mode, nsamples, burnin, var_rw, vb=False, **kw):
@@ -671,8 +708,10 @@ def check_sums(torch, c, vb, dev, samples=None):
     with the approximate reciprocal (K2c); seeded gamma samples unless
     `samples` is given. Returns the largest absolute error per variant."""
     from guided_vae_nmf_torch.mcem import nmf_sums, nmf_sums_ref
+    from guided_vae_nmf_torch.mcem.nmf_sums import NARROW_RANK
 
-    form = "vb" if vb else "wh"
+    wide = not vb and c["WH"][0].shape[1] > NARROW_RANK
+    form = "vb" if vb else ("wh_wide" if wide else "wh")
     B, N, F = c["X2"].shape
     if samples is None:
         rng = np.random.RandomState(6)
@@ -983,11 +1022,13 @@ def phase_files(torch, model, classifier, mean, std, pairs, cfg, seed,
     return float(res)
 
 
-def phase_reference(torch, model, classifier, mean, std, pairs, dev):
+def phase_reference(torch, model, classifier, mean, std, pairs, dev,
+                    rank=10, profiles=("nmf", "real-noise")):
     """One short utterance on the card against the CPU path (plain
     versions) at var_RW=0, where the chains are deterministic: the main
-    path's settings (NMF from a shared init) and the real-noise profile's
-    (spp2, noise gain, soft guidance)."""
+    path's settings (NMF of `rank` from a shared init) and the real-noise
+    profile's (spp2, noise gain, soft guidance), as `profiles` names
+    them."""
     from guided_vae_nmf_torch.dsp import pad_signal_for_stft
     from guided_vae_nmf_torch.mcem import MCEMConfig
     from guided_vae_nmf_torch.pipeline import (
@@ -1004,12 +1045,14 @@ def phase_reference(torch, model, classifier, mean, std, pairs, dev):
     small = dict(niter=3, nsamples_E_step=3, burnin_E_step=2,
                  nsamples_WF=3, burnin_WF=2, var_RW=0.0)
     rng = np.random.RandomState(5)
-    init = {"W": rng.uniform(0.05, 1, (1, 513, 10)).astype(np.float32),
-            "H": rng.uniform(0.05, 1, (1, 10, n_pad)).astype(np.float32)}
-    cases = (("nmf", MCEMConfig(**small), {}, init),
+    init = {"W": rng.uniform(0.05, 1, (1, 513, rank)).astype(np.float32),
+            "H": rng.uniform(0.05, 1, (1, rank, n_pad)).astype(np.float32)}
+    cases = (("nmf", MCEMConfig(**small, nmf_rank=rank), {}, init),
              ("real-noise", MCEMConfig(**small, noise_gain=True),
               dict(noise_model="spp2", soft_guidance=True), None))
     for name, cfg, settings, init_np in cases:
+        if name not in profiles:
+            continue
         outs = {}
         for d in ("cpu", dev):
             mods = [m.to(d) for m in (model, classifier)]
@@ -2264,6 +2307,26 @@ def write_eval_root(pairs, root):
         bases.append(os.path.join(rel, spk, utt))
     write_dataset([EVAL_SNR_DB] * len(pairs), proc, "test", "snr_db")
     return raw, proc, bases
+
+
+def write_demo_root(root, seed, seconds=(1.0, 1.2, 1.4)):
+    """A data root for the demos (`guided_vae_nmf_torch/examples/`): the
+    speech-like mixtures of `seconds` as `write_eval_root` writes them,
+    and the training pickles `notebook_tours` reads under
+    `<root>/subset/pickle/`: the clean tracks' power spectra (513, frames)
+    and their Lorenz-quantile IBM. Returns the subset dir."""
+    from guided_vae_nmf_torch.data import write_dataset
+    from guided_vae_nmf_torch.dsp import clean_speech_IBM, stft
+
+    pairs = speech_like_mixtures(seed, seconds)
+    write_eval_root(pairs, root)
+    tfs = [stft(clean.astype(np.float32) / 32768.0) for clean, _ in pairs]
+    pickles = os.path.join(root, "subset", "pickle") + "/"
+    write_dataset(np.concatenate([np.abs(t) ** 2 for t in tfs], axis=1)
+                  .astype(np.float32), pickles, "train", "frames")
+    write_dataset(np.concatenate([clean_speech_IBM(t) for t in tfs], axis=1)
+                  .astype(np.float32), pickles, "train", "labels")
+    return os.path.join(root, "subset")
 
 
 # the campaign's speakers (scripts/eval_campaign.py's splits): WSJ0 split /
@@ -3991,9 +4054,377 @@ def phase_multidevice(torch, mods, mean, std, meta, batch, seed, dev, gpu):
     return rec
 
 
+# The demos' synthetic subset root: three utterances of these lengths.
+EXAMPLE_SECONDS = (2.0, 2.5, 3.0)
+# Lines of the JAX demos each port must print.
+EXAMPLE_LINES = {
+    "demo_enhancement": ("1) synthesizing test mixtures (0 dB SNR, 2 noise "
+                         "types)...", "2) MCEM enhancement (oracle IBM "
+                         "guidance, 50 EM iterations)...", "  [MCEM] ",
+                         "3) PEEM enhancement (gradient E-step, 50 EM "
+                         "iterations)...", "  [PEEM] ",
+                         "4) inspection figure...", "   wrote "),
+    "demo_serving": (" SI-SDR ", "  (batch of ", "service stats: {"),
+    "demo_streaming": ("chunks: ", " x 100 ms | per-chunk compute p50 ",
+                       "(budget 100 ms) | algorithmic latency 64 ms",
+                       ", streaming Wiener-DNN)"),
+    "demo_streaming_http": ("s of audio in ", "x realtime pacing), first "
+                            "enhanced bytes after ", "SI-SDR: mixture "),
+    "notebook_tours": ("[inspection] frames (513, ",
+                       "[training] SVI labelled loss on a 16-frame batch: ",
+                       "[visualization] "),
+}
+
+
+def phase_examples(torch, dev, gpu, art, seed):
+    """The five demos (`guided_vae_nmf_torch/examples/`) on the card, each
+    through its `main(argv)` at its defaults on a synthetic subset root
+    (`write_demo_root`: three speech-like mixtures of EXAMPLE_SECONDS and
+    the training pickles), with the launch counters read around it:
+    demo_enhancement whole batches of 50 K1a / K2a iterations (MCEM with
+    oracle labels; PEEM launches nothing), demo_serving whole served
+    batches of 100 K1b E / 1 WF / 100 K2b g, the streaming demos and the
+    tours none. Each must print the JAX demo's lines. Returns the record."""
+    import guided_vae_nmf_torch as port
+    from guided_vae_nmf_torch.examples import (
+        demo_enhancement, demo_serving, demo_streaming, demo_streaming_http,
+        notebook_tours)
+
+    t0 = time.perf_counter()
+    rec = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = write_demo_root(tmp, seed + 30, EXAMPLE_SECONDS)
+        common = ["--data_root", root, "--artifacts", art]
+        demos = (("demo_enhancement", demo_enhancement,
+                  ["--out", os.path.join(tmp, "demo")]),
+                 ("demo_serving", demo_serving, []),
+                 ("demo_streaming", demo_streaming, []),
+                 ("demo_streaming_http", demo_streaming_http, []),
+                 ("notebook_tours", notebook_tours,
+                  ["--out", os.path.join(tmp, "tours")]))
+        for name, mod, extra in demos:
+            res, text, counts, wall = counted(port, torch, mod.main,
+                                              common + extra)
+            log(f" {name} ({wall:.1f} s, launches {nonzero(counts)}):")
+            for line in text.rstrip().splitlines():
+                log(f"   | {line}")
+            missing = [t for t in EXAMPLE_LINES[name] if t not in text]
+            check(not missing, f"{name} did not print {missing}")
+            r = {"wall_s": wall, "launches": nonzero(counts)}
+            if name == "demo_enhancement":
+                r["batches"] = whole_batches(name, counts, "wh", 50)
+                check(text.count("  [MCEM] ") == len(EXAMPLE_SECONDS)
+                      and np.all(np.isfinite(res["MCEM"]))
+                      and np.all(np.isfinite(res["PEEM"])),
+                      f"{name}: a row is missing or not finite")
+            elif name == "demo_serving":
+                r["batches"] = whole_batches(name, counts, "vb", 100,
+                                             h=False)
+                check(len(res["results"]) == len(EXAMPLE_SECONDS)
+                      and res["stats"]["requests"] == len(EXAMPLE_SECONDS),
+                      f"{name}: not every client was answered")
+                r["stats"] = res["stats"]
+            else:
+                check(counts == expected_launches(**NO_LAUNCHES),
+                      f"{name} launched {nonzero(counts)}")
+            if name == "demo_streaming":
+                r["p50_ms"] = 1e3 * float(np.percentile(res["latency_s"], 50))
+                check(np.all(np.isfinite(res["s_hat"])), f"{name}: output")
+            if name == "demo_streaming_http":
+                check(res["status"] == "HTTP/1.1 200 OK"
+                      and len(res["y"]) == len(res["x"]),
+                      f"{name}: {res['status']}, {len(res['y'])} of "
+                      f"{len(res['x'])} samples")
+                r["wall_s_stream"] = res["wall_s"]
+            if name == "notebook_tours":
+                check(np.isfinite(res["training"]["loss"]),
+                      f"{name}: SVI loss")
+            rec[name] = r
+    rec["seconds"] = time.perf_counter() - t0
+    log(f" examples phase: {rec['seconds']:.1f} s; {gpu}")
+    return rec
+
+
+# The kernels' whole domain: seeded M2s from the port's dgm_init at F=513,
+# L=32 whose decoders the cluster form does not take (dgm_init's h_dim; the
+# decoder mirrors it: (128, 256), 128 x 4, (256, 256)), on K1g, and the
+# shipped M2 at an NMF rank past 16, on K2's wide kernel; each through the
+# main batch with engine="auto".
+DOMAIN_H_DIMS = ((256, 128), (128, 128, 128, 128), (256, 256))
+DOMAIN_RANK = 32
+GEN_LAUNCHES = dict(MAIN_LAUNCHES, gen=True)
+WIDE_LAUNCHES = dict(MAIN_LAUNCHES, wide=True)
+
+
+def domain_model(torch, h_dim, seed, dev):
+    """A seeded M2 (513 bins, 513 labels, L=32) of dgm_init's `h_dim`."""
+    from guided_vae_nmf_torch.models import dgm_init
+
+    return dgm_init(torch.Generator().manual_seed(seed),
+                    [513, 513, 32, list(h_dim)]).to(dev)
+
+
+def compare_bf16(name, got, ref):
+    """bfloat16 sample dumps of float32 values within TOL of each other:
+    each within one bfloat16 ulp of the plain version's (the cluster
+    form's dumps are bit-equal at the shipped widths only, where the plain
+    version's products sum in the kernel's order). Returns the max abs
+    error."""
+    import torch
+
+    g, r = got.float(), ref.float()
+    check(g.shape == r.shape, f"{name}: shape {g.shape} vs {r.shape}")
+    ulp = torch.ldexp(torch.ones_like(r), torch.frexp(r).exponent - 8)
+    err = (g - r).abs()
+    ok = bool((err <= ulp).all())
+    log(f"  {name:<28s} max_abs {err.max().item():.3e}  bfloat16, within "
+        f"one bfloat16 ulp: {'ok' if ok else 'FAIL'} ("
+        f"{int((err > 0).sum())} of {err.numel()} differ)")
+    check(ok, f"{name}: K1g's bfloat16 dumps disagree with the plain "
+          "version's")
+    return float(err.max())
+
+
+def check_general(torch, model, B, N, dev, levels):
+    """K1g on `model`'s decoder against its plain version at B, N under
+    decisive injected noise, MCEMConfig()'s chain lengths: E and WF, both
+    forms, at `levels` ('' exact, '_fast', '_trans', '_fast_mm16'), each
+    run one K1g launch; Z equal, the rest at TOL (bfloat16 dumps within a
+    bfloat16 ulp, bfloat16 products at K1D_TOL). Returns the largest
+    absolute error per chain variant."""
+    import guided_vae_nmf_torch as port
+    from guided_vae_nmf_torch.mcem import mh_chain, mh_chain_ref
+    from guided_vae_nmf_torch.mcem.mh_chain import widths
+
+    c = chain_inputs(torch, model, B, N, 10, 11, dev)
+    L, ws = c["L"], widths(c["dec_w"])
+    err = {}
+    for vb, form in ((False, "wh"), (True, "vb")):
+        for mode, ns, bi in (("e", 10, 30), ("wf", 25, 75)):
+            noise = decisive_noise(torch, 12, B, N, L, ns + bi, dev)
+            names = (["Vs", "samples"] + (["s1", "s2"] if vb else
+                                          ["numW", "denW"])
+                     if mode == "e" else ["Vs", "WFs_sum", "WFn_sum"])
+            for level in levels:
+                kw = fast_kw(torch, level)
+                key = f"{mode}_{form}_gen{level}"
+                port.reset_launch_counts()
+                got = run_chain(c, mh_chain, mode, ns, bi, 0.01, vb=vb,
+                                noise=noise, **kw)
+                counts = nonzero(port.launch_counts())
+                ref = run_chain(c, mh_chain_ref, mode, ns, bi, 0.01, vb=vb,
+                                noise=noise, **kw)
+                torch.cuda.synchronize()
+                log(f" K1g {key}, decoder {ws}, decisive noise, B={B} "
+                    f"N={N}:")
+                check(counts == {"mh_chain": {key: 1}},
+                      f"K1g check launched {counts}, expected one {key}")
+                check(torch.equal(got[0], ref[0]), f"K1g {key}: Z differs "
+                      "from the plain version's under decisive noise")
+                e = 0.0
+                for name, x, y in zip(names, (got[1],) + got[2],
+                                      (ref[1],) + ref[2]):
+                    if level.endswith("_mm16"):
+                        e = max(e, compare_k1d(name, x.float(),
+                                               y.float())[0])
+                    elif x.dtype == torch.bfloat16:
+                        e = max(e, compare_bf16(name, x, y))
+                    else:
+                        e = max(e, compare(name, x, y))
+                if mode == "wf":
+                    unity = (got[2][0] + got[2][1]) / ns
+                    check(torch.allclose(unity, torch.ones_like(unity),
+                                         atol=1e-5), "K1g: WFs + WFn != 1")
+                err[f"mh_chain_{key}"] = e
+    return err
+
+
+def one_run(torch, model, classifier, mean, std, cfg, batch, seed, dev,
+            launches, label, **settings):
+    """One enhance_waveform batch with the launch counters reset before
+    and checked against `launches` after."""
+    import guided_vae_nmf_torch as port
+    from guided_vae_nmf_torch.pipeline import enhance_waveform
+
+    _, x_b, mask = batch
+    port.reset_launch_counts()
+    out = enhance_waveform(model, x_b, mask, cfg, classifier=classifier,
+                           mean=mean, std=std, label_mode="dnn", device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(
+                               seed), **settings)
+    torch.cuda.synchronize()
+    counts = port.launch_counts()
+    log(f" {label}: launches {nonzero(counts)}")
+    check(counts == expected_launches(**launches),
+          f"{label} launches {nonzero(counts)}, expected {launches}")
+    return out
+
+
+def phase_domain(torch, model, classifier, mean, std, batch, seed, dev, gpu):
+    """The kernels' whole domain on the main batch (the shipped
+    classifier's labels): for each decoder of DOMAIN_H_DIMS, K1g's launch,
+    the main path with engine="auto" (three runs, 100 / 1 / 100 / 100
+    launches on K1g E / WF and K2 h / g), one run with engine="fused", a
+    1 s utterance on the card against the CPU path at var_RW=0, and K1g
+    against its plain version at the batch's shape (every level on the
+    first decoder, exact on the others); on the first also fast=True, the
+    real-noise settings exact and fast (K1g's Vb form) and the eager
+    engine (engine="xla") for the x realtime beside the fused engine's;
+    then the shipped M2 at nmf_rank=DOMAIN_RANK (the cluster form and K2's
+    wide kernel): the main path exact and fast, the card against the CPU,
+    and K1a / K2 against their plain versions at that rank. Returns the
+    record, its runs' launch counts and the kernels' errors."""
+    from guided_vae_nmf_torch.mcem import MCEMConfig, mh_chain, mh_chain_ref
+    from guided_vae_nmf_torch.mcem.fused_engine import _dec_parts
+    from guided_vae_nmf_torch.mcem.mh_chain import (
+        cluster_takes, general_geometry, widths)
+    from guided_vae_nmf_torch.pipeline import _use_fused
+    from guided_vae_nmf_torch.profiles import apply_profile_cfg, \
+        offline_settings
+
+    t0 = time.perf_counter()
+    pairs, x_b, mask = batch
+    B, N = mask.shape
+    cfg = MCEMConfig()
+    rec, runs, err = {}, [], {}
+
+    def keep(r):
+        r.pop("s16")
+        r.pop("y_hard")
+        runs.append(r)
+        return r
+
+    for i, h_dim in enumerate(DOMAIN_H_DIMS):
+        m = domain_model(torch, h_dim, seed + 20 + i, dev)
+        ws = widths(_dec_parts(m.decoder, 32))
+        check(not cluster_takes(513, 32, ws, cfg.nmf_rank, N),
+              f"the cluster form takes the decoder {ws}")
+        check(_use_fused("auto", m, N), f"engine='auto' picks the eager "
+              f"engine for the decoder {ws}")
+        geo = general_geometry(513, 32, ws, cfg.nmf_rank, dev)
+        log(f" decoder {ws} (dgm_init h_dim {list(h_dim)}): K1g launch "
+            f"{B * N // geo['frames']} CTAs of {geo['threads']} threads, "
+            f"{geo['smem_bytes']} B of shared memory and {geo['registers']} "
+            "registers a thread")
+        d = {"widths": list(ws), "geometry": geo}
+        d["auto"] = keep(phase_main(
+            torch, m, classifier, mean, std, cfg, batch, seed, dev, gpu,
+            launches=GEN_LAUNCHES, label=f"main batch, decoder {ws}, "
+            "engine='auto'"))
+        one_run(torch, m, classifier, mean, std, cfg, batch, seed, dev,
+                GEN_LAUNCHES, f"main batch, decoder {ws}, engine='fused'",
+                engine="fused")
+        log(f" decoder {ws} on the card against the CPU path:")
+        phase_reference(torch, m, classifier, mean, std, pairs, dev,
+                        profiles=("nmf",))
+        levels = ("", "_fast", "_trans", "_fast_mm16") if i == 0 else ("",)
+        for k, e in check_general(torch, m, B, N, dev, levels).items():
+            err[k] = max(err.get(k, 0.0), e)
+        if i == 0:
+            d["fast"] = keep(phase_main(
+                torch, m, classifier, mean, std, cfg, batch, seed, dev, gpu,
+                launches=dict(GEN_LAUNCHES, level="_fast"), fast=True,
+                label=f"main batch, decoder {ws}, fast=True"))
+            noise_model, soft = offline_settings("real-noise")
+            pcfg = apply_profile_cfg(cfg, "real-noise")
+            rn = dict(noise_model=noise_model, soft_guidance=soft)
+            d["real-noise"] = keep(phase_main(
+                torch, m, classifier, mean, std, pcfg, batch, seed, dev,
+                gpu, launches=dict(REAL_NOISE_LAUNCHES, gen=True),
+                label=f"real-noise settings, decoder {ws}", **rn))
+            d["real-noise fast"] = keep(phase_main(
+                torch, m, classifier, mean, std, pcfg, batch, seed, dev,
+                gpu, launches=dict(REAL_NOISE_LAUNCHES, gen=True,
+                                   level="_fast"), fast=True,
+                label=f"real-noise settings, decoder {ws}, fast=True",
+                **rn))
+            d["eager"] = keep(phase_main(
+                torch, m, classifier, mean, std, cfg, batch, seed, dev, gpu,
+                launches=NO_LAUNCHES, engine="xla",
+                label=f"main batch, decoder {ws}, engine='xla'"))
+            log(f" decoder {ws}: fused engine {d['auto']['x_realtime']:.2f}x"
+                f" realtime against the eager engine's "
+                f"{d['eager']['x_realtime']:.2f}x ("
+                f"{d['auto']['x_realtime'] / d['eager']['x_realtime']:.1f} "
+                f"times); {gpu}")
+        rec[str(ws)] = d
+
+    wcfg = MCEMConfig(nmf_rank=DOMAIN_RANK)
+    check(cluster_takes(513, 32, (128, 128), DOMAIN_RANK, N),
+          f"the cluster form does not take rank {DOMAIN_RANK}")
+    w = {"auto": keep(phase_main(
+        torch, model, classifier, mean, std, wcfg, batch, seed, dev, gpu,
+        launches=WIDE_LAUNCHES,
+        label=f"main batch, shipped M2, nmf_rank={DOMAIN_RANK}"))}
+    w["fast"] = keep(phase_main(
+        torch, model, classifier, mean, std, wcfg, batch, seed, dev, gpu,
+        launches=dict(WIDE_LAUNCHES, level="_fast"), fast=True,
+        label=f"main batch, shipped M2, nmf_rank={DOMAIN_RANK}, fast=True"))
+    one_run(torch, model, classifier, mean, std, wcfg, batch, seed, dev,
+            WIDE_LAUNCHES, f"shipped M2, nmf_rank={DOMAIN_RANK}, "
+            "engine='fused'", engine="fused")
+    log(f" shipped M2 at nmf_rank={DOMAIN_RANK} on the card against the CPU "
+        "path:")
+    phase_reference(torch, model, classifier, mean, std, pairs, dev,
+                    rank=DOMAIN_RANK, profiles=("nmf",))
+    c = chain_inputs(torch, model, B, N, DOMAIN_RANK, 13, dev)
+    noise = decisive_noise(torch, 14, B, N, c["L"], 40, dev)
+    got = run_chain(c, mh_chain, "e", 10, 30, 0.01, noise=noise)
+    ref = run_chain(c, mh_chain_ref, "e", 10, 30, 0.01, noise=noise)
+    torch.cuda.synchronize()
+    log(f" K1a e-mode at nmf_rank={DOMAIN_RANK}, decisive noise, B={B} "
+        f"N={N}:")
+    for name, x, y in zip(["Z", "Vs", "samples", "numW", "denW"],
+                          (got[0], got[1]) + got[2],
+                          (ref[0], ref[1]) + ref[2]):
+        compare(name, x, y)
+    for k, e in check_sums(torch, c, False, dev, samples=got[2][0]).items():
+        err[k] = max(err.get(k, 0.0), e)
+    rec[f"shipped M2, nmf_rank={DOMAIN_RANK}"] = w
+    rec["seconds"] = time.perf_counter() - t0
+    log(f" kernel domain phase: {rec['seconds']:.1f} s")
+    return rec, runs, err
+
+
+def times_domain(torch, model, cfg, B, N, dev, seed):
+    """K1g (exact and fast, E and WF, both forms) on the first
+    DOMAIN_H_DIMS decoder, at the paths' B, N: ms a launch by CUDA events,
+    the plain version's ms, the bound. Returns rows by variant with their
+    shapes."""
+    from guided_vae_nmf_torch.mcem import mh_chain, mh_chain_ref
+    from guided_vae_nmf_torch.mcem.mh_chain import widths
+
+    m = domain_model(torch, DOMAIN_H_DIMS[0], seed + 20, dev)
+    K, R = cfg.nmf_rank, cfg.nsamples_E_step
+    c = chain_inputs(torch, m, B, N, K, 7, dev)
+    L, F, ws = c["L"], c["X2"].shape[-1], widths(c["dec_w"])
+    gen = torch.Generator(device=dev).manual_seed(0)
+    timed = {}
+    for vb, form in ((False, "wh"), (True, "vb")):
+        for level in ("", "_fast"):
+            kw = fast_kw(torch, level)
+            for mode, ns, bi in (("e", R, cfg.burnin_E_step),
+                                 ("wf", cfg.nsamples_WF, cfg.burnin_WF)):
+                bound, by, flops, nbytes = chain_bound(
+                    B, N, F, L, ws, K, ns, ns + bi, mode, vb=vb,
+                    sample_bytes=2 if level else 4)
+                timed[f"mh_chain_{mode}_{form}_gen{level}"] = dict(
+                    ms=time_cuda(lambda: run_chain(
+                        c, mh_chain, mode, ns, bi, cfg.var_RW, vb=vb,
+                        seed=1, **kw)),
+                    plain_ms=time_cuda(lambda: run_chain(
+                        c, mh_chain_ref, mode, ns, bi, cfg.var_RW, vb=vb,
+                        generator=gen, **kw), launches=2, reps=3),
+                    bound_ms=bound, bound_by=by, flops=flops, bytes=nbytes,
+                    shape=dict(H=list(ws)))
+    return timed
+
+
 SOURCES = {
     "mh_chain": ("guided_vae_nmf_torch/csrc/mh_chain.cu",
                  "guided_vae_nmf_tpu/mcem/pallas_engine.py:494"),
+    "mh_chain_general": ("guided_vae_nmf_torch/csrc/mh_chain_general.cu",
+                         "guided_vae_nmf_tpu/mcem/pallas_engine.py:494"),
     "nmf_sums": ("guided_vae_nmf_torch/csrc/nmf_sums.cu",
                  "guided_vae_nmf_tpu/mcem/pallas_engine.py:651"),
 }
@@ -4013,10 +4444,11 @@ def time_sums(torch, c, vb, level, cfg, gpu):
     wrapper's host microseconds a call, the bound and the plain version's
     time. Returns rows by variant."""
     from guided_vae_nmf_torch.mcem import mh_chain, nmf_sums, nmf_sums_ref
+    from guided_vae_nmf_torch.mcem.nmf_sums import NARROW_RANK
 
-    form = "vb" if vb else "wh"
     B, N, F = c["X2"].shape
     K, R = c["WH"][0].shape[1], cfg.nsamples_E_step
+    form = "vb" if vb else ("wh_wide" if K > NARROW_RANK else "wh")
     kw = fast_kw(torch, level)
 
     def chain():
@@ -4040,6 +4472,7 @@ def time_sums(torch, c, vb, level, cfg, gpu):
         bound, by, flops, nbytes = sums_bound(
             B, R, N, F, K, mode, vb=vb, sample_bytes=samples.element_size())
         rows[key] = dict(
+            shape=dict(K=K),
             ms=graph_ms(torch, run, chain),
             warm_ms=graph_ms(torch, run, lambda: samples),
             cold_ms=graph_ms(torch, run, cold),
@@ -4057,7 +4490,8 @@ def time_sums(torch, c, vb, level, cfg, gpu):
     return rows
 
 
-def phase_times(torch, model, cfg, B, N, dev, gpu, err, launches, k1d_past):
+def phase_times(torch, model, cfg, B, N, dev, gpu, err, launches, k1d_past,
+                seed=0):
     """Per-launch times of every kernel variant (exact, K1c / K2c fast and
     trans levels, K1d) at the paths' shapes, beside bounds and the plain
     versions' times; returns the `kernels` entries. `launches` holds each
@@ -4114,6 +4548,13 @@ def phase_times(torch, model, cfg, B, N, dev, gpu, err, launches, k1d_past):
                     **extra)
         for level in ("", "_fast"):
             timed.update(time_sums(torch, c, vb, level, cfg, gpu))
+    # the kernels' whole domain: K1g on the (256, 128) M2's decoder, and
+    # K2's wide kernel at DOMAIN_RANK on the shipped decoder
+    timed.update(times_domain(torch, model, cfg, B, N, dev, seed))
+    cw = chain_inputs(torch, model, B, N, DOMAIN_RANK, 7, dev)
+    cw["dec_w"] = pack_weights(cw["dec_w"])
+    for level in ("", "_fast"):
+        timed.update(time_sums(torch, cw, False, level, cfg, gpu))
     kernels = []
     for key in VARIANTS:
         v = timed[key]
@@ -4128,9 +4569,11 @@ def phase_times(torch, model, cfg, B, N, dev, gpu, err, launches, k1d_past):
                 f"{k} {t:.4f} ms" for k, t in v["bound_terms_ms"].items())
                 + f"; {v['past_tol']} of {v['compared']} elements past TOL "
                 "against the plain version")
-        source, replaces = SOURCES[kern]
+        source, replaces = SOURCES["mh_chain_general" if "_gen" in key
+                                   else kern]
         detail = dict(B=B, N=N, F=F, L=L, H=Hd, K=K, R=R, flops=v["flops"],
                       bytes=v["bytes"])
+        detail.update(v.get("shape", {}))
         detail.update({k: v[k] for k in (
             "bound_terms_ms", "binding", "past_tol", "compared", "warm_ms",
             "cold_ms", "event_ms", "host_us") if k in v})
@@ -4171,7 +4614,17 @@ def phase_geometry(torch, dev):
         f"resident; " + "; ".join(
             f"{k}: {v['clusters']} clusters, {v['ctas']} CTAs, "
             f"{v['waves']} waves" for k, v in per.items()))
-    return dict(geo, launches=per)
+    from guided_vae_nmf_torch.mcem.mh_chain import general_geometry
+
+    gen = {}
+    for ws in ((128, 256), (128,) * 4, (256, 256)):
+        g = general_geometry(513, 32, ws, 10, dev)
+        gen[str(ws)] = g
+        log(f"  K1g launch, decoder {ws}: one CTA a {g['frames']}-frame "
+            f"tile ({4 * 384 // g['frames']} CTAs at B=4, N=384), "
+            f"{g['threads']} threads, {g['smem_bytes']} B of shared memory "
+            f"and {g['registers']} registers a thread")
+    return dict(geo, launches=per, general=gen)
 
 
 def phase_sums_geometry(torch, dev, R=10, F=513, K=10):
@@ -4320,7 +4773,7 @@ def main(argv=None):
     build_s = _build.build_all()
     log(f"build: csrc/*.cu for sm_90a in {build_s:.1f} s")
     ptxas = {}
-    for lib in ("mh_chain", "nmf_sums"):
+    for lib in ("mh_chain", "mh_chain_general", "nmf_sums"):
         for kern, (regs, st, ld) in ptxas_report(_build.build_log(lib)).items():
             ptxas[kern] = dict(registers=regs, spill_stores=st, spill_loads=ld)
             log(f"  ptxas {lib}: {regs} registers, {st} B spill stores, "
@@ -4456,6 +4909,17 @@ def main(argv=None):
             if key in k1d_past:
                 k1d_past[key][0] += past
                 k1d_past[key][1] += n
+    log("the kernels' whole domain (K1g: M2s whose decoders the cluster form "
+        f"does not take, dgm_init h_dim {list(DOMAIN_H_DIMS)}; K2's wide "
+        f"kernel: the shipped M2 at nmf_rank={DOMAIN_RANK}):")
+    domain, domain_runs, domain_err = phase_domain(
+        torch, model, classifier, mean, std, batch, args.seed, dev, gpu)
+    for key, e in domain_err.items():
+        if key in err:
+            err[key] = max(err[key], e)
+    log("the demos (guided_vae_nmf_torch/examples/ on a synthetic subset "
+        "root):")
+    examples = phase_examples(torch, dev, gpu, art, args.seed)
 
     hybrid = phase_hybrid(torch, model, classifier, mean, std, batch,
                           args.seed, dev, gpu)
@@ -4468,7 +4932,8 @@ def main(argv=None):
     log("kernel times at the paths' shapes:")
     # each variant's launches on the first path that runs it
     runs = [main_res, paths["real-noise"], *fast.values(), serving,
-            *(r for r in hybrid.values() if isinstance(r, dict)), harness]
+            *(r for r in hybrid.values() if isinstance(r, dict)), harness,
+            *domain_runs]
     launches = {k: {v: next((r["launches"][k][v] for r in runs
                              if r["launches"][k][v]), 0)
                     for v in main_res["launches"][k]}
@@ -4477,7 +4942,7 @@ def main(argv=None):
             if v not in OFF_PATH and not launches[v[:8]][v[9:]]]
     check(not idle, f"variants no path launched: {idle}")
     kernels = phase_times(torch, model, cfg, *mask.shape, dev, gpu, err,
-                          launches, k1d_past)
+                          launches, k1d_past, seed=args.seed)
     large = phase_times_large(torch, model, cfg, dev, gpu)
 
     for r in (main_res, *paths.values(), *fast.values(), rest["oracle"],
@@ -4494,7 +4959,8 @@ def main(argv=None):
         "paths": paths, "fast": fast, "offline_rest": rest,
         "serving": serving, "streaming": streaming,
         "evaluation": evaluation, "training": training,
-        "multidevice": multidevice, "scripts": scripts, "hybrid": hybrid,
+        "multidevice": multidevice, "scripts": scripts,
+        "kernel_domain": domain, "examples": examples, "hybrid": hybrid,
         "harness": harness, "kernels": kernels, "kernels_b32_n512": large,
         "seconds": time.perf_counter() - t_start,
     }

@@ -4,8 +4,9 @@ Each source compiles with `nvcc` for sm_90a into its own shared library
 with a plain C interface, loaded with ctypes. The build happens at first
 use, all sources in parallel, into a git-ignored directory
 (`build/gvnmf_torch/` beside the package, or `$GVNMF_TORCH_BUILD_DIR`). A
-library's file name carries the hash of its source and flags, so an edited
-source is rebuilt and a current one is reused. ptxas reports each kernel's
+library's file name carries the hash of its source, the shared headers
+(`csrc/*.cuh`) and the flags, so an edited source or header is rebuilt and
+a current one is reused. ptxas reports each kernel's
 registers, shared memory and spills (`-Xptxas -v`); the report is kept
 beside the library (:func:`build_log`).
 
@@ -57,6 +58,8 @@ def _nvcc():
 
 def _lib_path(src):
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return build_dir() / f"lib{src.stem}-{h.hexdigest()[:16]}.so"
 

@@ -57,6 +57,16 @@
 // Every sum has one order that depends on F and K only, not on the tile,
 // the CTA or the grid: two launches give equal outputs, and an utterance
 // in a batch gives what it gives alone. No atomics.
+//
+// Ranks past KMAX (the WH form): nmf_sums_wide_kernel, the same stream with
+// three changes, none of which a rank up to KMAX reaches. Wt (K F floats,
+// past a CTA's shared memory at large K) is read through L1 / L2, not
+// copied; a tile's H comes into shared memory KCH ranks at a time, and Vb
+// sums each chunk's ranks in order after the last; the 'h' contraction
+// runs KMAX ranks at a time, lane q KMAX + k for rank k0 + k. Each rank's
+// sums keep the order the narrow kernel gives them (Vb over k in order, a
+// segment's bins in order, the segments in order), and its shared memory
+// does not grow with K.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -66,7 +76,9 @@
 
 namespace {
 
-constexpr int KMAX = 16;                  // largest NMF rank
+constexpr int KMAX = 16;                  // largest rank of the narrow
+                                          // kernel; the wide one's chunk
+constexpr int KCH = 64;                   // ranks of H a wide tile stages
 constexpr int BPT = 2;                    // bins a consumer thread owns
 constexpr int MIN_CONSUMERS = 96;         // TMAX (KMAX + 1) prefetch slots
 constexpr int MAX_CONSUMERS = 992;        // + a producer warp <= 1024
@@ -132,6 +144,25 @@ __host__ __device__ inline Layout layout(int F, int K, bool wh, int mode) {
   const size_t part = hwh ? (size_t)TMAX * segments(F) * 2 * K
                           : (mode == MODE_G ? (size_t)TMAX * 2 *
                              (consumers(F) / 32) : 0);
+  l.total = l.part + part * 4;
+  return l;
+}
+
+// the wide kernel's layout: the ring, the full / empty mbarriers and each
+// stage's offset, g and a chunk of H of a tile, s1 of a tile ('h') and the
+// partial sums ('h': a frame's segments for KMAX ranks; 'g': a frame's
+// warps)
+__host__ __device__ inline Layout layout_wide(int F, int mode) {
+  Layout l;
+  l.stage = stage_bytes(F);
+  l.wts = STAGES * l.stage;
+  l.bars = l.wts;
+  l.gs = l.bars + 2 * STAGES * sizeof(uint64_t) + STAGES * 4;
+  l.hs = l.gs + TMAX * 4;
+  l.sc = l.hs + KCH * TMAX * 4;
+  l.part = l.sc + (mode == MODE_H ? (size_t)TMAX * F * 4 : 0);
+  const size_t part = mode == MODE_H ? (size_t)TMAX * segments(F) * 2 * KMAX
+                                     : (size_t)TMAX * 2 * (consumers(F) / 32);
   l.total = l.part + part * 4;
   return l;
 }
@@ -548,6 +579,238 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
   }
 }
 
+// The WH form at ranks past KMAX (see the file comment). The producer and
+// the sample loop are the narrow kernel's with WH; g and H come in at the
+// start of a tile, Wt through L1 / L2.
+template <int MODE, typename S, bool APPROX>
+__global__ void __launch_bounds__(MAX_THREADS, 1)
+    nmf_sums_wide_kernel(const Params p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int F = p.F, K = p.K, T = tile_frames(F);
+  const Layout lo = layout_wide(F, MODE);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + lo.bars);
+  uint64_t* empty = full + STAGES;
+  uint32_t* offs = reinterpret_cast<uint32_t*>(empty + STAGES);
+  float* gs = reinterpret_cast<float*>(smem + lo.gs);
+  float* hs = reinterpret_cast<float*>(smem + lo.hs);
+  float* sc1 = reinterpret_cast<float*>(smem + lo.sc);
+  float* part = reinterpret_cast<float*>(smem + lo.part);
+
+  const int nc = blockDim.x - 32, ncw = nc / 32;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const long long rows = (long long)p.B * p.N;
+  const long long r0 = rows * blockIdx.x / gridDim.x;
+  const long long r1 = rows * (blockIdx.x + 1) / gridDim.x;
+  const int nchunks = p.R + 1;
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, ncw);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == ncw) {                       // producer
+    if (lane != 0) return;
+    uint32_t j = 0;
+    for (long long row = r0; row < r1;) {
+      const Tile t = make_tile(row, r1, T, p);
+      for (int c = 0; c < nchunks; ++c, ++j) {
+        size_t bytes;
+        const void* src = chunk<true, S>(p, t, c, &bytes);
+        const int slot = j % STAGES;
+        if (j >= STAGES) mbar_wait(empty + slot, ((j / STAGES) + 1) & 1);
+        offs[slot] = (uint32_t)(reinterpret_cast<uintptr_t>(src) & 15);
+        bulk_load_any(smem + slot * lo.stage, src, bytes, full + slot);
+      }
+      row += t.tc;
+    }
+    return;
+  }
+
+  const int f0 = tid, f1 = tid + nc;
+  const bool on0 = f0 < F, on1 = f1 < F;
+  const int c0 = on0 ? f0 : F - 1, c1 = on1 ? f1 : F - 1;
+
+  uint32_t j = 0;
+  for (long long row = r0; row < r1;) {
+    const Tile t = make_tile(row, r1, T, p);
+    const float* wt = p.wt + (size_t)t.b * K * F;
+
+    // Vb = H^T Wt, k in order, H a chunk of KCH ranks at a time
+    float vb[TMAX][BPT], a[TMAX][BPT], d[TMAX][BPT];
+#pragma unroll
+    for (int fr = 0; fr < TMAX; ++fr) {
+#pragma unroll
+      for (int i = 0; i < BPT; ++i) a[fr][i] = d[fr][i] = vb[fr][i] = 0.0f;
+    }
+    for (int k0 = 0; k0 < K; k0 += KCH) {
+      const int kn = min(KCH, K - k0);
+      consumers_sync(nc);                  // the last reads of gs / hs are done
+      for (int i = tid; i < TMAX * (kn + 1); i += nc) {
+        if (i < TMAX) {
+          if (k0 == 0) gs[i] = i < t.tc ? __ldg(p.g + t.row + i) : 0.0f;
+        } else {
+          const int q = i - TMAX, k = q / TMAX, fr = q - k * TMAX;
+          hs[q] = fr < t.tc
+                      ? __ldg(p.h + ((size_t)t.b * K + k0 + k) * p.N + t.n + fr)
+                      : 0.0f;
+        }
+      }
+      consumers_sync(nc);
+      for (int k = 0; k < kn; ++k) {
+        const float w0 = __ldg(wt + (size_t)(k0 + k) * F + c0);
+        const float w1 = __ldg(wt + (size_t)(k0 + k) * F + c1);
+#pragma unroll
+        for (int fr = 0; fr < TMAX; ++fr) {
+          const float hk = hs[k * TMAX + fr];
+          vb[fr][0] = fmaf(hk, w0, vb[fr][0]);
+          vb[fr][1] = fmaf(hk, w1, vb[fr][1]);
+        }
+      }
+    }
+
+    int x2_slot = -1;
+    float* sc0 = nullptr;                  // X2 s2, in the X2 chunk's stage
+    for (int c = 0; c < nchunks; ++c, ++j) {
+      const int slot = j % STAGES;
+      mbar_wait(full + slot, (j / STAGES) & 1);
+      unsigned char* buf = smem + slot * lo.stage + offs[slot];
+      if (c < p.R) {
+        const S* sp = reinterpret_cast<const S*>(buf);
+#pragma unroll
+        for (int fr = 0; fr < TMAX; ++fr) {
+          if (fr < t.tc) {
+            const float gf = gs[fr];
+            const float v[BPT] = {to_float(sp[fr * F + c0]),
+                                  to_float(sp[fr * F + c1])};
+#pragma unroll
+            for (int i = 0; i < BPT; ++i) {
+              const float vs = v[i];
+              const float vx =
+                  fmaxf(mul_add<APPROX>(gf, vs, vb[fr][i]), VX_FLOOR);
+              const float inv = recip<APPROX>(vx);
+              if (MODE == MODE_H) {
+                d[fr][i] = __fadd_rn(d[fr][i], inv);                  // s1
+                a[fr][i] = mul_add<APPROX>(inv, inv, a[fr][i]);       // s2
+              } else {
+                const float vi = __fmul_rn(vs, inv);
+                a[fr][i] = mul_add<APPROX>(vi, inv, a[fr][i]);
+                d[fr][i] = __fadd_rn(d[fr][i], vi);
+              }
+            }
+          }
+        }
+      } else if (MODE == MODE_H) {         // X2 s2 in place, s1 beside it
+        float* xp = reinterpret_cast<float*>(buf);
+#pragma unroll
+        for (int fr = 0; fr < TMAX; ++fr) {
+          if (fr < t.tc) {
+            if (on0) {
+              xp[fr * F + f0] = __fmul_rn(xp[fr * F + f0], a[fr][0]);
+              sc1[fr * F + f0] = d[fr][0];
+            }
+            if (on1) {
+              xp[fr * F + f1] = __fmul_rn(xp[fr * F + f1], a[fr][1]);
+              sc1[fr * F + f1] = d[fr][1];
+            }
+          }
+        }
+        sc0 = xp;                          // released after the epilogue
+        x2_slot = slot;
+        continue;
+      } else {                             // 'g': X2 sum Vs inv^2, per frame
+        const float* xp = reinterpret_cast<const float*>(buf);
+#pragma unroll
+        for (int fr = 0; fr < TMAX; ++fr) {
+          if (fr < t.tc) {
+            const float n0 =
+                on0 ? __fmul_rn(xp[fr * F + c0], a[fr][0]) : 0.0f;
+            const float n1 =
+                on1 ? __fmul_rn(xp[fr * F + c1], a[fr][1]) : 0.0f;
+            a[fr][0] = __fadd_rn(n0, n1);
+            d[fr][0] = __fadd_rn(on0 ? d[fr][0] : 0.0f,
+                                 on1 ? d[fr][1] : 0.0f);
+          }
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + slot);
+    }
+
+    if (MODE == MODE_G) {                  // a frame: warp, then warps
+#pragma unroll
+      for (int fr = 0; fr < TMAX; ++fr) {
+        if (fr < t.tc) {
+          const float sn = warp_sum(a[fr][0]), sd = warp_sum(d[fr][0]);
+          if (lane == 0) {
+            part[(fr * ncw + warp) * 2] = sn;
+            part[(fr * ncw + warp) * 2 + 1] = sd;
+          }
+        }
+      }
+      consumers_sync(nc);
+      if (tid < 2 * t.tc) {
+        const int fr = tid >> 1, q = tid & 1;
+        const float* s = part + fr * ncw * 2 + q;
+        float v = s[0];
+        for (int w = 1; w < ncw; ++w) v = __fadd_rn(v, s[w * 2]);
+        (q ? p.o2 : p.o1)[t.row + fr] = v;
+      }
+    } else {                               // 'h': the contraction
+      const int nseg = segments(F), seg = (F + nseg - 1) / nseg;
+      const size_t step = (size_t)TMAX * 2 * KMAX;   // the next segment
+      for (int k0 = 0; k0 < K; k0 += KMAX) {
+        const int kn = min(KMAX, K - k0);
+        consumers_sync(nc);                // sc0 / sc1 written, part free
+        for (int s = warp; s < nseg; s += ncw) {
+          const int g0 = s * seg, g1 = min(F, g0 + seg);
+          // lane q KMAX + k: numH (q = 0) or denH (q = 1) of rank k0 + k
+          // over the segment's bins in order, for the tile's frames at once
+          const int q = lane >= KMAX, k = lane - q * KMAX;
+          if (k < kn) {
+            const float* src = q ? sc1 : sc0;
+            const float* w = wt + (size_t)(k0 + k) * F;
+            float acc[TMAX];
+#pragma unroll
+            for (int fr = 0; fr < TMAX; ++fr) acc[fr] = 0.0f;
+            for (int f = g0; f < g1; ++f) {
+              const float wf = __ldg(w + f);
+#pragma unroll
+              for (int fr = 0; fr < TMAX; ++fr)
+                if (fr < t.tc) acc[fr] = fmaf(src[fr * F + f], wf, acc[fr]);
+            }
+#pragma unroll
+            for (int fr = 0; fr < TMAX; ++fr)
+              if (fr < t.tc)
+                part[((size_t)s * TMAX + fr) * 2 * KMAX + lane] = acc[fr];
+          }
+        }
+        consumers_sync(nc);
+        for (int i = tid; i < t.tc * kn; i += nc) {
+          const int fr = i / kn, k = i - fr * kn;
+          const float* q = part + (size_t)fr * 2 * KMAX;
+          float sn = q[k], sd = q[KMAX + k];
+          for (int s = 1; s < nseg; ++s) {
+            sn = __fadd_rn(sn, q[s * step + k]);
+            sd = __fadd_rn(sd, q[s * step + KMAX + k]);
+          }
+          p.o1[(size_t)(t.row + fr) * K + k0 + k] = sn;
+          p.o2[(size_t)(t.row + fr) * K + k0 + k] = sd;
+        }
+      }
+      // the stage held products written here: order them before the
+      // producer's next copy into it
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + x2_slot);
+    }
+    row += t.tc;
+  }
+}
+
 // Per instantiation: the shared memory its attribute allows and the CTAs
 // an SM holds at that size and block, on the device last seen.
 struct Plan {
@@ -558,6 +821,12 @@ struct Plan {
 std::mutex plan_lock;
 
 template <int MODE, bool WH, typename S, bool APPROX>
+auto kernel_of(bool wide) {
+  return wide && WH ? nmf_sums_wide_kernel<MODE, S, APPROX>
+                    : nmf_sums_kernel<MODE, WH, S, APPROX>;
+}
+
+template <bool WIDE, int MODE, bool WH, typename S, bool APPROX>
 cudaError_t plan(int threads, size_t smem, Plan* out) {
   static Plan cached;
   int dev;
@@ -566,7 +835,7 @@ cudaError_t plan(int threads, size_t smem, Plan* out) {
   std::lock_guard<std::mutex> guard(plan_lock);
   if (cached.device != dev || cached.smem != smem ||
       cached.threads != threads) {
-    auto kern = nmf_sums_kernel<MODE, WH, S, APPROX>;
+    auto kern = kernel_of<MODE, WH, S, APPROX>(WIDE);
     Plan q;
     q.device = dev;
     q.threads = threads;
@@ -586,12 +855,12 @@ cudaError_t plan(int threads, size_t smem, Plan* out) {
   return cudaSuccess;
 }
 
-template <int MODE, bool WH, typename S, bool APPROX>
+template <bool WIDE, int MODE, bool WH, typename S, bool APPROX>
 cudaError_t launch_t(const Params& p, cudaStream_t st, int* geo) {
-  const Layout lo = layout(p.F, p.K, WH, MODE);
+  const Layout lo = WIDE ? layout_wide(p.F, MODE) : layout(p.F, p.K, WH, MODE);
   const int threads = consumers(p.F) + 32, T = tile_frames(p.F);
   Plan q;
-  cudaError_t e = plan<MODE, WH, S, APPROX>(threads, lo.total, &q);
+  cudaError_t e = plan<WIDE, MODE, WH, S, APPROX>(threads, lo.total, &q);
   if (e != cudaSuccess) return e;
   const long long rows = (long long)p.B * p.N;
   const long long tiles = (rows + T - 1) / T;
@@ -599,7 +868,7 @@ cudaError_t launch_t(const Params& p, cudaStream_t st, int* geo) {
   const int grid = (int)(tiles < cap ? tiles : cap);
   if (geo != nullptr) {
     cudaFuncAttributes fa;
-    if ((e = cudaFuncGetAttributes(&fa, nmf_sums_kernel<MODE, WH, S, APPROX>))
+    if ((e = cudaFuncGetAttributes(&fa, kernel_of<MODE, WH, S, APPROX>(WIDE)))
         != cudaSuccess)
       return e;
     const int vals[] = {grid, threads, (int)lo.total, STAGES, T,
@@ -608,24 +877,30 @@ cudaError_t launch_t(const Params& p, cudaStream_t st, int* geo) {
     return cudaSuccess;
   }
   if (grid == 0) return cudaSuccess;
-  nmf_sums_kernel<MODE, WH, S, APPROX><<<grid, threads, lo.total, st>>>(p);
+  if (WIDE && WH)
+    nmf_sums_wide_kernel<MODE, S, APPROX><<<grid, threads, lo.total, st>>>(p);
+  else
+    nmf_sums_kernel<MODE, WH, S, APPROX><<<grid, threads, lo.total, st>>>(p);
   return cudaGetLastError();
 }
 
 template <typename S, bool APPROX>
 cudaError_t launch(const Params& p, int mode, cudaStream_t st, int* geo) {
-  const bool wh = p.vb == nullptr;
+  const bool wh = p.vb == nullptr, wide = wh && p.K > KMAX;
+  if (wide)
+    return mode == MODE_H ? launch_t<true, MODE_H, true, S, APPROX>(p, st, geo)
+                          : launch_t<true, MODE_G, true, S, APPROX>(p, st, geo);
   if (mode == MODE_H)
-    return wh ? launch_t<MODE_H, true, S, APPROX>(p, st, geo)
-              : launch_t<MODE_H, false, S, APPROX>(p, st, geo);
-  return wh ? launch_t<MODE_G, true, S, APPROX>(p, st, geo)
-            : launch_t<MODE_G, false, S, APPROX>(p, st, geo);
+    return wh ? launch_t<false, MODE_H, true, S, APPROX>(p, st, geo)
+              : launch_t<false, MODE_H, false, S, APPROX>(p, st, geo);
+  return wh ? launch_t<false, MODE_G, true, S, APPROX>(p, st, geo)
+            : launch_t<false, MODE_G, false, S, APPROX>(p, st, geo);
 }
 
 int dispatch(const Params& p, int mode, int samples_bf16, int approx_recip,
              void* stream, int* geo) {
   if ((mode != MODE_H && mode != MODE_G) || p.F < 1 || p.F > FMAX ||
-      p.R < 0 || (p.vb == nullptr && (p.K < 1 || p.K > KMAX)))
+      p.R < 0 || (p.vb == nullptr && p.K < 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e;
@@ -664,7 +939,9 @@ Params params(const void* samples, const float* vb, const float* wt,
 
 extern "C" {
 
-int gvnmf_nmf_sums_kmax() { return KMAX; }
+// The largest rank of the narrow kernel: past it the wide kernel runs,
+// KMAX ranks of the contraction at a time.
+int gvnmf_nmf_sums_narrow_rank() { return KMAX; }
 
 // The largest F the kernel takes: BPT bins a consumer thread.
 int gvnmf_nmf_sums_fmax() { return FMAX; }

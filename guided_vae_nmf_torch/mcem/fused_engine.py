@@ -22,7 +22,7 @@ import torch
 
 from .engine import VX_FLOOR, MCEMConfig, noise_gain_state
 from .mh_chain import (
-    _check_matmul_dtype, bf16_weights, mh_chain, pack_weights)
+    _check_matmul_dtype, bf16_weights, mh_chain, pack_weights, widths)
 from .nmf_sums import nmf_sums
 
 
@@ -159,8 +159,8 @@ def mcem_batch_fused(model, X_abs2, mask, y, generator,
     Vs = torch.exp(h @ dec_w["wo"] + dec_w["bo"])            # decode(Z)
     if matmul_dtype == torch.bfloat16:
         dec_w = bf16_weights(dec_w)          # rounded once, not per launch
-    if dev.type == "cuda":
-        dec_w = pack_weights(dec_w)          # the kernel's per-CTA blocks
+    if dev.type == "cuda" and len(set(widths(dec_w))) == 1:
+        dec_w = pack_weights(dec_w)          # the cluster form's blocks
 
     K = cfg.nmf_rank
     if "W" in init:

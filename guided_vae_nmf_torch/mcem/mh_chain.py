@@ -26,19 +26,27 @@ with the hardware approximate reciprocal (within 1 ulp); the plain version
 has no such reciprocal and divides exactly, so there the two differ by at
 most 1 ulp per reciprocal.
 
-:func:`mh_chain` launches the kernel for CUDA tensors and runs the plain
-version for CPU tensors; it has no other switch. The kernel runs on
-thread-block clusters of `CLUSTER` CTAs, each holding a column slice of the
-decoder's weights in shared memory; :func:`pack_weights` lays the slices
-out (the wrapper packs per launch unless `dec_w` carries them), and
-:func:`launch_geometry` reports the launch. Layouts are frames-major:
+:func:`mh_chain` launches a kernel for CUDA tensors and runs the plain
+version for CPU tensors. The kernel has two forms. The cluster form
+(`csrc/mh_chain.cu`, K1a-K1d) runs on thread-block clusters of `CLUSTER`
+CTAs, each holding a column slice of the decoder's weights in shared
+memory; it takes decoders of one hidden width whose slices fit
+(:func:`cluster_takes`); :func:`pack_weights` lays the slices out (the
+wrapper packs per launch unless `dec_w` carries them), and
+:func:`launch_geometry` reports the launch. The general form (K1g,
+`csrc/mh_chain_general.cu`) takes every other decoder of 1 to 4 hidden
+layers, of any widths, at any F and NMF rank, one CTA a 16-frame tile
+with the weights read from L2 (:func:`general_geometry`); the wrapper
+picks it wherever the cluster form does not take the shapes. Layouts are
+frames-major:
 X2, Vs, Vb (B, N, F); g, mask (B, N); ypre (B, N, H); Z (B, N, L); the NMF
 factors Wt (B, K, F) and H (B, K, N). `mh_chain.launches` counts kernel
 launches per variant: "e_wh", "wf_wh", "e_vb", "wf_vb" for exact launches,
 the same names ending in "_fast" for launches with a fast option but not
 `approx_trans`, in "_trans" for those with `approx_trans`, and the level's
 key followed by "_mm16" for launches with bfloat16 products (for example
-"e_wh_fast_mm16").
+"e_wh_fast_mm16"); a launch of the general form has "_gen" after the form
+("e_wh_gen", "wf_vb_gen_trans", "e_wh_gen_fast_mm16").
 """
 
 import ctypes
@@ -52,11 +60,21 @@ from .engine import VX_FLOOR
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = ([_VP] * 19 + [_I] * 9 + [_F, _I, ctypes.c_uint64] + [_I] * 4
              + [_VP])
+# The general form's entry point: 24 pointers (wm / bm as arrays), B, N,
+# F, L, the widths' array, depth, K, n_steps, burnin, sqrt_var, mode,
+# seed, the four options and the stream.
+_GEN_ARGTYPES = ([_VP] * 24 + [_I] * 4 + [_VP] + [_I] * 4 + [_F, _I,
+                 ctypes.c_uint64] + [_I] * 4 + [_VP])
+# The general form's most hidden layers (checked against the library).
+MAX_DEPTH = 4
 # CTAs of the kernel's thread-block cluster: each holds a column slice of
 # the decoder's weights (see :func:`pack_weights`).
 CLUSTER = 4
-# Launch limits: threads a CTA (384 at F = 768, the most bins a launch
-# takes) and the dynamic shared memory a CTA may take on the H100 (bytes).
+# Frames a tile of either form (N must be a multiple).
+FRAME_TILE = 16
+# Launch limits: threads a CTA of the cluster form (384 at F = 768, the
+# most bins it takes) and the dynamic shared memory a CTA may take on the
+# H100 (bytes).
 _MAX_BLOCK = 384
 SMEM_MAX = 232448
 _LN2 = 0.6931471805599453
@@ -98,7 +116,8 @@ def fast_exp(x):
 
 def _variant(mode, form, samples_dtype, approx_recip, approx_trans,
              matmul_dtype=torch.float32):
-    """The `mh_chain.launches` key of a launch."""
+    """The `mh_chain.launches` key of a launch (`form` "wh" / "vb", or
+    "wh_gen" / "vb_gen" for the general form)."""
     mm = "_mm16" if matmul_dtype == torch.bfloat16 else ""
     if approx_trans:
         return f"{mode}_{form}_trans{mm}"
@@ -188,6 +207,37 @@ def _lib():
             _VP] * 3
         lib.gvnmf_philox_streams.restype = _I
     return lib
+
+
+def _lib_general():
+    lib = _build.library("mh_chain_general")
+    if lib.gvnmf_mh_chain_general.argtypes is None:
+        lib.gvnmf_mh_chain_general.argtypes = _GEN_ARGTYPES
+        lib.gvnmf_mh_chain_general.restype = _I
+        for fn in (lib.gvnmf_mh_chain_general_tile,
+                   lib.gvnmf_mh_chain_general_depth):
+            fn.argtypes = []
+            fn.restype = _I
+        lib.gvnmf_mh_chain_general_block.argtypes = [_I]
+        lib.gvnmf_mh_chain_general_block.restype = _I
+        lib.gvnmf_mh_chain_general_smem.argtypes = [_I, _I, _VP, _I, _I]
+        lib.gvnmf_mh_chain_general_smem.restype = ctypes.c_longlong
+        lib.gvnmf_mh_chain_general_registers.argtypes = [_VP]
+        lib.gvnmf_mh_chain_general_registers.restype = _I
+        if lib.gvnmf_mh_chain_general_depth() != MAX_DEPTH:
+            raise _build.KernelError("mh_chain_general.cu's depth limit "
+                                     f"differs from the wrapper's {MAX_DEPTH}")
+    return lib
+
+
+def widths(dec_w):
+    """The decoder's hidden widths (H1, ..., H_depth)."""
+    return (dec_w["w1"].shape[1],
+            *(w.shape[1] for w, _ in dec_w["mid"]))
+
+
+def _ints(values):
+    return (ctypes.c_int * len(values))(*values)
 
 
 def _ptr(t):
@@ -331,24 +381,47 @@ def _check(name, t, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _check_mid(dec_w, Hd, device):
+def _check_layers(dec_w, ws, L, F, device):
+    """The decoder's weights against its widths `ws`."""
+    _check("w1", dec_w["w1"], (L, ws[0]), device)
     for i, (w, b) in enumerate(dec_w["mid"]):
-        if tuple(w.shape) != (Hd, Hd):
-            raise NotImplementedError(
-                "the CUDA chain needs equal decoder hidden widths")
-        _check(f"mid[{i}] weights", w, (Hd, Hd), device)
-        _check(f"mid[{i}] bias", b, (Hd,), device)
+        _check(f"mid[{i}] weights", w, (ws[i], ws[i + 1]), device)
+        _check(f"mid[{i}] bias", b, (ws[i + 1],), device)
+    _check("wo", dec_w["wo"], (ws[-1], F), device)
+    _check("bo", dec_w["bo"], (F,), device)
 
 
-def kernel_takes(F, L, Hd, K, depth, N):
-    """Whether the CUDA chain launches at these shapes (K the NMF rank):
-    N a multiple of its frame tile, at most 768 bins and each CTA's
-    shared memory within SMEM_MAX. Equal hidden widths are the caller's
-    to check. Builds the library."""
+def cluster_takes(F, L, ws, K, N):
+    """Whether the cluster form launches at these shapes (ws the hidden
+    widths, K the NMF rank, 0 for the Vb form): hidden layers of one width,
+    N a multiple of its frame tile, at most 768 bins and each CTA's shared
+    memory within SMEM_MAX. Builds the library."""
+    if len(set(ws)) != 1:
+        return False
     lib = _lib()
     return (N % lib.gvnmf_mh_chain_tile() == 0
             and lib.gvnmf_mh_chain_block(F) <= _MAX_BLOCK
-            and lib.gvnmf_mh_chain_smem(F, L, Hd, K, depth) <= SMEM_MAX)
+            and lib.gvnmf_mh_chain_smem(F, L, ws[0], K, len(ws)) <= SMEM_MAX)
+
+
+def general_smem(F, L, ws, K):
+    """The general form's dynamic shared memory a CTA (bytes)."""
+    return _lib_general().gvnmf_mh_chain_general_smem(
+        F, L, _ints(ws), len(ws), K)
+
+
+def general_geometry(F, L, ws, K, device=None):
+    """The general form's launch at these shapes: frames a CTA, threads and
+    dynamic shared memory a CTA, registers a thread (E-mode WH kernel).
+    CUDA only."""
+    lib = _lib_general()
+    out = (ctypes.c_int * 1)()
+    with torch.cuda.device(device or torch.cuda.current_device()):
+        _build.check(lib.gvnmf_mh_chain_general_registers(out),
+                     "mh_chain_general attributes query")
+    return {"frames": lib.gvnmf_mh_chain_general_tile(),
+            "threads": lib.gvnmf_mh_chain_general_block(F),
+            "smem_bytes": general_smem(F, L, ws, K), "registers": out[0]}
 
 
 def launch_geometry(F, L, Hd, K, depth, device=None):
@@ -403,51 +476,33 @@ def mh_chain(dec_w, X2, WH, g, ypre, Z, Vs, seed=0, mode="e", nsamples=10,
     if X2.device.type != "cuda":
         raise ValueError(f"unsupported device {X2.device}")
     dev = X2.device
-    lib = _lib()
-    mm16 = matmul_dtype == torch.bfloat16
-    if mm16 and not dec_w.get("bf16"):
+    if matmul_dtype == torch.bfloat16 and not dec_w.get("bf16"):
         dec_w = bf16_weights(dec_w)
     B, N, F = X2.shape
     L = Z.shape[-1]
     Wt, H = WH if WH is not None else (None, None)
     K = 0 if WH is None else Wt.shape[1]
-    Hd = ypre.shape[-1]
-    depth = 1 + len(dec_w["mid"])
+    ws = widths(dec_w)
     n_steps = nsamples + burnin
-    tile = lib.gvnmf_mh_chain_tile()
-    if N % tile:
-        raise ValueError(f"N={N} must be a multiple of {tile}")
-    if lib.gvnmf_mh_chain_block(F) > _MAX_BLOCK:
-        raise ValueError(f"F={F} exceeds the kernel's 768 bins")
-    smem = lib.gvnmf_mh_chain_smem(F, L, Hd, K, depth)
-    if smem > SMEM_MAX:
-        raise ValueError(f"shapes need {smem} B of shared memory per CTA "
-                         f"(F={F}, H={Hd}, depth {depth}: each of the "
-                         f"{CLUSTER} CTAs of a cluster holds a 1/{CLUSTER} "
-                         "column slice of every decoder weight)")
     noise_in = (("Vb", Vb, (B, N, F)),) if WH is None else (
         ("Wt", Wt, (B, K, F)), ("H", H, (B, K, N)))
     for name, t, shape in (
             ("X2", X2, (B, N, F)), *noise_in,
-            ("g", g, (B, N)), ("ypre", ypre, (B, N, Hd)),
-            ("Z", Z, (B, N, L)), ("Vs", Vs, (B, N, F)),
-            ("w1", dec_w["w1"], (L, Hd)), ("wo", dec_w["wo"], (Hd, F)),
-            ("bo", dec_w["bo"], (F,))):
+            ("g", g, (B, N)), ("ypre", ypre, (B, N, ws[0])),
+            ("Z", Z, (B, N, L)), ("Vs", Vs, (B, N, F))):
         _check(name, t, shape, dev)
-    _check_mid(dec_w, Hd, dev)
+    _check_layers(dec_w, ws, L, F, dev)
     use_mask = mode == "e" and WH is not None
     if use_mask:
         _check("mask", mask, (B, N), dev)
-    packed = dec_w.get("packed")
-    if packed is None:
-        packed = pack_weights(dec_w)["packed"]
-    _check("packed weights", packed,
-           (CLUSTER, lib.gvnmf_mh_chain_packed(F, L, Hd, depth)), dev)
     zn = u = None
     if noise is not None:
         zn, u = noise
         _check("Zn", zn, (B, n_steps, N, L), dev)
         _check("U", u, (B, n_steps, N), dev)
+    cluster = cluster_takes(F, L, ws, K, N)
+    if not cluster:
+        _check_general(N, F, L, ws, K)
     z_out = torch.empty_like(Z)
     vs_out = torch.empty_like(X2)
     part1 = part2 = out3 = None
@@ -465,29 +520,67 @@ def mh_chain(dec_w, X2, WH, g, ypre, Z, Vs, seed=0, mode="e", nsamples=10,
                            dtype=samples_dtype)
         out2 = torch.empty((B, K, F), device=dev)
         out3 = torch.empty((B, K, F), device=dev)
-        part1 = torch.empty((B, N // tile, K, F), device=dev)
+        part1 = torch.empty((B, N // FRAME_TILE, K, F), device=dev)
         part2 = torch.empty_like(part1)
-    with torch.cuda.device(dev):
-        status = lib.gvnmf_mh_chain(
-            _ptr(X2), _ptr(Vb), _ptr(Wt), _ptr(H),
-            _ptr(mask if use_mask else None),
-            _ptr(g), _ptr(ypre), _ptr(Z), _ptr(Vs), _ptr(zn), _ptr(u),
-            _ptr(packed), _ptr(z_out), _ptr(vs_out), _ptr(out1),
-            _ptr(out2), _ptr(out3), _ptr(part1), _ptr(part2),
-            B, N, F, L, Hd, K, depth, n_steps, burnin,
-            float(np.sqrt(var_RW)), 0 if mode == "e" else 1,
+    ptrs = (_ptr(X2), _ptr(Vb), _ptr(Wt), _ptr(H),
+            _ptr(mask if use_mask else None), _ptr(g), _ptr(ypre), _ptr(Z),
+            _ptr(Vs), _ptr(zn), _ptr(u))
+    outs = (_ptr(z_out), _ptr(vs_out), _ptr(out1), _ptr(out2), _ptr(out3),
+            _ptr(part1), _ptr(part2))
+    opts = (float(np.sqrt(var_RW)), 0 if mode == "e" else 1,
             int(seed) & (2**64 - 1), int(bf16), int(bool(approx_recip)),
-            int(bool(approx_trans)), int(mm16), _stream(dev))
-    _build.check(status, "mh_chain kernel")
-    _launches.count(mh_chain, "mh_chain", _variant(
-        mode, "wh" if WH is not None else "vb", **fast_kw))
+            int(bool(approx_trans)),
+            int(matmul_dtype == torch.bfloat16), _stream(dev))
+    form = "wh" if WH is not None else "vb"
+    if cluster:
+        lib = _lib()
+        packed = dec_w.get("packed")
+        if packed is None:
+            packed = pack_weights(dec_w)["packed"]
+        _check("packed weights", packed,
+               (CLUSTER, lib.gvnmf_mh_chain_packed(F, L, ws[0], len(ws))),
+               dev)
+        with torch.cuda.device(dev):
+            status = lib.gvnmf_mh_chain(
+                *ptrs, _ptr(packed), *outs, B, N, F, L, ws[0], K, len(ws),
+                n_steps, burnin, *opts)
+        _build.check(status, "mh_chain kernel")
+    else:
+        scratch = torch.empty((5, B, N, F), device=dev)
+        mids = dec_w["mid"]
+        wm = (_VP * (MAX_DEPTH - 1))(*(w.data_ptr() for w, _ in mids))
+        bm = (_VP * (MAX_DEPTH - 1))(*(b.data_ptr() for _, b in mids))
+        with torch.cuda.device(dev):
+            status = _lib_general().gvnmf_mh_chain_general(
+                *ptrs, _ptr(dec_w["w1"]), wm, bm, _ptr(dec_w["wo"]),
+                _ptr(dec_w["bo"]), *outs, _ptr(scratch), B, N, F, L,
+                _ints(ws), len(ws), K, n_steps, burnin, *opts)
+        _build.check(status, "mh_chain_general kernel")
+        form += "_gen"
+    _launches.count(mh_chain, "mh_chain", _variant(mode, form, **fast_kw))
     if mode == "wf":
         return z_out, vs_out, (out1, out2)
     return z_out, vs_out, (out1, out2, out3)
 
 
+def _check_general(N, F, L, ws, K):
+    """Raises ValueError for shapes the general form does not take."""
+    if N % FRAME_TILE:
+        raise ValueError(f"N={N} must be a multiple of {FRAME_TILE}")
+    if not 1 <= len(ws) <= MAX_DEPTH:
+        raise ValueError(f"the CUDA chain takes 1 to {MAX_DEPTH} decoder "
+                         f"hidden layers, got {len(ws)}")
+    smem = general_smem(F, L, ws, K)
+    if smem > SMEM_MAX:
+        raise ValueError(f"shapes need {smem} B of shared memory per CTA "
+                         f"(hidden widths {ws}, L={L}, K={K}: the general "
+                         "form holds a 16-frame tile of the widest layer's "
+                         "activations twice)")
+
+
 mh_chain.launches = dict.fromkeys(
-    (f"{mode}_{form}{level}{mm}" for mm in ("", "_mm16") for level in LEVELS
+    (f"{mode}_{form}{gen}{level}{mm}" for gen in ("", "_gen")
+     for mm in ("", "_mm16") for level in LEVELS
      for mode, form in (("e", "wh"), ("wf", "wh"), ("e", "vb"),
                         ("wf", "vb"))), 0)
 

@@ -11,12 +11,16 @@ plain PyTorch version. :func:`nmf_sums` launches the kernel for CUDA
 tensors and runs the plain version for CPU tensors. `nmf_sums.launches`
 counts kernel launches per variant: "h_wh", "g_wh", "h_vb", "g_vb" for
 exact launches and the same names ending in "_fast" for launches over
-bfloat16 samples or with `approx_recip`.
+bfloat16 samples or with `approx_recip`; a launch of the WH form at a rank
+past `NARROW_RANK` runs the wide kernel and counts under "h_wh_wide",
+"g_wh_wide" (and "_fast").
 
 The kernel streams tiles of a few frames through shared memory, two bins
 of every frame a thread, so it takes F up to `FMAX`, any N, R and storage
-offset, and K from 1 to `KMAX` (:func:`check_widths`);
-:func:`launch_geometry` reports its launch, frames a tile included.
+offset, and any NMF rank K >= 1 (:func:`check_widths`): up to
+`NARROW_RANK` the narrow kernel, past it the wide one, which reads Wt
+through L1 / L2 and contracts `NARROW_RANK` ranks at a time;
+:func:`launch_geometry` reports the launch, frames a tile included.
 """
 
 import ctypes
@@ -28,10 +32,10 @@ from .engine import VX_FLOOR
 
 _VP, _I = ctypes.c_void_p, ctypes.c_int
 # The kernel's limits, checked against csrc/nmf_sums.cu's when it is
-# loaded: F up to two bins a consumer thread of at most 992, NMF rank up to
-# KMAX.
+# loaded: F up to two bins a consumer thread of at most 992; the narrow
+# kernel's largest NMF rank (the wide kernel takes the larger ones).
 FMAX = 1984
-KMAX = 16
+NARROW_RANK = 16
 
 
 def _lib():
@@ -41,7 +45,7 @@ def _lib():
         lib.gvnmf_nmf_sums.restype = _I
         lib.gvnmf_nmf_sums_geometry.argtypes = [_I] * 9 + [_VP]
         lib.gvnmf_nmf_sums_geometry.restype = _I
-        for fn, want in ((lib.gvnmf_nmf_sums_kmax, KMAX),
+        for fn, want in ((lib.gvnmf_nmf_sums_narrow_rank, NARROW_RANK),
                          (lib.gvnmf_nmf_sums_fmax, FMAX)):
             fn.argtypes = []
             fn.restype = _I
@@ -54,12 +58,13 @@ def _lib():
 
 def check_widths(F, K=None):
     """Raises ValueError for widths the kernel does not take: F bins from
-    1 to FMAX, NMF rank K from 1 to KMAX (None: the Vb form, no K)."""
+    1 to FMAX, NMF rank K >= 1 (None: the Vb form, no K)."""
     if not 1 <= F <= FMAX:
         raise ValueError(f"F={F}: the sums kernel takes 1 <= F <= {FMAX} "
                          "(two bins a thread of at most 992)")
-    if K is not None and not 1 <= K <= KMAX:
-        raise ValueError(f"NMF rank {K}: the kernel takes 1 to {KMAX}")
+    if K is not None and K < 1:
+        raise ValueError(f"NMF rank {K}: the kernel takes a rank of 1 or "
+                         "more")
 
 
 def launch_geometry(B, R, N, F, K, mode="h", vb=False, bf16=False,
@@ -67,7 +72,8 @@ def launch_geometry(B, R, N, F, K, mode="h", vb=False, bf16=False,
     """The launch `nmf_sums` makes at these shapes on the current card,
     without launching: CTAs, threads and dynamic shared memory a CTA,
     ring stages, frames a tile, reduction segments a frame, CTAs an SM,
-    SMs and registers a thread. CUDA only."""
+    SMs and registers a thread; "wide": whether the wide kernel runs.
+    CUDA only."""
     check_widths(F, None if vb else K)
     lib = _lib()
     out = (ctypes.c_int * 9)()
@@ -77,7 +83,7 @@ def launch_geometry(B, R, N, F, K, mode="h", vb=False, bf16=False,
             int(approx_recip), out), "nmf_sums geometry query")
     keys = ("ctas", "threads", "smem_bytes", "stages", "frames",
             "segments", "ctas_per_sm", "sms", "registers")
-    return dict(zip(keys, out))
+    return dict(zip(keys, out), wide=not vb and K > NARROW_RANK)
 
 
 def _check_args(WH, X2, mode, Vb):
@@ -167,7 +173,9 @@ def nmf_sums(samples, WH, g, X2=None, mode="h", Vb=None, approx_recip=False):
             int(bf16), int(bool(approx_recip)),
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(status, "nmf_sums kernel")
-    key = f"{mode}_{'wh' if WH is not None else 'vb'}"
+    key = f"{mode}_{'vb' if WH is None else 'wh'}"
+    if WH is not None and K > NARROW_RANK:
+        key += "_wide"
     _launches.count(nmf_sums, "nmf_sums",
                     key + ("_fast" if bf16 or approx_recip else ""))
     return o1, o2
@@ -175,5 +183,5 @@ def nmf_sums(samples, WH, g, X2=None, mode="h", Vb=None, approx_recip=False):
 
 nmf_sums.launches = dict.fromkeys(
     (f"{mode}_{form}{level}" for level in ("", "_fast")
-     for mode, form in (("h", "wh"), ("g", "wh"), ("h", "vb"), ("g", "vb"))),
-    0)
+     for mode, form in (("h", "wh"), ("g", "wh"), ("h", "vb"), ("g", "vb"),
+                        ("h", "wh_wide"), ("g", "wh_wide"))), 0)

@@ -62,7 +62,7 @@ from .mcem.engine import (
     row_seeds,
 )
 from .mcem.fused_engine import mcem_batch_fused
-from .mcem.mh_chain import kernel_takes
+from .mcem.mh_chain import FRAME_TILE, MAX_DEPTH
 from .mcem.peem import (
     HybridConfig,
     PEEMConfig,
@@ -243,27 +243,22 @@ def _check_supported(noise_model, fast, cfg, engine="auto"):
     _check_engine(engine)
 
 
-def _use_fused(engine, model, n_pad, nmf_rank=10):
+def _use_fused(engine, model, n_pad):
     """Engine choice: 'fused' runs the fused engine (K1 / K2 on CUDA, their
     plain versions on the CPU), 'xla' the eager engine; 'auto' the fused
-    engine wherever K1 takes the decoder (1 to 4 hidden layers of one
-    width, and the kernel's frame-tile, bin and shared-memory limits at
-    n_pad frames and rank `nmf_rank`), and the eager engine otherwise. The
-    plain versions take any decoder, so on the CPU 'auto' stays on the
-    fused engine, where the JAX package picks its XLA engine. A kernel that
-    does not build raises here: a build fault never selects the eager
-    engine."""
+    engine for every decoder of 1 to 4 hidden layers (the decoders the JAX
+    package sends to its Pallas engine: K1 takes any widths, F and NMF
+    rank, in its cluster or its general form) at a padding of whole
+    16-frame tiles, and the eager engine otherwise. The plain versions take
+    any decoder, so on the CPU 'auto' stays on the fused engine, where the
+    JAX package picks its XLA engine."""
     _check_engine(engine)
     if engine != "auto":
         return engine == "fused"
-    dec = model.decoder
-    if dec.out.w.device.type != "cuda":
+    if model.decoder.out.w.device.type != "cuda":
         return True
-    widths = {layer.w.shape[1] for layer in dec.hidden}
-    if not (1 <= len(dec.hidden) <= 4 and len(widths) == 1):
-        return False
-    return kernel_takes(dec.out.w.shape[1], model.encoder.mu.w.shape[1],
-                        widths.pop(), nmf_rank, len(dec.hidden), n_pad)
+    return (1 <= len(model.decoder.hidden) <= MAX_DEPTH
+            and n_pad % FRAME_TILE == 0)
 
 
 def _ema_time(P, alpha):
@@ -285,11 +280,10 @@ def _spp2_pass1_cfg(cfg):
     return dataclasses.replace(cfg, niter=p1)
 
 
-def _eager(engine, model, n_pad, cfg, noise_model):
+def _eager(engine, model, n_pad, noise_model):
     """Whether MCEM runs on the eager engine: the 'hybrid' noise model, or
     where :func:`_use_fused` does not pick the fused engine."""
-    return noise_model == "hybrid" or not _use_fused(
-        engine, model, n_pad, getattr(cfg, "nmf_rank", 0))
+    return noise_model == "hybrid" or not _use_fused(engine, model, n_pad)
 
 
 def _spp2_two_pass(run_engine, Vb_spp, X_p, cfg):
@@ -323,7 +317,7 @@ def _run_mcem(model, X_p, mask, y, generator, cfg, noise_model="nmf",
     if noise_model != "nmf":
         psd, _ = spp_track(X_p)
         Vb_spp = torch.clamp_min(psd, 1e-6)
-    use_fused = not _eager(engine, model, X_p.shape[-1], cfg, noise_model)
+    use_fused = not _eager(engine, model, X_p.shape[-1], noise_model)
     if seeds is None:
         seeds = row_seeds(generator.initial_seed(), X_p.shape[0])
 
@@ -764,7 +758,7 @@ def enhance_files(file_paths, processed_dir, output_dir, model,
     def run(a, rows, seeds):
         """enhance_waveform over a["..."][rows]; returns (s, n | None,
         y_soft, y_hard) on the host."""
-        eager = _eager(engine, model, a["mask"].shape[1], cfg, noise_model)
+        eager = _eager(engine, model, a["mask"].shape[1], noise_model)
         x, m = a["x"][rows], a["mask"][rows]
         sp = None if a["s"] is None else a["s"][rows]
         seeds = [int(v) for v in seeds]

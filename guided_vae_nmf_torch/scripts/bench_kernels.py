@@ -1,0 +1,92 @@
+"""Kernel times of one checkout on the card, for comparing two checkouts in
+one run of the machine: K1a (the cluster chain, exact, NMF form) E and WF
+by CUDA events, and K2a / K2b / K2c 'h' and 'g' as device time after a K1
+E launch (`graph_ms`), at the main path's shapes (B=4, N=384, the shipped
+M2's decoder, MCEMConfig()); where the checkout has them, also K1g on the
+(256, 128) M2's decoder and K2's wide kernel at rank 32. It times with
+the checkout's own `chip_smoke.py` helpers and kernels.
+
+Usage: python3 guided_vae_nmf_torch/scripts/bench_kernels.py
+       [--tree <checkout root>] [--reps 3] [--out <file.json>]
+
+--tree puts that checkout first on the import path (its package, its
+kernels, built into its own build directory), so that a parent and a
+change can run one after the other in one call (parent, change, change,
+parent). Prints one JSON line: the card, its power limit and the ms of
+each kernel over `--reps` timings.
+"""
+
+import argparse
+import json
+import os
+import sys
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--tree", default=os.path.dirname(os.path.dirname(
+        os.path.dirname(os.path.abspath(__file__)))))
+    ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args(argv)
+    tree = os.path.abspath(args.tree)
+    sys.path.insert(0, tree)
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("bench_kernels needs an NVIDIA GPU")
+    import chip_smoke as cs
+    from guided_vae_nmf_torch import _build
+    from guided_vae_nmf_torch.mcem import MCEMConfig, mh_chain
+    from guided_vae_nmf_torch.mcem.mh_chain import pack_weights
+    from guided_vae_nmf_torch.train import load_model
+
+    dev = torch.device("cuda", 0)
+    build_s = _build.build_all()
+    model = load_model(os.path.join(tree, "artifacts", "pretrained",
+                                    "M2_ibm"), kind="dgm", y_dim=513,
+                       device=dev)
+    cfg = MCEMConfig()
+    B, N, R = 4, 384, cfg.nsamples_E_step
+    c = cs.chain_inputs(torch, model, B, N, cfg.nmf_rank, 7, dev)
+    c["dec_w"] = pack_weights(c["dec_w"])
+    gpu = cs.gpu_name_and_limit()
+    out = {"tree": tree, "gpu": gpu, "build_s": build_s, "ms": {}}
+
+    def add(key, ms):
+        out["ms"].setdefault(key, []).append(ms)
+
+    for _ in range(args.reps):
+        for mode, ns, bi in (("e", R, cfg.burnin_E_step),
+                             ("wf", cfg.nsamples_WF, cfg.burnin_WF)):
+            add(f"mh_chain_{mode}_wh", cs.time_cuda(lambda: cs.run_chain(
+                c, mh_chain, mode, ns, bi, cfg.var_RW, seed=1)))
+        for vb in (False, True):
+            for level in ("", "_fast"):
+                for key, row in cs.time_sums(torch, c, vb, level, cfg,
+                                             gpu).items():
+                    add(key, row["ms"])
+        if hasattr(cs, "domain_model"):
+            m = cs.domain_model(torch, cs.DOMAIN_H_DIMS[0], 20, dev)
+            cg = cs.chain_inputs(torch, m, B, N, cfg.nmf_rank, 7, dev)
+            for mode, ns, bi in (("e", R, cfg.burnin_E_step),
+                                 ("wf", cfg.nsamples_WF, cfg.burnin_WF)):
+                add(f"mh_chain_{mode}_wh_gen", cs.time_cuda(
+                    lambda: cs.run_chain(cg, mh_chain, mode, ns, bi,
+                                         cfg.var_RW, seed=1)))
+            cw = cs.chain_inputs(torch, model, B, N, cs.DOMAIN_RANK, 7, dev)
+            cw["dec_w"] = pack_weights(cw["dec_w"])
+            for level in ("", "_fast"):
+                for key, row in cs.time_sums(torch, cw, False, level, cfg,
+                                             gpu).items():
+                    add(key, row["ms"])
+    line = json.dumps(out)
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(line + "\n")
+    print(line)
+    return out
+
+
+if __name__ == "__main__":
+    main()

@@ -391,8 +391,7 @@ class EnhancementService:
                  for r in reqs + [reqs[-1]] * (Bp - B)]
         # the eager engine's Vx floor can break WFs + WFn = 1 in near-silent
         # bins, so its rows return the device's n
-        eager = _eager(sv.engine, self._model, n_pad, self._cfg,
-                       sv.noise_model)
+        eager = _eager(sv.engine, self._model, n_pad, sv.noise_model)
         dnn = sv.label_mode == "dnn"
         kw = dict(mean=self._mean if dnn else None,
                   std=self._std if dnn else None, label_mode=sv.label_mode,

@@ -20,7 +20,9 @@ virtual mesh of two shards on the card (`make_mesh(devices=[cuda] * 2)`):
 fused shards equal to their rows' runs with per-shard launch counts, the
 eager engine's batch equal to the unsharded one, frame-sharded MCEM at
 var_RW = 0 against single-device `mcem_run`, and a data-parallel epoch
-against the single-device one.
+against the single-device one; and the kernels' whole domain: K1g, the
+chain's general form, for decoders the cluster form does not take, and
+K2 past rank 16 (its wide kernel).
 
 Every test here needs an NVIDIA GPU and skips without one. The file
 imports neither JAX nor the JAX package, so it also runs on a GPU machine
@@ -30,8 +32,10 @@ without JAX:
 
 Tolerance: atol 2e-5 / rtol 2e-4 (float32; the kernels sum in another
 order than PyTorch, and the fast kernels' approximate reciprocal is within
-1 ulp of the plain version's exact one). Chains run on accept/reject noise
-whose decisions cannot flip on rounding (see `decisive_noise`).
+1 ulp of the plain version's exact one); K1g's bfloat16 sample dumps
+within one bfloat16 ulp of the plain version's (float32 values within TOL
+can round to neighbouring bfloat16 values). Chains run on accept/reject
+noise whose decisions cannot flip on rounding (see `decisive_noise`).
 """
 
 import numpy as np
@@ -72,15 +76,20 @@ def _linear(rng, n_in, n_out):
 
 def random_dgm(rng, F, Y, L, H, depth=2):
     """A seeded M2 parameter tree: encoder (F+Y) -> H^depth -> (mu, logvar)
-    of L, decoder (L+Y) -> H^depth -> F."""
-    def stack(n_in):
-        return [_linear(rng, n_in, H)] + [_linear(rng, H, H)
-                                          for _ in range(depth - 1)]
+    of L, decoder (L+Y) -> H^depth -> F; or, with H a tuple, the decoder's
+    hidden widths H (the encoder's reversed, as `dgm_init` mirrors them)."""
+    dec = tuple(H) if isinstance(H, (tuple, list)) else (H,) * depth
+    enc = dec[::-1]
+
+    def stack(n_in, ws):
+        sizes = (n_in, *ws)
+        return [_linear(rng, a, b) for a, b in zip(sizes, sizes[1:])]
 
     return {
-        "encoder": {"hidden": stack(F + Y), "mu": _linear(rng, H, L),
-                    "log_var": _linear(rng, H, L)},
-        "decoder": {"hidden": stack(L + Y), "out": _linear(rng, H, F)},
+        "encoder": {"hidden": stack(F + Y, enc), "mu": _linear(rng, enc[-1], L),
+                    "log_var": _linear(rng, enc[-1], L)},
+        "decoder": {"hidden": stack(L + Y, dec),
+                    "out": _linear(rng, dec[-1], F)},
         "y_dim": Y,
     }
 
@@ -199,9 +208,9 @@ def test_kernel_wrappers_reject_bad_input(cuda):
         strided = c["X2"].transpose(1, 2).contiguous().transpose(1, 2)
         mh_chain(c["dec_w"], strided, c["WH"], c["g"], c["ypre"], c["Z"],
                  c["Vs"], mode="wf")
-    with pytest.raises(ValueError):           # rank above the kernel's 16
-        wt = torch.rand((2, 17, 65), device=cuda)
-        h = torch.rand((2, 17, 128), device=cuda)
+    with pytest.raises(ValueError):           # rank 0
+        wt = torch.rand((2, 0, 65), device=cuda)
+        h = torch.rand((2, 0, 128), device=cuda)
         nmf_sums(torch.rand((2, 2, 128, 65), device=cuda), (wt, h), c["g"],
                  c["X2"])
 
@@ -679,8 +688,10 @@ def test_chain_kernel_ragged_cluster_split(cuda, F, H):
 def test_chain_launch_geometry(cuda):
     """The launch the wrapper reports: 4-CTA clusters, 288 threads and
     under 227 KB of shared memory a CTA at the shipped decoder's widths,
-    at least one resident cluster; shapes whose slices do not fit raise
-    with the reason."""
+    at least one resident cluster; shapes whose slices do not fit the
+    cluster (F=768 at H=128) run on the general form, against the plain
+    version; shapes past the general form's shared memory raise with the
+    reason."""
     from guided_vae_nmf_torch.mcem.mh_chain import launch_geometry
 
     geo = launch_geometry(513, 32, 128, 10, 2, cuda)
@@ -688,6 +699,14 @@ def test_chain_launch_geometry(cuda):
     assert geo["threads"] == 288 and geo["smem_bytes"] <= 232448
     assert geo["max_active_clusters"] >= 1 and geo["registers"] > 0
     c = chain_case(cuda, 33, B=1, F=768, N=16, L=32, H=128, K=2, Y=3)
+    noise = decisive_noise(cuda, 34, 1, 16, 32, 3)
+    reset_launch_counts()
+    got = run_chain(mh_chain, c, "wf", 2, 1, 0.01, noise=noise)
+    assert nonzero(launch_counts())["mh_chain"] == {"wf_wh_gen": 1}
+    ref = run_chain(mh_chain_ref, c, "wf", 2, 1, 0.01, noise=noise)
+    for a, b in zip((got[0], got[1]) + got[2], (ref[0], ref[1]) + ref[2]):
+        _close(a, b)
+    c = chain_case(cuda, 35, B=1, F=65, N=16, L=8, H=2048, K=2, Y=3)
     with pytest.raises(ValueError, match="shared memory"):
         run_chain(mh_chain, c, "wf", 2, 1, 0.01)
 
@@ -826,10 +845,11 @@ def test_sums_launch_geometry(cuda):
     """The launch the wrapper reports at the paths' shapes: at least one
     CTA on every SM at B=4, N=384 (F=513, K=10, R=10), 320 threads (9
     consumer warps of two bins a thread, and a producer warp), tiles of 4
-    frames (one frame at F=FMAX), under 227 KB of shared memory; F past
-    FMAX and K past KMAX raise with the reason."""
+    frames (one frame at F=FMAX), under 227 KB of shared memory; the wide
+    kernel past NARROW_RANK, its shared memory the same at every rank; F
+    past FMAX and a rank below 1 raise with the reason."""
     from guided_vae_nmf_torch.mcem.nmf_sums import (
-        FMAX, KMAX, launch_geometry)
+        FMAX, NARROW_RANK, launch_geometry)
 
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     for mode in ("h", "g"):
@@ -847,9 +867,15 @@ def test_sums_launch_geometry(cuda):
     c = sums_case(cuda, 42, 1, 2, 16, FMAX + 1, 2)
     with pytest.raises(ValueError, match=f"F={FMAX + 1}"):
         nmf_sums(c["samples"], c["WH"], c["g"], c["X2"], mode="h")
-    c = sums_case(cuda, 43, 1, 2, 16, 65, KMAX + 1)
-    with pytest.raises(ValueError, match=f"NMF rank {KMAX + 1}"):
-        nmf_sums(c["samples"], c["WH"], c["g"], c["X2"], mode="h")
+    assert not launch_geometry(4, 10, 384, 513, NARROW_RANK,
+                               device=cuda)["wide"]
+    wide = [launch_geometry(4, 10, 384, 513, k, mode, device=cuda)
+            for k in (NARROW_RANK + 1, 64, 1000) for mode in ("h", "g")]
+    assert all(g["wide"] and g["threads"] == 320 and g["ctas"] >= sms
+               for g in wide)
+    assert wide[0]["smem_bytes"] == wide[4]["smem_bytes"] <= 232448
+    with pytest.raises(ValueError, match="NMF rank 0"):
+        launch_geometry(4, 10, 384, 513, 0, device=cuda)
 
 
 # Paths that launch no kernel of their own (PyTorch operations on the
@@ -1669,3 +1695,201 @@ def test_bench_long_runs_repeat_on_the_card(cuda, tmp_path):
         with open(os.path.join(work, "est", base + tag), "rb") as a, \
                 open(os.path.join(work, "est2", base + tag), "rb") as b:
             assert a.read() == b.read(), tag
+
+
+# K1g, the general form of the chain: every decoder of 1 to 4 hidden layers
+# the cluster form does not take (here at F=513, L=32: widths that differ,
+# or whose slices pass a CTA's shared memory), one CTA a 16-frame tile with
+# the weights read from L2; and K2 past rank 16 (the wide kernel). Held
+# against the plain versions at TOL (bfloat16 products at K1D_TOL), under
+# decisive injected noise.
+
+GEN_WIDTHS = [(256, 128), (128, 256), (128,) * 4, (256, 256)]
+GEN_LEVELS = {"exact": {}, "fast": FAST["fast"], "trans": FAST["trans"],
+              "mm16": dict(FAST["fast"], matmul_dtype=torch.bfloat16)}
+GEN_DIMS = dict(B=2, F=513, N=32, L=32, K=10, Y=20)
+
+
+def _wid(ws):
+    return "x".join(map(str, ws))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("level", sorted(GEN_LEVELS))
+@pytest.mark.parametrize("form", ["wh", "vb"])
+@pytest.mark.parametrize("mode", ["e", "wf"])
+@pytest.mark.parametrize("widths", GEN_WIDTHS, ids=_wid)
+def test_general_chain_matches_plain(cuda, widths, mode, form, level):
+    """One K1g launch under the level's "_gen" key; every output against
+    the plain version (bfloat16 dumps equal to its, as the cluster form's
+    are)."""
+    c = chain_case(cuda, 60, H=widths, **GEN_DIMS)
+    vb = form == "vb"
+    opts = GEN_LEVELS[level]
+    noise = decisive_noise(cuda, 61, 2, 32, 32, 7)
+    reset_launch_counts()
+    got = run_chain(mh_chain, c, mode, 4, 3, 0.01, vb=vb, noise=noise,
+                    **opts)
+    lv = {"exact": "", "fast": "_fast", "trans": "_trans",
+          "mm16": "_fast_mm16"}[level]
+    assert nonzero(launch_counts()) == {
+        "mh_chain": {f"{mode}_{form}_gen{lv}": 1}, "nmf_sums": {}}
+    ref = run_chain(mh_chain_ref, c, mode, 4, 3, 0.01, vb=vb, noise=noise,
+                    **opts)
+    torch.cuda.synchronize()
+    close = _close_k1d if level == "mm16" else _close
+    assert torch.equal(got[0], ref[0])
+    outs = list(zip((got[1],) + got[2], (ref[1],) + ref[2]))
+    if mode == "e" and level in ("fast", "trans"):
+        # bfloat16 dumps of float32 values within TOL: within one bfloat16
+        # ulp (the cluster form's are bit-equal at the shipped widths, where
+        # the plain version's products sum in the kernel's order)
+        _within_bf16_ulp(*outs.pop(1))
+    for a, b in outs:
+        close(a, b)
+
+
+def _within_bf16_ulp(got, ref):
+    assert got.dtype == ref.dtype == torch.bfloat16
+    g, r = got.float(), ref.float()
+    ulp = torch.ldexp(torch.ones_like(r), torch.frexp(r).exponent - 8)
+    assert bool(torch.all(torch.abs(g - r) <= ulp))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["wh", "vb"])
+@pytest.mark.parametrize("mode", ["e", "wf"])
+def test_general_chain_batch_matches_each_utterance(cuda, mode, form):
+    """K1g over B=3 returns, per utterance, bit for bit what it returns for
+    that utterance alone, with the in-kernel Philox stream and with
+    decisive injected noise; and its Philox run equals the run on the
+    streams `philox_streams` reports (the cluster form's draws)."""
+    c = chain_case(cuda, 62, B=3, F=513, N=48, L=32, H=(256, 128), K=10,
+                   Y=20)
+    vb = form == "vb"
+    noise = decisive_noise(cuda, 63, 3, 48, 32, 7)
+
+    def one(b):
+        cb = {k: v[b:b + 1].contiguous() if torch.is_tensor(v) else v
+              for k, v in c.items() if k != "WH"}
+        cb["WH"] = tuple(x[b:b + 1].contiguous() for x in c["WH"])
+        return cb
+
+    runs = [(dict(noise=noise), lambda b: dict(noise=tuple(
+        x[b:b + 1].contiguous() for x in noise))),
+        (dict(seed=5), lambda b: None)]
+    for kw, kw_b in runs:
+        got = run_chain(mh_chain, c, mode, 4, 3, 0.01, vb=vb, **kw)
+        outs = (got[0], got[1]) + got[2]
+        for b in range(3):
+            if kw_b(b) is None:
+                # the Philox stream is keyed on the utterance's index in
+                # the batch: replay utterance b's streams alone
+                zn, u = philox_streams(5, 3, 48, 32, 7, cuda)
+                kb = dict(noise=(zn[b:b + 1].contiguous(),
+                                 u[b:b + 1].contiguous()))
+            else:
+                kb = kw_b(b)
+            alone = run_chain(mh_chain, one(b), mode, 4, 3, 0.01, vb=vb,
+                              **kb)
+            for x, y in zip(outs, (alone[0], alone[1]) + alone[2]):
+                assert torch.equal(x[b:b + 1], y), (mode, b, sorted(kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [17, 20, 32, 64])
+@pytest.mark.parametrize("level", ["exact", "fast"])
+@pytest.mark.parametrize("mode", ["h", "g"])
+def test_wide_rank_sums_match_plain(cuda, mode, level, K):
+    """K2 past rank 16: one launch of the wide kernel under its key, 'h'
+    and 'g', float32 exact and bfloat16 samples with the approximate
+    reciprocal, against the plain version at F=513, N=40 (ragged tiles)."""
+    c = sums_case(cuda, 70 + K, 2, 10, 40, 513, K)
+    fast = level == "fast"
+    samples = c["samples"].to(torch.bfloat16) if fast else c["samples"]
+    reset_launch_counts()
+    got = nmf_sums(samples, c["WH"], c["g"], c["X2"], mode=mode,
+                   approx_recip=fast)
+    assert nonzero(launch_counts()) == {
+        "mh_chain": {},
+        "nmf_sums": {f"{mode}_wh_wide{'_fast' if fast else ''}": 1}}
+    ref = nmf_sums_ref(samples, c["WH"], c["g"], c["X2"], mode=mode)
+    for a, b in zip(got, ref):
+        assert a.shape == b.shape
+        _close(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [20, 64])
+def test_wide_rank_sums_batch_matches_each_utterance(cuda, K):
+    """The wide kernel's sums keep one order: two launches are equal and a
+    B=4 pass returns, per utterance, what the utterance alone returns."""
+    c = sums_case(cuda, 80 + K, 4, 10, 38, 513, K)
+    got = run_all_sums(nmf_sums, c, c["samples"])
+    again = run_all_sums(nmf_sums, c, c["samples"])
+    for key in got:
+        assert all(torch.equal(a, b) for a, b in zip(got[key], again[key]))
+    for b in range(4):
+        one = {k: v[b:b + 1].contiguous() for k, v in c.items() if k != "WH"}
+        one["WH"] = tuple(x[b:b + 1].contiguous() for x in c["WH"])
+        alone = run_all_sums(nmf_sums, one, c["samples"][b:b + 1].contiguous())
+        for key in got:
+            for x, y in zip(got[key], alone[key]):
+                assert torch.equal(x[b:b + 1], y), (key, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("widths", GEN_WIDTHS, ids=_wid)
+def test_use_fused_takes_every_decoder_on_the_card(cuda, widths):
+    """On the card engine="auto" picks the fused engine for these decoders
+    (the eager engine only for engine="xla", the hybrid noise model and
+    more than 4 hidden layers)."""
+    from guided_vae_nmf_torch.pipeline import _eager, _use_fused
+
+    rng = np.random.RandomState(64)
+    model = module_from_params(random_dgm(rng, 513, 513, 32, widths),
+                               device=cuda)
+    assert _use_fused("auto", model, 384) is True
+    assert not _eager("auto", model, 384, "nmf")
+    assert _eager("xla", model, 384, "nmf") and _eager("auto", model, 384,
+                                                       "hybrid")
+    deep = module_from_params(random_dgm(rng, 65, 3, 8, (16,) * 5),
+                              device=cuda)
+    assert _use_fused("auto", deep, 384) is False
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("widths,rank", [((24, 40), 10), ((24, 40), 20),
+                                         ((16, 16), 20)])
+def test_fused_engine_domain_var0_matches_cpu(cuda, widths, rank):
+    """The fused engine past the cluster form and the narrow sums on the
+    card: a decoder of unequal widths on K1g, rank 20 on K2's wide kernel
+    (with the cluster form's H tile and numW / denW at K > 16 for equal
+    widths); the result at var_RW = 0 against the CPU run."""
+    rng = np.random.RandomState(65)
+    B, F, N, Y, L = 2, 65, 128, 10, 8
+    tree = random_dgm(rng, F, Y, L, widths)
+    X = rng.uniform(0.05, 1.05, (B, F, N)).astype(np.float32)
+    y = (rng.uniform(size=(B, Y, N)) > 0.5).astype(np.float32)
+    mask = np.ones((B, N), np.float32)
+    init = {"W": rng.uniform(0.05, 1, (B, F, rank)).astype(np.float32),
+            "H": rng.uniform(0.05, 1, (B, rank, N)).astype(np.float32)}
+    cfg = MCEMConfig(niter=3, nsamples_E_step=2, burnin_E_step=1,
+                     nsamples_WF=2, burnin_WF=1, var_RW=0.0, nmf_rank=rank)
+    outs = {}
+    for dev in ("cpu", cuda):
+        t = lambda a: torch.tensor(a, device=dev)  # noqa: E731
+        reset_launch_counts()
+        outs[str(dev)] = mcem_batch_fused(
+            module_from_params(tree, device=dev), t(X), t(mask), t(y),
+            torch.Generator(device=dev).manual_seed(0), cfg,
+            init={k: t(v) for k, v in init.items()})
+    wide = "_wide" if rank > 16 else ""
+    gen = "_gen" if len(set(widths)) > 1 else ""
+    assert nonzero(launch_counts()) == {
+        "mh_chain": {f"e_wh{gen}": 3, f"wf_wh{gen}": 1},
+        "nmf_sums": {f"h_wh{wide}": 3, f"g_wh{wide}": 3}}
+    for k in ("WFs", "WFn", "W", "H", "g", "Z", "cost"):
+        assert_allclose(outs["cuda"][k].cpu().numpy(),
+                        outs["cpu"][k].numpy(), rtol=1e-3, atol=1e-5,
+                        err_msg=k)

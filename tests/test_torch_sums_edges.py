@@ -20,7 +20,7 @@ from numpy.testing import assert_allclose
 
 from guided_vae_nmf_tpu.mcem.pallas_engine import nmf_sums_pallas
 from guided_vae_nmf_torch.mcem import nmf_sums, nmf_sums_ref
-from guided_vae_nmf_torch.mcem.nmf_sums import FMAX, KMAX, check_widths
+from guided_vae_nmf_torch.mcem.nmf_sums import FMAX, NARROW_RANK, check_widths
 
 torch.set_num_threads(2)
 
@@ -75,18 +75,19 @@ def test_sums_edges_match_pallas(R, K, F, dtype, mode, form):
         assert_allclose(a.numpy(), np.asarray(b), **TOL)
 
 
-@pytest.mark.parametrize("F,K", [(1, 1), (1, None), (65, KMAX),
+@pytest.mark.parametrize("F,K", [(1, 1), (1, None), (65, NARROW_RANK),
                                  (129, None), (513, 10), (FMAX, 1),
-                                 (FMAX, None)])
+                                 (FMAX, None), (65, NARROW_RANK + 1),
+                                 (513, 64)])
 def test_check_widths_takes_what_the_kernel_takes(F, K):
-    """F from 1 to FMAX; K from 1 to KMAX in the WH form (None: Vb)."""
+    """F from 1 to FMAX; any K >= 1 in the WH form (None: Vb), past
+    NARROW_RANK on the wide kernel."""
     check_widths(F, K)
 
 
 @pytest.mark.parametrize("F,K,match", [
     (0, None, "F=0"), (FMAX + 1, None, f"F={FMAX + 1}"),
     (FMAX + 1, 10, f"F={FMAX + 1}"), (65, 0, "NMF rank 0"),
-    (65, KMAX + 1, f"NMF rank {KMAX + 1}"),
     (513, -1, "NMF rank -1")])
 def test_check_widths_rejects_what_the_kernel_does_not_take(F, K, match):
     with pytest.raises(ValueError, match=match):
