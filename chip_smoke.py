@@ -175,13 +175,16 @@ Phases, in order; any failure exits nonzero without a result line:
    Then the kernels' whole domain: three seeded M2s from `dgm_init`
    (F=513, L=32, h_dim (256, 128), 128 x 4 and (256, 256)) whose decoders
    the cluster chain does not take, each through the main batch with
-   engine="auto" (100 / 1 / 100 / 100 launches on K1g, K2a) and once with
-   engine="fused", a 1 s utterance on the card against the CPU path, and
-   K1g against its plain version under decisive noise at B=4, N=384
-   (exact, fast, trans and bfloat16 products on the first, exact on the
-   others); the first also with fast=True, the real-noise settings exact
-   and fast (K1g's Vb form) and on the eager engine (x realtime beside
-   the fused engine's); then the shipped M2 at nmf_rank=32 (K1a and K2's
+   engine="auto" (100 / 1 / 100 / 100 launches on K1e, the extended
+   cluster chain, and K2a) and once with engine="fused", a 1 s utterance
+   on the card against the CPU path, and K1e against its plain version
+   under decisive noise at B=4, N=384 (exact, fast, trans and bfloat16
+   products on the first, exact on the others); the first also with
+   fast=True, the real-noise settings exact and fast (K1e's Vb form) and
+   on the eager engine (x realtime beside the fused engine's); a seeded
+   M2 of h_dim (512, 512), which no cluster holds, the same way on K1g
+   (without the CPU path and the eager engine), K1g against its plain
+   version at every level; then the shipped M2 at nmf_rank=32 (K1a and K2's
    wide kernel, exact and fast, the card against the CPU, K1a and K2
    against their plain versions at that rank). Then the five demos
    (`guided_vae_nmf_torch/examples/`) at their defaults on a synthetic
@@ -203,9 +206,11 @@ Phases, in order; any failure exits nonzero without a result line:
    leaves it (right after a K1 E launch), warm and cold, beside the
    CUDA-event time of back-to-back calls and the wrapper's host time a
    call; and K1a / K1b E and WF and K2a / K2b 'h' and 'g' at bench.py's
-   B=32, N=512 beside their bounds; K1g (exact and fast, E and WF, both
-   forms) on the (256, 128) M2's decoder and K2's wide kernel at rank 32
-   on the shipped decoder, at the paths' shapes.
+   B=32, N=512 beside their bounds; K1e (exact and fast, E and WF, both
+   forms) on the (256, 128) M2's decoder, K1g the same on the (512, 512)
+   M2's decoder and, for the comparison in one call, on the (256, 128)
+   one; and K2's wide kernel at rank 32 on the shipped decoder, at the
+   paths' shapes.
 
 Prints the card's name and power limit, a `{"kernels": [...]}` line, and
 as its last line `{"ok": true, "device": {...}}`.
@@ -262,10 +267,11 @@ PEEM_LAUNCHES = dict(form="wh", e=0, wf=0, h=0, g=0)
 # The paper-config harness's arguments here (a cut of its B=32, N=512,
 # 500 iterations, so the script stays well inside its time limit).
 HARNESS_ARGS = dict(batch=4, n=384, niter=100, peem=1, hybrid=25)
-# Chain launch keys: mode, form, '_gen' for the general form (K1g),
-# level ('', '_fast', '_trans'), and '_mm16' for the decoder products on
-# bfloat16 operands (K1d).
-CHAIN_VARIANTS = [f"{m}_{f}{gen}{lv}{mm}" for gen in ("", "_gen")
+# Chain launch keys: mode, form, '_gen' for the general form (K1g) or
+# '_ext' for the extended cluster form (K1e), level ('', '_fast',
+# '_trans'), and '_mm16' for the decoder products on bfloat16 operands
+# (K1d).
+CHAIN_VARIANTS = [f"{m}_{f}{gen}{lv}{mm}" for gen in ("", "_gen", "_ext")
                   for mm in ("", "_mm16")
                   for lv in ("", "_fast", "_trans")
                   for m, f in (("e", "wh"), ("wf", "wh"), ("e", "vb"),
@@ -282,25 +288,28 @@ SUMS_VARIANTS = [f"{m}_{f}{lv}" for lv in ("", "_fast")
                  for m, f in (("h", "wh"), ("g", "wh"), ("h", "vb"),
                               ("g", "vb"), ("h", "wh_wide"),
                               ("g", "wh_wide"))]
-# The kernels' whole domain: K1g, the chain's general form, exact and fast
-# in both modes and forms, and K2's wide kernel (NMF ranks past 16).
+# The kernels' whole domain: K1g, the chain's general form, and K1e, the
+# extended cluster form, exact and fast in both modes and forms, and K2's
+# wide kernel (NMF ranks past 16).
 K1G_VARIANTS = [f"{m}_{f}_gen{lv}" for lv in ("", "_fast")
                 for m, f in (("e", "wh"), ("wf", "wh"), ("e", "vb"),
                              ("wf", "vb"))]
+K1E_VARIANTS = [v.replace("_gen", "_ext") for v in K1G_VARIANTS]
 WIDE_VARIANTS = [f"{m}_wh_wide{lv}" for lv in ("", "_fast")
                  for m in ("h", "g")]
 
 
 def expected_launches(form, e, wf, h, g, n_batches=1, level="", gen=False,
-                      wide=False):
+                      wide=False, ext=False):
     """The launch counts (`launch_counts()` layout) of a path that runs
     the given launches a batch at `level`, over `n_batches` batches; `gen`:
-    its chains on K1g, `wide`: its sums on K2's wide kernel."""
+    its chains on K1g, `ext`: on K1e, `wide`: its sums on K2's wide
+    kernel."""
     out = {"mh_chain": dict.fromkeys(CHAIN_VARIANTS, 0),
            "nmf_sums": dict.fromkeys(SUMS_VARIANTS, 0)}
     sums_level = "_fast" if level else ""
-    chain, sums = form + ("_gen" if gen else ""), form + (
-        "_wide" if wide else "")
+    chain = form + ("_gen" if gen else "") + ("_ext" if ext else "")
+    sums = form + ("_wide" if wide else "")
     for kern, mode, n, lv, f in (("mh_chain", "e", e, level, chain),
                                  ("mh_chain", "wf", wf, level, chain),
                                  ("nmf_sums", "h", h, sums_level, sums),
@@ -678,10 +687,12 @@ def sums_bound(B, R, N, F, K, mode, vb=False, sample_bytes=4):
 
 
 VARIANTS = ([f"mh_chain_{v}" for v in CHAIN_VARIANTS
-             if not v.endswith("_mm16") and "_gen" not in v]
+             if not v.endswith("_mm16") and "_gen" not in v
+             and "_ext" not in v]
             + [f"mh_chain_{v}" for v in K1D_VARIANTS]
             + [f"nmf_sums_{v}" for v in SUMS_VARIANTS if "_wide" not in v]
             + [f"mh_chain_{v}" for v in K1G_VARIANTS]
+            + [f"mh_chain_{v}" for v in K1E_VARIANTS]
             + [f"nmf_sums_{v}" for v in WIDE_VARIANTS])
 
 
@@ -4147,12 +4158,15 @@ def phase_examples(torch, dev, gpu, art, seed):
 
 # The kernels' whole domain: seeded M2s from the port's dgm_init at F=513,
 # L=32 whose decoders the cluster form does not take (dgm_init's h_dim; the
-# decoder mirrors it: (128, 256), 128 x 4, (256, 256)), on K1g, and the
-# shipped M2 at an NMF rank past 16, on K2's wide kernel; each through the
-# main batch with engine="auto".
+# decoder mirrors it: (128, 256), 128 x 4, (256, 256)), on K1e, the
+# extended cluster form (4- or 8-CTA clusters); one whose decoder no cluster
+# holds, (512, 512), on K1g; and the shipped M2 at an NMF rank past 16, on
+# K2's wide kernel; each through the main batch with engine="auto".
 DOMAIN_H_DIMS = ((256, 128), (128, 128, 128, 128), (256, 256))
+GENERAL_H_DIM = (512, 512)
 DOMAIN_RANK = 32
 GEN_LAUNCHES = dict(MAIN_LAUNCHES, gen=True)
+EXT_LAUNCHES = dict(MAIN_LAUNCHES, ext=True)
 WIDE_LAUNCHES = dict(MAIN_LAUNCHES, wide=True)
 
 
@@ -4180,26 +4194,28 @@ def compare_bf16(name, got, ref):
     log(f"  {name:<28s} max_abs {err.max().item():.3e}  bfloat16, within "
         f"one bfloat16 ulp: {'ok' if ok else 'FAIL'} ("
         f"{int((err > 0).sum())} of {err.numel()} differ)")
-    check(ok, f"{name}: K1g's bfloat16 dumps disagree with the plain "
+    check(ok, f"{name}: the bfloat16 dumps disagree with the plain "
           "version's")
     return float(err.max())
 
 
-def check_general(torch, model, B, N, dev, levels):
-    """K1g on `model`'s decoder against its plain version at B, N under
-    decisive injected noise, MCEMConfig()'s chain lengths: E and WF, both
-    forms, at `levels` ('' exact, '_fast', '_trans', '_fast_mm16'), each
-    run one K1g launch; Z equal, the rest at TOL (bfloat16 dumps within a
-    bfloat16 ulp, bfloat16 products at K1D_TOL). Returns the largest
-    absolute error per chain variant."""
+def check_form(torch, model, B, N, dev, levels, form, tag):
+    """The chain's `form` ("ext": K1e, "general": K1g) on `model`'s decoder
+    against its plain version at B, N under decisive injected noise,
+    MCEMConfig()'s chain lengths: E and WF, both noise forms, at `levels`
+    ('' exact, '_fast', '_trans', '_fast_mm16'), each run one launch under
+    its `tag` ("_ext" / "_gen") key; Z equal, the rest at TOL (bfloat16
+    dumps within a bfloat16 ulp, bfloat16 products at K1D_TOL). Returns
+    the largest absolute error per chain variant."""
     import guided_vae_nmf_torch as port
     from guided_vae_nmf_torch.mcem import mh_chain, mh_chain_ref
     from guided_vae_nmf_torch.mcem.mh_chain import widths
 
+    name = {"ext": "K1e", "general": "K1g"}[form]
     c = chain_inputs(torch, model, B, N, 10, 11, dev)
     L, ws = c["L"], widths(c["dec_w"])
     err = {}
-    for vb, form in ((False, "wh"), (True, "vb")):
+    for vb, nform in ((False, "wh"), (True, "vb")):
         for mode, ns, bi in (("e", 10, 30), ("wf", 25, 75)):
             noise = decisive_noise(torch, 12, B, N, L, ns + bi, dev)
             names = (["Vs", "samples"] + (["s1", "s2"] if vb else
@@ -4207,34 +4223,34 @@ def check_general(torch, model, B, N, dev, levels):
                      if mode == "e" else ["Vs", "WFs_sum", "WFn_sum"])
             for level in levels:
                 kw = fast_kw(torch, level)
-                key = f"{mode}_{form}_gen{level}"
+                key = f"{mode}_{nform}{tag}{level}"
                 port.reset_launch_counts()
                 got = run_chain(c, mh_chain, mode, ns, bi, 0.01, vb=vb,
-                                noise=noise, **kw)
+                                noise=noise, form=form, **kw)
                 counts = nonzero(port.launch_counts())
                 ref = run_chain(c, mh_chain_ref, mode, ns, bi, 0.01, vb=vb,
                                 noise=noise, **kw)
                 torch.cuda.synchronize()
-                log(f" K1g {key}, decoder {ws}, decisive noise, B={B} "
+                log(f" {name} {key}, decoder {ws}, decisive noise, B={B} "
                     f"N={N}:")
                 check(counts == {"mh_chain": {key: 1}},
-                      f"K1g check launched {counts}, expected one {key}")
-                check(torch.equal(got[0], ref[0]), f"K1g {key}: Z differs "
-                      "from the plain version's under decisive noise")
+                      f"{name} check launched {counts}, expected one {key}")
+                check(torch.equal(got[0], ref[0]), f"{name} {key}: Z "
+                      "differs from the plain version's under decisive "
+                      "noise")
                 e = 0.0
-                for name, x, y in zip(names, (got[1],) + got[2],
-                                      (ref[1],) + ref[2]):
+                for nm, x, y in zip(names, (got[1],) + got[2],
+                                    (ref[1],) + ref[2]):
                     if level.endswith("_mm16"):
-                        e = max(e, compare_k1d(name, x.float(),
-                                               y.float())[0])
+                        e = max(e, compare_k1d(nm, x.float(), y.float())[0])
                     elif x.dtype == torch.bfloat16:
-                        e = max(e, compare_bf16(name, x, y))
+                        e = max(e, compare_bf16(nm, x, y))
                     else:
-                        e = max(e, compare(name, x, y))
+                        e = max(e, compare(nm, x, y))
                 if mode == "wf":
                     unity = (got[2][0] + got[2][1]) / ns
                     check(torch.allclose(unity, torch.ones_like(unity),
-                                         atol=1e-5), "K1g: WFs + WFn != 1")
+                                         atol=1e-5), f"{name}: WFs + WFn != 1")
                 err[f"mh_chain_{key}"] = e
     return err
 
@@ -4260,27 +4276,54 @@ def one_run(torch, model, classifier, mean, std, cfg, batch, seed, dev,
     return out
 
 
+def domain_paths(torch, m, ws, classifier, mean, std, cfg, batch, seed,
+                 dev, gpu, launches, keep):
+    """The first domain decoder's extra paths, on the form `launches`
+    names: fast=True and the real-noise settings exact and fast."""
+    from guided_vae_nmf_torch.profiles import apply_profile_cfg, \
+        offline_settings
+
+    tag = {k: True for k in ("gen", "ext") if launches.get(k)}
+    d = {"fast": keep(phase_main(
+        torch, m, classifier, mean, std, cfg, batch, seed, dev, gpu,
+        launches=dict(launches, level="_fast"), fast=True,
+        label=f"main batch, decoder {ws}, fast=True"))}
+    noise_model, soft = offline_settings("real-noise")
+    pcfg = apply_profile_cfg(cfg, "real-noise")
+    rn = dict(noise_model=noise_model, soft_guidance=soft)
+    d["real-noise"] = keep(phase_main(
+        torch, m, classifier, mean, std, pcfg, batch, seed, dev, gpu,
+        launches=dict(REAL_NOISE_LAUNCHES, **tag),
+        label=f"real-noise settings, decoder {ws}", **rn))
+    d["real-noise fast"] = keep(phase_main(
+        torch, m, classifier, mean, std, pcfg, batch, seed, dev, gpu,
+        launches=dict(REAL_NOISE_LAUNCHES, level="_fast", **tag), fast=True,
+        label=f"real-noise settings, decoder {ws}, fast=True", **rn))
+    return d
+
+
 def phase_domain(torch, model, classifier, mean, std, batch, seed, dev, gpu):
     """The kernels' whole domain on the main batch (the shipped
-    classifier's labels): for each decoder of DOMAIN_H_DIMS, K1g's launch,
-    the main path with engine="auto" (three runs, 100 / 1 / 100 / 100
-    launches on K1g E / WF and K2 h / g), one run with engine="fused", a
-    1 s utterance on the card against the CPU path at var_RW=0, and K1g
-    against its plain version at the batch's shape (every level on the
-    first decoder, exact on the others); on the first also fast=True, the
-    real-noise settings exact and fast (K1g's Vb form) and the eager
-    engine (engine="xla") for the x realtime beside the fused engine's;
-    then the shipped M2 at nmf_rank=DOMAIN_RANK (the cluster form and K2's
-    wide kernel): the main path exact and fast, the card against the CPU,
-    and K1a / K2 against their plain versions at that rank. Returns the
-    record, its runs' launch counts and the kernels' errors."""
+    classifier's labels): for each decoder of DOMAIN_H_DIMS, K1e's launch
+    (4- or 8-CTA clusters), the main path with engine="auto" (three runs,
+    100 / 1 / 100 / 100 launches on K1e E / WF and K2 h / g), one run with
+    engine="fused", a 1 s utterance on the card against the CPU path at
+    var_RW=0, and K1e against its plain version at the batch's shape
+    (every level on the first decoder, exact on the others); on the first
+    also fast=True, the real-noise settings exact and fast (K1e's Vb form)
+    and the eager engine (engine="xla") for the x realtime beside the
+    fused engine's; the GENERAL_H_DIM M2, which no cluster holds, on K1g:
+    the main path, engine="fused", fast=True, the real-noise settings
+    exact and fast, and K1g against its plain version at every level;
+    then the shipped M2 at nmf_rank=DOMAIN_RANK (the cluster form and
+    K2's wide kernel): the main path exact and fast, the card against the
+    CPU, and K1a / K2 against their plain versions at that rank. Returns
+    the record, its runs' launch counts and the kernels' errors."""
     from guided_vae_nmf_torch.mcem import MCEMConfig, mh_chain, mh_chain_ref
     from guided_vae_nmf_torch.mcem.fused_engine import _dec_parts
     from guided_vae_nmf_torch.mcem.mh_chain import (
-        cluster_takes, general_geometry, widths)
+        chain_form, cluster_takes, ext_geometry, general_geometry, widths)
     from guided_vae_nmf_torch.pipeline import _use_fused
-    from guided_vae_nmf_torch.profiles import apply_profile_cfg, \
-        offline_settings
 
     t0 = time.perf_counter()
     pairs, x_b, mask = batch
@@ -4294,50 +4337,58 @@ def phase_domain(torch, model, classifier, mean, std, batch, seed, dev, gpu):
         runs.append(r)
         return r
 
-    for i, h_dim in enumerate(DOMAIN_H_DIMS):
+    for i, h_dim in enumerate(DOMAIN_H_DIMS + (GENERAL_H_DIM,)):
         m = domain_model(torch, h_dim, seed + 20 + i, dev)
         ws = widths(_dec_parts(m.decoder, 32))
+        general = h_dim == GENERAL_H_DIM
+        form, cl = chain_form(513, 32, ws, cfg.nmf_rank, N)
         check(not cluster_takes(513, 32, ws, cfg.nmf_rank, N),
               f"the cluster form takes the decoder {ws}")
+        check(form == ("general" if general else "ext"),
+              f"the wrapper picks {form} ({cl}) for the decoder {ws}")
         check(_use_fused("auto", m, N), f"engine='auto' picks the eager "
               f"engine for the decoder {ws}")
-        geo = general_geometry(513, 32, ws, cfg.nmf_rank, dev)
-        log(f" decoder {ws} (dgm_init h_dim {list(h_dim)}): K1g launch "
-            f"{B * N // geo['frames']} CTAs of {geo['threads']} threads, "
-            f"{geo['smem_bytes']} B of shared memory and {geo['registers']} "
-            "registers a thread")
-        d = {"widths": list(ws), "geometry": geo}
+        d = {"widths": list(ws)}
+        if general:
+            geo = general_geometry(513, 32, ws, cfg.nmf_rank, dev)
+            log(f" decoder {ws} (dgm_init h_dim {list(h_dim)}): K1g launch "
+                f"{B * N // geo['frames']} CTAs of {geo['threads']} threads,"
+                f" {geo['smem_bytes']} B of shared memory and "
+                f"{geo['registers']} registers a thread")
+            launches = GEN_LAUNCHES
+        else:
+            geo = ext_geometry(513, 32, ws, cfg.nmf_rank, dev)
+            clusters = B * -(-(N // 16) // 2)
+            geo["waves"] = -(-clusters // geo["max_active_clusters"])
+            log(f" decoder {ws} (dgm_init h_dim {list(h_dim)}): K1e launch "
+                f"{clusters} clusters of {geo['cluster']} CTAs, "
+                f"{geo['threads']} threads, {geo['smem_bytes']} B of shared "
+                f"memory and {geo['registers']} registers a CTA's thread, "
+                f"{geo['max_active_clusters']} clusters resident, "
+                f"{geo['waves']} waves")
+            launches = EXT_LAUNCHES
+        d["geometry"] = geo
         d["auto"] = keep(phase_main(
             torch, m, classifier, mean, std, cfg, batch, seed, dev, gpu,
-            launches=GEN_LAUNCHES, label=f"main batch, decoder {ws}, "
+            launches=launches, label=f"main batch, decoder {ws}, "
             "engine='auto'"))
         one_run(torch, m, classifier, mean, std, cfg, batch, seed, dev,
-                GEN_LAUNCHES, f"main batch, decoder {ws}, engine='fused'",
+                launches, f"main batch, decoder {ws}, engine='fused'",
                 engine="fused")
-        log(f" decoder {ws} on the card against the CPU path:")
-        phase_reference(torch, m, classifier, mean, std, pairs, dev,
-                        profiles=("nmf",))
-        levels = ("", "_fast", "_trans", "_fast_mm16") if i == 0 else ("",)
-        for k, e in check_general(torch, m, B, N, dev, levels).items():
+        if not general:
+            log(f" decoder {ws} on the card against the CPU path:")
+            phase_reference(torch, m, classifier, mean, std, pairs, dev,
+                            profiles=("nmf",))
+        every = ("", "_fast", "_trans", "_fast_mm16")
+        levels = every if i == 0 or general else ("",)
+        for k, e in check_form(torch, m, B, N, dev, levels,
+                               "general" if general else "ext",
+                               "_gen" if general else "_ext").items():
             err[k] = max(err.get(k, 0.0), e)
+        if i == 0 or general:
+            d.update(domain_paths(torch, m, ws, classifier, mean, std, cfg,
+                                  batch, seed, dev, gpu, launches, keep))
         if i == 0:
-            d["fast"] = keep(phase_main(
-                torch, m, classifier, mean, std, cfg, batch, seed, dev, gpu,
-                launches=dict(GEN_LAUNCHES, level="_fast"), fast=True,
-                label=f"main batch, decoder {ws}, fast=True"))
-            noise_model, soft = offline_settings("real-noise")
-            pcfg = apply_profile_cfg(cfg, "real-noise")
-            rn = dict(noise_model=noise_model, soft_guidance=soft)
-            d["real-noise"] = keep(phase_main(
-                torch, m, classifier, mean, std, pcfg, batch, seed, dev,
-                gpu, launches=dict(REAL_NOISE_LAUNCHES, gen=True),
-                label=f"real-noise settings, decoder {ws}", **rn))
-            d["real-noise fast"] = keep(phase_main(
-                torch, m, classifier, mean, std, pcfg, batch, seed, dev,
-                gpu, launches=dict(REAL_NOISE_LAUNCHES, gen=True,
-                                   level="_fast"), fast=True,
-                label=f"real-noise settings, decoder {ws}, fast=True",
-                **rn))
             d["eager"] = keep(phase_main(
                 torch, m, classifier, mean, std, cfg, batch, seed, dev, gpu,
                 launches=NO_LAUNCHES, engine="xla",
@@ -4387,37 +4438,58 @@ def phase_domain(torch, model, classifier, mean, std, batch, seed, dev, gpu):
 
 
 def times_domain(torch, model, cfg, B, N, dev, seed):
-    """K1g (exact and fast, E and WF, both forms) on the first
-    DOMAIN_H_DIMS decoder, at the paths' B, N: ms a launch by CUDA events,
-    the plain version's ms, the bound. Returns rows by variant with their
-    shapes."""
+    """K1e (exact and fast, E and WF, both forms) on the first
+    DOMAIN_H_DIMS decoder and K1g the same on the GENERAL_H_DIM decoder,
+    at the paths' B, N: ms a launch by CUDA events, the plain version's
+    ms, the bound; and K1g on the first decoder too (`form="general"`),
+    beside K1e in the same call. Returns rows by variant with their
+    shapes, and the K1g-against-K1e rows."""
     from guided_vae_nmf_torch.mcem import mh_chain, mh_chain_ref
-    from guided_vae_nmf_torch.mcem.mh_chain import widths
+    from guided_vae_nmf_torch.mcem.mh_chain import pack_for_chain, widths
 
-    m = domain_model(torch, DOMAIN_H_DIMS[0], seed + 20, dev)
     K, R = cfg.nmf_rank, cfg.nsamples_E_step
-    c = chain_inputs(torch, m, B, N, K, 7, dev)
-    L, F, ws = c["L"], c["X2"].shape[-1], widths(c["dec_w"])
-    gen = torch.Generator(device=dev).manual_seed(0)
-    timed = {}
-    for vb, form in ((False, "wh"), (True, "vb")):
-        for level in ("", "_fast"):
-            kw = fast_kw(torch, level)
-            for mode, ns, bi in (("e", R, cfg.burnin_E_step),
-                                 ("wf", cfg.nsamples_WF, cfg.burnin_WF)):
-                bound, by, flops, nbytes = chain_bound(
-                    B, N, F, L, ws, K, ns, ns + bi, mode, vb=vb,
-                    sample_bytes=2 if level else 4)
-                timed[f"mh_chain_{mode}_{form}_gen{level}"] = dict(
-                    ms=time_cuda(lambda: run_chain(
-                        c, mh_chain, mode, ns, bi, cfg.var_RW, vb=vb,
-                        seed=1, **kw)),
-                    plain_ms=time_cuda(lambda: run_chain(
-                        c, mh_chain_ref, mode, ns, bi, cfg.var_RW, vb=vb,
-                        generator=gen, **kw), launches=2, reps=3),
-                    bound_ms=bound, bound_by=by, flops=flops, bytes=nbytes,
-                    shape=dict(H=list(ws)))
-    return timed
+    timed, same = {}, {}
+    for h_dim, off, form, tag in ((DOMAIN_H_DIMS[0], 20, "ext", "_ext"),
+                                  (GENERAL_H_DIM, 23, "general", "_gen")):
+        m = domain_model(torch, h_dim, seed + off, dev)
+        c = chain_inputs(torch, m, B, N, K, 7, dev)
+        L, F, ws = c["L"], c["X2"].shape[-1], widths(c["dec_w"])
+        # the weights as mcem_batch_fused hands them to the kernel
+        c["dec_w"] = pack_for_chain(c["dec_w"], F, L, K, N)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        for vb, nform in ((False, "wh"), (True, "vb")):
+            for level in ("", "_fast"):
+                kw = fast_kw(torch, level)
+                for mode, ns, bi in (("e", R, cfg.burnin_E_step),
+                                     ("wf", cfg.nsamples_WF, cfg.burnin_WF)):
+                    bound, by, flops, nbytes = chain_bound(
+                        B, N, F, L, ws, K, ns, ns + bi, mode, vb=vb,
+                        sample_bytes=2 if level else 4)
+                    key = f"mh_chain_{mode}_{nform}{tag}{level}"
+                    timed[key] = dict(
+                        ms=time_cuda(lambda: run_chain(
+                            c, mh_chain, mode, ns, bi, cfg.var_RW, vb=vb,
+                            seed=1, **kw)),
+                        plain_ms=time_cuda(lambda: run_chain(
+                            c, mh_chain_ref, mode, ns, bi, cfg.var_RW,
+                            vb=vb, generator=gen, **kw), launches=2,
+                            reps=3),
+                        bound_ms=bound, bound_by=by, flops=flops,
+                        bytes=nbytes, shape=dict(H=list(ws)))
+                    if form == "ext" and not vb and not level:
+                        # K1g at K1e's shapes, in turns with K1e
+                        g1 = time_cuda(lambda: run_chain(
+                            c, mh_chain, mode, ns, bi, cfg.var_RW,
+                            seed=1, form="general"))
+                        e2 = time_cuda(lambda: run_chain(
+                            c, mh_chain, mode, ns, bi, cfg.var_RW, seed=1))
+                        same[f"{mode}_wh"] = dict(
+                            H=list(ws), ext_ms=[timed[key]["ms"], e2],
+                            general_ms=g1, bound_ms=bound)
+                        log(f"  K1e / K1g {mode}_wh, decoder {ws}, B={B} "
+                            f"N={N}: {timed[key]['ms']:.4f} / {e2:.4f} ms "
+                            f"against {g1:.4f} ms (bound {bound:.4f} ms)")
+    return timed, same
 
 
 SOURCES = {
@@ -4425,6 +4497,8 @@ SOURCES = {
                  "guided_vae_nmf_tpu/mcem/pallas_engine.py:494"),
     "mh_chain_general": ("guided_vae_nmf_torch/csrc/mh_chain_general.cu",
                          "guided_vae_nmf_tpu/mcem/pallas_engine.py:494"),
+    "mh_chain_ext": ("guided_vae_nmf_torch/csrc/mh_chain_ext.cu",
+                     "guided_vae_nmf_tpu/mcem/pallas_engine.py:494"),
     "nmf_sums": ("guided_vae_nmf_torch/csrc/nmf_sums.cu",
                  "guided_vae_nmf_tpu/mcem/pallas_engine.py:651"),
 }
@@ -4548,11 +4622,24 @@ def phase_times(torch, model, cfg, B, N, dev, gpu, err, launches, k1d_past,
                     **extra)
         for level in ("", "_fast"):
             timed.update(time_sums(torch, c, vb, level, cfg, gpu))
-    # the kernels' whole domain: K1g on the (256, 128) M2's decoder, and
-    # K2's wide kernel at DOMAIN_RANK on the shipped decoder
-    timed.update(times_domain(torch, model, cfg, B, N, dev, seed))
+    # the kernels' whole domain: K1e on the (256, 128) M2's decoder, K1g
+    # on the (512, 512) M2's, and K2's wide kernel at DOMAIN_RANK on the
+    # shipped decoder
+    domain, k1g_vs_k1e = times_domain(torch, model, cfg, B, N, dev, seed)
+    timed.update(domain)
     cw = chain_inputs(torch, model, B, N, DOMAIN_RANK, 7, dev)
     cw["dec_w"] = pack_weights(cw["dec_w"])
+    # K1a E at that rank (its H tile and Vb at K=32)
+    rank_bound = chain_bound(B, N, F, L, Hd, DOMAIN_RANK, R,
+                             R + cfg.burnin_E_step, "e")
+    k1g_vs_k1e["k1a_e_rank32"] = dict(
+        ms=time_cuda(lambda: run_chain(cw, mh_chain, "e", R,
+                                       cfg.burnin_E_step, cfg.var_RW,
+                                       seed=1)),
+        bound_ms=rank_bound[0], bound_by=rank_bound[1])
+    log(f"  mh_chain_e_wh at K={DOMAIN_RANK}: "
+        f"{k1g_vs_k1e['k1a_e_rank32']['ms']:.4f} ms, bound "
+        f"{rank_bound[0]:.4f} ms; {gpu}")
     for level in ("", "_fast"):
         timed.update(time_sums(torch, cw, False, level, cfg, gpu))
     kernels = []
@@ -4569,8 +4656,9 @@ def phase_times(torch, model, cfg, B, N, dev, gpu, err, launches, k1d_past,
                 f"{k} {t:.4f} ms" for k, t in v["bound_terms_ms"].items())
                 + f"; {v['past_tol']} of {v['compared']} elements past TOL "
                 "against the plain version")
-        source, replaces = SOURCES["mh_chain_general" if "_gen" in key
-                                   else kern]
+        source, replaces = SOURCES[
+            "mh_chain_general" if "_gen" in key else
+            "mh_chain_ext" if "_ext" in key else kern]
         detail = dict(B=B, N=N, F=F, L=L, H=Hd, K=K, R=R, flops=v["flops"],
                       bytes=v["bytes"])
         detail.update(v.get("shape", {}))
@@ -4585,7 +4673,7 @@ def phase_times(torch, model, cfg, B, N, dev, gpu, err, launches, k1d_past,
             max_abs_err=err[key], ms=v["ms"], plain_ms=v["plain_ms"],
             bound_ms=v["bound_ms"], bound_by=v["bound_by"], library_ms=None,
             detail=detail))
-    return kernels
+    return kernels, k1g_vs_k1e
 
 
 # K1 at bench.py's shapes, beside the paths' B=4, N=384.
@@ -4616,15 +4704,36 @@ def phase_geometry(torch, dev):
             f"{v['waves']} waves" for k, v in per.items()))
     from guided_vae_nmf_torch.mcem.mh_chain import general_geometry
 
-    gen = {}
-    for ws in ((128, 256), (128,) * 4, (256, 256)):
+    from guided_vae_nmf_torch.mcem.mh_chain import ext_geometry
+
+    gen, ext = {}, {}
+    for ws in ((128, 256), (128,) * 4, (256, 256), GENERAL_H_DIM):
         g = general_geometry(513, 32, ws, 10, dev)
         gen[str(ws)] = g
         log(f"  K1g launch, decoder {ws}: one CTA a {g['frames']}-frame "
             f"tile ({4 * 384 // g['frames']} CTAs at B=4, N=384), "
             f"{g['threads']} threads, {g['smem_bytes']} B of shared memory "
             f"and {g['registers']} registers a thread")
-    return dict(geo, launches=per, general=gen)
+        if ws == GENERAL_H_DIM:
+            continue
+        e = ext_geometry(513, 32, ws, 10, dev)
+        check(e["max_active_clusters"] > 0, "K1e's cluster launch cannot "
+              "run")
+        e["launches"] = {}
+        for B, N in ((4, 384), LARGE_SHAPE):
+            clusters = B * -(-(N // 16) // 2)
+            e["launches"][f"B={B},N={N}"] = dict(
+                clusters=clusters, ctas=clusters * e["cluster"],
+                waves=-(-clusters // e["max_active_clusters"]))
+        ext[str(ws)] = e
+        log(f"  K1e launch, decoder {ws}: clusters of {e['cluster']} CTAs, "
+            f"32 frames a cluster, {e['threads']} threads, "
+            f"{e['smem_bytes']} B of shared memory and {e['registers']} "
+            f"registers a thread, {e['max_active_clusters']} clusters "
+            "resident; " + "; ".join(
+                f"{k}: {v['clusters']} clusters, {v['ctas']} CTAs, "
+                f"{v['waves']} waves" for k, v in e["launches"].items()))
+    return dict(geo, launches=per, general=gen, ext=ext)
 
 
 def phase_sums_geometry(torch, dev, R=10, F=513, K=10):
@@ -4773,7 +4882,8 @@ def main(argv=None):
     build_s = _build.build_all()
     log(f"build: csrc/*.cu for sm_90a in {build_s:.1f} s")
     ptxas = {}
-    for lib in ("mh_chain", "mh_chain_general", "nmf_sums"):
+    for lib in ("mh_chain", "mh_chain_ext", "mh_chain_general",
+                "nmf_sums"):
         for kern, (regs, st, ld) in ptxas_report(_build.build_log(lib)).items():
             ptxas[kern] = dict(registers=regs, spill_stores=st, spill_loads=ld)
             log(f"  ptxas {lib}: {regs} registers, {st} B spill stores, "
@@ -4909,9 +5019,10 @@ def main(argv=None):
             if key in k1d_past:
                 k1d_past[key][0] += past
                 k1d_past[key][1] += n
-    log("the kernels' whole domain (K1g: M2s whose decoders the cluster form "
-        f"does not take, dgm_init h_dim {list(DOMAIN_H_DIMS)}; K2's wide "
-        f"kernel: the shipped M2 at nmf_rank={DOMAIN_RANK}):")
+    log("the kernels' whole domain (K1e: M2s whose decoders the cluster form "
+        f"does not take, dgm_init h_dim {list(DOMAIN_H_DIMS)}; K1g: h_dim "
+        f"{list(GENERAL_H_DIM)}, which no cluster holds; K2's wide kernel: "
+        f"the shipped M2 at nmf_rank={DOMAIN_RANK}):")
     domain, domain_runs, domain_err = phase_domain(
         torch, model, classifier, mean, std, batch, args.seed, dev, gpu)
     for key, e in domain_err.items():
@@ -4941,8 +5052,9 @@ def main(argv=None):
     idle = [v for v in VARIANTS
             if v not in OFF_PATH and not launches[v[:8]][v[9:]]]
     check(not idle, f"variants no path launched: {idle}")
-    kernels = phase_times(torch, model, cfg, *mask.shape, dev, gpu, err,
-                          launches, k1d_past, seed=args.seed)
+    kernels, k1g_vs_k1e = phase_times(
+        torch, model, cfg, *mask.shape, dev, gpu, err, launches, k1d_past,
+        seed=args.seed)
     large = phase_times_large(torch, model, cfg, dev, gpu)
 
     for r in (main_res, *paths.values(), *fast.values(), rest["oracle"],
@@ -4962,6 +5074,7 @@ def main(argv=None):
         "multidevice": multidevice, "scripts": scripts,
         "kernel_domain": domain, "examples": examples, "hybrid": hybrid,
         "harness": harness, "kernels": kernels, "kernels_b32_n512": large,
+        "k1g_vs_k1e": k1g_vs_k1e,
         "seconds": time.perf_counter() - t_start,
     }
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

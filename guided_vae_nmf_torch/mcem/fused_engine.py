@@ -22,7 +22,7 @@ import torch
 
 from .engine import VX_FLOOR, MCEMConfig, noise_gain_state
 from .mh_chain import (
-    _check_matmul_dtype, bf16_weights, mh_chain, pack_weights, widths)
+    _check_matmul_dtype, bf16_weights, mh_chain, pack_for_chain)
 from .nmf_sums import nmf_sums
 
 
@@ -159,9 +159,6 @@ def mcem_batch_fused(model, X_abs2, mask, y, generator,
     Vs = torch.exp(h @ dec_w["wo"] + dec_w["bo"])            # decode(Z)
     if matmul_dtype == torch.bfloat16:
         dec_w = bf16_weights(dec_w)          # rounded once, not per launch
-    if dev.type == "cuda" and len(set(widths(dec_w))) == 1:
-        dec_w = pack_weights(dec_w)          # the cluster form's blocks
-
     K = cfg.nmf_rank
     if "W" in init:
         Wt = init["W"].transpose(1, 2).contiguous()          # (B, K, F)
@@ -175,6 +172,11 @@ def mcem_batch_fused(model, X_abs2, mask, y, generator,
     else:
         Wt = torch.ones((B, 1, F), device=dev)
         H = torch.zeros((B, 1, N), device=dev)
+    if dev.type == "cuda":
+        # the blocks of the cluster form (K1a-K1d) or the extended one
+        # (K1e) where it runs, packed once for every chain of the call
+        dec_w = pack_for_chain(dec_w, F, L, Wt.shape[1] if update_nmf else 0,
+                               N)
     Vbf = None if update_nmf else Vb_fixed.transpose(1, 2).contiguous()
     g = init["g"].contiguous() if "g" in init else torch.ones((B, N),
                                                              device=dev)

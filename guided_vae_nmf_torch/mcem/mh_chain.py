@@ -33,11 +33,17 @@ CTAs, each holding a column slice of the decoder's weights in shared
 memory; it takes decoders of one hidden width whose slices fit
 (:func:`cluster_takes`); :func:`pack_weights` lays the slices out (the
 wrapper packs per launch unless `dec_w` carries them), and
-:func:`launch_geometry` reports the launch. The general form (K1g,
+:func:`launch_geometry` reports the launch. The extended cluster form
+(K1e, `csrc/mh_chain_ext.cu`) runs the same design on clusters of 4 or 8
+CTAs (the smallest that holds a rank's slices) with every hidden layer
+sliced on its own, so it takes decoders of unequal widths and wider ones
+(:func:`ext_cluster`, :func:`ext_geometry`; its blocks are
+`pack_weights(dec_w, cluster)`). The general form (K1g,
 `csrc/mh_chain_general.cu`) takes every other decoder of 1 to 4 hidden
 layers, of any widths, at any F and NMF rank, one CTA a 16-frame tile
-with the weights read from L2 (:func:`general_geometry`); the wrapper
-picks it wherever the cluster form does not take the shapes. Layouts are
+with the weights read from L2 (:func:`general_geometry`). The wrapper
+picks the first form that takes the shapes, in that order
+(:func:`chain_form`). Layouts are
 frames-major:
 X2, Vs, Vb (B, N, F); g, mask (B, N); ypre (B, N, H); Z (B, N, L); the NMF
 factors Wt (B, K, F) and H (B, K, N). `mh_chain.launches` counts kernel
@@ -46,7 +52,8 @@ the same names ending in "_fast" for launches with a fast option but not
 `approx_trans`, in "_trans" for those with `approx_trans`, and the level's
 key followed by "_mm16" for launches with bfloat16 products (for example
 "e_wh_fast_mm16"); a launch of the general form has "_gen" after the form
-("e_wh_gen", "wf_vb_gen_trans", "e_wh_gen_fast_mm16").
+("e_wh_gen", "wf_vb_gen_trans", "e_wh_gen_fast_mm16"), one of the
+extended cluster form "_ext" ("e_wh_ext", "wf_vb_ext_fast").
 """
 
 import ctypes
@@ -65,11 +72,20 @@ _ARGTYPES = ([_VP] * 19 + [_I] * 9 + [_F, _I, ctypes.c_uint64] + [_I] * 4
 # seed, the four options and the stream.
 _GEN_ARGTYPES = ([_VP] * 24 + [_I] * 4 + [_VP] + [_I] * 4 + [_F, _I,
                  ctypes.c_uint64] + [_I] * 4 + [_VP])
-# The general form's most hidden layers (checked against the library).
+# The extended cluster form's entry point: 19 pointers, B, N, F, L, the
+# widths' array, depth, K, CTAs a cluster, n_steps, burnin, sqrt_var, mode,
+# seed, the four options and the stream.
+_EXT_ARGTYPES = ([_VP] * 19 + [_I] * 4 + [_VP] + [_I] * 5
+                 + [_F, _I, ctypes.c_uint64] + [_I] * 4 + [_VP])
+# The general and extended forms' most hidden layers (checked against the
+# libraries).
 MAX_DEPTH = 4
 # CTAs of the kernel's thread-block cluster: each holds a column slice of
 # the decoder's weights (see :func:`pack_weights`).
 CLUSTER = 4
+# The extended cluster form's cluster sizes, tried in order (8 is the
+# portable maximum).
+EXT_CLUSTERS = (4, 8)
 # Frames a tile of either form (N must be a multiple).
 FRAME_TILE = 16
 # Launch limits: threads a CTA of the cluster form (384 at F = 768, the
@@ -77,6 +93,9 @@ FRAME_TILE = 16
 # H100 (bytes).
 _MAX_BLOCK = 384
 SMEM_MAX = 232448
+# Threads a CTA of the extended cluster form at most (Fsl <= 160 bins a
+# rank; mh_chain_ext.cu's launch bound).
+_EXT_MAX_BLOCK = 320
 _LN2 = 0.6931471805599453
 _SQRT2 = 1.4142135623730951
 SAMPLE_DTYPES = (torch.float32, torch.bfloat16)
@@ -117,7 +136,8 @@ def fast_exp(x):
 def _variant(mode, form, samples_dtype, approx_recip, approx_trans,
              matmul_dtype=torch.float32):
     """The `mh_chain.launches` key of a launch (`form` "wh" / "vb", or
-    "wh_gen" / "vb_gen" for the general form)."""
+    "wh_gen" / "vb_gen" for the general form, "wh_ext" / "vb_ext" for the
+    extended cluster form)."""
     mm = "_mm16" if matmul_dtype == torch.bfloat16 else ""
     if approx_trans:
         return f"{mode}_{form}_trans{mm}"
@@ -149,38 +169,41 @@ def _round4(a):
     return (a + 3) // 4 * 4
 
 
-def _slices(x, width, padded):
-    """x (..., n) cut along its last axis into CLUSTER slices of `width`
-    (the last ones ragged or empty, zero-filled), each padded with zeros to
-    `padded`: (CLUSTER, ..., padded)."""
-    n = x.shape[-1]
-    x = torch.nn.functional.pad(x, (0, CLUSTER * width - n))
-    x = x.reshape(*x.shape[:-1], CLUSTER, width).movedim(-2, 0)
-    return torch.nn.functional.pad(x, (0, padded - width))
+def _slices(x, n, cluster):
+    """x (..., n) cut along its last axis into `cluster` slices of ceil(n /
+    cluster) (the last ones ragged or empty, zero-filled), each padded with
+    zeros to a multiple of 4: (cluster, ..., padded)."""
+    width = _cdiv(n, cluster)
+    x = torch.nn.functional.pad(x, (0, cluster * width - n))
+    x = x.reshape(*x.shape[:-1], cluster, width).movedim(-2, 0)
+    return torch.nn.functional.pad(x, (0, _round4(width) - width))
 
 
-def pack_weights(dec_w):
-    """`dec_w` with "packed": the kernel's per-rank weight blocks
-    (CLUSTER, P) float32. Rank r of a cluster owns the output bins
-    [r Fsl, (r+1) Fsl) and the hidden units [r Hsl, (r+1) Hsl), Fsl =
-    ceil(F / CLUSTER), Hsl = ceil(H / CLUSTER) (the last ranks ragged);
-    its block holds, zero-padded to rows of Fsp = Fsl and Hsp = Hsl rounded
-    up to a multiple of 4: wo [H][Fsp], bo [Fsp], w1 [L][Hsp], then per
-    hidden layer after the first its weights [H][Hsp] and bias [Hsp]. The
-    kernel copies a rank's block into shared memory once a launch. A
-    caller that runs many chains packs once (`mcem_batch_fused` does); the
-    wrapper packs per launch otherwise. Bfloat16-rounded weights
-    (:func:`bf16_weights`) are packed as they are."""
+def pack_weights(dec_w, cluster=None):
+    """`dec_w` with a kernel's per-rank weight blocks (C, P) float32: under
+    "packed" the cluster form's (C = CLUSTER), or with `cluster` under
+    "packed_ext" the extended cluster form's (C = `cluster`). Rank r of a
+    cluster owns the output bins [r Fsl, (r+1) Fsl), Fsl = ceil(F / C), and
+    of each hidden layer d the units [r Hsl_d, (r+1) Hsl_d), Hsl_d =
+    ceil(H_d / C) (the last ranks ragged or empty); its block holds,
+    zero-padded to rows of Fsp = Fsl and Hsp_d = Hsl_d rounded up to a
+    multiple of 4: wo [H_depth][Fsp], bo [Fsp], w1 [L][Hsp_1], then per
+    hidden layer d after the first its weights [H_d-1][Hsp_d] and bias
+    [Hsp_d]. At one hidden width the two layouts agree. The kernel copies
+    a rank's block into shared memory once a launch. A caller that runs
+    many chains packs once (`mcem_batch_fused` does); the wrapper packs per
+    launch otherwise. Bfloat16-rounded weights (:func:`bf16_weights`) are
+    packed as they are."""
+    c = CLUSTER if cluster is None else cluster
     w1, wo = dec_w["w1"], dec_w["wo"]
-    Hd, F = wo.shape
-    Fsl, Hsl = _cdiv(F, CLUSTER), _cdiv(Hd, CLUSTER)
-    Fsp, Hsp = _round4(Fsl), _round4(Hsl)
-    parts = [_slices(wo, Fsl, Fsp), _slices(dec_w["bo"], Fsl, Fsp),
-             _slices(w1, Hsl, Hsp)]
+    F = wo.shape[1]
+    parts = [_slices(wo, F, c), _slices(dec_w["bo"], F, c),
+             _slices(w1, w1.shape[1], c)]
     for w, b in dec_w["mid"]:
-        parts += [_slices(w, Hsl, Hsp), _slices(b, Hsl, Hsp)]
-    packed = torch.cat([p.reshape(CLUSTER, -1) for p in parts], dim=1)
-    return dict(dec_w, packed=packed.contiguous())
+        parts += [_slices(w, w.shape[1], c), _slices(b, b.shape[0], c)]
+    packed = torch.cat([p.reshape(c, -1) for p in parts], dim=1)
+    key = "packed" if cluster is None else "packed_ext"
+    return dict(dec_w, **{key: packed.contiguous()})
 
 
 def _lib():
@@ -227,6 +250,28 @@ def _lib_general():
         if lib.gvnmf_mh_chain_general_depth() != MAX_DEPTH:
             raise _build.KernelError("mh_chain_general.cu's depth limit "
                                      f"differs from the wrapper's {MAX_DEPTH}")
+    return lib
+
+
+def _lib_ext():
+    lib = _build.library("mh_chain_ext")
+    if lib.gvnmf_mh_chain_ext.argtypes is None:
+        lib.gvnmf_mh_chain_ext.argtypes = _EXT_ARGTYPES
+        lib.gvnmf_mh_chain_ext.restype = _I
+        lib.gvnmf_mh_chain_ext_depth.argtypes = []
+        lib.gvnmf_mh_chain_ext_depth.restype = _I
+        lib.gvnmf_mh_chain_ext_block.argtypes = [_I, _I]
+        lib.gvnmf_mh_chain_ext_block.restype = _I
+        lib.gvnmf_mh_chain_ext_packed.argtypes = [_I, _I, _VP, _I, _I]
+        lib.gvnmf_mh_chain_ext_packed.restype = ctypes.c_longlong
+        lib.gvnmf_mh_chain_ext_smem.argtypes = [_I, _I, _VP, _I, _I, _I]
+        lib.gvnmf_mh_chain_ext_smem.restype = ctypes.c_longlong
+        lib.gvnmf_mh_chain_ext_occupancy.argtypes = [_I, _I, _VP, _I, _I, _I,
+                                                     _VP]
+        lib.gvnmf_mh_chain_ext_occupancy.restype = _I
+        if lib.gvnmf_mh_chain_ext_depth() != MAX_DEPTH:
+            raise _build.KernelError("mh_chain_ext.cu's depth limit differs "
+                                     f"from the wrapper's {MAX_DEPTH}")
     return lib
 
 
@@ -391,17 +436,95 @@ def _check_layers(dec_w, ws, L, F, device):
     _check("bo", dec_w["bo"], (F,), device)
 
 
+def _block(F, cluster, least=64):
+    """Threads a CTA of either cluster form: a thread per 4 columns x 4
+    frames of the rank's Fsp-column slice of 32 frames, in warps, at least
+    `least` (the cluster form's 64, the extended form's 256)."""
+    nq = _round4(_cdiv(F, cluster)) // 4
+    return max(least, 32 * _cdiv(8 * nq, 32))
+
+
+def cluster_smem(F, L, Hd, K, depth):
+    """The cluster form's dynamic shared memory a CTA (bytes) at one hidden
+    width Hd (mh_chain.cu's `smem_floats`)."""
+    T = 2 * FRAME_TILE
+    Fsp, Hsp = _round4(_cdiv(F, CLUSTER)), _round4(_cdiv(Hd, CLUSTER))
+    P = Hd * Fsp + Fsp + L * Hsp + (depth - 1) * (Hd * Hsp + Hsp)
+    nw = _block(F, CLUSTER) // 32
+    return 4 * (P + 4 * T * Fsp + 2 * Hd * T + Hsp * T + 3 * L * T
+                + _round4(K) * T + CLUSTER * nw * T + 7 * T + 4)
+
+
+def ext_sizes(F, L, ws, K, cluster):
+    """(threads a CTA, floats of a rank's weight block, dynamic shared
+    memory a CTA in bytes) of the extended cluster form at these shapes
+    with `cluster` CTAs a cluster (mh_chain_ext.cu's `geometry` and
+    `smem_floats`): the weight block, the two accumulators of the rank's
+    columns for 32 frames (X2 and Vb live in registers), two activation
+    buffers as tall as the widest even and odd hidden layer, the first
+    layer's ypre, Z, Zp and the normals, the H tile, the per-warp frame
+    sums of every rank."""
+    T = 2 * FRAME_TILE
+    Fsp = _round4(_cdiv(F, cluster))
+    hsp = [_round4(_cdiv(h, cluster)) for h in ws]
+    P = (ws[-1] * Fsp + Fsp + L * hsp[0]
+         + sum(ws[d - 1] * hsp[d] + hsp[d] for d in range(1, len(ws))))
+    nt = _block(F, cluster, least=256)
+    rows = max(ws[0::2]) + max(ws[1::2], default=0)
+    floats = (P + 2 * T * Fsp + rows * T + hsp[0] * T + 3 * L * T
+              + _round4(K) * T + cluster * (nt // 32) * T + 7 * T + 4)
+    return nt, P, 4 * floats
+
+
+def ext_cluster(F, L, ws, K, smem_max=SMEM_MAX):
+    """The extended cluster form's cluster size at these shapes: the first
+    of EXT_CLUSTERS whose CTA fits its block size and `smem_max` bytes of
+    shared memory, or None."""
+    if not 1 <= len(ws) <= MAX_DEPTH:
+        return None
+    for c in EXT_CLUSTERS:
+        nt, _, smem = ext_sizes(F, L, ws, K, c)
+        if nt <= _EXT_MAX_BLOCK and smem <= smem_max:
+            return c
+    return None
+
+
+def chain_form(F, L, ws, K, N, smem_max=SMEM_MAX):
+    """The chain's form at these shapes (ws the hidden widths, K the NMF
+    rank, 0 for the Vb form), as the wrapper picks it: ("cluster",
+    CLUSTER) where the cluster form takes the decoder (one hidden width,
+    F <= 768, its CTA within `smem_max` bytes), else ("ext", C) where a
+    cluster of C CTAs of the extended form holds it (:func:`ext_cluster`),
+    else ("general", None), K1g. N must be a multiple of FRAME_TILE for
+    the cluster forms. A function of the shapes alone."""
+    if N % FRAME_TILE == 0:
+        if (len(set(ws)) == 1 and _block(F, CLUSTER) <= _MAX_BLOCK
+                and cluster_smem(F, L, ws[0], K, len(ws)) <= smem_max):
+            return "cluster", CLUSTER
+        c = ext_cluster(F, L, ws, K, smem_max)
+        if c is not None:
+            return "ext", c
+    return "general", None
+
+
+def pack_for_chain(dec_w, F, L, K, N):
+    """`dec_w` with the weight blocks of the form :func:`chain_form` picks
+    at these shapes ("packed" for the cluster form, "packed_ext" for the
+    extended one), or as it is for the general form."""
+    form, c = chain_form(F, L, widths(dec_w), K, N)
+    if form == "cluster":
+        return pack_weights(dec_w)
+    if form == "ext":
+        return pack_weights(dec_w, c)
+    return dec_w
+
+
 def cluster_takes(F, L, ws, K, N):
     """Whether the cluster form launches at these shapes (ws the hidden
     widths, K the NMF rank, 0 for the Vb form): hidden layers of one width,
     N a multiple of its frame tile, at most 768 bins and each CTA's shared
-    memory within SMEM_MAX. Builds the library."""
-    if len(set(ws)) != 1:
-        return False
-    lib = _lib()
-    return (N % lib.gvnmf_mh_chain_tile() == 0
-            and lib.gvnmf_mh_chain_block(F) <= _MAX_BLOCK
-            and lib.gvnmf_mh_chain_smem(F, L, ws[0], K, len(ws)) <= SMEM_MAX)
+    memory within SMEM_MAX (:func:`chain_form`)."""
+    return chain_form(F, L, ws, K, N)[0] == "cluster"
 
 
 def general_smem(F, L, ws, K):
@@ -424,6 +547,31 @@ def general_geometry(F, L, ws, K, device=None):
             "smem_bytes": general_smem(F, L, ws, K), "registers": out[0]}
 
 
+def ext_geometry(F, L, ws, K, device=None):
+    """The extended cluster form's launch at these shapes on the current
+    card: CTAs a cluster, frames a cluster, threads and dynamic shared
+    memory a CTA, the floats of a rank's weight block, registers a thread
+    and the clusters that can be resident at once (exact E-mode kernel, WH
+    form; `cudaOccupancyMaxActiveClusters`). CUDA only; ValueError where no
+    cluster holds the decoder."""
+    c = ext_cluster(F, L, ws, K)
+    if c is None:
+        raise ValueError(f"no cluster of {EXT_CLUSTERS} CTAs holds the "
+                         f"decoder {tuple(ws)} at F={F}, L={L}, K={K}")
+    lib = _lib_ext()
+    hw = _ints(ws)
+    out = (ctypes.c_int * 3)()
+    with torch.cuda.device(device or torch.cuda.current_device()):
+        _build.check(lib.gvnmf_mh_chain_ext_occupancy(
+            F, L, hw, len(ws), K, c, out), "mh_chain_ext occupancy query")
+    return {"cluster": c, "frames": 2 * FRAME_TILE, "threads": out[2],
+            "smem_bytes": lib.gvnmf_mh_chain_ext_smem(F, L, hw, len(ws), K,
+                                                      c),
+            "packed_floats": lib.gvnmf_mh_chain_ext_packed(F, L, hw,
+                                                           len(ws), c),
+            "registers": out[0], "max_active_clusters": out[1]}
+
+
 def launch_geometry(F, L, Hd, K, depth, device=None):
     """The chain kernel's launch at these shapes on the current card:
     CTAs a cluster, frames a cluster, threads and dynamic shared memory a
@@ -442,10 +590,13 @@ def launch_geometry(F, L, Hd, K, depth, device=None):
             "registers": out[0], "max_active_clusters": out[1]}
 
 
+FORMS = ("auto", "cluster", "ext", "general")
+
+
 def mh_chain(dec_w, X2, WH, g, ypre, Z, Vs, seed=0, mode="e", nsamples=10,
              burnin=30, var_RW=0.01, noise=None, mask=None, Vb=None,
              samples_dtype=torch.float32, approx_recip=False,
-             approx_trans=False, matmul_dtype=torch.float32):
+             approx_trans=False, matmul_dtype=torch.float32, form="auto"):
     """Run the chain over a frames-major batch (see :func:`mh_chain_ref`
     for the arguments and results). `Vs` must be decode(Z): the initial data
     term comes from it and the kernel re-derives Vs at the burn-in boundary.
@@ -455,9 +606,17 @@ def mh_chain(dec_w, X2, WH, g, ypre, Z, Vs, seed=0, mode="e", nsamples=10,
     torch.bfloat16 (K1d, the decoder's products on bfloat16 operands).
 
     seed: keys the in-kernel Philox stream on CUDA (the CPU path seeds a
-    `torch.Generator` with it); ignored when `noise` is given."""
+    `torch.Generator` with it); ignored when `noise` is given.
+
+    form: the kernel on CUDA. "auto" launches the form :func:`chain_form`
+    picks; "cluster", "ext" or "general" launch that form (to time or test
+    one form where another would run) and raise ValueError where it does
+    not take the shapes. The CPU path is the plain version whatever the
+    form."""
     if mode not in ("e", "wf"):
         raise ValueError(f"mode must be 'e' or 'wf', got {mode!r}")
+    if form not in FORMS:
+        raise ValueError(f"form must be one of {FORMS}, got {form!r}")
     _one_of(WH, Vb)
     _check_dtype(samples_dtype)
     _check_matmul_dtype(matmul_dtype)
@@ -500,9 +659,7 @@ def mh_chain(dec_w, X2, WH, g, ypre, Z, Vs, seed=0, mode="e", nsamples=10,
         zn, u = noise
         _check("Zn", zn, (B, n_steps, N, L), dev)
         _check("U", u, (B, n_steps, N), dev)
-    cluster = cluster_takes(F, L, ws, K, N)
-    if not cluster:
-        _check_general(N, F, L, ws, K)
+    kernel, cl = _pick_form(form, F, L, ws, K, N)
     z_out = torch.empty_like(Z)
     vs_out = torch.empty_like(X2)
     part1 = part2 = out3 = None
@@ -531,8 +688,8 @@ def mh_chain(dec_w, X2, WH, g, ypre, Z, Vs, seed=0, mode="e", nsamples=10,
             int(seed) & (2**64 - 1), int(bf16), int(bool(approx_recip)),
             int(bool(approx_trans)),
             int(matmul_dtype == torch.bfloat16), _stream(dev))
-    form = "wh" if WH is not None else "vb"
-    if cluster:
+    key = "wh" if WH is not None else "vb"
+    if kernel == "cluster":
         lib = _lib()
         packed = dec_w.get("packed")
         if packed is None:
@@ -545,6 +702,18 @@ def mh_chain(dec_w, X2, WH, g, ypre, Z, Vs, seed=0, mode="e", nsamples=10,
                 *ptrs, _ptr(packed), *outs, B, N, F, L, ws[0], K, len(ws),
                 n_steps, burnin, *opts)
         _build.check(status, "mh_chain kernel")
+    elif kernel == "ext":
+        packed = dec_w.get("packed_ext")
+        if packed is None or packed.shape[0] != cl:
+            packed = pack_weights(dec_w, cl)["packed_ext"]
+        _check("packed weights", packed, (cl, _ext_packed(F, L, ws, K, cl)),
+               dev)
+        with torch.cuda.device(dev):
+            status = _lib_ext().gvnmf_mh_chain_ext(
+                *ptrs, _ptr(packed), *outs, B, N, F, L, _ints(ws), len(ws), K,
+                cl, n_steps, burnin, *opts)
+        _build.check(status, "mh_chain_ext kernel")
+        key += "_ext"
     else:
         scratch = torch.empty((5, B, N, F), device=dev)
         mids = dec_w["mid"]
@@ -556,11 +725,50 @@ def mh_chain(dec_w, X2, WH, g, ypre, Z, Vs, seed=0, mode="e", nsamples=10,
                 _ptr(dec_w["bo"]), *outs, _ptr(scratch), B, N, F, L,
                 _ints(ws), len(ws), K, n_steps, burnin, *opts)
         _build.check(status, "mh_chain_general kernel")
-        form += "_gen"
-    _launches.count(mh_chain, "mh_chain", _variant(mode, form, **fast_kw))
+        key += "_gen"
+    _launches.count(mh_chain, "mh_chain", _variant(mode, key, **fast_kw))
     if mode == "wf":
         return z_out, vs_out, (out1, out2)
     return z_out, vs_out, (out1, out2, out3)
+
+
+def _pick_form(form, F, L, ws, K, N):
+    """(kernel, CTAs a cluster) for `form` at these shapes; ValueError
+    where the form asked for does not take them."""
+    if form == "auto":
+        kernel, cl = chain_form(F, L, ws, K, N)
+    elif form == "cluster":
+        if not cluster_takes(F, L, ws, K, N):
+            raise ValueError(f"the cluster form does not take the decoder "
+                             f"{tuple(ws)} at F={F}, L={L}, K={K}, N={N}")
+        kernel, cl = form, CLUSTER
+    elif form == "ext":
+        kernel, cl = form, ext_cluster(F, L, ws, K)
+        if cl is None or N % FRAME_TILE:
+            raise ValueError(f"the extended cluster form does not take the "
+                             f"decoder {tuple(ws)} at F={F}, L={L}, K={K}, "
+                             f"N={N}")
+    else:
+        kernel, cl = form, None
+    if kernel == "general":
+        _check_general(N, F, L, ws, K)
+    return kernel, cl
+
+
+def _ext_packed(F, L, ws, K, cl):
+    """The floats of a rank's K1e weight block, from the library, which
+    must agree with :func:`ext_sizes` (the wrapper's dispatch and packing
+    rest on it)."""
+    lib = _lib_ext()
+    hw = _ints(ws)
+    got = (lib.gvnmf_mh_chain_ext_block(F, cl),
+           lib.gvnmf_mh_chain_ext_packed(F, L, hw, len(ws), cl),
+           lib.gvnmf_mh_chain_ext_smem(F, L, hw, len(ws), K, cl))
+    if got != ext_sizes(F, L, ws, K, cl):
+        raise _build.KernelError(
+            f"mh_chain_ext.cu's geometry {got} differs from the wrapper's "
+            f"{ext_sizes(F, L, ws, K, cl)}")
+    return got[1]
 
 
 def _check_general(N, F, L, ws, K):
@@ -579,7 +787,7 @@ def _check_general(N, F, L, ws, K):
 
 
 mh_chain.launches = dict.fromkeys(
-    (f"{mode}_{form}{gen}{level}{mm}" for gen in ("", "_gen")
+    (f"{mode}_{form}{gen}{level}{mm}" for gen in ("", "_gen", "_ext")
      for mm in ("", "_mm16") for level in LEVELS
      for mode, form in (("e", "wh"), ("wf", "wh"), ("e", "vb"),
                         ("wf", "vb"))), 0)

@@ -248,7 +248,7 @@ def _use_fused(engine, model, n_pad):
     plain versions on the CPU), 'xla' the eager engine; 'auto' the fused
     engine for every decoder of 1 to 4 hidden layers (the decoders the JAX
     package sends to its Pallas engine: K1 takes any widths, F and NMF
-    rank, in its cluster or its general form) at a padding of whole
+    rank, in its cluster forms or its general form) at a padding of whole
     16-frame tiles, and the eager engine otherwise. The plain versions take
     any decoder, so on the CPU 'auto' stays on the fused engine, where the
     JAX package picks its XLA engine."""

@@ -2,9 +2,12 @@
 one run of the machine: K1a (the cluster chain, exact, NMF form) E and WF
 by CUDA events, and K2a / K2b / K2c 'h' and 'g' as device time after a K1
 E launch (`graph_ms`), at the main path's shapes (B=4, N=384, the shipped
-M2's decoder, MCEMConfig()); where the checkout has them, also K1g on the
-(256, 128) M2's decoder and K2's wide kernel at rank 32. It times with
-the checkout's own `chip_smoke.py` helpers and kernels.
+M2's decoder, MCEMConfig()); where the checkout has them, also the chain
+on the (256, 128) M2's decoder (K1g, and K1e where the checkout has it,
+the two at the same shapes) and K2's wide kernel at rank 32. It times
+with the checkout's own `chip_smoke.py` helpers and kernels, and records
+the ptxas lines (registers and spills a kernel) of the cluster chain's
+and K2's libraries.
 
 Usage: python3 guided_vae_nmf_torch/scripts/bench_kernels.py
        [--tree <checkout root>] [--reps 3] [--out <file.json>]
@@ -12,13 +15,15 @@ Usage: python3 guided_vae_nmf_torch/scripts/bench_kernels.py
 --tree puts that checkout first on the import path (its package, its
 kernels, built into its own build directory), so that a parent and a
 change can run one after the other in one call (parent, change, change,
-parent). Prints one JSON line: the card, its power limit and the ms of
-each kernel over `--reps` timings.
+parent). Prints one JSON line: the card, its power limit, the ptxas
+lines and the ms of each kernel over `--reps` timings.
 """
 
 import argparse
+import inspect
 import json
 import os
+import re
 import sys
 
 
@@ -43,6 +48,11 @@ def main(argv=None):
 
     dev = torch.device("cuda", 0)
     build_s = _build.build_all()
+    # ptxas lines, the anonymous namespace's hash (it follows the file's
+    # path) taken out of the mangled names
+    ptxas = {lib: {re.sub(r"(_GLOBAL__N__)[0-9a-f]{8}", r"\1", k): v
+                   for k, v in cs.ptxas_report(_build.build_log(lib)).items()}
+             for lib in ("mh_chain", "nmf_sums")}
     model = load_model(os.path.join(tree, "artifacts", "pretrained",
                                     "M2_ibm"), kind="dgm", y_dim=513,
                        device=dev)
@@ -51,7 +61,9 @@ def main(argv=None):
     c = cs.chain_inputs(torch, model, B, N, cfg.nmf_rank, 7, dev)
     c["dec_w"] = pack_weights(c["dec_w"])
     gpu = cs.gpu_name_and_limit()
-    out = {"tree": tree, "gpu": gpu, "build_s": build_s, "ms": {}}
+    out = {"tree": tree, "gpu": gpu, "build_s": build_s, "ptxas": ptxas,
+           "ms": {}}
+    forms = "form" in inspect.signature(mh_chain).parameters
 
     def add(key, ms):
         out["ms"].setdefault(key, []).append(ms)
@@ -69,11 +81,21 @@ def main(argv=None):
         if hasattr(cs, "domain_model"):
             m = cs.domain_model(torch, cs.DOMAIN_H_DIMS[0], 20, dev)
             cg = cs.chain_inputs(torch, m, B, N, cfg.nmf_rank, 7, dev)
+            if forms:
+                from guided_vae_nmf_torch.mcem.mh_chain import \
+                    pack_for_chain
+
+                cg["dec_w"] = pack_for_chain(cg["dec_w"], 513, cg["L"],
+                                             cfg.nmf_rank, N)
             for mode, ns, bi in (("e", R, cfg.burnin_E_step),
                                  ("wf", cfg.nsamples_WF, cfg.burnin_WF)):
-                add(f"mh_chain_{mode}_wh_gen", cs.time_cuda(
-                    lambda: cs.run_chain(cg, mh_chain, mode, ns, bi,
-                                         cfg.var_RW, seed=1)))
+                # K1g, and K1e at the same shapes where the checkout has it
+                for tag, kw in ((("_gen", dict(form="general")),
+                                 ("_ext", {})) if forms
+                                else (("_gen", {}),)):
+                    add(f"mh_chain_{mode}_wh{tag}", cs.time_cuda(
+                        lambda: cs.run_chain(cg, mh_chain, mode, ns, bi,
+                                             cfg.var_RW, seed=1, **kw)))
             cw = cs.chain_inputs(torch, model, B, N, cs.DOMAIN_RANK, 7, dev)
             cw["dec_w"] = pack_weights(cw["dec_w"])
             for level in ("", "_fast"):

@@ -110,13 +110,16 @@ def test_matmul_dtype_launch_keys_and_refusals():
                     torch.bfloat16) == "e_vb_mm16"
     assert _variant("e", "wh", torch.float32, False, False) == "e_wh"
     # 24 keys of the cluster form and the same 24 of the general form
-    # (K1g: "_gen" after the form)
-    cluster = [k for k in mh_chain.launches if "_gen" not in k]
-    assert len(cluster) == 24 and len(mh_chain.launches) == 48
+    # (K1g: "_gen" after the form) and of the extended cluster form (K1e:
+    # "_ext")
+    cluster = [k for k in mh_chain.launches
+               if "_gen" not in k and "_ext" not in k]
+    assert len(cluster) == 24 and len(mh_chain.launches) == 72
     assert all(f"{k}_mm16" in mh_chain.launches for k in cluster
                if not k.endswith("_mm16"))
-    assert all(k.replace("_wh", "_wh_gen", 1).replace("_vb", "_vb_gen", 1)
-               in mh_chain.launches for k in cluster)
+    for tag in ("_gen", "_ext"):
+        assert all(k.replace("_wh", "_wh" + tag, 1).replace(
+            "_vb", "_vb" + tag, 1) in mh_chain.launches for k in cluster)
     c = fast_cases._case(4)
     noise = fast_cases._noise(5, 3)
     for bad in (torch.float16, jnp.bfloat16, "bf16"):

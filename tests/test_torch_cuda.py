@@ -20,9 +20,10 @@ virtual mesh of two shards on the card (`make_mesh(devices=[cuda] * 2)`):
 fused shards equal to their rows' runs with per-shard launch counts, the
 eager engine's batch equal to the unsharded one, frame-sharded MCEM at
 var_RW = 0 against single-device `mcem_run`, and a data-parallel epoch
-against the single-device one; and the kernels' whole domain: K1g, the
-chain's general form, for decoders the cluster form does not take, and
-K2 past rank 16 (its wide kernel).
+against the single-device one; and the kernels' whole domain: K1e, the
+chain's extended cluster form, and K1g, its general form, for decoders the
+cluster form does not take, the wrapper's choice among the three forms,
+and K2 past rank 16 (its wide kernel).
 
 Every test here needs an NVIDIA GPU and skips without one. The file
 imports neither JAX nor the JAX package, so it also runs on a GPU machine
@@ -32,8 +33,8 @@ without JAX:
 
 Tolerance: atol 2e-5 / rtol 2e-4 (float32; the kernels sum in another
 order than PyTorch, and the fast kernels' approximate reciprocal is within
-1 ulp of the plain version's exact one); K1g's bfloat16 sample dumps
-within one bfloat16 ulp of the plain version's (float32 values within TOL
+1 ulp of the plain version's exact one); K1e's and K1g's bfloat16 sample
+dumps within one bfloat16 ulp of the plain version's (float32 values within TOL
 can round to neighbouring bfloat16 values). Chains run on accept/reject
 noise whose decisions cannot flip on rounding (see `decisive_noise`).
 """
@@ -689,9 +690,9 @@ def test_chain_launch_geometry(cuda):
     """The launch the wrapper reports: 4-CTA clusters, 288 threads and
     under 227 KB of shared memory a CTA at the shipped decoder's widths,
     at least one resident cluster; shapes whose slices do not fit the
-    cluster (F=768 at H=128) run on the general form, against the plain
-    version; shapes past the general form's shared memory raise with the
-    reason."""
+    cluster (F=768 at H=128) run on the extended cluster form (K1e) at 8
+    CTAs, against the plain version; shapes past the general form's shared
+    memory raise with the reason."""
     from guided_vae_nmf_torch.mcem.mh_chain import launch_geometry
 
     geo = launch_geometry(513, 32, 128, 10, 2, cuda)
@@ -702,7 +703,7 @@ def test_chain_launch_geometry(cuda):
     noise = decisive_noise(cuda, 34, 1, 16, 32, 3)
     reset_launch_counts()
     got = run_chain(mh_chain, c, "wf", 2, 1, 0.01, noise=noise)
-    assert nonzero(launch_counts())["mh_chain"] == {"wf_wh_gen": 1}
+    assert nonzero(launch_counts())["mh_chain"] == {"wf_wh_ext": 1}
     ref = run_chain(mh_chain_ref, c, "wf", 2, 1, 0.01, noise=noise)
     for a, b in zip((got[0], got[1]) + got[2], (ref[0], ref[1]) + ref[2]):
         _close(a, b)
@@ -1721,19 +1722,27 @@ def _wid(ws):
 @pytest.mark.parametrize("widths", GEN_WIDTHS, ids=_wid)
 def test_general_chain_matches_plain(cuda, widths, mode, form, level):
     """One K1g launch under the level's "_gen" key; every output against
-    the plain version (bfloat16 dumps equal to its, as the cluster form's
-    are)."""
+    the plain version (bfloat16 dumps within one bfloat16 ulp of its);
+    `form="general"` keeps K1g where the wrapper would launch K1e."""
+    _chain_matches_plain(cuda, widths, mode, form, level, "general", "_gen")
+
+
+def _chain_matches_plain(cuda, widths, mode, form, level, form_, tag):
+    """One launch of the chain's `form_` under the level's `tag` key at
+    GEN_DIMS, under decisive noise: Z equal to the plain version's, the
+    rest within TOL (bfloat16 dumps within one bfloat16 ulp, bfloat16
+    products at K1D_TOL)."""
     c = chain_case(cuda, 60, H=widths, **GEN_DIMS)
     vb = form == "vb"
     opts = GEN_LEVELS[level]
     noise = decisive_noise(cuda, 61, 2, 32, 32, 7)
     reset_launch_counts()
     got = run_chain(mh_chain, c, mode, 4, 3, 0.01, vb=vb, noise=noise,
-                    **opts)
+                    form=form_, **opts)
     lv = {"exact": "", "fast": "_fast", "trans": "_trans",
           "mm16": "_fast_mm16"}[level]
     assert nonzero(launch_counts()) == {
-        "mh_chain": {f"{mode}_{form}_gen{lv}": 1}, "nmf_sums": {}}
+        "mh_chain": {f"{mode}_{form}{tag}{lv}": 1}, "nmf_sums": {}}
     ref = run_chain(mh_chain_ref, c, mode, 4, 3, 0.01, vb=vb, noise=noise,
                     **opts)
     torch.cuda.synchronize()
@@ -1764,6 +1773,10 @@ def test_general_chain_batch_matches_each_utterance(cuda, mode, form):
     that utterance alone, with the in-kernel Philox stream and with
     decisive injected noise; and its Philox run equals the run on the
     streams `philox_streams` reports (the cluster form's draws)."""
+    _chain_batch_matches_each_utterance(cuda, mode, form, "general")
+
+
+def _chain_batch_matches_each_utterance(cuda, mode, form, form_):
     c = chain_case(cuda, 62, B=3, F=513, N=48, L=32, H=(256, 128), K=10,
                    Y=20)
     vb = form == "vb"
@@ -1779,7 +1792,8 @@ def test_general_chain_batch_matches_each_utterance(cuda, mode, form):
         x[b:b + 1].contiguous() for x in noise))),
         (dict(seed=5), lambda b: None)]
     for kw, kw_b in runs:
-        got = run_chain(mh_chain, c, mode, 4, 3, 0.01, vb=vb, **kw)
+        got = run_chain(mh_chain, c, mode, 4, 3, 0.01, vb=vb, form=form_,
+                        **kw)
         outs = (got[0], got[1]) + got[2]
         for b in range(3):
             if kw_b(b) is None:
@@ -1791,7 +1805,7 @@ def test_general_chain_batch_matches_each_utterance(cuda, mode, form):
             else:
                 kb = kw_b(b)
             alone = run_chain(mh_chain, one(b), mode, 4, 3, 0.01, vb=vb,
-                              **kb)
+                              form=form_, **kb)
             for x, y in zip(outs, (alone[0], alone[1]) + alone[2]):
                 assert torch.equal(x[b:b + 1], y), (mode, b, sorted(kw))
 
@@ -1863,7 +1877,7 @@ def test_use_fused_takes_every_decoder_on_the_card(cuda, widths):
                                          ((16, 16), 20)])
 def test_fused_engine_domain_var0_matches_cpu(cuda, widths, rank):
     """The fused engine past the cluster form and the narrow sums on the
-    card: a decoder of unequal widths on K1g, rank 20 on K2's wide kernel
+    card: a decoder of unequal widths on K1e, rank 20 on K2's wide kernel
     (with the cluster form's H tile and numW / denW at K > 16 for equal
     widths); the result at var_RW = 0 against the CPU run."""
     rng = np.random.RandomState(65)
@@ -1885,11 +1899,103 @@ def test_fused_engine_domain_var0_matches_cpu(cuda, widths, rank):
             torch.Generator(device=dev).manual_seed(0), cfg,
             init={k: t(v) for k, v in init.items()})
     wide = "_wide" if rank > 16 else ""
-    gen = "_gen" if len(set(widths)) > 1 else ""
+    ext = "_ext" if len(set(widths)) > 1 else ""
     assert nonzero(launch_counts()) == {
-        "mh_chain": {f"e_wh{gen}": 3, f"wf_wh{gen}": 1},
+        "mh_chain": {f"e_wh{ext}": 3, f"wf_wh{ext}": 1},
         "nmf_sums": {f"h_wh{wide}": 3, f"g_wh{wide}": 3}}
     for k in ("WFs", "WFn", "W", "H", "g", "Z", "cost"):
         assert_allclose(outs["cuda"][k].cpu().numpy(),
                         outs["cpu"][k].numpy(), rtol=1e-3, atol=1e-5,
                         err_msg=k)
+
+
+# K1e, the extended cluster form: the decoders the cluster form does not
+# take and a cluster of 4 or 8 CTAs holds (here the three of `dgm_init`
+# h_dim (256, 128), (128,) * 4 and (256, 256) at F=513: 8 CTAs), each
+# rank's slices of every layer resident in shared memory. Held against the
+# plain version at K1g's tolerances, under decisive injected noise.
+
+EXT_WIDTHS = [(128, 256), (128,) * 4, (256, 256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("level", sorted(GEN_LEVELS))
+@pytest.mark.parametrize("form", ["wh", "vb"])
+@pytest.mark.parametrize("mode", ["e", "wf"])
+@pytest.mark.parametrize("widths", EXT_WIDTHS, ids=_wid)
+def test_ext_chain_matches_plain(cuda, widths, mode, form, level):
+    """One K1e launch under the level's "_ext" key (the wrapper's own
+    choice); Z equal to the plain version's, every other output within TOL
+    (bfloat16 dumps within one bfloat16 ulp, bfloat16 products at
+    K1D_TOL)."""
+    _chain_matches_plain(cuda, widths, mode, form, level, "auto", "_ext")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["wh", "vb"])
+@pytest.mark.parametrize("mode", ["e", "wf"])
+def test_ext_chain_batch_matches_each_utterance(cuda, mode, form):
+    """K1e over B=3 (N=48: a repeated tile) returns, per utterance, bit for
+    bit what it returns for that utterance alone, with decisive injected
+    noise and with the in-kernel Philox stream, whose draws equal the
+    streams `philox_streams` reports."""
+    _chain_batch_matches_each_utterance(cuda, mode, form, "ext")
+
+
+@pytest.mark.cuda
+def test_ext_geometry_matches_the_wrapper(cuda):
+    """The library's block sizes and shared memory equal the wrapper's
+    (`ext_sizes`, `cluster_smem`, on which the dispatch and the packing
+    rest) over a grid of shapes; the domain decoders launch 8-CTA clusters
+    of 256 threads (128 x 4: 4-CTA clusters of 288), at least one
+    resident."""
+    from guided_vae_nmf_torch.mcem.mh_chain import (
+        _ext_packed, _lib, cluster_smem, ext_geometry, ext_sizes)
+
+    for F in (65, 130, 513, 768):
+        for ws in ((24, 40), (128, 256), (18, 7, 30, 5), (16,)):
+            for K in (0, 3, 32):
+                for cl in (4, 8):
+                    assert _ext_packed(F, 8, ws, K, cl) == ext_sizes(
+                        F, 8, ws, K, cl)[1]
+        for H, depth, K in ((128, 2, 10), (16, 3, 0), (24, 1, 32)):
+            assert _lib().gvnmf_mh_chain_smem(F, 8, H, K, depth) == \
+                cluster_smem(F, 8, H, K, depth)
+    for ws in EXT_WIDTHS:
+        geo = ext_geometry(513, 32, ws, 10, cuda)
+        cl, nt = (4, 288) if len(ws) == 4 else (8, 256)
+        assert geo["cluster"] == cl and geo["frames"] == 32
+        assert geo["threads"] == nt and geo["registers"] > 0
+        assert geo["smem_bytes"] == ext_sizes(513, 32, ws, 10, cl)[2]
+        assert geo["max_active_clusters"] >= 1
+
+
+@pytest.mark.cuda
+def test_chain_dispatch_on_the_card(cuda):
+    """The shipped decoder launches the cluster form (K1a), the (128, 256)
+    decoder K1e, the (512, 512) one K1g, which no cluster holds; `form=`
+    runs K1g or K1e where the wrapper would pick another, and refuses a
+    form that does not take the decoder."""
+    dims = dict(B=1, F=513, N=32, L=32, K=10, Y=20)
+    for H, key in ((128, "e_wh"), ((128, 256), "e_wh_ext"),
+                   ((512, 512), "e_wh_gen")):
+        c = chain_case(cuda, 70, H=H, **dims)
+        noise = decisive_noise(cuda, 71, 1, 32, 32, 5)
+        reset_launch_counts()
+        got = run_chain(mh_chain, c, "e", 2, 3, 0.01, noise=noise)
+        assert nonzero(launch_counts())["mh_chain"] == {key: 1}, H
+        ref = run_chain(mh_chain_ref, c, "e", 2, 3, 0.01, noise=noise)
+        assert torch.equal(got[0], ref[0])
+        for a, b in zip((got[1],) + got[2], (ref[1],) + ref[2]):
+            _close(a, b)
+    for form, key in (("general", "e_wh_gen"), ("ext", "e_wh_ext")):
+        c = chain_case(cuda, 72, H=128, **dims)
+        reset_launch_counts()
+        run_chain(mh_chain, c, "e", 2, 3, 0.01, seed=1, form=form)
+        assert nonzero(launch_counts())["mh_chain"] == {key: 1}
+    with pytest.raises(ValueError, match="cluster form"):
+        run_chain(mh_chain, chain_case(cuda, 73, H=(128, 256), **dims), "e",
+                  2, 3, 0.01, form="cluster")
+    with pytest.raises(ValueError, match="extended"):
+        run_chain(mh_chain, chain_case(cuda, 74, H=(512, 512), **dims), "e",
+                  2, 3, 0.01, form="ext")
