@@ -184,7 +184,11 @@ Phases, in order; any failure exits nonzero without a result line:
    on the eager engine (x realtime beside the fused engine's); a seeded
    M2 of h_dim (512, 512), which no cluster holds, the same way on K1g
    (without the CPU path and the eager engine), K1g against its plain
-   version at every level; then the shipped M2 at nmf_rank=32 (K1a and K2's
+   version at every level; seeded M2s of h_dim (2048,) and (2048, 2048),
+   the widest decoders the main batch runs, on K1g's 16- and 8-frame
+   tiles (the form, the tile and 100 / 1 / 100 / 100 launches checked),
+   K1g against its plain version at every level on the first; then the
+   shipped M2 at nmf_rank=32 (K1a and K2's
    wide kernel, exact and fast, the card against the CPU, K1a and K2
    against their plain versions at that rank). Then the five demos
    (`guided_vae_nmf_torch/examples/`) at their defaults on a synthetic
@@ -209,8 +213,9 @@ Phases, in order; any failure exits nonzero without a result line:
    B=32, N=512 beside their bounds; K1e (exact and fast, E and WF, both
    forms) on the (256, 128) M2's decoder, K1g the same on the (512, 512)
    M2's decoder and, for the comparison in one call, on the (256, 128)
-   one; and K2's wide kernel at rank 32 on the shipped decoder, at the
-   paths' shapes.
+   one, and K1g E and WF (exact, NMF form) on the (2048,) M2's decoder;
+   and K2's wide kernel at rank 32 on the shipped decoder, at the paths'
+   shapes.
 
 Prints the card's name and power limit, a `{"kernels": [...]}` line, and
 as its last line `{"ok": true, "device": {...}}`.
@@ -295,6 +300,10 @@ K1G_VARIANTS = [f"{m}_{f}_gen{lv}" for lv in ("", "_fast")
                 for m, f in (("e", "wh"), ("wf", "wh"), ("e", "vb"),
                              ("wf", "vb"))]
 K1E_VARIANTS = [v.replace("_gen", "_ext") for v in K1G_VARIANTS]
+# K1g on the widest decoder the main batch runs at 16 frames, (2048,) (the
+# first of WIDE_H_DIMS), exact in the NMF form: its rows of the kernel line
+WIDE_TAG = "_h2048"
+K1G_WIDE_VARIANTS = [f"{m}_wh_gen{WIDE_TAG}" for m in ("e", "wf")]
 WIDE_VARIANTS = [f"{m}_wh_wide{lv}" for lv in ("", "_fast")
                  for m in ("h", "g")]
 
@@ -692,6 +701,7 @@ VARIANTS = ([f"mh_chain_{v}" for v in CHAIN_VARIANTS
             + [f"mh_chain_{v}" for v in K1D_VARIANTS]
             + [f"nmf_sums_{v}" for v in SUMS_VARIANTS if "_wide" not in v]
             + [f"mh_chain_{v}" for v in K1G_VARIANTS]
+            + [f"mh_chain_{v}" for v in K1G_WIDE_VARIANTS]
             + [f"mh_chain_{v}" for v in K1E_VARIANTS]
             + [f"nmf_sums_{v}" for v in WIDE_VARIANTS])
 
@@ -4160,10 +4170,12 @@ def phase_examples(torch, dev, gpu, art, seed):
 # L=32 whose decoders the cluster form does not take (dgm_init's h_dim; the
 # decoder mirrors it: (128, 256), 128 x 4, (256, 256)), on K1e, the
 # extended cluster form (4- or 8-CTA clusters); one whose decoder no cluster
-# holds, (512, 512), on K1g; and the shipped M2 at an NMF rank past 16, on
-# K2's wide kernel; each through the main batch with engine="auto".
+# holds, (512, 512), on K1g; the widest ones, (2048,) and (2048, 2048), on
+# K1g's 16- and 8-frame tiles; and the shipped M2 at an NMF rank past 16,
+# on K2's wide kernel; each through the main batch with engine="auto".
 DOMAIN_H_DIMS = ((256, 128), (128, 128, 128, 128), (256, 256))
 GENERAL_H_DIM = (512, 512)
+WIDE_H_DIMS = {(2048,): 16, (2048, 2048): 8}     # h_dim: K1g's frame tile
 DOMAIN_RANK = 32
 GEN_LAUNCHES = dict(MAIN_LAUNCHES, gen=True)
 EXT_LAUNCHES = dict(MAIN_LAUNCHES, ext=True)
@@ -4199,14 +4211,15 @@ def compare_bf16(name, got, ref):
     return float(err.max())
 
 
-def check_form(torch, model, B, N, dev, levels, form, tag):
+def check_form(torch, model, B, N, dev, levels, form, tag, suffix=""):
     """The chain's `form` ("ext": K1e, "general": K1g) on `model`'s decoder
     against its plain version at B, N under decisive injected noise,
     MCEMConfig()'s chain lengths: E and WF, both noise forms, at `levels`
     ('' exact, '_fast', '_trans', '_fast_mm16'), each run one launch under
     its `tag` ("_ext" / "_gen") key; Z equal, the rest at TOL (bfloat16
     dumps within a bfloat16 ulp, bfloat16 products at K1D_TOL). Returns
-    the largest absolute error per chain variant."""
+    the largest absolute error per chain variant (its key followed by
+    `suffix`)."""
     import guided_vae_nmf_torch as port
     from guided_vae_nmf_torch.mcem import mh_chain, mh_chain_ref
     from guided_vae_nmf_torch.mcem.mh_chain import widths
@@ -4251,7 +4264,7 @@ def check_form(torch, model, B, N, dev, levels, form, tag):
                     unity = (got[2][0] + got[2][1]) / ns
                     check(torch.allclose(unity, torch.ones_like(unity),
                                          atol=1e-5), f"{name}: WFs + WFn != 1")
-                err[f"mh_chain_{key}"] = e
+                err[f"mh_chain_{key}{suffix}"] = e
     return err
 
 
@@ -4314,7 +4327,10 @@ def phase_domain(torch, model, classifier, mean, std, batch, seed, dev, gpu):
     and the eager engine (engine="xla") for the x realtime beside the
     fused engine's; the GENERAL_H_DIM M2, which no cluster holds, on K1g:
     the main path, engine="fused", fast=True, the real-noise settings
-    exact and fast, and K1g against its plain version at every level;
+    exact and fast, and K1g against its plain version at every level; the
+    WIDE_H_DIMS M2s on K1g at their frame tiles: the main path (three
+    runs, 100 / 1 / 100 / 100 launches), and on the first K1g against its
+    plain version at every level (errors keyed with WIDE_TAG);
     then the shipped M2 at nmf_rank=DOMAIN_RANK (the cluster form and
     K2's wide kernel): the main path exact and fast, the card against the
     CPU, and K1a / K2 against their plain versions at that rank. Returns
@@ -4337,10 +4353,13 @@ def phase_domain(torch, model, classifier, mean, std, batch, seed, dev, gpu):
         runs.append(r)
         return r
 
-    for i, h_dim in enumerate(DOMAIN_H_DIMS + (GENERAL_H_DIM,)):
+    every = ("", "_fast", "_trans", "_fast_mm16")
+    for i, h_dim in enumerate(DOMAIN_H_DIMS + (GENERAL_H_DIM,)
+                              + tuple(WIDE_H_DIMS)):
         m = domain_model(torch, h_dim, seed + 20 + i, dev)
         ws = widths(_dec_parts(m.decoder, 32))
-        general = h_dim == GENERAL_H_DIM
+        wide = h_dim in WIDE_H_DIMS
+        general = h_dim == GENERAL_H_DIM or wide
         form, cl = chain_form(513, 32, ws, cfg.nmf_rank, N)
         check(not cluster_takes(513, 32, ws, cfg.nmf_rank, N),
               f"the cluster form takes the decoder {ws}")
@@ -4352,9 +4371,12 @@ def phase_domain(torch, model, classifier, mean, std, batch, seed, dev, gpu):
         if general:
             geo = general_geometry(513, 32, ws, cfg.nmf_rank, dev)
             log(f" decoder {ws} (dgm_init h_dim {list(h_dim)}): K1g launch "
-                f"{B * N // geo['frames']} CTAs of {geo['threads']} threads,"
-                f" {geo['smem_bytes']} B of shared memory and "
-                f"{geo['registers']} registers a thread")
+                f"{B * N // geo['frames']} CTAs of {geo['frames']} frames, "
+                f"{geo['threads']} threads, {geo['smem_bytes']} B of shared "
+                f"memory and {geo['registers']} registers a thread")
+            check(not wide or geo["frames"] == WIDE_H_DIMS[h_dim],
+                  f"K1g takes {geo['frames']}-frame tiles of the decoder "
+                  f"{ws}, expected {WIDE_H_DIMS.get(h_dim)}")
             launches = GEN_LAUNCHES
         else:
             geo = ext_geometry(513, 32, ws, cfg.nmf_rank, dev)
@@ -4372,6 +4394,12 @@ def phase_domain(torch, model, classifier, mean, std, batch, seed, dev, gpu):
             torch, m, classifier, mean, std, cfg, batch, seed, dev, gpu,
             launches=launches, label=f"main batch, decoder {ws}, "
             "engine='auto'"))
+        if wide:
+            if h_dim == next(iter(WIDE_H_DIMS)):
+                err.update(check_form(torch, m, B, N, dev, every, "general",
+                                      "_gen", suffix=WIDE_TAG))
+            rec[str(ws)] = d
+            continue
         one_run(torch, m, classifier, mean, std, cfg, batch, seed, dev,
                 launches, f"main batch, decoder {ws}, engine='fused'",
                 engine="fused")
@@ -4379,7 +4407,6 @@ def phase_domain(torch, model, classifier, mean, std, batch, seed, dev, gpu):
             log(f" decoder {ws} on the card against the CPU path:")
             phase_reference(torch, m, classifier, mean, std, pairs, dev,
                             profiles=("nmf",))
-        every = ("", "_fast", "_trans", "_fast_mm16")
         levels = every if i == 0 or general else ("",)
         for k, e in check_form(torch, m, B, N, dev, levels,
                                "general" if general else "ext",
@@ -4439,33 +4466,40 @@ def phase_domain(torch, model, classifier, mean, std, batch, seed, dev, gpu):
 
 def times_domain(torch, model, cfg, B, N, dev, seed):
     """K1e (exact and fast, E and WF, both forms) on the first
-    DOMAIN_H_DIMS decoder and K1g the same on the GENERAL_H_DIM decoder,
-    at the paths' B, N: ms a launch by CUDA events, the plain version's
-    ms, the bound; and K1g on the first decoder too (`form="general"`),
-    beside K1e in the same call. Returns rows by variant with their
-    shapes, and the K1g-against-K1e rows."""
+    DOMAIN_H_DIMS decoder, K1g the same on the GENERAL_H_DIM decoder and
+    exact in the NMF form on the first WIDE_H_DIMS decoder (keys ending in
+    WIDE_TAG), at the paths' B, N: ms a launch by CUDA events, the plain
+    version's ms, the bound; and K1g on the first decoder too
+    (`form="general"`), beside K1e in the same call. Returns rows by
+    variant with their shapes, and the K1g-against-K1e rows."""
     from guided_vae_nmf_torch.mcem import mh_chain, mh_chain_ref
-    from guided_vae_nmf_torch.mcem.mh_chain import pack_for_chain, widths
+    from guided_vae_nmf_torch.mcem.mh_chain import (
+        pack_for_chain, pack_general, widths)
 
     K, R = cfg.nmf_rank, cfg.nsamples_E_step
     timed, same = {}, {}
-    for h_dim, off, form, tag in ((DOMAIN_H_DIMS[0], 20, "ext", "_ext"),
-                                  (GENERAL_H_DIM, 23, "general", "_gen")):
+    every = (((False, "wh"), (True, "vb")), ("", "_fast"))
+    for h_dim, off, form, tag, suffix, (forms, levels) in (
+            (DOMAIN_H_DIMS[0], 20, "ext", "_ext", "", every),
+            (GENERAL_H_DIM, 23, "general", "_gen", "", every),
+            (next(iter(WIDE_H_DIMS)), 24, "general", "_gen", WIDE_TAG,
+             (((False, "wh"),), ("",)))):
         m = domain_model(torch, h_dim, seed + off, dev)
         c = chain_inputs(torch, m, B, N, K, 7, dev)
         L, F, ws = c["L"], c["X2"].shape[-1], widths(c["dec_w"])
-        # the weights as mcem_batch_fused hands them to the kernel
-        c["dec_w"] = pack_for_chain(c["dec_w"], F, L, K, N)
+        # the weights as mcem_batch_fused hands them to the kernel (and
+        # K1g's block, for K1g at K1e's shapes)
+        c["dec_w"] = pack_general(pack_for_chain(c["dec_w"], F, L, K, N))
         gen = torch.Generator(device=dev).manual_seed(0)
-        for vb, nform in ((False, "wh"), (True, "vb")):
-            for level in ("", "_fast"):
+        for vb, nform in forms:
+            for level in levels:
                 kw = fast_kw(torch, level)
                 for mode, ns, bi in (("e", R, cfg.burnin_E_step),
                                      ("wf", cfg.nsamples_WF, cfg.burnin_WF)):
                     bound, by, flops, nbytes = chain_bound(
                         B, N, F, L, ws, K, ns, ns + bi, mode, vb=vb,
                         sample_bytes=2 if level else 4)
-                    key = f"mh_chain_{mode}_{nform}{tag}{level}"
+                    key = f"mh_chain_{mode}_{nform}{tag}{level}{suffix}"
                     timed[key] = dict(
                         ms=time_cuda(lambda: run_chain(
                             c, mh_chain, mode, ns, bi, cfg.var_RW, vb=vb,
@@ -4707,14 +4741,15 @@ def phase_geometry(torch, dev):
     from guided_vae_nmf_torch.mcem.mh_chain import ext_geometry
 
     gen, ext = {}, {}
-    for ws in ((128, 256), (128,) * 4, (256, 256), GENERAL_H_DIM):
+    for ws in ((128, 256), (128,) * 4, (256, 256), GENERAL_H_DIM,
+               *WIDE_H_DIMS):
         g = general_geometry(513, 32, ws, 10, dev)
         gen[str(ws)] = g
         log(f"  K1g launch, decoder {ws}: one CTA a {g['frames']}-frame "
             f"tile ({4 * 384 // g['frames']} CTAs at B=4, N=384), "
             f"{g['threads']} threads, {g['smem_bytes']} B of shared memory "
             f"and {g['registers']} registers a thread")
-        if ws == GENERAL_H_DIM:
+        if ws == GENERAL_H_DIM or ws in WIDE_H_DIMS:
             continue
         e = ext_geometry(513, 32, ws, 10, dev)
         check(e["max_active_clusters"] > 0, "K1e's cluster launch cannot "
@@ -5026,8 +5061,8 @@ def main(argv=None):
     domain, domain_runs, domain_err = phase_domain(
         torch, model, classifier, mean, std, batch, args.seed, dev, gpu)
     for key, e in domain_err.items():
-        if key in err:
-            err[key] = max(err[key], e)
+        if key in err or key.endswith(WIDE_TAG):
+            err[key] = max(err.get(key, 0.0), e)
     log("the demos (guided_vae_nmf_torch/examples/ on a synthetic subset "
         "root):")
     examples = phase_examples(torch, dev, gpu, art, args.seed)
@@ -5049,6 +5084,10 @@ def main(argv=None):
                              if r["launches"][k][v]), 0)
                     for v in main_res["launches"][k]}
                 for k in main_res["launches"]}
+    # the (2048,) decoder's rows: the launches of its own main batch
+    wide = domain[str(next(iter(WIDE_H_DIMS)))]["auto"]["launches"]
+    for v in K1G_WIDE_VARIANTS:
+        launches["mh_chain"][v] = wide["mh_chain"][v[:-len(WIDE_TAG)]]
     idle = [v for v in VARIANTS
             if v not in OFF_PATH and not launches[v[:8]][v[9:]]]
     check(not idle, f"variants no path launched: {idle}")

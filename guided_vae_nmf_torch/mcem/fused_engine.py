@@ -173,8 +173,9 @@ def mcem_batch_fused(model, X_abs2, mask, y, generator,
         Wt = torch.ones((B, 1, F), device=dev)
         H = torch.zeros((B, 1, N), device=dev)
     if dev.type == "cuda":
-        # the blocks of the cluster form (K1a-K1d) or the extended one
-        # (K1e) where it runs, packed once for every chain of the call
+        # the weight blocks of the form that runs (the cluster form K1a-K1d,
+        # the extended one K1e, or the general form K1g), packed once for
+        # every chain of the call
         dec_w = pack_for_chain(dec_w, F, L, Wt.shape[1] if update_nmf else 0,
                                N)
     Vbf = None if update_nmf else Vb_fixed.transpose(1, 2).contiguous()

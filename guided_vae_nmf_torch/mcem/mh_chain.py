@@ -40,8 +40,10 @@ sliced on its own, so it takes decoders of unequal widths and wider ones
 (:func:`ext_cluster`, :func:`ext_geometry`; its blocks are
 `pack_weights(dec_w, cluster)`). The general form (K1g,
 `csrc/mh_chain_general.cu`) takes every other decoder of 1 to 4 hidden
-layers, of any widths, at any F and NMF rank, one CTA a 16-frame tile
-with the weights read from L2 (:func:`general_geometry`). The wrapper
+layers, of any widths up to its shared-memory limit (:func:`general_tile`),
+at any F and NMF rank: one CTA a tile of 16, 8 or 4 frames, the weights
+streamed through shared memory by bulk copies from the block
+:func:`pack_general` lays out (:func:`general_geometry`). The wrapper
 picks the first form that takes the shapes, in that order
 (:func:`chain_form`). Layouts are
 frames-major:
@@ -67,10 +69,10 @@ from .engine import VX_FLOOR
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = ([_VP] * 19 + [_I] * 9 + [_F, _I, ctypes.c_uint64] + [_I] * 4
              + [_VP])
-# The general form's entry point: 24 pointers (wm / bm as arrays), B, N,
-# F, L, the widths' array, depth, K, n_steps, burnin, sqrt_var, mode,
-# seed, the four options and the stream.
-_GEN_ARGTYPES = ([_VP] * 24 + [_I] * 4 + [_VP] + [_I] * 4 + [_F, _I,
+# The general form's entry point: 22 pointers (the packed weights, bm as
+# an array), B, N, F, L, the widths' array, depth, K, n_steps, burnin,
+# sqrt_var, mode, seed, the four options and the stream.
+_GEN_ARGTYPES = ([_VP] * 22 + [_I] * 4 + [_VP] + [_I] * 4 + [_F, _I,
                  ctypes.c_uint64] + [_I] * 4 + [_VP])
 # The extended cluster form's entry point: 19 pointers, B, N, F, L, the
 # widths' array, depth, K, CTAs a cluster, n_steps, burnin, sqrt_var, mode,
@@ -86,7 +88,8 @@ CLUSTER = 4
 # The extended cluster form's cluster sizes, tried in order (8 is the
 # portable maximum).
 EXT_CLUSTERS = (4, 8)
-# Frames a tile of either form (N must be a multiple).
+# Frames a tile of the cluster forms; N must be a multiple for every form
+# (the general form's tile, 16, 8 or 4, divides it).
 FRAME_TILE = 16
 # Launch limits: threads a CTA of the cluster form (384 at F = 768, the
 # most bins it takes) and the dynamic shared memory a CTA may take on the
@@ -96,6 +99,18 @@ SMEM_MAX = 232448
 # Threads a CTA of the extended cluster form at most (Fsl <= 160 bins a
 # rank; mh_chain_ext.cu's launch bound).
 _EXT_MAX_BLOCK = 320
+# The general form (mh_chain_general.cu): its frame tiles, tried in order,
+# the stages of its weight ring and their floats, tried in order at each
+# tile, and its consumer threads a CTA at most (checked against the library
+# at launch).
+GEN_TILES = (16, 8, 4)
+GEN_STAGES = 4
+GEN_SLOTS = (8192, 4096)
+# the general form's units (columns) an output item, and the multiple of
+# floats its packed rows are padded to
+GEN_COLS = 4
+GEN_PAD = 8
+_GEN_MAX_CONSUMERS = 288
 _LN2 = 0.6931471805599453
 _SQRT2 = 1.4142135623730951
 SAMPLE_DTYPES = (torch.float32, torch.bfloat16)
@@ -237,14 +252,16 @@ def _lib_general():
     if lib.gvnmf_mh_chain_general.argtypes is None:
         lib.gvnmf_mh_chain_general.argtypes = _GEN_ARGTYPES
         lib.gvnmf_mh_chain_general.restype = _I
+        lib.gvnmf_mh_chain_general_depth.argtypes = []
+        lib.gvnmf_mh_chain_general_depth.restype = _I
         for fn in (lib.gvnmf_mh_chain_general_tile,
-                   lib.gvnmf_mh_chain_general_depth):
-            fn.argtypes = []
+                   lib.gvnmf_mh_chain_general_block):
+            fn.argtypes = [_I, _I, _VP, _I, _I]
             fn.restype = _I
-        lib.gvnmf_mh_chain_general_block.argtypes = [_I]
-        lib.gvnmf_mh_chain_general_block.restype = _I
         lib.gvnmf_mh_chain_general_smem.argtypes = [_I, _I, _VP, _I, _I]
         lib.gvnmf_mh_chain_general_smem.restype = ctypes.c_longlong
+        lib.gvnmf_mh_chain_general_packed.argtypes = [_I, _I, _VP, _I]
+        lib.gvnmf_mh_chain_general_packed.restype = ctypes.c_longlong
         lib.gvnmf_mh_chain_general_registers.argtypes = [_VP]
         lib.gvnmf_mh_chain_general_registers.restype = _I
         if lib.gvnmf_mh_chain_general_depth() != MAX_DEPTH:
@@ -489,6 +506,82 @@ def ext_cluster(F, L, ws, K, smem_max=SMEM_MAX):
     return None
 
 
+def general_sizes(F, L, ws, K, T, slot):
+    """(threads a CTA, dynamic shared memory a CTA in bytes) of the general
+    form at frame tile T and ring stages of `slot` floats
+    (mh_chain_general.cu's `consumers` and `smem_floats`): a consumer
+    thread per output item of GEN_COLS columns x 8 frames (x 4 at T = 4),
+    in warps, 64 to 288, and a producer warp; the weight ring (GEN_STAGES
+    stages of `slot` floats), two activation buffers [rows][T] as tall as
+    the widest even and the widest odd hidden layer (one at depth 1), Z,
+    Zp and the normals, the H tile, the output items' frame partials, 7 T
+    floats of per-frame state and the ring's 2 GEN_STAGES mbarriers."""
+    nq = _cdiv(F, GEN_COLS)
+    nfg = T // min(T, 8)
+    nc = min(_GEN_MAX_CONSUMERS, max(64, 32 * _cdiv(nfg * nq, 32)))
+    rows = _round4(max(ws[0::2])) + _round4(max(ws[1::2], default=0))
+    floats = (GEN_STAGES * slot
+              + T * (rows + 3 * _round4(L) + _round4(K) + _round4(nq) + 7)
+              + 4 * GEN_STAGES)
+    return nc + 32, 4 * floats
+
+
+def general_plan(F, L, ws, K, smem_max=SMEM_MAX):
+    """The general form's (frame tile, floats a ring stage) at these shapes
+    (K the NMF rank, 0 for the Vb form): the first of GEN_TILES = (16, 8,
+    4) whose CTA fits `smem_max` bytes, with the first of GEN_SLOTS =
+    (8192, 4096) that fits beside it; None where none does. A tile of T
+    frames with stages of S floats takes
+
+        4 (4 S + T (R + 3 L4 + K4 + Q4 + 7) + 16) bytes,
+
+    R = round4(max(H1, H3)) + round4(max(H2, H4)) the rows of the two
+    activation buffers (the second 0 at depth 1), L4, K4, Q4 = L, K and
+    ceil(F / 4) rounded up to multiples of 4 (:func:`general_sizes`). At
+    F=513, L=32, K=10 (3 L4 + K4 + Q4 + 7 = 247) the 232,448 B a CTA may
+    take hold R = 10,180 at T = 4 and S = 4096: one hidden layer of up to
+    10,180 units, or two alternating layers of that many together."""
+    for T in GEN_TILES:
+        for slot in GEN_SLOTS:
+            if general_sizes(F, L, ws, K, T, slot)[1] <= smem_max:
+                return T, slot
+    return None
+
+
+def general_tile(F, L, ws, K, smem_max=SMEM_MAX):
+    """The general form's frame tile at these shapes, or None where it
+    does not take them (:func:`general_plan`)."""
+    plan = general_plan(F, L, ws, K, smem_max)
+    return None if plan is None else plan[0]
+
+
+def _round_pad(a):
+    return _cdiv(a, GEN_PAD) * GEN_PAD
+
+
+def general_packed(F, L, ws):
+    """Floats of the general form's packed weight block
+    (:func:`pack_general`)."""
+    return sum(i * _round_pad(o) for i, o in zip((L, *ws), (*ws, F)))
+
+
+def pack_general(dec_w):
+    """`dec_w` with the general form's weight block under "packed_gen": w1,
+    the hidden layers' weights after it and wo, layer after layer, each
+    [inputs][outputs rounded up to GEN_PAD] with its rows zero-padded, so
+    that every run the kernel copies (a k-tile of rows, or a row's column
+    chunk) is 16-byte aligned and an output item of up to 8 columns lies in
+    its row. The biases stay in `dec_w`. A caller that runs many chains
+    packs once (`mcem_batch_fused` does); the wrapper packs per launch
+    otherwise. Bfloat16-rounded weights (:func:`bf16_weights`) are packed
+    as they are."""
+    mats = [dec_w["w1"], *(w for w, _ in dec_w["mid"]), dec_w["wo"]]
+    packed = torch.cat([torch.nn.functional.pad(
+        w, (0, _round_pad(w.shape[1]) - w.shape[1])).reshape(-1)
+        for w in mats])
+    return dict(dec_w, packed_gen=packed.contiguous())
+
+
 def chain_form(F, L, ws, K, N, smem_max=SMEM_MAX):
     """The chain's form at these shapes (ws the hidden widths, K the NMF
     rank, 0 for the Vb form), as the wrapper picks it: ("cluster",
@@ -510,13 +603,13 @@ def chain_form(F, L, ws, K, N, smem_max=SMEM_MAX):
 def pack_for_chain(dec_w, F, L, K, N):
     """`dec_w` with the weight blocks of the form :func:`chain_form` picks
     at these shapes ("packed" for the cluster form, "packed_ext" for the
-    extended one), or as it is for the general form."""
+    extended one, "packed_gen" for the general form)."""
     form, c = chain_form(F, L, widths(dec_w), K, N)
     if form == "cluster":
         return pack_weights(dec_w)
     if form == "ext":
         return pack_weights(dec_w, c)
-    return dec_w
+    return pack_general(dec_w)
 
 
 def cluster_takes(F, L, ws, K, N):
@@ -527,24 +620,20 @@ def cluster_takes(F, L, ws, K, N):
     return chain_form(F, L, ws, K, N)[0] == "cluster"
 
 
-def general_smem(F, L, ws, K):
-    """The general form's dynamic shared memory a CTA (bytes)."""
-    return _lib_general().gvnmf_mh_chain_general_smem(
-        F, L, _ints(ws), len(ws), K)
-
-
 def general_geometry(F, L, ws, K, device=None):
     """The general form's launch at these shapes: frames a CTA, threads and
-    dynamic shared memory a CTA, registers a thread (E-mode WH kernel).
-    CUDA only."""
-    lib = _lib_general()
+    dynamic shared memory a CTA, the floats of the packed weight block
+    (each from the library and equal to the wrapper's mirror), registers a
+    thread (E-mode WH kernel). CUDA only; ValueError where the form does
+    not take the decoder."""
+    _check_general(FRAME_TILE, F, L, ws, K)
+    T, nt, smem, packed = _general_checked(F, L, ws, K)
     out = (ctypes.c_int * 1)()
     with torch.cuda.device(device or torch.cuda.current_device()):
-        _build.check(lib.gvnmf_mh_chain_general_registers(out),
+        _build.check(_lib_general().gvnmf_mh_chain_general_registers(out),
                      "mh_chain_general attributes query")
-    return {"frames": lib.gvnmf_mh_chain_general_tile(),
-            "threads": lib.gvnmf_mh_chain_general_block(F),
-            "smem_bytes": general_smem(F, L, ws, K), "registers": out[0]}
+    return {"frames": T, "threads": nt, "smem_bytes": smem,
+            "packed_floats": packed, "registers": out[0]}
 
 
 def ext_geometry(F, L, ws, K, device=None):
@@ -660,6 +749,9 @@ def mh_chain(dec_w, X2, WH, g, ypre, Z, Vs, seed=0, mode="e", nsamples=10,
         _check("Zn", zn, (B, n_steps, N, L), dev)
         _check("U", u, (B, n_steps, N), dev)
     kernel, cl = _pick_form(form, F, L, ws, K, N)
+    tile = FRAME_TILE
+    if kernel == "general":
+        tile = _general_checked(F, L, ws, K)[0]
     z_out = torch.empty_like(Z)
     vs_out = torch.empty_like(X2)
     part1 = part2 = out3 = None
@@ -677,7 +769,7 @@ def mh_chain(dec_w, X2, WH, g, ypre, Z, Vs, seed=0, mode="e", nsamples=10,
                            dtype=samples_dtype)
         out2 = torch.empty((B, K, F), device=dev)
         out3 = torch.empty((B, K, F), device=dev)
-        part1 = torch.empty((B, N // FRAME_TILE, K, F), device=dev)
+        part1 = torch.empty((B, N // tile, K, F), device=dev)
         part2 = torch.empty_like(part1)
     ptrs = (_ptr(X2), _ptr(Vb), _ptr(Wt), _ptr(H),
             _ptr(mask if use_mask else None), _ptr(g), _ptr(ypre), _ptr(Z),
@@ -715,15 +807,20 @@ def mh_chain(dec_w, X2, WH, g, ypre, Z, Vs, seed=0, mode="e", nsamples=10,
         _build.check(status, "mh_chain_ext kernel")
         key += "_ext"
     else:
+        packed = dec_w.get("packed_gen")
+        if packed is None:
+            packed = pack_general(dec_w)["packed_gen"]
+        _check("packed weights", packed, (general_packed(F, L, ws),), dev)
+        if packed.data_ptr() % 16:
+            raise ValueError("the packed weights must be 16-byte aligned")
         scratch = torch.empty((5, B, N, F), device=dev)
-        mids = dec_w["mid"]
-        wm = (_VP * (MAX_DEPTH - 1))(*(w.data_ptr() for w, _ in mids))
-        bm = (_VP * (MAX_DEPTH - 1))(*(b.data_ptr() for _, b in mids))
+        bm = (_VP * (MAX_DEPTH - 1))(*(b.data_ptr() for _, b in
+                                       dec_w["mid"]))
         with torch.cuda.device(dev):
             status = _lib_general().gvnmf_mh_chain_general(
-                *ptrs, _ptr(dec_w["w1"]), wm, bm, _ptr(dec_w["wo"]),
-                _ptr(dec_w["bo"]), *outs, _ptr(scratch), B, N, F, L,
-                _ints(ws), len(ws), K, n_steps, burnin, *opts)
+                *ptrs, _ptr(packed), bm, _ptr(dec_w["bo"]), *outs,
+                _ptr(scratch), B, N, F, L, _ints(ws), len(ws), K, n_steps,
+                burnin, *opts)
         _build.check(status, "mh_chain_general kernel")
         key += "_gen"
     _launches.count(mh_chain, "mh_chain", _variant(mode, key, **fast_kw))
@@ -772,18 +869,44 @@ def _ext_packed(F, L, ws, K, cl):
 
 
 def _check_general(N, F, L, ws, K):
-    """Raises ValueError for shapes the general form does not take."""
+    """Raises ValueError for shapes the general form does not take: N not
+    a multiple of FRAME_TILE, a depth outside 1 to MAX_DEPTH, or a decoder
+    whose smallest frame tile (4) needs more than SMEM_MAX bytes of shared
+    memory a CTA, 4 (4 * 4096 + 4 (R + 3 L4 + K4 + Q4 + 7) + 16) with R =
+    round4(max(H1, H3)) + round4(max(H2, H4)), L4, K4, Q4 = L, K, ceil(F /
+    4) rounded up to multiples of 4 (:func:`general_plan`)."""
     if N % FRAME_TILE:
         raise ValueError(f"N={N} must be a multiple of {FRAME_TILE}")
     if not 1 <= len(ws) <= MAX_DEPTH:
         raise ValueError(f"the CUDA chain takes 1 to {MAX_DEPTH} decoder "
                          f"hidden layers, got {len(ws)}")
-    smem = general_smem(F, L, ws, K)
-    if smem > SMEM_MAX:
-        raise ValueError(f"shapes need {smem} B of shared memory per CTA "
-                         f"(hidden widths {ws}, L={L}, K={K}: the general "
-                         "form holds a 16-frame tile of the widest layer's "
-                         "activations twice)")
+    if general_tile(F, L, ws, K) is None:
+        smem = general_sizes(F, L, ws, K, GEN_TILES[-1], GEN_SLOTS[-1])[1]
+        raise ValueError(
+            f"shapes need {smem} B of shared memory per CTA, past "
+            f"{SMEM_MAX} (hidden widths {ws}, L={L}, K={K}, F={F}: the "
+            "general form holds the activations of the widest even and the "
+            f"widest odd hidden layer for a tile of {GEN_TILES[-1]} frames)")
+
+
+def _general_checked(F, L, ws, K):
+    """The general form's (frame tile, threads a CTA, shared memory a CTA,
+    floats of the packed block) from the library, which must agree with
+    the wrapper's mirror (the launch's scratch and packing rest on it)."""
+    lib = _lib_general()
+    hw = _ints(ws)
+    got = (lib.gvnmf_mh_chain_general_tile(F, L, hw, len(ws), K),
+           lib.gvnmf_mh_chain_general_block(F, L, hw, len(ws), K),
+           lib.gvnmf_mh_chain_general_smem(F, L, hw, len(ws), K),
+           lib.gvnmf_mh_chain_general_packed(F, L, hw, len(ws)))
+    T, slot = general_plan(F, L, ws, K) or (0, GEN_SLOTS[-1])
+    want = (T, *general_sizes(F, L, ws, K, T or GEN_TILES[-1], slot),
+            general_packed(F, L, ws))
+    if got != want:
+        raise _build.KernelError(
+            f"mh_chain_general.cu's geometry {got} differs from the "
+            f"wrapper's {want}")
+    return got
 
 
 mh_chain.launches = dict.fromkeys(

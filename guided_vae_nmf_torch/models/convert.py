@@ -13,7 +13,7 @@ import re
 import numpy as np
 import torch
 
-from .nets import DGM, VAE, Classifier, Classifier2
+from .nets import DGM, VAE, Classifier, Classifier2, Decoder, Encoder
 
 
 def _flatten(tree, prefix=""):
@@ -67,13 +67,26 @@ def _widths(layers):
     return [int(np.shape(layer["w"])[1]) for layer in layers]
 
 
-def module_from_params(tree, device="cpu"):
+def module_from_params(tree, device="cpu", kind=None):
     """Build the module a parameter tree describes and copy its arrays in:
     `encoder`/`decoder` trees give a :class:`DGM` when `y_dim` is present
-    and positive, else a :class:`VAE`; `hidden`/`out` trees give a
-    :class:`Classifier` (with BatchNorm when a `bn` subtree exists), or a
-    :class:`Classifier2` when `y_dim` is present."""
-    if "encoder" in tree:
+    and positive, else a :class:`VAE`; an encoder's own tree
+    (`hidden`/`mu`/`log_var`, `encoder_init`'s) an :class:`Encoder`;
+    `hidden`/`out` trees give a :class:`Classifier` (with BatchNorm when a
+    `bn` subtree exists), or a :class:`Classifier2` when `y_dim` is present,
+    or, with kind="decoder", a :class:`Decoder` (`decoder_init`'s tree,
+    which has a classifier's keys)."""
+    if kind not in (None, "decoder"):
+        raise ValueError(f"kind must be None or 'decoder', got {kind!r}")
+    if kind == "decoder":
+        model = Decoder(int(np.shape(tree["hidden"][0]["w"])[0]),
+                        _widths(tree["hidden"]),
+                        int(np.shape(tree["out"]["w"])[1]))
+    elif "mu" in tree and "log_var" in tree:
+        model = Encoder(int(np.shape(tree["hidden"][0]["w"])[0]),
+                        _widths(tree["hidden"]),
+                        int(np.shape(tree["mu"]["w"])[1]))
+    elif "encoder" in tree:
         enc = tree["encoder"]
         x_in = int(np.shape(enc["hidden"][0]["w"])[0])
         h_dim = _widths(enc["hidden"])

@@ -153,6 +153,21 @@ class DGM(nn.Module):
         return r, mu, log_var
 
 
+def encoder_init(generator, x_dim, h_dim, z_dim):
+    """An :class:`Encoder` with initialised weights (x_dim -> h_dim tanh
+    stack -> mu / log_var heads of z_dim), in the JAX package's argument
+    order; the draws come from `generator` in module order (the hidden
+    layers, mu, log_var)."""
+    return _init(Encoder(x_dim, h_dim, z_dim), generator)
+
+
+def decoder_init(generator, z_dim, h_dim, x_dim):
+    """A :class:`Decoder` with initialised weights (z_dim -> h_dim tanh
+    stack -> exp of x_dim), in the JAX package's argument order; the draws
+    come from `generator` in module order (the hidden layers, out)."""
+    return _init(Decoder(z_dim, h_dim, x_dim), generator)
+
+
 def vae_init(generator, dims):
     """M1 with initialised weights; dims = [x_dim, z_dim, h_dim]."""
     return _init(VAE(dims), generator)

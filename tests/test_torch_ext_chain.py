@@ -189,11 +189,12 @@ def test_shared_memory_of_the_shipped_and_domain_decoders():
 @pytest.mark.parametrize("ws,K,key,rows", [
     ((128, 128), 10, "packed", 4), ((24, 40), 3, "packed_ext", 4),
     ((128, 256), 10, "packed_ext", 8), ((128,) * 4, 10, "packed_ext", 4),
-    ((512, 512), 10, None, 0)])
+    ((512, 512), 10, "packed_gen", 32 * 512 + 512 * 512 + 512 * 520)])
 def test_pack_for_chain_packs_the_form_that_runs(ws, K, key, rows):
     """`pack_for_chain` (what mcem_batch_fused calls once on the card)
-    adds the blocks of the form the wrapper launches at these shapes, and
-    nothing for the general form."""
+    adds the blocks of the form the wrapper launches at these shapes: the
+    cluster forms' per-rank blocks, or the general form's one block of
+    padded rows."""
     F, L = (65, 8) if ws == (24, 40) else (513, 32)
     d = _dec_w(np.random.RandomState(7), F, L, ws)
     p = pack_for_chain(d, F, L, K, 128)
