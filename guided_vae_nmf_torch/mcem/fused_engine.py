@@ -20,6 +20,7 @@ CUDA tensors launch the kernels; CPU tensors run their plain versions.
 
 import torch
 
+from ..ops.profiling import span
 from .engine import VX_FLOOR, MCEMConfig, noise_gain_state
 from .mh_chain import (
     _check_matmul_dtype, bf16_weights, mh_chain, pack_for_chain)
@@ -131,6 +132,122 @@ def mcem_batch_fused(model, X_abs2, mask, y, generator,
     if not update_nmf and Vb_fixed is None:
         raise ValueError("update_nmf=False needs Vb_fixed (B, F, N)")
     init = init or {}
+    dev = X_abs2.device
+    with span("gvnmf.engine", dev, niter=cfg.niter):
+        with span("gvnmf.engine.init"):
+            X2, ypre, Z, Vs, dec_w, Wt, H, Vbf, g, seeds = _start(
+                model, X_abs2, y, generator, cfg, update_nmf, Vb_fixed,
+                init, matmul_dtype)
+            B, N, F = X2.shape
+            b = eff_vb = band_map = None
+            if cfg.noise_gain:
+                b, eff_vb, band_map = noise_gain_state(
+                    F, N, cfg.noise_gain_bands, Vbf, batch=B)
+        chain_kw = dict(nsamples=cfg.nsamples_E_step,
+                        burnin=cfg.burnin_E_step, var_RW=cfg.var_RW,
+                        samples_dtype=samples_dtype,
+                        approx_recip=approx_recip, approx_trans=approx_trans,
+                        matmul_dtype=matmul_dtype)
+        sums_kw = dict(approx_recip=approx_recip)
+
+        costs = []
+        for it in range(cfg.niter):
+            if update_nmf:
+                with span("gvnmf.em.e_chain"):
+                    Z, Vs, (samples, numW, denW) = mh_chain(
+                        dec_w, X2, (Wt, H), g, ypre, Z, Vs, seeds[it],
+                        mode="e", mask=mask, **chain_kw)
+                with span("gvnmf.em.m_step"):
+                    Wt2 = Wt * torch.sqrt(numW / denW)
+                    numH, denH = nmf_sums(samples, (Wt2, H), g, X2,
+                                          mode="h", **sums_kw)
+                    H2 = H * torch.sqrt(numH / denH).transpose(1, 2)
+                    norm_col = torch.sum(torch.abs(Wt2), dim=2)  # (B, K)
+                    Wt = (Wt2 / norm_col[..., None]).contiguous()
+                    H = (H2 * norm_col[:, :, None]).contiguous()
+                    num_g, den_g = nmf_sums(samples, (Wt, H), g, X2,
+                                            mode="g", **sums_kw)
+                    g = g * torch.sqrt(num_g / den_g)
+            elif cfg.noise_gain:
+                # the chain and the 'h' sums run at the scaled Vb; the b
+                # update splits the gradient with the unscaled Vbf
+                # (band-restricted f-sums with several bands); g updates at
+                # the new b
+                Vb_eff = eff_vb(b)
+                with span("gvnmf.em.e_chain"):
+                    Z, Vs, (samples, _, _) = mh_chain(
+                        dec_w, X2, None, g, ypre, Z, Vs, seeds[it],
+                        mode="e", Vb=Vb_eff, **chain_kw)
+                with span("gvnmf.em.m_step"):
+                    s1, s2 = nmf_sums(samples, None, g, mode="h", Vb=Vb_eff,
+                                      **sums_kw)
+                    if band_map is None:
+                        num_b = torch.sum(X2 * Vbf * s2, dim=-1)  # (B, N)
+                        den_b = torch.sum(Vbf * s1, dim=-1)
+                    else:
+                        num_b = torch.einsum("bnf,kf->bkn", X2 * Vbf * s2,
+                                             band_map)
+                        den_b = torch.einsum("bnf,kf->bkn", Vbf * s1,
+                                             band_map)
+                    b = b * torch.sqrt(num_b / den_b)
+                    Vb2 = eff_vb(b)
+                    num_g, den_g = nmf_sums(samples, None, g, X2, mode="g",
+                                            Vb=Vb2, **sums_kw)
+                    g = g * torch.sqrt(num_g / den_g)
+            else:
+                with span("gvnmf.em.e_chain"):
+                    Z, Vs, (samples, _, _) = mh_chain(
+                        dec_w, X2, None, g, ypre, Z, Vs, seeds[it],
+                        mode="e", Vb=Vbf, **chain_kw)
+                with span("gvnmf.em.m_step"):
+                    _, _, g = _nmf_m_step_batched(
+                        X2, mask, None, None, g, samples, update_nmf=False,
+                        Vb_fixed=Vbf, **sums_kw)
+                Vb2 = Vbf
+            if compute_cost:
+                with span("gvnmf.em.cost"):
+                    if update_nmf:
+                        Vb2 = torch.einsum("bkf,bkn->bnf", Wt, H)
+                    costs.append(_masked_cost_batched(X2, mask, Vb2, g,
+                                                      samples))
+
+        wf_kw = dict(nsamples=cfg.nsamples_WF, burnin=cfg.burnin_WF,
+                     var_RW=cfg.var_RW, approx_recip=approx_recip,
+                     approx_trans=approx_trans, matmul_dtype=matmul_dtype)
+        if update_nmf:
+            with span("gvnmf.wf_chain"):
+                Z, Vs, (ws, wn) = mh_chain(dec_w, X2, (Wt, H), g, ypre, Z,
+                                           Vs, seeds[cfg.niter], mode="wf",
+                                           **wf_kw)
+        else:
+            # the WF chain runs at the learned gain
+            Vb_wf = eff_vb(b) if cfg.noise_gain else Vbf
+            with span("gvnmf.wf_chain"):
+                Z, Vs, (ws, wn) = mh_chain(dec_w, X2, None, g, ypre, Z, Vs,
+                                           seeds[cfg.niter], mode="wf",
+                                           Vb=Vb_wf, **wf_kw)
+        cost = (torch.stack(costs, dim=1) if costs
+                else torch.zeros((B, cfg.niter), device=dev))
+        out = {
+            "WFs": (ws / cfg.nsamples_WF).transpose(1, 2),
+            "WFn": (wn / cfg.nsamples_WF).transpose(1, 2),
+            "cost": cost,
+            "W": Wt.transpose(1, 2), "H": H, "g": g,
+            "Z": Z.transpose(1, 2),
+        }
+        if cfg.noise_gain:
+            out["b"] = b
+        return out
+
+
+def _start(model, X_abs2, y, generator, cfg, update_nmf, Vb_fixed, init,
+           matmul_dtype):
+    """The engine's starting state: the frames-major mixture power X2
+    (B, N, F), the label pre-activation ypre, the encoder's Z and its
+    decode Vs, the chain's packed decoder weights, the NMF init (Wt
+    (B, K, F), H), the fixed noise variance Vbf (frames-major, or None),
+    the gain g and the chain seeds, one per EM iteration and one for the
+    WF chain, fetched to the host in a single transfer."""
     enc, dec = model.encoder, model.decoder
     B, F, N = X_abs2.shape
     dev = X_abs2.device
@@ -181,91 +298,6 @@ def mcem_batch_fused(model, X_abs2, mask, y, generator,
     Vbf = None if update_nmf else Vb_fixed.transpose(1, 2).contiguous()
     g = init["g"].contiguous() if "g" in init else torch.ones((B, N),
                                                              device=dev)
-    b = eff_vb = band_map = None
-    if cfg.noise_gain:
-        b, eff_vb, band_map = noise_gain_state(F, N, cfg.noise_gain_bands,
-                                               Vbf, batch=B)
-    # one chain seed per EM iteration and one for the WF chain, fetched to
-    # the host in a single transfer
     seeds = torch.randint(0, 2**62, (cfg.niter + 1,), generator=generator,
                           device=dev).tolist()
-    chain_kw = dict(nsamples=cfg.nsamples_E_step, burnin=cfg.burnin_E_step,
-                    var_RW=cfg.var_RW, samples_dtype=samples_dtype,
-                    approx_recip=approx_recip, approx_trans=approx_trans,
-                    matmul_dtype=matmul_dtype)
-    sums_kw = dict(approx_recip=approx_recip)
-
-    costs = []
-    for it in range(cfg.niter):
-        if update_nmf:
-            Z, Vs, (samples, numW, denW) = mh_chain(
-                dec_w, X2, (Wt, H), g, ypre, Z, Vs, seeds[it], mode="e",
-                mask=mask, **chain_kw)
-            Wt2 = Wt * torch.sqrt(numW / denW)
-            numH, denH = nmf_sums(samples, (Wt2, H), g, X2, mode="h",
-                                  **sums_kw)
-            H2 = H * torch.sqrt(numH / denH).transpose(1, 2)
-            norm_col = torch.sum(torch.abs(Wt2), dim=2)       # (B, K)
-            Wt = (Wt2 / norm_col[..., None]).contiguous()
-            H = (H2 * norm_col[:, :, None]).contiguous()
-            num_g, den_g = nmf_sums(samples, (Wt, H), g, X2, mode="g",
-                                    **sums_kw)
-            g = g * torch.sqrt(num_g / den_g)
-            Vb2 = (torch.einsum("bkf,bkn->bnf", Wt, H) if compute_cost
-                   else None)
-        elif cfg.noise_gain:
-            # the chain and the 'h' sums run at the scaled Vb; the b update
-            # splits the gradient with the unscaled Vbf (band-restricted
-            # f-sums with several bands); g updates at the new b
-            Vb_eff = eff_vb(b)
-            Z, Vs, (samples, _, _) = mh_chain(
-                dec_w, X2, None, g, ypre, Z, Vs, seeds[it], mode="e",
-                Vb=Vb_eff, **chain_kw)
-            s1, s2 = nmf_sums(samples, None, g, mode="h", Vb=Vb_eff,
-                              **sums_kw)
-            if band_map is None:
-                num_b = torch.sum(X2 * Vbf * s2, dim=-1)      # (B, N)
-                den_b = torch.sum(Vbf * s1, dim=-1)
-            else:
-                num_b = torch.einsum("bnf,kf->bkn", X2 * Vbf * s2, band_map)
-                den_b = torch.einsum("bnf,kf->bkn", Vbf * s1, band_map)
-            b = b * torch.sqrt(num_b / den_b)
-            Vb2 = eff_vb(b)
-            num_g, den_g = nmf_sums(samples, None, g, X2, mode="g", Vb=Vb2,
-                                    **sums_kw)
-            g = g * torch.sqrt(num_g / den_g)
-        else:
-            Z, Vs, (samples, _, _) = mh_chain(
-                dec_w, X2, None, g, ypre, Z, Vs, seeds[it], mode="e",
-                Vb=Vbf, **chain_kw)
-            _, _, g = _nmf_m_step_batched(X2, mask, None, None, g, samples,
-                                          update_nmf=False, Vb_fixed=Vbf,
-                                          **sums_kw)
-            Vb2 = Vbf
-        if compute_cost:
-            costs.append(_masked_cost_batched(X2, mask, Vb2, g, samples))
-
-    wf_kw = dict(nsamples=cfg.nsamples_WF, burnin=cfg.burnin_WF,
-                 var_RW=cfg.var_RW, approx_recip=approx_recip,
-                 approx_trans=approx_trans, matmul_dtype=matmul_dtype)
-    if update_nmf:
-        Z, Vs, (ws, wn) = mh_chain(dec_w, X2, (Wt, H), g, ypre, Z, Vs,
-                                   seeds[cfg.niter], mode="wf", **wf_kw)
-    else:
-        # the WF chain runs at the learned gain
-        Vb_wf = eff_vb(b) if cfg.noise_gain else Vbf
-        Z, Vs, (ws, wn) = mh_chain(dec_w, X2, None, g, ypre, Z, Vs,
-                                   seeds[cfg.niter], mode="wf", Vb=Vb_wf,
-                                   **wf_kw)
-    cost = (torch.stack(costs, dim=1) if costs
-            else torch.zeros((B, cfg.niter), device=dev))
-    out = {
-        "WFs": (ws / cfg.nsamples_WF).transpose(1, 2),
-        "WFn": (wn / cfg.nsamples_WF).transpose(1, 2),
-        "cost": cost,
-        "W": Wt.transpose(1, 2), "H": H, "g": g,
-        "Z": Z.transpose(1, 2),
-    }
-    if cfg.noise_gain:
-        out["b"] = b
-    return out
+    return X2, ypre, Z, Vs, dec_w, Wt, H, Vbf, g, seeds

@@ -78,7 +78,7 @@ from .mcem.spp import (
     timo_vad_estimation,
 )
 from .models.nets import classifier_features
-from .ops.profiling import StageTimer
+from .ops.profiling import StageTimer, span
 from .parallel.mesh import (
     ShardError,
     data_size,
@@ -364,10 +364,16 @@ def _mcem_wf_istft(model, X_re, X_im, X_p, mask, y, generator, cfg,
     Wiener gains."""
     out = _run_mcem(model, X_p, mask, y, generator, cfg, noise_model, fast,
                     init, engine, seeds)
-    X = torch.complex(X_re, X_im)
-    s_est = istft_masked(out["WFs"] * X, mask)
-    n_est = istft_masked(out["WFn"] * X, mask)
+    s_est, n_est = _wiener_istft(out, X_re, X_im, mask)
     return s_est, n_est, out["WFs"], out["WFn"]
+
+
+def _wiener_istft(out, X_re, X_im, mask):
+    """The engine's Wiener gains on the mixture -> masked batched ISTFT:
+    the (s_est, n_est) padded float32 waveforms."""
+    X = torch.complex(X_re, X_im)
+    return (istft_masked(out["WFs"] * X, mask),
+            istft_masked(out["WFn"] * X, mask))
 
 
 def _to_pcm16(w):
@@ -419,64 +425,80 @@ def enhance_waveform(model, x_pad, mask, cfg: MCEMConfig = MCEMConfig(), *,
     if label_mode not in LABEL_MODES:
         raise ValueError(f"unknown label_mode {label_mode!r}")
     dev = resolve_device(device)
-    x = _waveforms(x_pad, dev)
-    mask = _as_device(mask, dev, torch.float32)
-    if generator is None:
-        generator = torch.Generator(device=dev).manual_seed(0)
+    with span("gvnmf.batch", dev, rows=len(mask), n_pad=np.shape(mask)[-1],
+              valid_frames=lambda m=mask: _valid_frames(m)):
+        with span("gvnmf.front"):
+            x = _waveforms(x_pad, dev)
+            mask = _as_device(mask, dev, torch.float32)
+            if generator is None:
+                generator = torch.Generator(device=dev).manual_seed(0)
+            X = stft_batch_padded(x)
+            X_re, X_im = X.real.contiguous(), X.imag.contiguous()
+            X_p = torch.where(mask[:, None, :] > 0, X_re**2 + X_im**2, 1.0)
 
-    X = stft_batch_padded(x)
-    X_re, X_im = X.real.contiguous(), X.imag.contiguous()
-    X_p = torch.where(mask[:, None, :] > 0, X_re**2 + X_im**2, 1.0)
+        y = y_soft = y_hard = None
+        with span("gvnmf.labels"):
+            if label_mode == "host":
+                y = _as_device(y_in, dev, torch.float32)
+            elif label_mode == "oracle":
+                S = stft_batch_padded(_waveforms(s_pad, dev))
+                Sp = (S.real**2 + S.imag**2) * mask[:, None, :]
+                fn = (clean_speech_VAD_torch if target == "vad"
+                      else clean_speech_IBM_torch)
+                y = y_hard = fn(Sp, quantile_fraction, quantile_weight)
+            elif label_mode == "dnn":
+                # pad frames carry benign X_p = 1; the masked engine ignores
+                # their labels
+                xn = classifier_features(X_p.transpose(1, 2), features)
+                if mean is not None:
+                    mean_d = _as_device(mean, dev, torch.float32)
+                    std_d = _as_device(std, dev, torch.float32)
+                    xn = (xn - mean_d.reshape(1, 1, -1)) / (
+                        std_d.reshape(1, 1, -1) + 1e-8)
+                flat = classifier(xn.reshape(-1, xn.shape[-1]))
+                y_soft = flat.reshape(xn.shape[0], xn.shape[1],
+                                      -1).transpose(1, 2)
+                y_hard = (y_soft > dnn_threshold).to(torch.float32)
+                y = y_soft if soft_guidance else y_hard
+            elif label_mode == "timo":
+                # SPP recurrence is causal over frames, so trailing pad frames
+                # (benign X_p = 1) cannot perturb the valid prefix
+                if target == "vad":
+                    y_soft = timo_vad(X_p)[:, None, :]
+                else:
+                    y_soft = timo_mask(X_p)
+                y_hard = (y_soft > 0.5).to(torch.float32)
+                y = y_soft if soft_guidance else y_hard
+            elif label_mode in ("ones", "zeros"):
+                y_dim = 1 if target == "vad" else X_p.shape[1]
+                fill = torch.ones if label_mode == "ones" else torch.zeros
+                y = fill((X_p.shape[0], y_dim, X_p.shape[2]), device=dev)
+                y_soft = y_hard = y
 
-    y = y_soft = y_hard = None
-    if label_mode == "host":
-        y = _as_device(y_in, dev, torch.float32)
-    elif label_mode == "oracle":
-        S = stft_batch_padded(_waveforms(s_pad, dev))
-        Sp = (S.real**2 + S.imag**2) * mask[:, None, :]
-        fn = (clean_speech_VAD_torch if target == "vad"
-              else clean_speech_IBM_torch)
-        y = y_hard = fn(Sp, quantile_fraction, quantile_weight)
-    elif label_mode == "dnn":
-        # pad frames carry benign X_p = 1; the masked engine ignores their
-        # labels
-        xn = classifier_features(X_p.transpose(1, 2), features)
-        if mean is not None:
-            mean_d = _as_device(mean, dev, torch.float32)
-            std_d = _as_device(std, dev, torch.float32)
-            xn = (xn - mean_d.reshape(1, 1, -1)) / (
-                std_d.reshape(1, 1, -1) + 1e-8)
-        flat = classifier(xn.reshape(-1, xn.shape[-1]))
-        y_soft = flat.reshape(xn.shape[0], xn.shape[1], -1).transpose(1, 2)
-        y_hard = (y_soft > dnn_threshold).to(torch.float32)
-        y = y_soft if soft_guidance else y_hard
-    elif label_mode == "timo":
-        # SPP recurrence is causal over frames, so trailing pad frames
-        # (benign X_p = 1) cannot perturb the valid prefix
-        if target == "vad":
-            y_soft = timo_vad(X_p)[:, None, :]
-        else:
-            y_soft = timo_mask(X_p)
-        y_hard = (y_soft > 0.5).to(torch.float32)
-        y = y_soft if soft_guidance else y_hard
-    elif label_mode in ("ones", "zeros"):
-        y_dim = 1 if target == "vad" else X_p.shape[1]
-        fill = torch.ones if label_mode == "ones" else torch.zeros
-        y = fill((X_p.shape[0], y_dim, X_p.shape[2]), device=dev)
-        y_soft = y_hard = y
+        out = _run_mcem(model, X_p, mask, y, generator, cfg, noise_model,
+                        fast, init, engine, seeds)
+        with span("gvnmf.back"):
+            s_est, n_est = _wiener_istft(out, X_re, X_im, mask)
+            # per-row flags: one row's numeric failure must not fail its
+            # batch-mates
+            finite_ok = torch.all(torch.isfinite(s_est), dim=-1)
+            if return_noise:
+                finite_ok = finite_ok & torch.all(torch.isfinite(n_est),
+                                                  dim=-1)
+            out_soft = (y_soft.to(torch.float16)
+                        if label_mode in ("dnn", "timo") else None)
+            out_hard = None if y_hard is None else _packbits_bands(y_hard)
+            out_n = _to_pcm16(n_est) if return_noise else None
+            return _to_pcm16(s_est), out_n, out_soft, out_hard, finite_ok
 
-    s_est, n_est, _, _ = _mcem_wf_istft(model, X_re, X_im, X_p, mask, y,
-                                        generator, cfg, noise_model, fast,
-                                        init=init, engine=engine, seeds=seeds)
-    # per-row flags: one row's numeric failure must not fail its batch-mates
-    finite_ok = torch.all(torch.isfinite(s_est), dim=-1)
-    if return_noise:
-        finite_ok = finite_ok & torch.all(torch.isfinite(n_est), dim=-1)
-    out_soft = (y_soft.to(torch.float16) if label_mode in ("dnn", "timo")
-                else None)
-    out_hard = None if y_hard is None else _packbits_bands(y_hard)
-    out_n = _to_pcm16(n_est) if return_noise else None
-    return _to_pcm16(s_est), out_n, out_soft, out_hard, finite_ok
+
+def _valid_frames(mask):
+    """Valid frames of a batch's mask: an int for a host mask, a device
+    tensor (read when the spans are resolved) for a device one."""
+    if isinstance(mask, torch.Tensor):
+        n = torch.count_nonzero(mask)
+        return n if n.device.type != "cpu" else int(n)
+    return int(np.count_nonzero(mask))
 
 
 def _row_slice(a, s):
