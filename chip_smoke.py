@@ -37,7 +37,11 @@ Phases, in order; any failure exits nonzero without a result line:
    the approximate reciprocal (K2c); the chain with bfloat16 decoder
    products (K1d, at the fast level) in both modes and forms, at K1D_TOL
    with the elements past TOL counted; then, at B=2, N=256, the accept
-   rule under real uniforms and the in-kernel Philox stream.
+   rule under real uniforms and the in-kernel Philox stream. Every chain
+   runs with the mask's live flags, as `mcem_batch_fused` runs it (the
+   seeded mask's last row ends 37 frames early, so its last tile pair is
+   dead): the frames of live pairs are held against the plain version,
+   those of dead pairs to the values `csrc/mh_chain.cu` documents.
 4. main path: four synthetic speech-like mixtures (2-5 s, 5 dB SNR, int16)
    through `enhance_waveform(label_mode="dnn")` with the shipped M2-IBM and
    classifier weights and the default MCEMConfig (100 EM iterations), with
@@ -205,7 +209,12 @@ Phases, in order; any failure exits nonzero without a result line:
    PEEM and a 25-iteration hybrid, which prints its JSON line (fast_bf16mm:
    100 K1d E + 1 K1d WF launches a run).
 12. kernel times at the paths' shapes, every variant, beside their bounds
-   and their plain versions' times: K1 by CUDA events; K2 as device time
+   and their plain versions' times: K1 by CUDA events, with the mask's
+   live flags as the main path runs it (the seeded mask's one dead pair
+   of 48), and K1a E and WF with no pair dead, every flag set, in turns
+   with the same launch without flags (`no_dead_pair_ms` of their
+   entries, `k1a_no_dead_pair_*` in the record's `k1g_vs_k1e`); K2 as
+   device time
    between two events inside a CUDA graph with the L2 as the main path
    leaves it (right after a K1 E launch), warm and cold, beside the
    CUDA-event time of back-to-back calls and the wrapper's host time a
@@ -517,9 +526,11 @@ def host_us(torch, fn, calls=1000):
 def chain_inputs(torch, model, B, N, K, seed, device):
     """Seeded chain inputs at full width on the shipped decoder: X2 power
     frames, NMF factors, a given noise variance Vb, gains, binary labels ->
-    ypre, Z ~ N(0, 1), Vs = decode(Z), and a mask whose last row ends 37
-    frames early."""
+    ypre, Z ~ N(0, 1), Vs = decode(Z), a mask whose last row ends 37
+    frames early and its live flags (`live`, one a tile pair, as
+    `mcem_batch_fused` derives them)."""
     from guided_vae_nmf_torch.mcem.fused_engine import _dec_parts
+    from guided_vae_nmf_torch.mcem.mh_chain import live_pairs
 
     rng = np.random.RandomState(seed)
     dec = model.decoder
@@ -531,6 +542,7 @@ def chain_inputs(torch, model, B, N, K, seed, device):
     Z = t(rng.randn(B, N, L).astype(np.float32))
     mask = np.ones((B, N), np.float32)
     mask[-1, N - 37:] = 0.0
+    mask = t(mask)
     return dict(
         dec_w=_dec_parts(dec, L),
         X2=t(rng.gamma(0.5, 2.0, (B, N, F)).astype(np.float32) + 1e-3),
@@ -538,8 +550,9 @@ def chain_inputs(torch, model, B, N, K, seed, device):
             t(rng.uniform(0.01, 1.0, (B, K, N)).astype(np.float32))),
         g=t(rng.uniform(0.5, 1.5, (B, N)).astype(np.float32)),
         ypre=(y @ l0.w[L:] + l0.b).contiguous(), Z=Z,
-        Vs=dec(torch.cat([Z, y], dim=-1)).contiguous(), mask=t(mask), L=L,
-        Vb=t(rng.uniform(0.05, 1.5, (B, N, F)).astype(np.float32)))
+        Vs=dec(torch.cat([Z, y], dim=-1)).contiguous(), mask=mask, L=L,
+        Vb=t(rng.uniform(0.05, 1.5, (B, N, F)).astype(np.float32)),
+        live=live_pairs(mask))
 
 
 def decisive_noise(torch, seed, B, N, L, n_steps, device):
@@ -716,6 +729,59 @@ def run_chain(c, fn, mode, nsamples, burnin, var_rw, vb=False, **kw):
               Vb=c["Vb"] if vb else None, **kw)
 
 
+def pair_frames(c):
+    """(B, N) bool: the frames of the tile pairs that c["live"] marks."""
+    return c["live"].repeat_interleave(32, dim=1)[:, :c["mask"].shape[1]]
+
+
+def on_frames(x, on):
+    """x's elements on the frames that `on` (B, N) marks: a per-frame
+    output (B, N, ...) or a sample dump (B, R, N, F) by frame; a sum over
+    frames (numW / denW) whole."""
+    if x.shape[:2] == on.shape:
+        return x[on]
+    if x.dim() == 4 and x.shape[2] == on.shape[1]:
+        return x.transpose(1, 2)[on]
+    return x
+
+
+def check_dead_pairs(torch, c, got, mode, vb, nsamples, label):
+    """A chain run with the live flags c["live"]: every output finite, and
+    on the frames of dead pairs what `csrc/mh_chain.cu`'s file comment
+    documents (a chain that rejects every proposal from the caller's
+    state): Z and Vs the caller's, each of the R dumps Vs rounded as the
+    dumps are, and s1 / s2 (E, Vb form) or acc_s / acc_n (WF) the R-step
+    sums at the unchanged Vs, within TOL of the same sums formed here.
+    Returns the dead frames' count."""
+    outs = (got[0], got[1]) + tuple(got[2])
+    check(all(bool(x.float().isfinite().all()) for x in outs),
+          f"{label}: non-finite kernel output")
+    off = ~pair_frames(c)
+    n = int(off.sum())
+    if not n:
+        return 0
+    check(torch.equal(got[0][off], c["Z"][off])
+          and torch.equal(got[1][off], c["Vs"][off]),
+          f"{label}: a dead pair's Z or Vs is not the caller's")
+    if mode == "e":
+        dumps = got[2][0].transpose(1, 2)[off]
+        want = c["Vs"][off].to(dumps.dtype)
+        check(all(torch.equal(dumps[:, r], want) for r in range(nsamples)),
+              f"{label}: a dead pair's sample dumps are not its Vs")
+    if mode == "wf" or vb:
+        Vb = c["Vb"] if vb else torch.einsum("bkn,bkf->bnf", c["WH"][1],
+                                             c["WH"][0])
+        inv = 1.0 / torch.clamp_min(c["g"][..., None] * c["Vs"] + Vb, 1e-10)
+        if mode == "e":
+            sums = (("s1", inv), ("s2", inv * inv))
+        else:
+            sums = (("WFs_sum", 1.0 - Vb * inv), ("WFn_sum", Vb * inv))
+        for (name, term), x in zip(sums, got[2][-2:]):
+            compare(f"{name} (dead pairs)", x[off], nsamples * term[off])
+    log(f"  {label}: {n} frames of dead pairs hold the documented values")
+    return n
+
+
 def run_sums(c, fn, samples, mode, vb=False, **kw):
     if vb:
         return fn(samples, None, c["g"], c["X2"], mode=mode, Vb=c["Vb"],
@@ -768,6 +834,9 @@ def phase_kernels(torch, model, dev, shapes):
     for B, N in shapes:
         c = chain_inputs(torch, model, B, N, K, 1, dev)
         L = c["L"]
+        on = pair_frames(c)
+        log(f" B={B} N={N}: {int(c['live'].sum())} of {c['live'].numel()} "
+            "tile pairs live")
         for vb, form in ((False, "wh"), (True, "vb")):
             for mode, nsamples, burnin in (("e", 10, 30), ("wf", 25, 75)):
                 names = (["Z", "Vs", "samples"]
@@ -785,15 +854,17 @@ def phase_kernels(torch, model, dev, shapes):
                         kw_ref = dict(generator=torch.Generator(
                             device=dev).manual_seed(3))
                     got = run_chain(c, mh_chain, mode, nsamples, burnin,
-                                    var_rw, vb=vb, **kw)
+                                    var_rw, vb=vb, live=c["live"], **kw)
                     ref = run_chain(c, mh_chain_ref, mode, nsamples, burnin,
                                     var_rw, vb=vb, **kw_ref)
                     torch.cuda.synchronize()
                     log(f" K1{'b' if vb else 'a'} {mode}-mode, {label}, "
-                        f"B={B} N={N}:")
+                        f"B={B} N={N}, on live pairs:")
                     for name, x, y in zip(names, (got[0], got[1]) + got[2],
                                           (ref[0], ref[1]) + ref[2]):
-                        err[key] = max(err[key], compare(name, x, y))
+                        err[key] = max(err[key], compare(
+                            name, on_frames(x, on), on_frames(y, on)))
+                    check_dead_pairs(torch, c, got, mode, vb, nsamples, key)
                     if mode == "wf":
                         unity = (got[2][0] + got[2][1]) / nsamples
                         check(torch.allclose(unity, torch.ones_like(unity),
@@ -803,33 +874,38 @@ def phase_kernels(torch, model, dev, shapes):
                 noise = decisive_noise(torch, 4, B, N, L, 40, dev)
                 for mode in ("e", "wf"):
                     got = run_chain(c, mh_chain, mode, 10, 30, 0.01, vb=vb,
-                                    noise=noise, **kw)
+                                    noise=noise, live=c["live"], **kw)
                     ref = run_chain(c, mh_chain_ref, mode, 10, 30, 0.01,
                                     vb=vb, noise=noise, **kw)
                     torch.cuda.synchronize()
                     log(f" K1c {mode}-mode, {form} form, {kw}, injected, "
-                        f"B={B} N={N}:")
+                        f"B={B} N={N}, on live pairs:")
                     if mode == "e":
+                        same = torch.equal(on_frames(got[2][0], on),
+                                           on_frames(ref[2][0], on))
                         log(f"  bfloat16 samples bit-equal to the plain "
-                            f"version's: {torch.equal(got[2][0], ref[2][0])}")
+                            f"version's: {same}")
                     key = f"mh_chain_{mode}_{form}{level}"
                     for x, y in zip((got[0], got[1]) + got[2],
                                     (ref[0], ref[1]) + ref[2]):
                         err[key] = max(err[key], compare(
-                            "out", x.float(), y.float()))
+                            "out", on_frames(x, on).float(),
+                            on_frames(y, on).float()))
+                    check_dead_pairs(torch, c, got, mode, vb, 10, key)
                     if level != "_fast":
                         continue
                     # K1d: the same fast options with bfloat16 products
                     kw16 = fast_kw(torch, "_fast_mm16")
                     got16 = run_chain(c, mh_chain, mode, 10, 30, 0.01,
-                                      vb=vb, noise=noise, **kw16)
+                                      vb=vb, noise=noise, live=c["live"],
+                                      **kw16)
                     ref16 = run_chain(c, mh_chain_ref, mode, 10, 30, 0.01,
                                       vb=vb, noise=noise, **kw16)
                     torch.cuda.synchronize()
                     log(f" K1d {mode}-mode, {form} form, {kw16}, "
-                        f"injected, B={B} N={N}:")
+                        f"injected, B={B} N={N}, on live pairs:")
                     key16 = f"mh_chain_{mode}_{form}_fast_mm16"
-                    check(torch.equal(got16[0], ref16[0]),
+                    check(torch.equal(got16[0][on], ref16[0][on]),
                           "K1d: Z differs from the plain version's under "
                           "decisive noise")
                     names16 = (["Z", "Vs", "samples"]
@@ -839,11 +915,14 @@ def phase_kernels(torch, model, dev, shapes):
                     for name, x, y in zip(names16, (got16[0], got16[1])
                                           + got16[2],
                                           (ref16[0], ref16[1]) + ref16[2]):
-                        e, past, n = compare_k1d(name, x.float(), y.float())
+                        e, past, n = compare_k1d(
+                            name, on_frames(x, on).float(),
+                            on_frames(y, on).float())
                         err[key16] = max(err[key16], e)
                         k1d_past[key16][0] += past
                         k1d_past[key16][1] += n
-                    moved = past_fraction(got16[1], got[1])
+                    check_dead_pairs(torch, c, got16, mode, vb, 10, key16)
+                    moved = past_fraction(got16[1][on], got[1][on])
                     log(f"  Vs past TOL from the float32-product kernel's: "
                         f"{100 * moved:.1f} % (needs > 50 %: the option "
                         "reached the products)")
@@ -857,6 +936,7 @@ def phase_kernels(torch, model, dev, shapes):
     B, N = shapes[0]
     c = chain_inputs(torch, model, B, N, K, 1, dev)
     L = c["L"]
+    on = pair_frames(c)
     chain_c = lambda *a, **kw: run_chain(c, *a, **kw)  # noqa: E731
     nsamples, burnin = 10, 30
     gen = np.random.RandomState(9)
@@ -864,24 +944,28 @@ def phase_kernels(torch, model, dev, shapes):
                           device=dev),
              torch.tensor(gen.uniform(1e-6, 1, (B, 40, N)).astype(
                  np.float32), device=dev))
-    got = chain_c(mh_chain, "e", nsamples, burnin, 0.01, noise=noise)
+    got = chain_c(mh_chain, "e", nsamples, burnin, 0.01, noise=noise,
+                  live=c["live"])
     ref = chain_c(mh_chain_ref, "e", nsamples, burnin, 0.01, noise=noise)
-    same = torch.all(torch.isclose(got[0], ref[0], **TOL), dim=-1)
+    same = torch.all(torch.isclose(got[0][on], ref[0][on], **TOL), dim=-1)
     frac = same.float().mean().item()
-    log(f" K1 e-mode, uniform accept draws: {frac:.4f} of frames follow "
-        "the plain version's trajectory (needs >= 0.95)")
+    log(f" K1 e-mode, uniform accept draws: {frac:.4f} of the live pairs' "
+        "frames follow the plain version's trajectory (needs >= 0.95)")
     check(frac >= 0.95, "accept decisions disagree with the plain version")
 
     # in-kernel Philox
-    a = chain_c(mh_chain, "e", nsamples, burnin, 0.01, seed=11)
-    b = chain_c(mh_chain, "e", nsamples, burnin, 0.01, seed=11)
+    a = chain_c(mh_chain, "e", nsamples, burnin, 0.01, seed=11,
+                live=c["live"])
+    b = chain_c(mh_chain, "e", nsamples, burnin, 0.01, seed=11,
+                live=c["live"])
     check(torch.equal(a[0], b[0]) and torch.equal(a[2][0], b[2][0]),
           "Philox run is not reproducible")
-    samples = a[2][0]
+    samples = on_frames(a[2][0], on)                 # (frames, R, F)
     rate = torch.any(samples[:, 1:] != samples[:, :-1],
                      dim=-1).float().mean().item()
     zn, u = philox_streams(11, B, N, L, nsamples + burnin, dev)
-    inj = chain_c(mh_chain, "e", nsamples, burnin, 0.01, noise=(zn, u))
+    inj = chain_c(mh_chain, "e", nsamples, burnin, 0.01, noise=(zn, u),
+                  live=c["live"])
     log(f" K1 Philox: reproducible; sampling-phase acceptance {rate:.4f}; "
         f"proposal normals mean {zn.mean().item():+.5f} var "
         f"{zn.var().item():.5f} ({zn.numel()} draws); uniforms in "
@@ -3207,14 +3291,17 @@ def hold_at_script_shape(torch, model, B, N, levels, dev, what):
     """K1 in E and WF mode ('wh' form, MCEMConfig()'s chain lengths and
     step, decisive injected noise) at each of `levels`, and K2 'h' / 'g'
     over each E chain's own dump, against their plain versions on the same
-    inputs at a script's (B, N), on the shipped decoder. Returns
-    {variant: [max abs error, elements past TOL, elements]}."""
+    inputs at a script's (B, N), on the shipped decoder. K1 runs with the
+    mask's live flags: its live pairs are held against the plain version,
+    its dead pairs to the documented values. Returns {variant: [max abs
+    error, elements past TOL, elements]}."""
     from guided_vae_nmf_torch.mcem import (MCEMConfig, mh_chain,
                                            mh_chain_ref, nmf_sums,
                                            nmf_sums_ref)
 
     cfg = MCEMConfig()
     c = chain_inputs(torch, model, B, N, cfg.nmf_rank, 5, dev)
+    on = pair_frames(c)
     out = {}
 
     def keep(key, res):
@@ -3231,17 +3318,19 @@ def hold_at_script_shape(torch, model, B, N, levels, dev, what):
         for level in levels:
             kw = fast_kw(torch, level)
             got = run_chain(c, mh_chain, mode, ns, bi, cfg.var_RW,
-                            noise=noise, **kw)
+                            noise=noise, live=c["live"], **kw)
             ref = run_chain(c, mh_chain_ref, mode, ns, bi, cfg.var_RW,
                             noise=noise, **kw)
             key = f"mh_chain_{mode}_wh{level}"
             log(f" {what}: {key} against its plain version at B={B}, "
-                f"N={N}, {ns} + {bi} steps:")
+                f"N={N}, {ns} + {bi} steps, on live pairs:")
             for name, x, y in zip(names, (got[0], got[1]) + tuple(got[2]),
                                   (ref[0], ref[1]) + tuple(ref[2])):
-                keep(key, compare_on_card(name, x, y,
+                keep(key, compare_on_card(name, on_frames(x, on),
+                                          on_frames(y, on),
                                           k1d=level.endswith("_mm16")))
             del ref
+            check_dead_pairs(torch, c, got, mode, False, ns, key)
             if mode == "wf":
                 continue
             samples, sums = got[2][0], "_fast" if level else ""
@@ -4648,7 +4737,7 @@ def phase_times(torch, model, cfg, B, N, dev, gpu, err, launches, k1d_past,
                 timed[f"mh_chain_{mode}_{form}{level}"] = dict(
                     ms=time_cuda(lambda: run_chain(
                         ck, mh_chain, mode, ns, bi, cfg.var_RW, vb=vb,
-                        seed=1, **kw)),
+                        seed=1, live=c["live"], **kw)),
                     plain_ms=time_cuda(lambda: run_chain(
                         c, mh_chain_ref, mode, ns, bi, cfg.var_RW, vb=vb,
                         generator=gen, **kw), launches=2, reps=3),
@@ -4676,6 +4765,8 @@ def phase_times(torch, model, cfg, B, N, dev, gpu, err, launches, k1d_past,
         f"{rank_bound[0]:.4f} ms; {gpu}")
     for level in ("", "_fast"):
         timed.update(time_sums(torch, cw, False, level, cfg, gpu))
+    # K1a where no pair is dead, beside the same launch without flags
+    k1g_vs_k1e.update(times_bypass(torch, model, cfg, B, N, dev, gpu))
     kernels = []
     for key in VARIANTS:
         v = timed[key]
@@ -4695,6 +4786,9 @@ def phase_times(torch, model, cfg, B, N, dev, gpu, err, launches, k1d_past,
             "mh_chain_ext" if "_ext" in key else kern]
         detail = dict(B=B, N=N, F=F, L=L, H=Hd, K=K, R=R, flops=v["flops"],
                       bytes=v["bytes"])
+        if kern == "mh_chain" and "_gen" not in key and "_ext" not in key:
+            detail.update(pairs=c["live"].numel(),
+                          live_pairs=int(c["live"].sum()))
         detail.update(v.get("shape", {}))
         detail.update({k: v[k] for k in (
             "bound_terms_ms", "binding", "past_tol", "compared", "warm_ms",
@@ -4707,11 +4801,41 @@ def phase_times(torch, model, cfg, B, N, dev, gpu, err, launches, k1d_past,
             max_abs_err=err[key], ms=v["ms"], plain_ms=v["plain_ms"],
             bound_ms=v["bound_ms"], bound_by=v["bound_by"], library_ms=None,
             detail=detail))
+        if key in ("mh_chain_e_wh", "mh_chain_wf_wh"):
+            # the same launch where no pair is dead (every flag set)
+            kernels[-1]["no_dead_pair_ms"] = k1g_vs_k1e[
+                f"k1a_no_dead_pair_{key[9:-3]}"]["flags"]
     return kernels, k1g_vs_k1e
 
 
 # K1 at bench.py's shapes, beside the paths' B=4, N=384.
 LARGE_SHAPE = (32, 512)
+
+
+def times_bypass(torch, model, cfg, B, N, dev, gpu):
+    """K1a E and WF (exact) by CUDA events at the paths' B, N with every
+    row whole, so no pair is dead and the skip is bypassed: with every
+    flag set, in turns with the same launch without flags. Returns the
+    rows by mode."""
+    from guided_vae_nmf_torch.mcem import mh_chain
+    from guided_vae_nmf_torch.mcem.mh_chain import pack_weights
+
+    c = chain_inputs(torch, model, B, N, cfg.nmf_rank, 7, dev)
+    c["dec_w"] = pack_weights(c["dec_w"])
+    c["mask"] = torch.ones_like(c["mask"])
+    live = torch.ones_like(c["live"])
+    rows = {}
+    for mode, ns, bi in (("e", cfg.nsamples_E_step, cfg.burnin_E_step),
+                         ("wf", cfg.nsamples_WF, cfg.burnin_WF)):
+        t = {"flags": [], "no_flags": []}
+        for _ in range(2):
+            for k, kw in (("flags", dict(live=live)), ("no_flags", {})):
+                t[k].append(time_cuda(lambda: run_chain(
+                    c, mh_chain, mode, ns, bi, cfg.var_RW, seed=1, **kw)))
+        rows[f"k1a_no_dead_pair_{mode}"] = dict(B=B, N=N, **t)
+        log(f"  K1a {mode}_wh at B={B} N={N}, no pair dead: {t['flags']} ms "
+            f"with every flag set, {t['no_flags']} ms without flags; {gpu}")
+    return rows
 
 
 def phase_geometry(torch, dev):
@@ -4798,7 +4922,8 @@ def phase_sums_geometry(torch, dev, R=10, F=513, K=10):
 
 def phase_times_large(torch, model, cfg, dev, gpu):
     """K1a and K1b, E and WF, exact, at LARGE_SHAPE (bench.py's B and N)
-    beside their bounds (no plain version: it takes seconds there)."""
+    beside their bounds (no plain version: it takes seconds there), with
+    the mask's live flags."""
     from guided_vae_nmf_torch.mcem import mh_chain
     from guided_vae_nmf_torch.mcem.mh_chain import pack_weights
 
@@ -4814,7 +4939,8 @@ def phase_times_large(torch, model, cfg, dev, gpu):
             bound, by, flops, nbytes = chain_bound(
                 B, N, F, L, Hd, K, ns, ns + bi, mode, vb=vb)
             ms = time_cuda(lambda: run_chain(c, mh_chain, mode, ns, bi,
-                                             cfg.var_RW, vb=vb, seed=1),
+                                             cfg.var_RW, vb=vb, seed=1,
+                                             live=c["live"]),
                            launches=5, reps=3)
             key = f"mh_chain_{mode}_{form}"
             rows[key] = dict(B=B, N=N, ms=ms, bound_ms=bound, bound_by=by,

@@ -83,7 +83,27 @@
 //   * two tiles a cluster halve the clusters of a launch: at 30 resident
 //     clusters of 4 CTAs (one CTA an SM), B=4, N=384 runs in 2 waves
 //     instead of 4, and each step's barriers and serial latencies serve
-//     32 frames.
+//     32 frames. Every cluster's chain is the same fixed work, so a
+//     launch takes ceil(running clusters / resident clusters) waves.
+//   * dead pairs: with the optional live flags (B, ceil(n_tiles / 2)),
+//     one per tile pair in this layout (live when any of the pair's
+//     frames has mask > 0; the caller derives them from the mask), the
+//     cluster of a dead pair runs no chain: no weight load, no draws, no
+//     step. It exits at once, so the live clusters pack into
+//     ceil(live / resident) waves. Each of its CTAs writes, for its own
+//     columns and the pair's own frames (no barrier, no peer's shared
+//     memory), what a chain that rejects every proposal leaves from the
+//     caller's state: z_out = Z, vs_out = Vs, each of the R sample dumps
+//     Vs (rounded to bfloat16 where the dumps are), numW / denW partials
+//     0 (what a live cluster writes for frames whose mask is 0), and the
+//     R-step sums at the unchanged Vs, 1/Vx = 1 / max(g Vs + Vb, 1e-10):
+//     s1 = sum 1/Vx, s2 = sum 1/Vx^2 (E, Vb form), acc_n = sum Vb/Vx,
+//     acc_s = sum (1 - Vb/Vx) (WF), added one step after another as a
+//     live chain adds them. Pad frames are masked out downstream by a
+//     product with the mask (the ISTFT, the cost pass, the W sums), and a
+//     NaN or an infinity would survive that product, so every value is
+//     finite: a zero dump would make the gain update 0/0 on the frame.
+//     A live pair's outputs do not depend on the flags.
 //   * the TPU accumulated numW / denW across frame tiles in one resident
 //     output block, relying on its sequential grid. Here every CTA writes
 //     its own (K, slice) partials per tile and a second kernel sums them
@@ -153,6 +173,7 @@ struct Params {
   __nv_bfloat16* out1h;  // E: bfloat16 samples in place of out1, or null
   int approx_recip, approx_trans;
   int mm_bf16;        // decoder products on bfloat16 operands (K1d)
+  const unsigned char* live;  // (B, pairs) live flags, or null: every pair runs
 };
 
 __host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
@@ -326,14 +347,14 @@ __device__ __forceinline__ float pick(bool c, float a, float b) {
 
 // The cluster's frames: two tiles of utterance b. With an odd tile count
 // the last cluster of an utterance repeats its first tile as the second,
-// computes it alongside and writes nothing of it.
+// computes it alongside and writes nothing of it: own(t) is false there.
 struct Frames {
   int b, tile0, tile1;
   __device__ int n(int t) const {
     return (t < TILE ? tile0 : tile1) * TILE + (t & (TILE - 1));
   }
   __device__ size_t row(int t, int N) const { return (size_t)b * N + n(t); }
-  __device__ bool live(int t) const { return t < TILE || tile1 != tile0; }
+  __device__ bool own(int t) const { return t < TILE || tile1 != tile0; }
 };
 
 // ---------------------------------------------------------------------------
@@ -679,7 +700,7 @@ __device__ __forceinline__ void sample_update(const Params& p, const Geo& g,
         inv[j][i] = recip<OPTS>(p, mix_var(sm.g[t], v[j][i], sm.vb[o]));
       }
       if (MODE == MODE_E) {
-        if (fr.live(t)) {
+        if (fr.own(t)) {
           if (OPTS && p.out1h != nullptr)
             p.out1h[so + j] = __float2bfloat16_rn(vs[j][i]);
           else
@@ -743,6 +764,73 @@ __device__ __forceinline__ void mh_step(const Params& p, const Geo& g,
   if (SAMPLE) sample_update<MODE, OPTS>(p, g, sm, fr, c0, ps, r, v, vs, inv);
 }
 
+// A dead pair's outputs (see the file comment): this CTA's columns
+// [c0, c0 + Fs) of the pair's own frames, Z by rank 0; no barrier and no
+// shared memory.
+template <int MODE, bool VB, bool OPTS>
+__device__ void dead_pair(const Params& p, const Frames& fr, int rank,
+                          int c0, int Fs, int n_tiles) {
+  const int tid = threadIdx.x, NT = blockDim.x;
+  const int R = p.n_steps - p.burnin;
+  const int own = fr.tile1 != fr.tile0 ? T : TILE;
+  if (rank == 0)
+    for (int i = tid; i < own * p.L; i += NT) {
+      const size_t gi = fr.row(i / p.L, p.N) * p.L + i % p.L;
+      p.z_out[gi] = p.z[gi];
+    }
+  for (int i = tid; i < own * Fs; i += NT) {
+    const int t = i / Fs, c = i % Fs;
+    const size_t gi = fr.row(t, p.N) * p.F + c0 + c;
+    const float vs = p.vs[gi];
+    p.vs_out[gi] = vs;
+    if (MODE == MODE_E) {
+      for (int r = 0; r < R; ++r) {
+        const size_t so =
+            ((size_t)(fr.b * R + r) * p.N + fr.n(t)) * p.F + c0 + c;
+        if (OPTS && p.out1h != nullptr)
+          p.out1h[so] = __float2bfloat16_rn(vs);
+        else
+          p.out1[so] = vs;
+      }
+      if (!VB) continue;
+    }
+    float vb = 0.0f;
+    if (VB) {
+      vb = p.vb[gi];
+    } else {
+      for (int k = 0; k < p.K; ++k)
+        vb = fmaf(p.h[((size_t)fr.b * p.K + k) * p.N + fr.n(t)],
+                  __ldg(p.wt + ((size_t)fr.b * p.K + k) * p.F + c0 + c), vb);
+    }
+    const float inv = recip<OPTS>(p, mix_var(p.g[fr.row(t, p.N)], vs, vb));
+    float a1 = 0.0f, a2 = 0.0f;
+    for (int r = 0; r < R; ++r) {
+      if (MODE == MODE_E) {
+        a1 = __fadd_rn(a1, inv);
+        a2 = __fadd_rn(a2, __fmul_rn(inv, inv));
+      } else {
+        const float tt = __fmul_rn(vb, inv);
+        a2 = __fadd_rn(a2, tt);                    // acc_n
+        a1 = __fadd_rn(a1, __fsub_rn(1.0f, tt));   // acc_s
+      }
+    }
+    // WF: acc_s / acc_n; E, Vb form: s1 / s2
+    (MODE == MODE_WF ? p.out1 : p.out2)[gi] = a1;
+    (MODE == MODE_WF ? p.out2 : p.out3)[gi] = a2;
+  }
+  if (MODE == MODE_E && !VB) {
+    const int n_sub = fr.tile1 != fr.tile0 ? 2 : 1;
+    for (int i = tid; i < n_sub * p.K * Fs; i += NT) {
+      const int st = i / (p.K * Fs), k = (i / Fs) % p.K, c = i % Fs;
+      const int tile = st ? fr.tile1 : fr.tile0;
+      const size_t po =
+          (((size_t)fr.b * n_tiles + tile) * p.K + k) * p.F + c0 + c;
+      p.part1[po] = 0.0f;
+      p.part2[po] = 0.0f;
+    }
+  }
+}
+
 // VB selects the Vb form (K1b): Vb rows are read from p.vb, and E-mode
 // writes s1 / s2 per (frame, bin) instead of the H-contracted partials.
 // OPTS: the kernel with runtime options (see the file comment). One
@@ -763,6 +851,10 @@ __global__ void __launch_bounds__(MAX_NT, 1) mh_chain_kernel(Params p) {
   const int c0 = rank * g.Fsl, j0 = rank * g.Hsl;
   const int Fs = max(0, min(g.Fsl, p.F - c0));
   const int Hs = max(0, min(g.Hsl, p.Hd - j0));
+  if (p.live != nullptr && !p.live[(size_t)fr.b * pairs + cid % pairs]) {
+    dead_pair<MODE, VB, OPTS>(p, fr, rank, c0, Fs, n_tiles);
+    return;
+  }
   Pos ps;
   ps.fg = tid / g.nq;
   ps.cq = tid - ps.fg * g.nq;
@@ -861,12 +953,12 @@ __global__ void __launch_bounds__(MAX_NT, 1) mh_chain_kernel(Params p) {
 
   for (int i = tid; i < T * p.L; i += NT) {
     const int t = i / p.L, l = i % p.L;
-    if (fr.live(t)) p.z_out[fr.row(t, p.N) * p.L + l] = sm.z[l * T + t];
+    if (fr.own(t)) p.z_out[fr.row(t, p.N) * p.L + l] = sm.z[l * T + t];
   }
 #pragma unroll
   for (int i = 0; i < FG; ++i) {
     const int t = ps.t0 + i;
-    if (!fr.live(t)) continue;
+    if (!fr.own(t)) continue;
 #pragma unroll
     for (int j = 0; j < CC; ++j)
       if (j < ps.ncol)
@@ -878,7 +970,7 @@ __global__ void __launch_bounds__(MAX_NT, 1) mh_chain_kernel(Params p) {
     float* o2 = MODE == MODE_WF ? p.out2 : p.out3;
     for (int i = tid; i < T * Fs; i += NT) {
       const int t = i / Fs, c = i % Fs;
-      if (!fr.live(t)) continue;
+      if (!fr.own(t)) continue;
       const size_t gi = fr.row(t, p.N) * p.F + c0 + c;
       o1[gi] = sm.a1[t * g.Fsp + c];
       o2[gi] = sm.a2[t * g.Fsp + c];
@@ -1013,14 +1105,17 @@ int gvnmf_mh_chain_occupancy(int F, int L, int Hd, int K, int depth,
 // samples_bf16 (E-mode only): out1 holds bfloat16 samples. approx_recip /
 // approx_trans: the fast-mode options. mm_bf16: the decoder's products on
 // bfloat16 operands (the packed weights must arrive rounded to bfloat16).
-// Returns the cudaError_t of the launches.
+// live: (B, ceil(N / 32)) flags, one a tile pair (0: the pair is dead, see
+// the file comment), or null: every pair runs. Returns the cudaError_t of
+// the launches.
 int gvnmf_mh_chain(const float* x2, const float* vb, const float* wt,
                    const float* h, const float* mask, const float* g,
                    const float* ypre,
                    const float* z, const float* vs, const float* zn,
                    const float* u, const float* packed,
-                   float* z_out, float* vs_out, void* out1, float* out2,
-                   float* out3, float* part1, float* part2, int B, int N,
+                   const unsigned char* live, float* z_out, float* vs_out,
+                   void* out1, float* out2, float* out3, float* part1,
+                   float* part2, int B, int N,
                    int F, int L, int Hd, int K, int depth, int n_steps,
                    int burnin, float sqrt_var, int mode,
                    unsigned long long seed, int samples_bf16,
@@ -1040,7 +1135,7 @@ int gvnmf_mh_chain(const float* x2, const float* vb, const float* wt,
            part1, part2, B, N, F, L, Hd, K, depth, n_steps, burnin, sqrt_var,
            (uint32_t)(seed & 0xffffffffull), (uint32_t)(seed >> 32),
            samples_bf16 ? static_cast<__nv_bfloat16*>(out1) : nullptr,
-           approx_recip != 0, approx_trans != 0, mm_bf16 != 0};
+           approx_recip != 0, approx_trans != 0, mm_bf16 != 0, live};
   const size_t smem = smem_floats(geo, L, Hd, K) * sizeof(float);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   // the exact Philox kernel, or the one with runtime options

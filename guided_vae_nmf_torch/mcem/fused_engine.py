@@ -23,7 +23,8 @@ import torch
 from ..ops.profiling import span
 from .engine import VX_FLOOR, MCEMConfig, noise_gain_state
 from .mh_chain import (
-    _check_matmul_dtype, bf16_weights, mh_chain, pack_for_chain)
+    _check_matmul_dtype, bf16_weights, live_pairs, mh_chain, pack_for_chain,
+    skips_dead_pairs, widths)
 from .nmf_sums import nmf_sums
 
 
@@ -123,7 +124,17 @@ def mcem_batch_fused(model, X_abs2, mask, y, generator,
     compute_cost=False skips the cost pass (the result's "cost" is zeros),
     as fast mode does. matmul_dtype=torch.bfloat16 runs the decoder
     products of every E chain and of the WF chain on bfloat16 operands
-    (K1d); the initial decode stays float32."""
+    (K1d); the initial decode stays float32.
+
+    Every chain gets the mask's live flags (`mh_chain.live_pairs`): on
+    the card the cluster form runs no chain on a tile pair of 32 frames
+    that holds no valid frame, and leaves there Z, Vs and the chain's
+    sums as a chain that rejects every proposal would. Valid frames do not
+    change: no update mixes frames, and every sum over frames is masked.
+    The `gvnmf.wf_chain` span counts the pairs (`k1_pairs`) and those the
+    chains ran (`k1_live_pairs`: the live ones where the cluster form
+    runs, every pair where another form or the CPU's plain version
+    does)."""
     _check_matmul_dtype(matmul_dtype)
     if cfg.noise_gain and update_nmf:
         raise ValueError(
@@ -143,11 +154,18 @@ def mcem_batch_fused(model, X_abs2, mask, y, generator,
             if cfg.noise_gain:
                 b, eff_vb, band_map = noise_gain_state(
                     F, N, cfg.noise_gain_bands, Vbf, batch=B)
+            # the cluster form skips the tile pairs that hold no valid
+            # frame; every other form runs them all
+            live = live_pairs(mask)
+            ran = live.numel()
+            if skips_dead_pairs(dev, F, Z.shape[-1], widths(dec_w),
+                                Wt.shape[1] if update_nmf else 0, N):
+                ran = lambda: torch.count_nonzero(live)  # noqa: E731
         chain_kw = dict(nsamples=cfg.nsamples_E_step,
                         burnin=cfg.burnin_E_step, var_RW=cfg.var_RW,
                         samples_dtype=samples_dtype,
                         approx_recip=approx_recip, approx_trans=approx_trans,
-                        matmul_dtype=matmul_dtype)
+                        matmul_dtype=matmul_dtype, live=live)
         sums_kw = dict(approx_recip=approx_recip)
 
         costs = []
@@ -213,16 +231,18 @@ def mcem_batch_fused(model, X_abs2, mask, y, generator,
 
         wf_kw = dict(nsamples=cfg.nsamples_WF, burnin=cfg.burnin_WF,
                      var_RW=cfg.var_RW, approx_recip=approx_recip,
-                     approx_trans=approx_trans, matmul_dtype=matmul_dtype)
+                     approx_trans=approx_trans, matmul_dtype=matmul_dtype,
+                     live=live)
+        pairs = dict(k1_pairs=live.numel(), k1_live_pairs=ran)
         if update_nmf:
-            with span("gvnmf.wf_chain"):
+            with span("gvnmf.wf_chain", **pairs):
                 Z, Vs, (ws, wn) = mh_chain(dec_w, X2, (Wt, H), g, ypre, Z,
                                            Vs, seeds[cfg.niter], mode="wf",
                                            **wf_kw)
         else:
             # the WF chain runs at the learned gain
             Vb_wf = eff_vb(b) if cfg.noise_gain else Vbf
-            with span("gvnmf.wf_chain"):
+            with span("gvnmf.wf_chain", **pairs):
                 Z, Vs, (ws, wn) = mh_chain(dec_w, X2, None, g, ypre, Z, Vs,
                                            seeds[cfg.niter], mode="wf",
                                            Vb=Vb_wf, **wf_kw)

@@ -33,12 +33,14 @@ CTAs, each holding a column slice of the decoder's weights in shared
 memory; it takes decoders of one hidden width whose slices fit
 (:func:`cluster_takes`); :func:`pack_weights` lays the slices out (the
 wrapper packs per launch unless `dec_w` carries them), and
-:func:`launch_geometry` reports the launch. The extended cluster form
-(K1e, `csrc/mh_chain_ext.cu`) runs the same design on clusters of 4 or 8
-CTAs (the smallest that holds a rank's slices) with every hidden layer
-sliced on its own, so it takes decoders of unequal widths and wider ones
-(:func:`ext_cluster`, :func:`ext_geometry`; its blocks are
-`pack_weights(dec_w, cluster)`). The general form (K1g,
+:func:`launch_geometry` reports the launch; given the live flags of
+:func:`live_pairs` it skips every tile pair that holds no valid frame.
+The extended cluster form (K1e, `csrc/mh_chain_ext.cu`) runs the same
+design on clusters of 4 or 8 CTAs (the smallest that holds a rank's
+slices) with every hidden layer sliced on its own, so it takes decoders
+of unequal widths and wider ones (:func:`ext_cluster`,
+:func:`ext_geometry`; its blocks are `pack_weights(dec_w, cluster)`).
+The general form (K1g,
 `csrc/mh_chain_general.cu`) takes every other decoder of 1 to 4 hidden
 layers, of any widths up to its shared-memory limit (:func:`general_tile`),
 at any F and NMF rank: one CTA a tile of 16, 8 or 4 frames, the weights
@@ -67,7 +69,7 @@ from .. import _build, _launches
 from .engine import VX_FLOOR
 
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = ([_VP] * 19 + [_I] * 9 + [_F, _I, ctypes.c_uint64] + [_I] * 4
+_ARGTYPES = ([_VP] * 20 + [_I] * 9 + [_F, _I, ctypes.c_uint64] + [_I] * 4
              + [_VP])
 # The general form's entry point: 22 pointers (the packed weights, bm as
 # an array), B, N, F, L, the widths' array, depth, K, n_steps, burnin,
@@ -620,6 +622,15 @@ def cluster_takes(F, L, ws, K, N):
     return chain_form(F, L, ws, K, N)[0] == "cluster"
 
 
+def skips_dead_pairs(device, F, L, ws, K, N):
+    """Whether a chain at these shapes on `device` skips the tile pairs
+    that its live flags mark dead: only the cluster form does
+    (:func:`cluster_takes`); K1e, K1g and the CPU's plain version compute
+    every frame."""
+    return torch.device(device).type == "cuda" and cluster_takes(
+        F, L, ws, K, N)
+
+
 def general_geometry(F, L, ws, K, device=None):
     """The general form's launch at these shapes: frames a CTA, threads and
     dynamic shared memory a CTA, the floats of the packed weight block
@@ -680,12 +691,27 @@ def launch_geometry(F, L, Hd, K, depth, device=None):
 
 
 FORMS = ("auto", "cluster", "ext", "general")
+# Frames a tile pair, the cluster form's unit of work (one cluster each).
+PAIR = 2 * FRAME_TILE
+
+
+def live_pairs(mask):
+    """The cluster form's live flags for a frame mask (B, N): (B,
+    ceil(N / PAIR)) bool, live[b, p] = any(mask[b, PAIR p : PAIR (p + 1)] >
+    0), one a tile pair in the kernel's layout (with an odd tile count the
+    last pair is that tile alone). On the mask's device, with no host
+    sync."""
+    B, N = mask.shape
+    pad = -N % PAIR
+    return (torch.nn.functional.pad(mask, (0, pad)) > 0).view(
+        B, (N + pad) // PAIR, PAIR).any(-1)
 
 
 def mh_chain(dec_w, X2, WH, g, ypre, Z, Vs, seed=0, mode="e", nsamples=10,
              burnin=30, var_RW=0.01, noise=None, mask=None, Vb=None,
              samples_dtype=torch.float32, approx_recip=False,
-             approx_trans=False, matmul_dtype=torch.float32, form="auto"):
+             approx_trans=False, matmul_dtype=torch.float32, form="auto",
+             live=None):
     """Run the chain over a frames-major batch (see :func:`mh_chain_ref`
     for the arguments and results). `Vs` must be decode(Z): the initial data
     term comes from it and the kernel re-derives Vs at the burn-in boundary.
@@ -701,7 +727,14 @@ def mh_chain(dec_w, X2, WH, g, ypre, Z, Vs, seed=0, mode="e", nsamples=10,
     picks; "cluster", "ext" or "general" launch that form (to time or test
     one form where another would run) and raise ValueError where it does
     not take the shapes. The CPU path is the plain version whatever the
-    form."""
+    form.
+
+    live: optional (B, ceil(N / PAIR)) bool flags of :func:`live_pairs`.
+    The cluster form runs no chain on a pair whose flag is False and
+    writes there what a chain that rejects every proposal leaves
+    (`csrc/mh_chain.cu`'s file comment); every other output is the same
+    as with live=None. The other forms and the CPU path compute every
+    frame."""
     if mode not in ("e", "wf"):
         raise ValueError(f"mode must be 'e' or 'wf', got {mode!r}")
     if form not in FORMS:
@@ -711,6 +744,15 @@ def mh_chain(dec_w, X2, WH, g, ypre, Z, Vs, seed=0, mode="e", nsamples=10,
     _check_matmul_dtype(matmul_dtype)
     if mode == "e" and WH is not None and mask is None:
         raise ValueError("E-mode with WH needs the frame mask")
+    if live is not None:
+        B, N = X2.shape[:2]
+        want = (B, -(-N // PAIR))
+        if (live.dtype != torch.bool or tuple(live.shape) != want
+                or live.device != X2.device or not live.is_contiguous()):
+            raise ValueError(f"live must be a contiguous bool tensor of "
+                             f"shape {want} on {X2.device}, got "
+                             f"{live.dtype} {tuple(live.shape)} on "
+                             f"{live.device}")
     fast_kw = dict(samples_dtype=samples_dtype, approx_recip=approx_recip,
                    approx_trans=approx_trans, matmul_dtype=matmul_dtype)
     if X2.device.type == "cpu":
@@ -791,8 +833,8 @@ def mh_chain(dec_w, X2, WH, g, ypre, Z, Vs, seed=0, mode="e", nsamples=10,
                dev)
         with torch.cuda.device(dev):
             status = lib.gvnmf_mh_chain(
-                *ptrs, _ptr(packed), *outs, B, N, F, L, ws[0], K, len(ws),
-                n_steps, burnin, *opts)
+                *ptrs, _ptr(packed), _ptr(live), *outs, B, N, F, L, ws[0], K,
+                len(ws), n_steps, burnin, *opts)
         _build.check(status, "mh_chain kernel")
     elif kernel == "ext":
         packed = dec_w.get("packed_ext")

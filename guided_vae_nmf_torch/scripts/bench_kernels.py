@@ -13,10 +13,26 @@ checkout's own `chip_smoke.py` helpers and kernels, and records the ptxas
 lines (registers and spills a kernel) of the chain's three libraries and
 K2's. With --e2e it also times the main batch (`chip_smoke.phase_main`,
 three runs) of the shipped M2 and of the (512, 512) M2 and records their
-x realtime.
+x realtime. K1a E and WF also run at a padded sweep shape, B=16, N=512
+with the frame counts of one of the offline sweep's 512-frame batches
+(`SWEEP_512`), with every tile pair computed (`_b16n512_all`) and, where
+the checkout's chain takes live flags, with its dead pairs skipped
+(`_b16n512`); and at the main path's shapes with every pair's flag set
+(`_flags`, no pair dead).
+
+With --replay <cell> it times no kernel and instead replays one pass of a
+sweep cell of the checkout's benchmark (`gvbench/`: its traffic, batch
+plan and program set-up at `--seed`), so that two checkouts run the very
+same batches: one pass to warm, two timed passes, then one pass under
+`torch.profiler` with the program's spans on. It records the pass's
+audio, padded and valid frames, the untraced seconds of each pass, and of
+the traced one its seconds, the card's busy seconds, each span's device
+ms summed over the pass with its counts, and the device seconds by kernel
+name.
 
 Usage: python3 guided_vae_nmf_torch/scripts/bench_kernels.py
        [--tree <checkout root>] [--reps 3] [--e2e] [--out <file.json>]
+       [--replay <cell> [--seed <n>]]
 
 --tree puts that checkout first on the import path (its package, its
 kernels, built into its own build directory), so that a parent and a
@@ -33,6 +49,13 @@ import re
 import sys
 
 
+# The valid frames of each row of one of the offline sweep's batches at
+# N=512 (16 utterances of 4.2-5.1 s by plan_batches' 128-frame buckets):
+# 227 of its 256 tile pairs hold a valid frame.
+SWEEP_512 = (389, 392, 398, 401, 405, 416, 419, 432, 441, 446, 456, 468,
+             474, 481, 488, 505)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tree", default=os.path.dirname(os.path.dirname(
@@ -40,6 +63,8 @@ def main(argv=None):
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--e2e", action="store_true")
     ap.add_argument("--out", default=None)
+    ap.add_argument("--replay", default=None, metavar="CELL")
+    ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
@@ -61,6 +86,11 @@ def main(argv=None):
                    for k, v in cs.ptxas_report(_build.build_log(lib)).items()}
              for lib in ("mh_chain", "mh_chain_ext", "mh_chain_general",
                          "nmf_sums")}
+    if args.replay:
+        out = {"tree": tree, "gpu": cs.gpu_name_and_limit(),
+               "build_s": build_s, "ptxas": ptxas,
+               "replay": replay(torch, tree, args.replay, args.seed)}
+        return write(out, args.out)
     model = load_model(os.path.join(tree, "artifacts", "pretrained",
                                     "M2_ibm"), kind="dgm", y_dim=513,
                        device=dev)
@@ -72,6 +102,19 @@ def main(argv=None):
     out = {"tree": tree, "gpu": gpu, "build_s": build_s, "ptxas": ptxas,
            "ms": {}}
     forms = "form" in inspect.signature(mh_chain).parameters
+    flags = "live" in inspect.signature(mh_chain).parameters
+    cp = cs.chain_inputs(torch, model, len(SWEEP_512), 512, cfg.nmf_rank, 7,
+                         dev)
+    cp["dec_w"] = pack_weights(cp["dec_w"])
+    cp["mask"] = (torch.arange(512, device=dev)[None] < torch.tensor(
+        SWEEP_512, device=dev)[:, None]).float()
+    padded = {"_b16n512_all": (cp, {})}
+    if flags:
+        from guided_vae_nmf_torch.mcem.mh_chain import live_pairs
+
+        padded["_b16n512"] = (cp, dict(live=live_pairs(cp["mask"])))
+        padded["_flags"] = (c, dict(live=torch.ones(
+            (B, N // 32), dtype=torch.bool, device=dev)))
 
     def add(key, ms):
         out["ms"].setdefault(key, []).append(ms)
@@ -96,6 +139,10 @@ def main(argv=None):
                              ("wf", cfg.nsamples_WF, cfg.burnin_WF)):
             add(f"mh_chain_{mode}_wh", cs.time_cuda(lambda: cs.run_chain(
                 c, mh_chain, mode, ns, bi, cfg.var_RW, seed=1)))
+            for tag, (cc, kw) in padded.items():
+                add(f"mh_chain_{mode}_wh{tag}", cs.time_cuda(
+                    lambda: cs.run_chain(cc, mh_chain, mode, ns, bi,
+                                         cfg.var_RW, seed=1, **kw)))
         for vb in (False, True):
             for level in ("", "_fast"):
                 for key, row in cs.time_sums(torch, c, vb, level, cfg,
@@ -141,12 +188,89 @@ def main(argv=None):
                                 vb=vb, seed=1, form="general", **kw)))
     if args.e2e:
         out["x_realtime"] = e2e(torch, cs, model, cfg, tree, dev, gpu)
+    return write(out, args.out)
+
+
+def write(out, path):
     line = json.dumps(out)
-    if args.out:
-        with open(args.out, "w") as f:
+    if path:
+        with open(path, "w") as f:
             f.write(line + "\n")
     print(line)
     return out
+
+
+def replay(torch, tree, cell, seed):
+    """One pass of the sweep cell `cell`'s batches at `seed`, in the
+    plan's order, as the benchmark's sweep calls them (each batch's
+    outputs fetched to the host): warmed by one pass, timed by two, then
+    traced by one (see the module's docstring)."""
+    import time
+    from collections import defaultdict
+    from pathlib import Path
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from gvbench.harness import program, signals
+    from gvbench.harness.layout import Layout
+    from gvbench.harness.trace import events, union_length, warm_profiler
+    from guided_vae_nmf_torch import pipeline
+    from guided_vae_nmf_torch.ops.profiling import reset_spans, span_records
+
+    lay = Layout(root=Path(tree))
+    w = lay.workload(cell)
+    mix = lay.traffic(w["traffic"])
+    env = program.setup(lay.root, lay.config(w["config"]), "cuda:0")
+    lens, snrs, useeds, _ = signals.draw(seed, mix["pool"], mix["length_s"],
+                                         mix["snr_db"])
+    pcm = signals.mixtures(lens, snrs, useeds, env.dev)
+    plan = signals.plan_batches([signals.frame_count(len(x)) for x in pcm],
+                                mix["batch_size"], mix["bucket_frames"],
+                                seed)
+    batches = [(signals.padded([pcm[i] for i in idxs], n_pad),
+                [int(s) for s in bseeds]) for idxs, n_pad, bseeds in plan]
+    kw = program.entry_kwargs(env, mix["noise_model"])
+
+    def one_pass():
+        t0 = time.perf_counter()
+        for (x_b, mask), bseeds in batches:
+            gen = torch.Generator(device=env.dev).manual_seed(bseeds[0])
+            for o in pipeline.enhance_waveform(
+                    env.model, x_b, mask, env.cfg, generator=gen,
+                    seeds=bseeds, **kw):
+                if o is not None:
+                    o.cpu()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    one_pass()
+    untraced_s = [one_pass(), one_pass()]
+    warm_profiler(env.dev)
+    reset_spans()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        traced_s = one_pass()
+    dev, _ = events(prof)
+    kernels = defaultdict(float)
+    for name, a, b in dev:
+        kernels[name] += (b - a) / 1e6
+    spans = {}
+    for r in span_records():
+        sp = spans.setdefault(r["name"], {"calls": 0, "device_ms": 0.0,
+                                          "counts": defaultdict(int)})
+        sp["calls"] += 1
+        sp["device_ms"] += r["device_ms"] or 0.0
+        for k, v in r["counts"].items():
+            sp["counts"][k] += v
+    return {"cell": cell, "seed": seed, "batches": len(batches),
+            "audio_s": sum(len(x) for x in pcm) / signals.FS,
+            "padded_frames": sum(int(m.shape[0] * m.shape[1])
+                                 for (_, m), _ in batches),
+            "valid_frames": sum(int((m > 0).sum()) for (_, m), _ in batches),
+            "untraced_s": untraced_s, "traced_s": traced_s,
+            "busy_s": union_length((a, b) for _, a, b in dev) / 1e6,
+            "spans": spans,
+            "kernels_s": dict(sorted(kernels.items(), key=lambda t: -t[1]))}
 
 
 def e2e(torch, cs, model, cfg, tree, dev, gpu):

@@ -23,7 +23,9 @@ var_RW = 0 against single-device `mcem_run`, and a data-parallel epoch
 against the single-device one; and the kernels' whole domain: K1e, the
 chain's extended cluster form, and K1g, its general form, for decoders the
 cluster form does not take, the wrapper's choice among the three forms,
-and K2 past rank 16 (its wide kernel).
+and K2 past rank 16 (its wide kernel); and the cluster form's dead tile
+pairs: the chain with live flags against the same call without them, and
+the fused engine's valid frames with and without dead pairs.
 
 Every test here needs an NVIDIA GPU and skips without one. The file
 imports neither JAX nor the JAX package, so it also runs on a GPU machine
@@ -2185,3 +2187,145 @@ def test_chain_dispatch_on_the_card(cuda):
     with pytest.raises(ValueError, match="extended"):
         run_chain(mh_chain, chain_case(cuda, 74, H=(512, 512), **dims), "e",
                   2, 3, 0.01, form="ext")
+
+
+# Dead tile pairs (the cluster form's live flags): four rows over N=240
+# (15 tiles, so each row's last pair is one tile): whole, 37 valid frames,
+# valid frames on both sides of dead pairs, and none (100 for the engine,
+# whose W update needs a valid frame in every row).
+DEAD_N = 240
+
+
+def dead_pair_mask(device, last=0):
+    n = np.arange(DEAD_N)
+    rows = [n >= 0, n < 37, (n < 21) | (n >= 200), n < last]
+    return torch.tensor(np.stack(rows).astype(np.float32), device=device)
+
+
+def _pair_frames(live):
+    """(B, N) bool: the frames of the pairs `live` marks."""
+    return live.repeat_interleave(32, dim=1)[:, :DEAD_N]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("level", ["exact", "fast", "trans"])
+@pytest.mark.parametrize("form", ["wh", "vb"])
+@pytest.mark.parametrize("mode", ["e", "wf"])
+def test_chain_dead_pairs(cuda, mode, form, level):
+    """The cluster form with live flags against the same call with
+    live=None (in-kernel Philox; 'exact' launches the exact kernel, the
+    fast levels the option kernel): Z, Vs, the dumps, numW / denW and the
+    accumulators equal bit for bit on every live pair; on a dead pair Z
+    and Vs are the caller's, each dump is Vs (rounded as the dumps are),
+    s1 / s2 and acc_s / acc_n are the R-step sums at the unchanged Vs
+    (at TOL: the kernel forms Vb = H^T Wt and 1/Vx in its own order), and
+    every output is finite."""
+    from guided_vae_nmf_torch.mcem.mh_chain import live_pairs
+
+    dims = dict(FULL, B=4, N=DEAD_N)
+    c = chain_case(cuda, 80, **dims)
+    c["mask"] = dead_pair_mask(cuda)
+    live = live_pairs(c["mask"])
+    assert live.tolist() == [[True] * 8, [True, True] + [False] * 6,
+                             [True] + [False] * 5 + [True, True],
+                             [False] * 8]
+    vb = form == "vb"
+    kw = dict(seed=81, **FAST.get(level, {}))
+    R = 4
+    reset_launch_counts()
+    got = run_chain(mh_chain, c, mode, R, 3, 0.01, vb=vb, live=live, **kw)
+    assert nonzero(launch_counts())["mh_chain"] == {
+        f"{mode}_{form}{'' if level == 'exact' else '_' + level}": 1}
+    full = run_chain(mh_chain, c, mode, R, 3, 0.01, vb=vb, **kw)
+    on = _pair_frames(live)
+    off = ~on
+    for a, b in zip((got[0], got[1]) + got[2], (full[0], full[1]) + full[2]):
+        assert bool(torch.isfinite(a.float()).all())
+        if a.shape[:2] == on.shape:                   # (B, N, ...)
+            assert torch.equal(a[on], b[on])
+        elif a.dim() == 4:                            # dumps (B, R, N, F)
+            assert torch.equal(a.transpose(1, 2)[on], b.transpose(1, 2)[on])
+        else:                                         # numW / denW
+            assert torch.equal(a, b)
+    assert torch.equal(got[0][off], c["Z"][off])
+    assert torch.equal(got[1][off], c["Vs"][off])
+    if mode == "e":
+        dumps = got[2][0].transpose(1, 2)[off]
+        want = c["Vs"][off].to(dumps.dtype)
+        assert all(torch.equal(dumps[:, r], want) for r in range(R))
+    if mode == "wf" or vb:
+        Vb = c["Vb"] if vb else torch.einsum("bkn,bkf->bnf", c["WH"][1],
+                                             c["WH"][0])
+        inv = 1.0 / torch.clamp_min(c["g"][..., None] * c["Vs"] + Vb, 1e-10)
+        a1 = torch.zeros_like(inv)
+        a2 = torch.zeros_like(inv)
+        for _ in range(R):
+            if mode == "e":
+                a1, a2 = a1 + inv, a2 + inv * inv
+            else:
+                a1, a2 = a1 + (1.0 - Vb * inv), a2 + Vb * inv
+        acc = got[2][1:] if mode == "e" else got[2]
+        _close(acc[0][off], a1[off])
+        _close(acc[1][off], a2[off])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("noise_model", ["nmf", "spp"])
+def test_engine_dead_pairs_leave_valid_frames_unchanged(cuda, noise_model):
+    """`mcem_batch_fused` on the card passes the live flags to every chain;
+    against the same call with every pair marked live (the flags replaced
+    by ones), the results on valid frames (and W, the cost) are equal bit
+    for bit, with a random walk (var_RW 0.01): a dead pair changes nothing
+    that a valid frame reads. Every result is finite."""
+    from unittest import mock
+
+    from guided_vae_nmf_torch.mcem import fused_engine
+
+    dims = dict(SMALL, B=4, N=DEAD_N)
+    rng = np.random.RandomState(82)
+    tree = random_dgm(rng, dims["F"], dims["Y"], dims["L"], dims["H"])
+    B, F, N, K = dims["B"], dims["F"], DEAD_N, dims["K"]
+    mask = dead_pair_mask(cuda, last=100)
+    t = lambda a: torch.tensor(a, device=cuda)  # noqa: E731
+    X = torch.where(mask[:, None, :] > 0, t(rng.uniform(
+        0.05, 1.05, (B, F, N)).astype(np.float32)), 1.0)
+    y = t((rng.uniform(size=(B, dims["Y"], N)) > 0.5).astype(np.float32))
+    cfg = MCEMConfig(niter=4, nsamples_E_step=3, burnin_E_step=2,
+                     nsamples_WF=3, burnin_WF=2, nmf_rank=K)
+    kw = {}
+    if noise_model == "spp":
+        kw = dict(update_nmf=False, Vb_fixed=t(rng.uniform(
+            0.01, 0.3, (B, F, N)).astype(np.float32)))
+    model = module_from_params(tree, device=cuda)
+    seen = []
+
+    def run(flags):
+        real = fused_engine.mh_chain
+
+        def chain(*a, **k):
+            seen.append(k["live"])
+            if flags is not None:
+                k["live"] = flags(k["live"])
+            return real(*a, **k)
+
+        with mock.patch.object(fused_engine, "mh_chain", chain):
+            return mcem_batch_fused(model, X, mask, y,
+                                    torch.Generator(device=cuda).manual_seed(
+                                        83), cfg, **kw)
+
+    got = run(None)
+    want = run(torch.ones_like)
+    assert len(seen) == 2 * (cfg.niter + 1)
+    live = fused_engine.live_pairs(mask)
+    assert all(torch.equal(s, live) for s in seen[:cfg.niter + 1])
+    valid = mask > 0
+    for k, v in got.items():
+        assert bool(torch.isfinite(v).all()), k
+        w = want[k]
+        if k in ("WFs", "WFn", "H", "Z"):
+            assert torch.equal(v.transpose(1, 2)[valid],
+                               w.transpose(1, 2)[valid]), k
+        elif k == "g":
+            assert torch.equal(v[valid], w[valid]), k
+        else:                                       # W, cost
+            assert torch.equal(v, w), k

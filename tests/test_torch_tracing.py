@@ -158,6 +158,31 @@ def test_batch_counts_from_the_mask(m2, kind):
     assert all(type(v) is int for v in batch["counts"].values())
 
 
+@pytest.mark.parametrize("skips", [False, True])
+@pytest.mark.parametrize("frames,n_pad,live", [((16, 9), 16, 2),
+                                                ((70, 20), 80, 4),
+                                                ((64, 64), 64, 4)])
+def test_wf_chain_counts_live_pairs(m2, monkeypatch, frames, n_pad, live,
+                                    skips):
+    """`gvnmf.wf_chain` counts the chains' 32-frame tile pairs
+    (`k1_pairs`, rows x ceil(n_pad / 32)) and those the chains ran
+    (`k1_live_pairs`): where the form skips dead pairs (the cluster form
+    on the card, here by `skips_dead_pairs` patched) those that hold a
+    valid frame, a device count resolved when read; elsewhere (the CPU's
+    plain version, K1e, K1g) every pair."""
+    from guided_vae_nmf_torch.mcem import fused_engine
+
+    monkeypatch.setattr(fused_engine, "skips_dead_pairs",
+                        lambda *a: skips)
+    x, mask = _batch(frames=frames, n_pad=n_pad)
+    _profiled(lambda: _enhance(m2, x, mask))
+    wf, = [r for r in ops.span_records() if r["name"] == "gvnmf.wf_chain"]
+    pairs = 2 * -(-n_pad // 32)
+    assert wf["counts"] == {"k1_pairs": pairs,
+                            "k1_live_pairs": live if skips else pairs}
+    assert all(type(v) is int for v in wf["counts"].values())
+
+
 def test_tensor_counts_resolve_when_read():
     count = torch.tensor(7)
     _profiled(lambda: ops.span("gvnmf.batch", frames=count).__enter__()
