@@ -1,8 +1,9 @@
 """The readings the correctness limits are set from: for each seed, one
 short run of a cell (the sweep's armed batch alone; the service for a
-short window at the cell's rate), checked twice against the reference:
-the program's readings, and the control's, the reference in TF32 put in
-the program's place. Set-up is paid once for all seeds.
+short window at the cell's rate), checked twice against the cell's
+family's reference: the program's readings, and the control's, the
+reference in TF32 put in the program's place. Set-up is paid once for all
+seeds.
 
     python3 gvbench/control.py --workload m2_ibm.sweep16 \
         --seeds 11,12,13 --control 11,12,13 [--seconds 8]
@@ -34,37 +35,40 @@ def main(argv=None, root=None):
 
     import torch
 
-    from gvbench.harness import check, program, serve, sweep
+    from gvbench.harness import serve, sweep
     from gvbench.harness.layout import Layout
 
     lay = Layout(root=root)
     cell = lay.workload(args.workload)
     config = lay.config(cell["config"])
+    family = lay.family(config)
     mix = lay.traffic(cell["traffic"])
     if not args.cpu and not torch.cuda.is_available():
         print("control: needs a CUDA device", file=sys.stderr)
         return 2
-    env = program.setup(lay.root, config, "cpu" if args.cpu else "cuda:0")
-    ref = check.Reference(lay.root, config, env.dev)
+    env = family.setup(lay.root, config, "cpu" if args.cpu else "cuda:0")
+    ref = family.Reference(lay.root, config, env.dev)
     seeds = [int(s) for s in args.seeds.split(",") if s]
     control = {int(s) for s in args.control.split(",") if s}
     worst, least = {}, {}
     for seed in seeds:
         t0 = time.perf_counter()
         if mix["loop"] == "sweep":
-            res = sweep.run(env, mix, 0.0, False, seed, only_armed=True)
+            res = sweep.run(family, env, mix, 0.0, False, seed,
+                            only_armed=True)
         else:
-            res = serve.run(env, mix, args.seconds, bool(args.trace), seed)
+            res = serve.run(family, env, mix, args.seconds,
+                            bool(args.trace), seed)
         rec = res["tap"].record
         line = {"seed": seed, "failed": res["failed"]}
-        nums, err = check.readings(rec, ref, res["rows_s"])
+        nums, err = family.readings(rec, ref, res["rows_s"])
         line["program"], line["err"] = nums, err
         for k, v in nums.items():
             if k != "where":
                 worst[k] = max(worst.get(k, v), v)
         if seed in control:
-            cn, cerr = check.readings(rec, ref, res["rows_s"],
-                                      subject="tf32")
+            cn, cerr = family.readings(rec, ref, res["rows_s"],
+                                       subject="tf32")
             line["control"], line["control_err"] = cn, cerr
             for k, v in cn.items():
                 if k != "where":

@@ -1,7 +1,9 @@
 """Find a cell's pieces by name: `BENCHMARK.json` at the checkout's root,
-`configs/<config>.json`, `traffic/<mix>.json`, `limits/<workload>.json`
+`configs/<config>.json`, the configuration's model family
+`families/<family>.py`, `traffic/<mix>.json`, `limits/<workload>.json`
 and `metrics/<metric>.py` under the benchmark's folder. A later change
-adds a cell by adding such files and entries; nothing here names one."""
+adds a cell, or a model of another family, by adding such files and
+entries; nothing here names one."""
 
 import importlib.util
 import json
@@ -45,12 +47,46 @@ class Layout:
 
     def reader(self, metric):
         """`read(ctx)` of `metrics/<metric>.py`."""
-        path = self.bench_dir / "metrics" / f"{metric}.py"
-        spec = importlib.util.spec_from_file_location(
-            "gvbench_metric_" + metric.replace(".", "_"), path)
-        mod = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(mod)
-        return mod.read
+        return _module(self.bench_dir / "metrics" / f"{metric}.py",
+                       "gvbench_metric_" + metric.replace(".", "_")).read
+
+    def family(self, config):
+        """The module `families/<name>.py` of the configuration's `family`
+        (`mh_mcem` where it names none), loaded for this cell alone. It
+        provides:
+
+        - `setup(root, config, device)`: an object with `dev`, `model`,
+          `cfg` (what `pipeline.enhance_waveform` takes besides the batch)
+          and `build_s`; the serve loop also reads `classifier`, `mean`,
+          `std` and `label_mode`;
+        - `entry_kwargs(env, noise_model)`: enhance_waveform's other
+          arguments;
+        - `warm_cfg(cfg)`: the settings a shape is warmed up with;
+        - `pick_judged(cfg, rng)`: the tap's `i_sel`, drawn from `rng`;
+        - `install(tap)`: the hooks that fill the armed call's record
+          (`tap.armed_record()`), returning the (object, name, original)
+          triples the tap restores;
+        - `Reference(root, config, device)` and `readings(rec, ref, rows_s,
+          subject="program")`: (numbers keyed as `limits/<cell>.json`
+          keys them, error or None), for the program or, with
+          `subject="tf32"`, for the control;
+        - `batch_work(frames, rows, env, noise_model)`: a batch's work,
+          {"flops": the whole step's operations, and for each kernel a
+          reader bounds (today "k1", "k2"): (flops, bytes)}.
+        """
+        name = config.get("family", "mh_mcem")
+        path = self.bench_dir / "families" / f"{name}.py"
+        if not path.is_file():
+            raise FileNotFoundError(
+                f"no family {name!r}: {path} does not exist")
+        return _module(path, "gvbench_family_" + name)
+
+
+def _module(path, name):
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def _json(path):

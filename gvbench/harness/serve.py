@@ -7,7 +7,6 @@ due inside it is awaited up to the drain limit. A request fails if it
 raises, is unresolved at the limit, or comes back as its own mixture (the
 service's degraded row: s equal to x, n all zeros)."""
 
-import dataclasses
 import threading
 import time
 
@@ -15,18 +14,17 @@ import numpy as np
 import torch
 
 from . import signals
-from .program import entry_kwargs
-from .tap import E_CHAINS, Tap
+from .tap import Tap
 from .trace import warm_profiler
 
 
-def _warm(env, sv, lens):
+def _warm(family, env, sv, lens):
     """Every (batch, bucket) shape the traffic can form, once, at one EM
     iteration: the shapes' buffers, FFT plans and library handles."""
     from guided_vae_nmf_torch import pipeline
 
-    cfg = dataclasses.replace(env.cfg, niter=1)
-    kw = entry_kwargs(env, sv.noise_model)
+    cfg = family.warm_cfg(env.cfg)
+    kw = family.entry_kwargs(env, sv.noise_model)
     buckets = sorted({signals.bucket(signals.frame_count(int(n)),
                                      sv.bucket_multiple) for n in lens})
     for n_pad in buckets:
@@ -42,7 +40,7 @@ def _warm(env, sv, lens):
             out[0].cpu()
 
 
-def run(env, mix, seconds, trace, seed, rate=None):
+def run(family, env, mix, seconds, trace, seed, rate=None):
     from guided_vae_nmf_torch import serving
 
     rate = rate or mix["rate_per_s"]
@@ -58,18 +56,18 @@ def run(env, mix, seconds, trace, seed, rate=None):
                                      device=env.dev)
     pick = np.random.default_rng([seed, 1])
     k = int(pick.integers(max(1, int(rate * seconds / 2 / sv.max_batch))))
-    i_sel = int(pick.integers(max(1, env.cfg.niter - E_CHAINS)))
+    i_sel = family.pick_judged(env.cfg, pick)
     tap = Tap(armed=k, i_sel=i_sel, trace=trace, profile_from=seconds / 3,
               profile_s=mix["profile_s"])
     try:
-        _warm(env, sv, lens)
+        _warm(family, env, sv, lens)
         svc.enhance(xs[0][: signals.FS])          # the service's threads
         if env.dev.type == "cuda":
             torch.cuda.synchronize()
         if trace and env.dev.type == "cuda":
             warm_profiler(env.dev)
         rid0 = 2                      # the warm-up request took rid 1
-        tap.install(serving)
+        tap.install(serving, family)
         t_setup = time.perf_counter()
         futs = [None] * n
         done = np.full(n, np.nan)

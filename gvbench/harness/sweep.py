@@ -5,19 +5,17 @@ another, wrapping round the pool; each batch ends with its PCM16 and
 labels on the host, as `enhance_files` fetches them (its wav reading and
 writing are left out: they measure the disk)."""
 
-import dataclasses
 import time
 
 import numpy as np
 import torch
 
 from . import signals
-from .program import entry_kwargs
-from .tap import E_CHAINS, Tap
+from .tap import Tap
 from .trace import warm_profiler
 
 
-def run(env, mix, seconds, trace, seed, only_armed=False):
+def run(family, env, mix, seconds, trace, seed, only_armed=False):
     from guided_vae_nmf_torch import pipeline
 
     n = mix["pool"]
@@ -32,8 +30,8 @@ def run(env, mix, seconds, trace, seed, only_armed=False):
                 [int(s) for s in bseeds]) for idxs, n_pad, bseeds in plan]
     pick = np.random.default_rng([seed, 1])
     k = int(pick.integers(len(batches)))
-    i_sel = int(pick.integers(max(1, env.cfg.niter - E_CHAINS)))
-    kw = entry_kwargs(env, mix["noise_model"])
+    i_sel = family.pick_judged(env.cfg, pick)
+    kw = family.entry_kwargs(env, mix["noise_model"])
 
     def call(b, cfg):
         (x_b, mask), _, bseeds = batches[b]
@@ -44,9 +42,9 @@ def run(env, mix, seconds, trace, seed, only_armed=False):
 
     tap = Tap(armed=0 if only_armed else k, i_sel=i_sel, trace=trace,
               profile_from=seconds / 3,
-              profile_s=mix["profile_s"]).install(pipeline)
+              profile_s=mix["profile_s"]).install(pipeline, family)
     try:
-        warm = dataclasses.replace(env.cfg, niter=1)
+        warm = family.warm_cfg(env.cfg)
         shapes = {}
         for b, ((x_b, _), _, _) in enumerate(batches):
             shapes.setdefault(x_b.shape, b)

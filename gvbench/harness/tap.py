@@ -1,16 +1,13 @@
 """The tap on the program: it wraps the entry the window drives
 (`pipeline.enhance_waveform`, as the sweep calls it or as the service's
-collector thread calls it) and the fused engine's chain wrapper
-(`mcem.fused_engine.mh_chain`), without copying anything.
+collector thread calls it), and installs the cell's family's hooks
+(`families/<name>.py`'s `install`), without copying anything.
 
 For every entry call it notes the batch (real rows, valid frames, time).
 For one armed call it keeps references to the call's inputs and outputs
-and to the arguments and results of the chains that call launches: the
-first E chain's inputs (the state the front end made), the inputs and
-results of E chains `i_sel` to `i_sel + E_CHAINS - 1` (the chain after
-`i_sel` also gives the state the M-step made) and the Wiener-filter
-chain's inputs and results. The check follows the
-program step by step from these.
+in a record, which the family's hooks fill with the state its check
+follows (`armed_record()` gives them the record of the armed call running
+in their thread); `i_sel` in the record is the family's `pick_judged`.
 
 In a traced run it also starts `torch.profiler` at the first entry call
 past `profile_from` seconds into the window and stops it at the first
@@ -25,12 +22,6 @@ import time
 
 import numpy as np
 import torch
-
-
-# E chains the check follows from the armed batch's state: E_CHAINS from
-# chain i_sel on (a served batch holds some hundreds of frames, and one
-# chain's diverged share would count them one frame in a few hundred)
-E_CHAINS = 4
 
 
 def _sync():
@@ -58,16 +49,12 @@ class Tap:
 
     # -- installing -------------------------------------------------------
 
-    def install(self, owner):
-        """Wrap `owner.enhance_waveform` and the fused engine's chain."""
-        from guided_vae_nmf_torch.mcem import fused_engine
-
+    def install(self, owner, family):
+        """Wrap `owner.enhance_waveform`, and install the family's hooks."""
         self._entry_fn = owner.enhance_waveform
-        self._chain_fn = fused_engine.mh_chain
         owner.enhance_waveform = self.entry
-        fused_engine.mh_chain = self.chain
-        self._undo = [(owner, "enhance_waveform", self._entry_fn),
-                      (fused_engine, "mh_chain", self._chain_fn)]
+        self._undo = [(owner, "enhance_waveform", self._entry_fn)]
+        self._undo += family.install(self)
         return self
 
     def uninstall(self):
@@ -111,7 +98,11 @@ class Tap:
         first, t0 = self._prof_t
         self.prof_span = (first, self.calls if idx is None else idx, t1 - t0)
 
-    # -- the wrappers -----------------------------------------------------
+    # -- the wrapper ------------------------------------------------------
+
+    def armed_record(self):
+        """The record of the armed call running in this thread, or None."""
+        return getattr(self._local, "rec", None)
 
     def entry(self, model, x_pad, mask, cfg, **kw):
         idx = self.calls
@@ -132,7 +123,7 @@ class Tap:
                    "kw": {k: v for k, v in kw.items()
                           if k not in ("generator", "seeds", "classifier",
                                        "mean", "std")},
-                   "chains": [], "chain_seeds": [], "i_sel": self.i_sel}
+                   "i_sel": self.i_sel}
             self._local.rec = rec
         try:
             out = self._entry_fn(model, x_pad, mask, cfg, **kw)
@@ -143,24 +134,4 @@ class Tap:
         if rec is not None:
             rec["out"] = out
             self.record = rec
-        return out
-
-    def chain(self, dec_w, X2, WH, g, ypre, Z, Vs, seed=0, **kw):
-        out = self._chain_fn(dec_w, X2, WH, g, ypre, Z, Vs, seed, **kw)
-        rec = getattr(self._local, "rec", None)
-        if rec is None:
-            return out
-        j = len(rec["chain_seeds"])
-        rec["chain_seeds"].append(int(seed))
-        mode = kw.get("mode", "e")
-        judged = self.i_sel <= j < self.i_sel + E_CHAINS
-        keep_in = j in (0, self.i_sel + 1) or judged or mode == "wf"
-        keep_out = judged or mode == "wf"
-        if keep_in:
-            rec["chains"].append({
-                "j": j, "mode": mode, "seed": int(seed), "X2": X2, "WH": WH,
-                "Vb": kw.get("Vb"), "g": g, "ypre": ypre, "Z": Z, "Vs": Vs,
-                "mask": kw.get("mask"), "nsamples": kw.get("nsamples"),
-                "burnin": kw.get("burnin"), "var_RW": kw.get("var_RW"),
-                "out": out if keep_out else None})
         return out

@@ -29,7 +29,7 @@ def main(argv=None):
 
     import torch
 
-    from gvbench.harness import program, serve
+    from gvbench.harness import serve
     from gvbench.harness.layout import Layout
 
     if not torch.cuda.is_available():
@@ -38,9 +38,12 @@ def main(argv=None):
     lay = Layout()
     cell = lay.workload(args.workload)
     mix = dict(lay.traffic(cell["traffic"]), drain_s=args.drain)
-    env = program.setup(lay.root, lay.config(cell["config"]), "cuda:0")
+    config = lay.config(cell["config"])
+    family = lay.family(config)
+    env = family.setup(lay.root, config, "cuda:0")
     for rate in (float(r) for r in args.rates.split(",")):
-        res = serve.run(env, mix, args.seconds, False, args.seed, rate=rate)
+        res = serve.run(family, env, mix, args.seconds, False, args.seed,
+                        rate=rate)
         sizes = res["requests"]["batch_sizes"]
         print(json.dumps({
             "rate_per_s": rate, "backlog": res["notes"]["backlog"],

@@ -4,14 +4,15 @@
         --trace <0|1>
 
 The cell (`BENCHMARK.json`'s `workloads`) names a configuration
-(`configs/<name>.json`) and a traffic mix (`traffic/<name>.json`, whose
-`loop` is "sweep" or "serve"); its correctness limits are
-`limits/<cell>.json` and each per-layer metric is read by
-`metrics/<metric>.py`. With --trace 0 the line holds the cell's end-to-end
-metrics, with --trace 1 its per-layer metrics from a profiled sub-window.
-Every run checks the armed batch against the plain reference
-(`harness/check.py`) and prints each number beside its limit, as the last
-lines on stderr and under "checks", last in the line.
+(`configs/<name>.json`, whose `family` names its model family
+`families/<family>.py`, `mh_mcem` by default) and a traffic mix
+(`traffic/<name>.json`, whose `loop` is "sweep" or "serve"); its
+correctness limits are `limits/<cell>.json` and each per-layer metric is
+read by `metrics/<metric>.py`. With --trace 0 the line holds the cell's
+end-to-end metrics, with --trace 1 its per-layer metrics from a profiled
+sub-window. Every run checks the armed batch against the family's plain
+reference and prints each number beside its limit (`harness/check.py`),
+as the last lines on stderr and under "checks", last in the line.
 
 Needs an NVIDIA GPU: without one (or with fewer cards than the cell asks
 for) it prints no result and exits with 2.
@@ -52,7 +53,7 @@ def _power_limit():
         return "unknown"
 
 
-def _context(res, env, tap):
+def _context(res, family, env, tap):
     """What a per-layer metric reads: the profiled batches' work and
     device times, and the served requests."""
     from gvbench.harness import bounds
@@ -70,10 +71,7 @@ def _context(res, env, tap):
     dev, host = events(tap.prof)
     if not dev:             # no device event: no device metric is read
         return ctx
-    vb = env.noise_model != "nmf"
-    work = [bounds.batch_work(b["frames"], b["rows"], env.shapes,
-                              env.config["mcem"], vb,
-                              env.label_mode == "dnn")
+    work = [family.batch_work(b["frames"], b["rows"], env, env.noise_model)
             for b in tap.batches[first:end]]
     ctx.profile = Profile(dev, host, window_s, work)
     ctx.n_batches = len(work)
@@ -116,20 +114,22 @@ def main(argv=None, require_cuda=True, root=None):
         print(f"gvbench: the program is not importable ({exc})",
               file=sys.stderr)
         return 2
-    from gvbench.harness import check, program, serve, sweep
-
-    split["import_program"] = time.perf_counter() - T_START
+    from gvbench.harness import check, serve, sweep
 
     config = lay.config(cell["config"])
+    family = lay.family(config)
+    split["import_program"] = time.perf_counter() - T_START
+
     mix = lay.traffic(cell["traffic"])
     limits = lay.limits(args.workload)
     device = "cuda:0" if torch.cuda.is_available() else "cpu"
-    env = program.setup(lay.root, config, device)
+    env = family.setup(lay.root, config, device)
     split["models"] = time.perf_counter() - T_START
     env.noise_model = mix.get("noise_model", mix.get("serve", {}).get(
         "noise_model", "nmf"))
     loop = {"sweep": sweep, "serve": serve}[mix["loop"]]
-    res = loop.run(env, mix, args.seconds, bool(args.trace), args.seed)
+    res = loop.run(family, env, mix, args.seconds, bool(args.trace),
+                   args.seed)
     setup_s = res["t_setup"] - T_START
     cuda = env.dev.type == "cuda"
     if cuda:
@@ -139,7 +139,7 @@ def main(argv=None, require_cuda=True, root=None):
     out = {"correct": False, "attempted": res["attempted"],
            "failed": res["failed"], "metrics": {}}
     metrics = lay.metrics(args.workload, args.trace)
-    ctx = _context(res, env, tap) if args.trace else None
+    ctx = _context(res, family, env, tap) if args.trace else None
     for m in metrics:
         if args.trace:
             v = lay.reader(m["name"])(ctx)
@@ -177,12 +177,12 @@ def main(argv=None, require_cuda=True, root=None):
     err = "the armed batch was not recorded" if rec is None else None
     nums = {}
     if rec is not None:
-        ref = check.Reference(lay.root, config, env.dev)
+        ref = family.Reference(lay.root, config, env.dev)
         del env
         if cuda:
             torch.cuda.empty_cache()
         try:
-            nums, err = check.readings(rec, ref, rows_s)
+            nums, err = family.readings(rec, ref, rows_s)
         except Exception:                          # noqa: BLE001
             import traceback
             err = "the check raised: " + traceback.format_exc(limit=4)

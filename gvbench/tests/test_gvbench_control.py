@@ -10,7 +10,7 @@ import pytest
 import tiny  # noqa: F401  (puts the checkout on sys.path)
 import torch
 
-from gvbench.harness import check, program, serve, sweep
+from gvbench.harness import check, serve, sweep
 from gvbench.harness.layout import Layout
 
 
@@ -24,15 +24,16 @@ def test_control_fails_and_program_passes(tmp_path, cell):
     config = lay.config(w["config"])
     mix = lay.traffic(w["traffic"])
     limits = lay.limits(cell)
-    env = program.setup(lay.root, config, "cpu")
-    ref = check.Reference(lay.root, config, env.dev)
+    family = lay.family(config)
+    env = family.setup(lay.root, config, "cpu")
+    ref = family.Reference(lay.root, config, env.dev)
     loop = sweep if mix["loop"] == "sweep" else serve
     kw = {"only_armed": True} if loop is sweep else {}
-    res = loop.run(env, mix, 1.0, False, 5, **kw)
+    res = loop.run(family, env, mix, 1.0, False, 5, **kw)
     rec = res["tap"].record
-    nums, err = check.readings(rec, ref, res["rows_s"])
+    nums, err = family.readings(rec, ref, res["rows_s"])
     ok, rows = check.verdict(nums, limits, err)
     assert ok, json.dumps(rows)
-    cnums, cerr = check.readings(rec, ref, res["rows_s"], subject="tf32")
+    cnums, cerr = family.readings(rec, ref, res["rows_s"], subject="tf32")
     cok, crows = check.verdict(cnums, limits, cerr)
     assert not cok, json.dumps(crows)

@@ -42,6 +42,10 @@ def test_reference_loads_nothing_of_the_program():
         "import numpy as np, torch\n"
         "from gvbench.reference import dsp, mcem, nets, philox, spp\n"
         "from gvbench.harness import check\n"
+        "from gvbench.harness.layout import Layout\n"
+        "lay = Layout()\n"
+        "fam = lay.family(lay.config('m2_ibm'))\n"
+        "ref = fam.Reference(lay.root, lay.config('m2_ibm'), 'cpu')\n"
         "arr = nets.load_npz('artifacts/pretrained/M2_ibm')\n"
         "p = nets.Params(arr, 'f64', 'cpu')\n"
         "x = torch.randn(2, 1024 + 256 * 7)\n"

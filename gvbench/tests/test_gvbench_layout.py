@@ -28,8 +28,15 @@ def test_added_files_are_found(tmp_path):
     (g / "limits" / "dummy.dummy_mix.json").write_text('{"out": 1}')
     (g / "metrics" / "dummy_metric.py").write_text(
         "def read(ctx):\n    return 42.0 if ctx else None\n")
+    (g / "families" / "dummy_family.py").write_text(
+        "def warm_cfg(cfg):\n    return cfg\n")
+    cfg["family"] = "dummy_family"
+    (g / "configs" / "dummy_fam.json").write_text(json.dumps(cfg))
     bench["configs"].append({"name": "dummy", "source": "x",
                              "file": "gvbench/configs/dummy.json",
+                             "reduced": [], "why": "test"})
+    bench["configs"].append({"name": "dummy_fam", "source": "y",
+                             "file": "gvbench/configs/dummy_fam.json",
                              "reduced": [], "why": "test"})
     bench["workloads"].append({"name": "dummy.dummy_mix", "config": "dummy",
                                "traffic": "dummy_mix", "chips": 1,
@@ -50,6 +57,10 @@ def test_added_files_are_found(tmp_path):
     names = [m["name"] for m in lay.metrics("dummy.dummy_mix", 1)]
     assert names == ["dummy_metric"]
     assert lay.reader("dummy_metric")(object()) == 42.0
+    fam = lay.family(lay.config("dummy_fam"))
+    assert fam.warm_cfg(7) == 7
+    assert lay.family(lay.config("dummy")).__file__ == str(
+        g / "families" / "mh_mcem.py")
     e2e = [m["name"] for m in lay.metrics("dummy.dummy_mix", 0)]
     assert e2e == ["setup_s"]
     # the real cells resolve too
@@ -57,6 +68,7 @@ def test_added_files_are_found(tmp_path):
         lay.config(w["config"])
         lay.traffic(w["traffic"])
         lay.limits(w["name"])
+        assert callable(lay.family(lay.config(w["config"])).readings)
         for m in lay.metrics(w["name"], 1):
             assert callable(lay.reader(m["name"]))
 
