@@ -8,9 +8,10 @@ streaming (the Wiener, SPP and M2 stream enhancers, the multi-stream pool,
 its driver and the HTTP stream route), the evaluation protocol (the
 `gvnmf-torch` command line, the evaluate / run_metrics scripts and the
 metrics), training (`gvnmf-torch dataset` / `train` for the four model
-families at the shipped widths), and the paper-config path (PEEM,
+families at the shipped widths), the paper-config path (PEEM,
 the PEEM -> MCEM hybrid and the 500-iteration harness, whose fast_bf16mm
-variant runs K1d).
+variant runs K1d), and the recurrent VAE (RVAE) with its Langevin E-step
+and sweep kernels.
 
     python3 chip_smoke.py [--seed 0] [--out build/chip_smoke.json]
 
@@ -208,7 +209,19 @@ Phases, in order; any failure exits nonzero without a result line:
    CPU path; and `bench_niter500.main` at B=4, N=384, 100 iterations,
    PEEM and a 25-iteration hybrid, which prints its JSON line (fast_bf16mm:
    100 K1d E + 1 K1d WF launches a run).
-12. kernel times at the paths' shapes, every variant, beside their bounds
+12. the RVAE: `enhance_waveform(label_mode="none")` with a seeded RVAE of
+   the published widths (arXiv:1910.10942; F 513, L 16, 128-unit LSTMs)
+   on 64 speech-like mixtures of 4.08 s (B=64, N=256, the benchmark's
+   rvae_ld.seg64 shapes) at RVAEConfig(), twice, with the launch counters
+   reset before and checked after each run (4,101 forward sweeps, 4,100
+   backward sweeps, 4,201 likelihood passes, 4,100 updates, 200 K2b 'h' /
+   100 K2b 'g' a batch) and |s + n - x| <= 2 LSB; then the four kernels
+   of `csrc/lstm_sweep.cu` (forward sweep, backward sweep, likelihood
+   pass, update) on the card against their plain versions at TOL on
+   seeded inputs of those shapes, a third of the rows shorter, and timed
+   beside their plain versions and their bounds (the work counts of
+   `gvbench/families/rvae.py`).
+13. kernel times at the paths' shapes, every variant, beside their bounds
    and their plain versions' times: K1 by CUDA events, with the mask's
    live flags as the main path runs it (the seeded mask's one dead pair
    of 48), and K1a E and WF with no pair dead, every flag set, in turns
@@ -315,6 +328,17 @@ WIDE_TAG = "_h2048"
 K1G_WIDE_VARIANTS = [f"{m}_wh_gen{WIDE_TAG}" for m in ("e", "wf")]
 WIDE_VARIANTS = [f"{m}_wh_wide{lv}" for lv in ("", "_fast")
                  for m in ("h", "g")]
+# The RVAE's Langevin step kernels (`mcem.lstm_sweep`): the forward and
+# backward sweeps, the likelihood pass and the update.
+SWEEP_VARIANTS = ("fwd", "bwd", "lik", "update")
+# The RVAE on the main path: a seeded RVAE of the published widths
+# (arXiv:1910.10942, as `gvbench/configs/rvae_ld.json` assumes them: F 513,
+# L 16, 128-unit LSTMs, one 128-unit dense layer) at the benchmark's
+# rvae_ld.seg64 shapes, 64 segments of 4.08 s (B=64, N=256, every frame
+# valid).
+RVAE_DIMS = [513, 16, 128, [128]]
+RVAE_SEED = 1910
+RVAE_SECONDS = (4.08,) * 64
 
 
 def expected_launches(form, e, wf, h, g, n_batches=1, level="", gen=False,
@@ -322,9 +346,10 @@ def expected_launches(form, e, wf, h, g, n_batches=1, level="", gen=False,
     """The launch counts (`launch_counts()` layout) of a path that runs
     the given launches a batch at `level`, over `n_batches` batches; `gen`:
     its chains on K1g, `ext`: on K1e, `wide`: its sums on K2's wide
-    kernel."""
+    kernel. No RVAE kernel launches (see `rvae_launches`)."""
     out = {"mh_chain": dict.fromkeys(CHAIN_VARIANTS, 0),
-           "nmf_sums": dict.fromkeys(SUMS_VARIANTS, 0)}
+           "nmf_sums": dict.fromkeys(SUMS_VARIANTS, 0),
+           "lstm_sweep": dict.fromkeys(SWEEP_VARIANTS, 0)}
     sums_level = "_fast" if level else ""
     chain = form + ("_gen" if gen else "") + ("_ext" if ext else "")
     sums = form + ("_wide" if wide else "")
@@ -333,6 +358,21 @@ def expected_launches(form, e, wf, h, g, n_batches=1, level="", gen=False,
                                  ("nmf_sums", "h", h, sums_level, sums),
                                  ("nmf_sums", "g", g, sums_level, sums)):
         out[kern][f"{mode}_{f}{lv}"] = n * n_batches
+    return out
+
+
+def rvae_launches(cfg, n_batches=1):
+    """The launch counts of `n_batches` RVAE batches at the RVAEConfig
+    `cfg`: the first decode's forward sweep; a Langevin step's forward and
+    backward sweep, likelihood pass and update; one likelihood pass more a
+    chain (niter E chains and the WF chain); two K2b 'h' passes and one 'g'
+    pass an EM iteration."""
+    steps = (cfg.niter * (cfg.burnin_E_step + cfg.nsamples_E_step)
+             + cfg.burnin_WF + cfg.nsamples_WF)
+    out = expected_launches("vb", 0, 0, 2 * cfg.niter, cfg.niter, n_batches)
+    out["lstm_sweep"] = {k: n * n_batches for k, n in (
+        ("fwd", steps + 1), ("bwd", steps), ("lik", steps + cfg.niter + 1),
+        ("update", steps))}
     return out
 
 
@@ -4624,6 +4664,8 @@ SOURCES = {
                      "guided_vae_nmf_tpu/mcem/pallas_engine.py:494"),
     "nmf_sums": ("guided_vae_nmf_torch/csrc/nmf_sums.cu",
                  "guided_vae_nmf_tpu/mcem/pallas_engine.py:651"),
+    # the JAX package has no RVAE: these kernels replace no TPU kernel
+    "lstm_sweep": ("guided_vae_nmf_torch/csrc/lstm_sweep.cu", None),
 }
 
 
@@ -4685,6 +4727,146 @@ def time_sums(torch, c, vb, level, cfg, gpu):
             f"bound {bound:.4f} ms = {100 * bound / v['ms']:.1f}% after K1, "
             f"{100 * bound / v['cold_ms']:.1f}% cold; {gpu}")
     return rows
+
+
+def phase_rvae(torch, dev, gpu, seed):
+    """The RVAE on the main path and its four kernels. `enhance_waveform`
+    (label_mode='none', the NMF noise model, RVAEConfig(): m1's chain
+    lengths, eta 0.005) on RVAE_SECONDS of speech-like mixtures with a
+    seeded RVAE of RVAE_DIMS, twice, with the launch counters reset right
+    before each run and checked against `rvae_launches` after; then each
+    kernel of `mcem.lstm_sweep` on the card against its plain version at
+    TOL on seeded inputs of the same shapes (the backward sweep's partials
+    summed over directions, as the update sums them), timed by CUDA events
+    beside its plain version and its bound from `gvbench.families.rvae`'s
+    work counts. Returns the record and the `kernels` entries."""
+    import guided_vae_nmf_torch as port
+    from gvbench.families.rvae import pass_work, sweep_work
+    from guided_vae_nmf_torch.mcem import lstm_sweep as ls
+    from guided_vae_nmf_torch.mcem.engine import VX_FLOOR
+    from guided_vae_nmf_torch.mcem.rvae_engine import (
+        RVAEConfig, decoder_parts)
+    from guided_vae_nmf_torch.models.rvae import bilstm_scan, rvae_init
+    from guided_vae_nmf_torch.pipeline import NFFT, enhance_waveform
+
+    cfg = RVAEConfig()
+    model = rvae_init(torch.Generator().manual_seed(RVAE_SEED),
+                      RVAE_DIMS).to(dev)
+    pairs = speech_like_mixtures(seed + 23, RVAE_SECONDS)
+    x_b, mask = padded([x for _, x in pairs])
+    B, N = mask.shape
+    check(mask.all(), "the RVAE's segments hold a pad frame")
+    audio_s = sum(RVAE_SECONDS)
+    log(f" batch: B={B}, N={N}, {audio_s:.1f} s of audio, {cfg}")
+    walls = []
+    for rep in range(2):
+        port.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s16, n16, _, _, ok = enhance_waveform(
+            model, x_b, mask, cfg, label_mode="none", return_noise=True,
+            device=dev,
+            generator=torch.Generator(device=dev).manual_seed(seed + rep))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        counts = port.launch_counts()
+        log(f"  run {rep}: {walls[-1]:.3f} s wall, launches "
+            f"{nonzero(counts)}")
+        check(counts == rvae_launches(cfg),
+              f"RVAE launches {nonzero(counts)}, expected "
+              f"{nonzero(rvae_launches(cfg))}")
+    s16, n16, ok = (a.cpu().numpy() for a in (s16, n16, ok))
+    check(bool(ok.all()), "non-finite RVAE enhancement output")
+    check(s16.shape == (B, x_b.shape[1] - NFFT), f"s shape {s16.shape}")
+    worst = 0
+    for j, (_, x) in enumerate(pairs):
+        T = len(x)
+        recon = s16[j][:T].astype(np.int32) + n16[j][:T].astype(np.int32)
+        worst = max(worst, int(np.abs(recon - x.astype(np.int32)).max()))
+    log(f"  |s + n - x| max {worst} LSB (needs <= 2: WFs + WFn = 1)")
+    check(worst <= 2, "the RVAE's Wiener gains do not sum to one")
+    wall = walls[-1]
+    log(f" RVAE: {wall:.3f} s wall for {audio_s:.1f} s of audio = "
+        f"{audio_s / wall:.2f}x realtime (run 1; {gpu})")
+
+    # the kernels against their plain versions, at the batch's shapes
+    # with a third of the rows shorter, as the card tests hold them
+    F, L, Hn = RVAE_DIMS[0], RVAE_DIMS[1], RVAE_DIMS[2]
+    g = torch.Generator().manual_seed(seed + 7)
+    lengths = torch.full((B,), N, dtype=torch.int32)
+    lengths[1::3] = torch.randint(N // 3, N, (len(lengths[1::3]),),
+                                  generator=g).to(torch.int32)
+    lengths = lengths.to(dev)
+    on = (torch.arange(N, device=dev)[None] < lengths[:, None]).float()
+    Z = torch.randn((B, N, L), generator=g).to(dev)
+    dH = (torch.randn((B, N, 2 * Hn), generator=g) * 0.1).to(dev)
+    X2 = (torch.rand((B, N, F), generator=g) * 10).to(dev)
+    Vb = (torch.rand((B, N, F), generator=g) + 0.1).to(dev)
+    gain = (torch.rand((B, N), generator=g) + 0.5).to(dev)
+    eps = torch.randn((B, N, L), generator=g).to(dev)
+    w_ih, w_hh, b, wo, bo = decoder_parts(model)
+    H_ref, save = bilstm_scan(Z, lengths, w_ih, w_hh, b, keep=True)
+    O = (H_ref.reshape(B * N, -1) @ wo).reshape(B, N, F).contiguous()
+    parts = ls.backward_sweep(dH, save, lengths, w_ih, w_hh)
+    err = {}
+    Hout, s_k = ls.forward_sweep(Z, lengths, w_ih, w_hh, b)
+    err["fwd"] = max(compare("lstm_sweep fwd Hout", Hout, H_ref),
+                     compare("lstm_sweep fwd save", s_k, save))
+    err["bwd"] = compare(
+        "lstm_sweep bwd dL/dz", parts.sum(0),
+        ls.backward_sweep_ref(dH, save, lengths, w_ih, w_hh).sum(0))
+    lik = ls.lik_grad(O, bo, X2, Vb, gain, on, VX_FLOOR)
+    lik_ref = ls.lik_grad_ref(O, bo, X2, Vb, gain, on, VX_FLOOR)
+    err["lik"] = max(compare("lstm_sweep lik Vs", lik[0], lik_ref[0]),
+                     compare("lstm_sweep lik dJ/dO", lik[1], lik_ref[1]))
+    err["update"] = compare(
+        "lstm_sweep update Z",
+        ls.langevin_update(Z, parts, eps, on, cfg.ld_step),
+        ls.langevin_update_ref(Z, parts, eps, on, cfg.ld_step))
+
+    runs = {
+        "fwd": (lambda: ls.forward_sweep(Z, lengths, w_ih, w_hh, b),
+                lambda: bilstm_scan(Z, lengths, w_ih, w_hh, b, keep=True)),
+        "bwd": (lambda: ls.backward_sweep(dH, save, lengths, w_ih, w_hh),
+                lambda: ls.backward_sweep_ref(dH, save, lengths, w_ih,
+                                              w_hh)),
+        "lik": (lambda: ls.lik_grad(O, bo, X2, Vb, gain, on, VX_FLOOR),
+                lambda: ls.lik_grad_ref(O, bo, X2, Vb, gain, on, VX_FLOOR)),
+        "update": (lambda: ls.langevin_update(Z, parts, eps, on,
+                                              cfg.ld_step),
+                   lambda: ls.langevin_update_ref(Z, parts, eps, on,
+                                                  cfg.ld_step)),
+    }
+    V = int(lengths.sum())
+    work = dict(sweep_work(V, L, Hn, B), **pass_work(V, F, L))
+    names = {"fwd": "lstm_sweep_fwd_kernel", "bwd": "lstm_sweep_bwd_kernel",
+             "lik": "rvae_lik_kernel", "update": "langevin_update_kernel"}
+    kernels = []
+    for k in SWEEP_VARIANTS:
+        ms = time_cuda(runs[k][0])
+        plain_ms = time_cuda(runs[k][1], launches=1, reps=1)
+        flops, nbytes = work[k]
+        by = ("ops" if flops / PEAK_F32_FLOPS >= nbytes / PEAK_BYTES
+              else "bytes")
+        bound = 1e3 * max(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES)
+        launches = rvae_launches(cfg)["lstm_sweep"][k]
+        log(f"  {'lstm_sweep_' + k:<27s}: {ms:.4f} ms (plain {plain_ms:.3f} ms), "
+            f"bound {bound:.4f} ms by {by} ({flops / 1e9:.3f} GFLOP, "
+            f"{nbytes / 1e6:.2f} MB) = {100 * bound / ms:.1f}% of bound; "
+            f"{launches} launches a batch; {gpu}")
+        kernels.append(dict(
+            name=f"lstm_sweep_{k}", route="cuda",
+            source=SOURCES["lstm_sweep"][0],
+            replaces=SOURCES["lstm_sweep"][1],
+            launches=launches, max_abs_err=err[k], ms=ms, plain_ms=plain_ms,
+            bound_ms=bound, bound_by=by, library_ms=None,
+            detail=dict(kernel=names[k], B=B, N=N, F=F, L=L, H=Hn,
+                        valid_frames=V, flops=flops, bytes=nbytes,
+                        rows_per_cluster=ls.rows_per_cluster(B, dev))))
+    rec = {"B": B, "n_pad": N, "audio_s": audio_s, "walls_s": walls,
+           "x_realtime": audio_s / wall, "launches": counts,
+           "pcm_lsb": worst}
+    return rec, kernels
 
 
 def phase_times(torch, model, cfg, B, N, dev, gpu, err, launches, k1d_past,
@@ -5044,7 +5226,7 @@ def main(argv=None):
     log(f"build: csrc/*.cu for sm_90a in {build_s:.1f} s")
     ptxas = {}
     for lib in ("mh_chain", "mh_chain_ext", "mh_chain_general",
-                "nmf_sums"):
+                "nmf_sums", "lstm_sweep"):
         for kern, (regs, st, ld) in ptxas_report(_build.build_log(lib)).items():
             ptxas[kern] = dict(registers=regs, spill_stores=st, spill_loads=ld)
             log(f"  ptxas {lib}: {regs} registers, {st} B spill stores, "
@@ -5200,6 +5382,9 @@ def main(argv=None):
         torch, model, classifier, mean, std, pairs, dev)
     log(f"paper-config harness (bench_niter500, {HARNESS_ARGS}):")
     harness = phase_harness(torch, dev)
+    log("RVAE (enhance_waveform, label_mode='none', RVAEConfig(), B=64, "
+        "N=256) and its kernels vs plain versions:")
+    rvae, rvae_kernels = phase_rvae(torch, dev, gpu, args.seed)
 
     log("kernel times at the paths' shapes:")
     # each variant's launches on the first path that runs it
@@ -5220,6 +5405,7 @@ def main(argv=None):
     kernels, k1g_vs_k1e = phase_times(
         torch, model, cfg, *mask.shape, dev, gpu, err, launches, k1d_past,
         seed=args.seed)
+    kernels += rvae_kernels
     large = phase_times_large(torch, model, cfg, dev, gpu)
 
     for r in (main_res, *paths.values(), *fast.values(), rest["oracle"],
@@ -5238,7 +5424,8 @@ def main(argv=None):
         "evaluation": evaluation, "training": training,
         "multidevice": multidevice, "scripts": scripts,
         "kernel_domain": domain, "examples": examples, "hybrid": hybrid,
-        "harness": harness, "kernels": kernels, "kernels_b32_n512": large,
+        "harness": harness, "rvae": rvae, "kernels": kernels,
+        "kernels_b32_n512": large,
         "k1g_vs_k1e": k1g_vs_k1e,
         "seconds": time.perf_counter() - t_start,
     }

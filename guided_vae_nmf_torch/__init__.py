@@ -8,8 +8,8 @@ streaming enhancers and their pool (`streaming`, the HTTP stream route),
 the paper-config path (PEEM, the PEEM -> MCEM hybrid, `bench_niter500`)
 and the evaluation protocol (`metrics`, the `gvnmf-torch` command line
 `cli`, the evaluate / run_metrics / serve / doctor / streaming `scripts`)
-in PyTorch, with hand-written CUDA kernels (`csrc/`) for the MH chain (K1)
-and the NMF M-step sums (K2).
+in PyTorch, with hand-written CUDA kernels (`csrc/`) for the MH chain (K1),
+the NMF M-step sums (K2) and the RVAE decoder's sweeps (`mcem.lstm_sweep`).
 
 Float32 matrix products run in full float32, as the JAX path does.
 """
@@ -21,10 +21,12 @@ torch.backends.cudnn.allow_tf32 = False
 
 
 def _wrappers():
+    from .mcem import lstm_sweep
     from .mcem.mh_chain import mh_chain
     from .mcem.nmf_sums import nmf_sums
 
-    return {"mh_chain": mh_chain, "nmf_sums": nmf_sums}
+    return {"mh_chain": mh_chain, "nmf_sums": nmf_sums,
+            "lstm_sweep": lstm_sweep.kernels}
 
 
 def reset_launch_counts():
@@ -39,7 +41,9 @@ def launch_counts():
     """Kernel launches per wrapper and variant since the last reset:
     {"mh_chain": {"e_wh": 100, "wf_wh": 1, "e_vb": 0, ..., "e_wh_fast": 0,
     ..., "wf_vb_trans": 0, "e_wh_mm16": 0, ..., "wf_vb_trans_mm16": 0},
-    "nmf_sums": {"h_wh": 100, ..., "g_vb_fast": 0}} (exact variants, the
-    fast-mode ones, then the chain's with bfloat16 decoder products; see
-    `mcem.mh_chain` and `mcem.nmf_sums`)."""
+    "nmf_sums": {"h_wh": 100, ..., "g_vb_fast": 0}, "lstm_sweep": {"fwd":
+    0, "bwd": 0, "lik": 0, "update": 0}} (exact variants, the fast-mode
+    ones, then the chain's with bfloat16 decoder products; the RVAE's
+    Langevin step kernels; see `mcem.mh_chain`, `mcem.nmf_sums` and
+    `mcem.lstm_sweep`)."""
     return {name: dict(fn.launches) for name, fn in _wrappers().items()}

@@ -70,6 +70,7 @@ from .mcem.peem import (
     peem_m2_batch,
     peem_mcem_m2_batch,
 )
+from .mcem.rvae_engine import RVAEConfig, mcem_batch_rvae
 from .mcem.spp import (
     spp_track,
     timo_mask,
@@ -78,6 +79,7 @@ from .mcem.spp import (
     timo_vad_estimation,
 )
 from .models.nets import classifier_features
+from .models.rvae import RVAE
 from .ops.profiling import StageTimer, span
 from .parallel.mesh import (
     ShardError,
@@ -282,8 +284,32 @@ def _spp2_pass1_cfg(cfg):
 
 def _eager(engine, model, n_pad, noise_model):
     """Whether MCEM runs on the eager engine: the 'hybrid' noise model, or
-    where :func:`_use_fused` does not pick the fused engine."""
+    where :func:`_use_fused` does not pick the fused engine; never for an
+    RVAE, which runs its own engine."""
+    if isinstance(model, RVAE):
+        return False
     return noise_model == "hybrid" or not _use_fused(engine, model, n_pad)
+
+
+def _check_rvae(y, noise_model, fast, cfg, engine, init):
+    """An RVAE runs :func:`mcem.rvae_engine.mcem_batch_rvae` alone: MCEM
+    with a Langevin E-step, no labels, the NMF noise model, exact mode, no
+    warm start."""
+    supported = ("an RVAE runs MCEM with a Langevin E-step only: "
+                 "label_mode='none', noise_model='nmf', fast=False, engine "
+                 "'auto' or 'fused', no init, and an MCEMConfig or "
+                 "RVAEConfig")
+    _check_engine(engine)
+    bad = [what for what, no in (
+        ("labels", y is not None),
+        (f"noise_model={noise_model!r}", noise_model != "nmf"),
+        (f"fast={fast!r}", bool(fast)),
+        (f"engine={engine!r}", engine == "xla"),
+        ("a warm start (init)", bool(init)),
+        (type(cfg).__name__, not isinstance(cfg, (MCEMConfig, RVAEConfig))),
+    ) if no]
+    if bad:
+        raise NotImplementedError(f"{supported}; got {', '.join(bad)}")
 
 
 def _spp2_two_pass(run_engine, Vb_spp, X_p, cfg):
@@ -310,7 +336,11 @@ def _run_mcem(model, X_p, mask, y, generator, cfg, noise_model="nmf",
     from the generator's seed and each row's index) and ignores `fast`, as
     the JAX package's XLA engine does. `init` is the warm start: "W" /
     "H" for PEEM and the hybrid, also "g" / "Z" for MCEM on either
-    engine."""
+    engine. An RVAE goes to :func:`mcem.rvae_engine.mcem_batch_rvae` (see
+    :func:`_check_rvae`)."""
+    if isinstance(model, RVAE):
+        _check_rvae(y, noise_model, fast, cfg, engine, init)
+        return mcem_batch_rvae(model, X_p, mask, generator, cfg)
     _check_supported(noise_model, fast, cfg, engine)
     update_nmf = noise_model not in ("spp", "spp2")
     Vb_spp = None

@@ -18,7 +18,10 @@ with the frame counts of one of the offline sweep's 512-frame batches
 (`SWEEP_512`), with every tile pair computed (`_b16n512_all`) and, where
 the checkout's chain takes live flags, with its dead pairs skipped
 (`_b16n512`); and at the main path's shapes with every pair's flag set
-(`_flags`, no pair dead).
+(`_flags`, no pair dead). Where the checkout has them, the RVAE's sweep
+kernels (`mcem.lstm_sweep`) run each alone at B=64, N=256 (the published
+widths, every frame valid), with their least time at the card's float32
+peak and HBM bandwidth, their share of it, and the plain loops' time.
 
 With --replay <cell> it times no kernel and instead replays one pass of a
 sweep cell of the checkout's benchmark (`gvbench/`: its traffic, batch
@@ -82,10 +85,11 @@ def main(argv=None):
     build_s = _build.build_all()
     # ptxas lines, the anonymous namespace's hash (it follows the file's
     # path) taken out of the mangled names
+    libs = ("mh_chain", "mh_chain_ext", "mh_chain_general", "nmf_sums",
+            "lstm_sweep")
     ptxas = {lib: {re.sub(r"(_GLOBAL__N__)[0-9a-f]{8}", r"\1", k): v
                    for k, v in cs.ptxas_report(_build.build_log(lib)).items()}
-             for lib in ("mh_chain", "mh_chain_ext", "mh_chain_general",
-                         "nmf_sums")}
+             for lib in libs if (_build.CSRC / f"{lib}.cu").exists()}
     if args.replay:
         out = {"tree": tree, "gpu": cs.gpu_name_and_limit(),
                "build_s": build_s, "ptxas": ptxas,
@@ -186,9 +190,51 @@ def main(argv=None):
                             cs.time_cuda(lambda: cs.run_chain(
                                 c, mh_chain, mode, ns, bi, cfg.var_RW,
                                 vb=vb, seed=1, form="general", **kw)))
+    if (_build.CSRC / "lstm_sweep.cu").exists():
+        out["rvae_sweeps"] = rvae_sweeps(torch, cs, dev, args.reps)
     if args.e2e:
         out["x_realtime"] = e2e(torch, cs, model, cfg, tree, dev, gpu)
     return write(out, args.out)
+
+
+def rvae_sweeps(torch, cs, dev, reps, B=64, N=256, L=16, Hn=128):
+    """The RVAE decoder's forward and backward sweep kernels, each alone,
+    at B=64, N=256 on a seeded RVAE of the published widths: ms of each
+    (median of `reps` timings), the plain loops' ms, and the bound: the
+    benchmark's work counts of one sweep (`gvbench.families.rvae.
+    sweep_work`) at the card's float32 peak and HBM bandwidth, the
+    larger."""
+    from gvbench.families.rvae import sweep_work
+    from guided_vae_nmf_torch.mcem import lstm_sweep as ls
+    from guided_vae_nmf_torch.mcem.rvae_engine import decoder_parts
+    from guided_vae_nmf_torch.models.rvae import bilstm_scan, rvae_init
+
+    model = rvae_init(torch.Generator().manual_seed(1910),
+                      [513, L, Hn, [Hn]]).to(dev)
+    dec = decoder_parts(model)
+    g = torch.Generator(device=dev).manual_seed(5)
+    Z = torch.randn((B, N, L), generator=g, device=dev)
+    lengths = torch.full((B,), N, dtype=torch.int32, device=dev)
+    Hout, save = ls.forward_sweep(Z, lengths, *dec[:3])
+    dH = torch.randn((B, N, 2 * Hn), generator=g, device=dev) * 0.1
+    work = sweep_work(B * N, L, Hn, B)
+    runs = {"fwd": lambda: ls.forward_sweep(Z, lengths, *dec[:3]),
+            "bwd": lambda: ls.backward_sweep(dH, save, lengths, *dec[:2])}
+    plain = {"fwd": lambda: bilstm_scan(Z, lengths, *dec[:3], keep=True),
+             "bwd": lambda: ls.backward_sweep_ref(dH, save, lengths,
+                                                  *dec[:2])}
+    out = {"rows_per_cluster": ls.rows_per_cluster(B, dev)}
+    for k in ("fwd", "bwd"):
+        ms = sorted(cs.time_cuda(runs[k]) for _ in range(reps))
+        flops, nbytes = work[k]
+        bound = 1e3 * max(flops / cs.PEAK_F32_FLOPS, nbytes / cs.PEAK_BYTES)
+        out[k] = {"ms": ms[len(ms) // 2], "bound_ms": bound,
+                  "by": "ops" if flops / cs.PEAK_F32_FLOPS
+                  >= nbytes / cs.PEAK_BYTES else "bytes",
+                  "share": bound / ms[len(ms) // 2],
+                  "plain_ms": cs.time_cuda(plain[k], launches=1, reps=1),
+                  "us_a_timestep": 1e3 * ms[len(ms) // 2] / N}
+    return out
 
 
 def write(out, path):

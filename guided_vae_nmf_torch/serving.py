@@ -44,6 +44,7 @@ from ._build import build_all
 from ._device import resolve_device
 from .dsp import frame_count, pad_signal_for_stft
 from .mcem.engine import MCEMConfig
+from .models.rvae import refuse_rvae
 from .parallel.mesh import data_size, pad_to_multiple, replicate
 from .pipeline import (
     HOP,
@@ -130,6 +131,7 @@ class EnhancementService:
     def __init__(self, model, classifier=None, mean=None, std=None,
                  cfg: MCEMConfig = MCEMConfig(),
                  serve: ServeConfig = ServeConfig(), mesh=None, device=None):
+        refuse_rvae(model, "the service")
         if serve.label_mode not in SERVE_LABEL_MODES:
             raise ValueError(f"label_mode must be one of {SERVE_LABEL_MODES},"
                              f" got {serve.label_mode!r}")

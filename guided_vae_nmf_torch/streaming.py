@@ -70,6 +70,7 @@ from .mcem.engine import (
 )
 from .mcem.spp import spp_state_init, spp_track_chunk
 from .models.nets import classifier_features
+from .models.rvae import refuse_rvae
 from .parallel.mesh import data_size, replicate, run_shards
 
 FS = 16000
@@ -783,6 +784,7 @@ class StreamingM2Enhancer(_StreamingOLA):
                  noise_gain_bands=1, eps=1e-8, keep_masks=True,
                  adaptive_iters=0, escalate_reinit=False, lookahead=False,
                  features="power", dnn_threshold=0.5, device=None):
+        refuse_rvae(model, "the M2 stream")
         if label_mode == "dnn" and classifier is None:
             raise ValueError("label_mode='dnn' needs a classifier")
         self.features = features
@@ -1053,6 +1055,7 @@ class MultiStreamM2Enhancer:
 
     def __init__(self, model, classifier=None, mean=None, std=None,
                  max_streams=8, mesh=None, device=None, **enhancer_kwargs):
+        refuse_rvae(model, "the stream pool")
         if max_streams < 1:
             raise ValueError("max_streams must be >= 1")
         if enhancer_kwargs.get("lookahead"):

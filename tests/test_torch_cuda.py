@@ -298,7 +298,7 @@ def test_fused_engine_var0_matches_cpu(cuda):
             init={k: t(v) for k, v in init.items()})
     assert nonzero(launch_counts()) == {
         "mh_chain": {"e_wh": 3, "wf_wh": 1},
-        "nmf_sums": {"h_wh": 3, "g_wh": 3}}
+        "nmf_sums": {"h_wh": 3, "g_wh": 3}, "lstm_sweep": {}}
     for k in ("WFs", "WFn", "W", "H", "g", "Z", "cost"):
         assert_allclose(outs["cuda"][k].cpu().numpy(),
                         outs["cpu"][k].numpy(), rtol=1e-3, atol=1e-5,
@@ -404,7 +404,7 @@ def test_fixed_noise_engine_var0_matches_cpu(cuda, bands):
             update_nmf=False, Vb_fixed=t(Vb))
     assert nonzero(launch_counts()) == {
         "mh_chain": {"e_vb": 3, "wf_vb": 1},
-        "nmf_sums": {"h_vb": 3, "g_vb": 3}}
+        "nmf_sums": {"h_vb": 3, "g_vb": 3}, "lstm_sweep": {}}
     for k in ("WFs", "WFn", "b", "g", "Z", "cost"):
         assert_allclose(outs["cuda"][k].cpu().numpy(),
                         outs["cpu"][k].numpy(), rtol=1e-3, atol=1e-5,
@@ -426,7 +426,8 @@ def test_fast_chain_kernel_matches_plain(cuda, mode, form, level):
     got = run_chain(mh_chain, c, mode, 4, 3, 0.01, vb=vb, noise=noise,
                     **FAST[level])
     assert nonzero(launch_counts()) == {
-        "mh_chain": {f"{mode}_{form}_{level}": 1}, "nmf_sums": {}}
+        "mh_chain": {f"{mode}_{form}_{level}": 1}, "nmf_sums": {},
+        "lstm_sweep": {}}
     ref = run_chain(mh_chain_ref, c, mode, 4, 3, 0.01, vb=vb, noise=noise,
                     **FAST[level])
     torch.cuda.synchronize()
@@ -452,7 +453,8 @@ def test_fast_sums_kernel_matches_plain(cuda, mode, form):
     got = nmf_sums(samples, wh, c["g"], c["X2"], mode=mode,
                    approx_recip=True, **kw)
     assert nonzero(launch_counts()) == {
-        "mh_chain": {}, "nmf_sums": {f"{mode}_{form}_fast": 1}}
+        "mh_chain": {}, "nmf_sums": {f"{mode}_{form}_fast": 1},
+        "lstm_sweep": {}}
     ref = nmf_sums_ref(samples, wh, c["g"], c["X2"], mode=mode, **kw)
     for a, b in zip(got, ref):
         _close(a, b)
@@ -486,7 +488,7 @@ def test_fast_engine_var0_matches_cpu(cuda, level):
             **FAST[level])
     assert nonzero(launch_counts()) == {
         "mh_chain": {f"e_wh_{level}": 3, f"wf_wh_{level}": 1},
-        "nmf_sums": {"h_wh_fast": 3, "g_wh_fast": 3}}
+        "nmf_sums": {"h_wh_fast": 3, "g_wh_fast": 3}, "lstm_sweep": {}}
     for k in ("WFs", "WFn", "W", "H", "g", "Z"):
         assert_allclose(outs["cuda"][k].cpu().numpy(),
                         outs["cpu"][k].numpy(), rtol=2e-3, atol=1e-5,
@@ -533,7 +535,8 @@ def test_bf16mm_chain_kernel_matches_plain(cuda, mode, form, level):
                     matmul_dtype=torch.bfloat16, **opts)
     lv = "" if level == "exact" else f"_{level}"
     assert nonzero(launch_counts()) == {
-        "mh_chain": {f"{mode}_{form}{lv}_mm16": 1}, "nmf_sums": {}}
+        "mh_chain": {f"{mode}_{form}{lv}_mm16": 1}, "nmf_sums": {},
+        "lstm_sweep": {}}
     ref = run_chain(mh_chain_ref, c, mode, 4, 3, 0.01, vb=vb, noise=noise,
                     matmul_dtype=torch.bfloat16, **opts)
     f32 = run_chain(mh_chain, c, mode, 4, 3, 0.01, vb=vb, noise=noise,
@@ -572,7 +575,7 @@ def test_bf16mm_engine_var0_matches_cpu(cuda):
             matmul_dtype=torch.bfloat16, **FAST["fast"])
     assert nonzero(launch_counts()) == {
         "mh_chain": {"e_wh_fast_mm16": 3, "wf_wh_fast_mm16": 1},
-        "nmf_sums": {"h_wh_fast": 3, "g_wh_fast": 3}}
+        "nmf_sums": {"h_wh_fast": 3, "g_wh_fast": 3}, "lstm_sweep": {}}
     for k in ("WFs", "WFn", "W", "H", "g", "Z"):
         assert_allclose(outs["cuda"][k].cpu().numpy(),
                         outs["cpu"][k].numpy(), rtol=2e-3, atol=1e-5,
@@ -610,12 +613,14 @@ def test_peem_and_hybrid_var0_match_cpu(cuda, fixed):
         kw = dict(update_nmf=not fixed, Vb_fixed=t(Vb) if fixed else None)
         reset_launch_counts()
         peem[str(dev)] = peem_m2_batch(*args, pcfg, **kw)
-        assert nonzero(launch_counts()) == {"mh_chain": {}, "nmf_sums": {}}
+        assert nonzero(launch_counts()) == {
+            "mh_chain": {}, "nmf_sums": {}, "lstm_sweep": {}}
         hyb[str(dev)] = peem_mcem_m2_batch(*args, pcfg, mcfg, **kw)
     form = "vb" if fixed else "wh"
     sums = {"g_vb": 2} if fixed else {"h_wh": 2, "g_wh": 2}
     assert nonzero(launch_counts()) == {
-        "mh_chain": {f"e_{form}": 2, f"wf_{form}": 1}, "nmf_sums": sums}
+        "mh_chain": {f"e_{form}": 2, f"wf_{form}": 1}, "nmf_sums": sums,
+        "lstm_sweep": {}}
     for out in (peem, hyb):
         for k in ("WFs", "WFn", "W", "H", "g", "Z", "cost"):
             assert_allclose(out["cuda"][k].cpu().numpy(),
@@ -969,7 +974,8 @@ def test_eager_engine_matches_cpu(cuda, noise_model):
             [1, 2], cfg, update_nmf=update_nmf,
             Vb_fixed=None if noise_model == "nmf" else t(Vb),
             init_nmf=(t(W0), t(H0), t(g0)), noise=noise)
-        assert nonzero(launch_counts()) == {"mh_chain": {}, "nmf_sums": {}}
+        assert nonzero(launch_counts()) == {
+            "mh_chain": {}, "nmf_sums": {}, "lstm_sweep": {}}
     for k in ("WFs", "WFn", "W", "H", "g", "Z", "cost"):
         assert_allclose(outs["cuda"][k].cpu().numpy(),
                         outs["cpu"][k].numpy(), rtol=1e-3, atol=1e-5,
@@ -1704,7 +1710,7 @@ def test_bench_long_runs_repeat_on_the_card(cuda, tmp_path):
     assert row["frames"] == 7501 and row["backend"] == "cuda"
     assert nonzero(launch_counts()) == {
         "mh_chain": {"e_wh_fast": 200, "wf_wh_fast": 2},
-        "nmf_sums": {"h_wh_fast": 200, "g_wh_fast": 200}}
+        "nmf_sums": {"h_wh_fast": 200, "g_wh_fast": 200}, "lstm_sweep": {}}
     base = os.path.splitext(bench_long.REL)[0]
     for tag in ("_s_est.wav", "_n_est.wav"):
         with open(os.path.join(work, "est", base + tag), "rb") as a, \
@@ -1756,7 +1762,8 @@ def _chain_matches_plain(cuda, widths, mode, form, level, form_, tag):
     lv = {"exact": "", "fast": "_fast", "trans": "_trans",
           "mm16": "_fast_mm16"}[level]
     assert nonzero(launch_counts()) == {
-        "mh_chain": {f"{mode}_{form}{tag}{lv}": 1}, "nmf_sums": {}}
+        "mh_chain": {f"{mode}_{form}{tag}{lv}": 1}, "nmf_sums": {},
+        "lstm_sweep": {}}
     ref = run_chain(mh_chain_ref, c, mode, 4, 3, 0.01, vb=vb, noise=noise,
                     **opts)
     torch.cuda.synchronize()
@@ -1891,7 +1898,8 @@ def _domain_mm16_matches_plain(cuda, widths, mode, form):
     got = run_chain(mh_chain, c, mode, R, 3, 0.01, vb=vb, noise=noise,
                     **opts)
     assert nonzero(launch_counts()) == {
-        "mh_chain": {f"{mode}_{form}_gen_fast_mm16": 1}, "nmf_sums": {}}
+        "mh_chain": {f"{mode}_{form}_gen_fast_mm16": 1}, "nmf_sums": {},
+        "lstm_sweep": {}}
     ref = run_chain(mh_chain_ref, c, mode, R, 3, 0.01, vb=vb, noise=noise,
                     **opts)
     cpu = run_chain(mh_chain_ref, _on_cpu(c), mode, R, 3, 0.01, vb=vb,
@@ -1990,7 +1998,7 @@ def test_wide_m2_enhances_on_the_card(cuda, h_dim):
             generator=torch.Generator(device=dev).manual_seed(0))
     assert nonzero(launch_counts()) == {
         "mh_chain": {"e_wh_gen": 3, "wf_wh_gen": 1},
-        "nmf_sums": {"h_wh": 3, "g_wh": 3}}
+        "nmf_sums": {"h_wh": 3, "g_wh": 3}, "lstm_sweep": {}}
     card, cpu = outs["cuda"], outs["cpu"]
     assert bool(card[4].all()) and bool(cpu[4].all())
     for a, b in ((card[0], cpu[0]), (card[1], cpu[1])):
@@ -2014,7 +2022,8 @@ def test_wide_rank_sums_match_plain(cuda, mode, level, K):
                    approx_recip=fast)
     assert nonzero(launch_counts()) == {
         "mh_chain": {},
-        "nmf_sums": {f"{mode}_wh_wide{'_fast' if fast else ''}": 1}}
+        "nmf_sums": {f"{mode}_wh_wide{'_fast' if fast else ''}": 1},
+        "lstm_sweep": {}}
     ref = nmf_sums_ref(samples, c["WH"], c["g"], c["X2"], mode=mode)
     for a, b in zip(got, ref):
         assert a.shape == b.shape
@@ -2090,7 +2099,7 @@ def test_fused_engine_domain_var0_matches_cpu(cuda, widths, rank):
     ext = "_ext" if len(set(widths)) > 1 else ""
     assert nonzero(launch_counts()) == {
         "mh_chain": {f"e_wh{ext}": 3, f"wf_wh{ext}": 1},
-        "nmf_sums": {f"h_wh{wide}": 3, f"g_wh{wide}": 3}}
+        "nmf_sums": {f"h_wh{wide}": 3, f"g_wh{wide}": 3}, "lstm_sweep": {}}
     for k in ("WFs", "WFn", "W", "H", "g", "Z", "cost"):
         assert_allclose(outs["cuda"][k].cpu().numpy(),
                         outs["cpu"][k].numpy(), rtol=1e-3, atol=1e-5,

@@ -178,8 +178,8 @@ def test_the_kernel_build_takes_only_the_cuda_sources():
 
     assert nl.SOURCE.parent == _build.CSRC and nl.SOURCE.exists()
     assert sorted(p.name for p in _build.CSRC.glob("*.cu")) == [
-        "mh_chain.cu", "mh_chain_ext.cu", "mh_chain_general.cu",
-        "nmf_sums.cu"]
+        "lstm_sweep.cu", "mh_chain.cu", "mh_chain_ext.cu",
+        "mh_chain_general.cu", "nmf_sums.cu"]
 
 
 def test_load_mixture_native_on_and_off(built, tmp_path, monkeypatch):
