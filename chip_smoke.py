@@ -331,6 +331,9 @@ WIDE_VARIANTS = [f"{m}_wh_wide{lv}" for lv in ("", "_fast")
 # The RVAE's Langevin step kernels (`mcem.lstm_sweep`): the forward and
 # backward sweeps, the likelihood pass and the update.
 SWEEP_VARIANTS = ("fwd", "bwd", "lik", "update")
+# The EM cost pass (`mcem.em_cost`): WH or Vb form, over float32 dumps or
+# ("_fast") bfloat16 ones.
+COST_VARIANTS = ("wh", "vb", "wh_fast", "vb_fast")
 # The RVAE on the main path: a seeded RVAE of the published widths
 # (arXiv:1910.10942, as `gvbench/configs/rvae_ld.json` assumes them: F 513,
 # L 16, 128-unit LSTMs, one 128-unit dense layer) at the benchmark's
@@ -346,10 +349,14 @@ def expected_launches(form, e, wf, h, g, n_batches=1, level="", gen=False,
     """The launch counts (`launch_counts()` layout) of a path that runs
     the given launches a batch at `level`, over `n_batches` batches; `gen`:
     its chains on K1g, `ext`: on K1e, `wide`: its sums on K2's wide
-    kernel. No RVAE kernel launches (see `rvae_launches`)."""
+    kernel. At the exact level the cost pass runs once an E chain (fast
+    mode leaves it off). No RVAE kernel launches (see `rvae_launches`)."""
     out = {"mh_chain": dict.fromkeys(CHAIN_VARIANTS, 0),
            "nmf_sums": dict.fromkeys(SUMS_VARIANTS, 0),
-           "lstm_sweep": dict.fromkeys(SWEEP_VARIANTS, 0)}
+           "lstm_sweep": dict.fromkeys(SWEEP_VARIANTS, 0),
+           "em_cost": dict.fromkeys(COST_VARIANTS, 0)}
+    if not level:
+        out["em_cost"][form] = e * n_batches
     sums_level = "_fast" if level else ""
     chain = form + ("_gen" if gen else "") + ("_ext" if ext else "")
     sums = form + ("_wide" if wide else "")
@@ -365,11 +372,12 @@ def rvae_launches(cfg, n_batches=1):
     """The launch counts of `n_batches` RVAE batches at the RVAEConfig
     `cfg`: the first decode's forward sweep; a Langevin step's forward and
     backward sweep, likelihood pass and update; one likelihood pass more a
-    chain (niter E chains and the WF chain); two K2b 'h' passes and one 'g'
-    pass an EM iteration."""
+    chain (niter E chains and the WF chain); two K2b 'h' passes, one 'g'
+    pass and one cost pass in the WH form an EM iteration."""
     steps = (cfg.niter * (cfg.burnin_E_step + cfg.nsamples_E_step)
              + cfg.burnin_WF + cfg.nsamples_WF)
     out = expected_launches("vb", 0, 0, 2 * cfg.niter, cfg.niter, n_batches)
+    out["em_cost"]["wh"] = cfg.niter * n_batches
     out["lstm_sweep"] = {k: n * n_batches for k, n in (
         ("fwd", steps + 1), ("bwd", steps), ("lik", steps + cfg.niter + 1),
         ("update", steps))}
@@ -392,9 +400,10 @@ def fast_kw(torch, level):
 def harness_launches(niter, hybrid):
     """The launch counts of one `bench_niter500.main` run: each of its four
     variants runs twice (warm-up and timed) over `niter` EM iterations and
-    a WF chain; the hybrid twice over `hybrid` fast MCEM iterations; PEEM
-    launches nothing."""
+    a WF chain, the exact one with the cost pass; the hybrid twice over
+    `hybrid` fast MCEM iterations; PEEM launches nothing."""
     out = expected_launches("wh", 0, 0, 0, 0)
+    out["em_cost"]["wh"] = 2 * niter
     for level, runs in (("", 2), ("_fast", 2), ("_trans", 2),
                         ("_fast_mm16", 2)):
         out["mh_chain"][f"e_wh{level}"] += runs * niter
@@ -3468,9 +3477,12 @@ def scripts_serving(torch, port, dev):
     check(len(out["loads"]) == len(SERVING_ARGS["rates"].split(",")),
           f"bench_serving loads {out['loads']}")
     on = nonzero(counts)
-    check(set(on) == {"mh_chain", "nmf_sums"} and set(on["mh_chain"]) ==
-          {"e_vb", "wf_vb"} and set(on["nmf_sums"]) == {"g_vb"},
-          f"bench_serving launched {on} (spp noise model: K1b / K2b)")
+    check(set(on) == {"mh_chain", "nmf_sums", "em_cost"}
+          and set(on["mh_chain"]) == {"e_vb", "wf_vb"}
+          and set(on["nmf_sums"]) == {"g_vb"}
+          and on["em_cost"] == {"vb": on["mh_chain"]["e_vb"]},
+          f"bench_serving launched {on} (spp noise model: K1b / K2b, the "
+          "cost pass in the Vb form once an E chain)")
     for load in out["loads"]:
         log(f" (c) bench_serving {load['offered_req_s']} req/s, "
             f"{SERVING_ARGS['n']} requests all answered: achieved "
@@ -4655,6 +4667,103 @@ def times_domain(torch, model, cfg, B, N, dev, seed):
     return timed, same
 
 
+# The valid frames of each row of one of the offline sweep's batches at
+# N=512 (`scripts/bench_kernels.SWEEP_512`): the cost kernel's sweep shape.
+COST_SWEEP_512 = (389, 392, 398, 401, 405, 416, 419, 432, 441, 446, 456,
+                  468, 474, 481, 488, 505)
+# The cost kernel against its plain version and float64, relative (the
+# card tests' COST_RTOL: float32 sums in another order)
+COST_RTOL = 1e-5
+
+
+def time_cost(torch, dev, reps=3, R=10, F=513, K=10):
+    """The EM cost kernel (`mcem.em_cost`) and K2's 'g' pass (WH form),
+    each alone by CUDA events over one set of seeded inputs: at the sweep
+    shape (B=16, N=512, `COST_SWEEP_512`'s valid frames) in the WH and Vb
+    forms, and at the RVAE cell's (B=64, N=256, every frame valid) in the
+    WH form. Per case: ms (median of `reps`), the byte bound (the valid
+    frames' dumps, X2, g and Vb or the factors, the mask and the
+    per-frame sums, each once; K2 reads every frame: `sums_bound`), the
+    share, the plain version's ms, the largest absolute difference of the
+    kernel's cost from the plain float32 version, and the largest relative
+    gap to the plain version and to float64."""
+    from guided_vae_nmf_torch.mcem import nmf_sums
+    from guided_vae_nmf_torch.mcem.em_cost import em_cost, em_cost_ref
+
+    out = {}
+    for name, B, N, lens, vb in (
+            ("b16n512_wh", 16, 512, COST_SWEEP_512, False),
+            ("b16n512_vb", 16, 512, COST_SWEEP_512, True),
+            ("b64n256_wh", 64, 256, (256,) * 64, False)):
+        g = torch.Generator(device=dev).manual_seed(11)
+        u = lambda *shape, lo, hi: lo + (hi - lo) * torch.rand(  # noqa
+            shape, generator=g, device=dev)
+        samples = u(B, R, N, F, lo=0.01, hi=2.0)
+        WH = (u(B, K, F, lo=0.05, hi=0.5), u(B, K, N, lo=0.05, hi=0.5))
+        Vb = torch.einsum("bkn,bkf->bnf", WH[1], WH[0]).contiguous()
+        gains, X2 = u(B, N, lo=0.5, hi=1.5), u(B, N, F, lo=0.05, hi=1.05)
+        mask = (torch.arange(N, device=dev)[None] < torch.tensor(
+            lens, device=dev)[:, None]).float()
+        args = (samples, None if vb else WH, gains, X2, mask)
+        kw = dict(Vb=Vb) if vb else {}
+        V = int(sum(lens))
+        nbytes = 4 * (R * V * F + V * F + V + 2 * B * N + B
+                      + (V * F if vb else B * K * F + K * V))
+        ms = sorted(time_cuda(lambda: em_cost(*args, **kw))
+                    for _ in range(reps))[reps // 2]
+        got = em_cost(*args, **kw)
+        plain = em_cost_ref(*args, **kw)
+        f64 = em_cost_ref(samples.double(), None if vb else tuple(
+            t.double() for t in WH), gains.double(), X2.double(),
+            mask.double(), **({"Vb": Vb.double()} if vb else {}))
+        bound = 1e3 * nbytes / PEAK_BYTES
+        row = {"ms": ms, "bound_ms": bound, "share": bound / ms,
+               "plain_ms": time_cuda(lambda: em_cost_ref(*args, **kw),
+                                     launches=3, reps=3),
+               "abs_err": float((got - plain).abs().max()),
+               "gap_plain": float(((got - plain) / plain).abs().max()),
+               "gap_f64": float(((got.double() - f64) / f64).abs().max())}
+        if not vb:
+            k2 = sorted(time_cuda(lambda: nmf_sums(
+                samples, WH, gains, X2, mode="g")) for _ in range(reps))
+            row["k2_g_ms"] = k2[reps // 2]
+            row["k2_g_bound_ms"] = sums_bound(B, R, N, F, K, "g")[0]
+        out[name] = row
+        del samples, args, got, plain, f64
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_cost(torch, dev, gpu, launches):
+    """The EM cost kernel against its plain version and float64, with its
+    times and bounds beside K2's 'g' pass (`time_cost`); returns the
+    `kernels` entries. `launches` holds each shape's measured cost
+    launches a batch on the path that runs that form at that shape."""
+    rows = time_cost(torch, dev)
+    kernels = []
+    for name, r in rows.items():
+        log(f"  em_cost_{name:<19s}: {r['ms']:.4f} ms (plain "
+            f"{r['plain_ms']:.3f} ms), bound {r['bound_ms']:.4f} ms by bytes "
+            f"= {100 * r['share']:.1f}% of bound; relative gap to the plain "
+            f"version {r['gap_plain']:.3g}, to float64 {r['gap_f64']:.3g}"
+            + (f"; K2 'g' {r['k2_g_ms']:.4f} ms (bound "
+               f"{r['k2_g_bound_ms']:.4f})" if "k2_g_ms" in r else "")
+            + f"; {gpu}")
+        check(max(r["gap_plain"], r["gap_f64"]) < COST_RTOL,
+              f"em_cost {name}: relative gaps {r['gap_plain']:.3g} / "
+              f"{r['gap_f64']:.3g} past {COST_RTOL}")
+        check(launches[name] > 0, f"em_cost {name}: no path launched it")
+        kernels.append(dict(
+            name=f"em_cost_{name}", route="cuda",
+            source=SOURCES["em_cost"][0], replaces=SOURCES["em_cost"][1],
+            launches=launches[name], max_abs_err=r["abs_err"],
+            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by="bytes", library_ms=None,
+            detail={k: v for k, v in r.items() if k not in (
+                "ms", "plain_ms", "bound_ms", "abs_err")}))
+    return kernels
+
+
 SOURCES = {
     "mh_chain": ("guided_vae_nmf_torch/csrc/mh_chain.cu",
                  "guided_vae_nmf_tpu/mcem/pallas_engine.py:494"),
@@ -4666,6 +4775,8 @@ SOURCES = {
                  "guided_vae_nmf_tpu/mcem/pallas_engine.py:651"),
     # the JAX package has no RVAE: these kernels replace no TPU kernel
     "lstm_sweep": ("guided_vae_nmf_torch/csrc/lstm_sweep.cu", None),
+    # the JAX package's batched cost is plain jnp: no TPU kernel
+    "em_cost": ("guided_vae_nmf_torch/csrc/em_cost.cu", None),
 }
 
 
@@ -5226,7 +5337,7 @@ def main(argv=None):
     log(f"build: csrc/*.cu for sm_90a in {build_s:.1f} s")
     ptxas = {}
     for lib in ("mh_chain", "mh_chain_ext", "mh_chain_general",
-                "nmf_sums", "lstm_sweep"):
+                "nmf_sums", "lstm_sweep", "em_cost"):
         for kern, (regs, st, ld) in ptxas_report(_build.build_log(lib)).items():
             ptxas[kern] = dict(registers=regs, spill_stores=st, spill_loads=ld)
             log(f"  ptxas {lib}: {regs} registers, {st} B spill stores, "
@@ -5406,6 +5517,13 @@ def main(argv=None):
         torch, model, cfg, *mask.shape, dev, gpu, err, launches, k1d_past,
         seed=args.seed)
     kernels += rvae_kernels
+    log("the EM cost kernel vs its plain version (sweep and RVAE shapes):")
+    # the measured cost launches a batch of a path that runs each form:
+    # the main path (WH), the real-noise path (Vb), the RVAE batch (WH)
+    kernels += phase_cost(torch, dev, gpu, {
+        "b16n512_wh": main_res["launches"]["em_cost"]["wh"],
+        "b16n512_vb": paths["real-noise"]["launches"]["em_cost"]["vb"],
+        "b64n256_wh": rvae["launches"]["em_cost"]["wh"]})
     large = phase_times_large(torch, model, cfg, dev, gpu)
 
     for r in (main_res, *paths.values(), *fast.values(), rest["oracle"],

@@ -1,7 +1,8 @@
 """Batched MCEM around the fused chain (K1) and M-step sums (K2) kernels.
 
 Counterpart of `_dec_parts`, `_nmf_m_step_batched`, `_masked_cost_batched`
-and `mcem_batch_fused` in `guided_vae_nmf_tpu/mcem/pallas_engine.py`, in
+(`em_cost`) and `mcem_batch_fused` in
+`guided_vae_nmf_tpu/mcem/pallas_engine.py`, in
 exact mode and in fast mode (the K1c / K2c options: bfloat16 sample dumps,
 approximate reciprocal, bit-arithmetic exp / log), and with the chains'
 decoder products on bfloat16 operands (K1d, `matmul_dtype`). Per EM
@@ -11,9 +12,11 @@ sums pass at the post-W noise variance (K2a), the H update, L1
 normalisation, one 'g' sums pass (K2a) and the gain update. With a fixed
 noise variance (update_nmf=False): one E-mode chain with Vb (K1b) and the
 gain update on a 'g' sums pass (K2b); with the noise gain on, also an 'h'
-sums pass (K2b) for the gain b between them. A last WF-mode chain gives the
-Wiener filters. Frames-major (B, N, F) inside; the result dict is in the
-reference (F, N) orientation.
+sums pass (K2b) for the gain b between them. With `compute_cost`, each
+iteration ends with the cost pass (`em_cost`: one kernel over the dumps, in
+the WH form with the NMF factors, else in the Vb form). A last WF-mode
+chain gives the Wiener filters. Frames-major (B, N, F) inside; the result
+dict is in the reference (F, N) orientation.
 
 CUDA tensors launch the kernels; CPU tensors run their plain versions.
 """
@@ -21,7 +24,8 @@ CUDA tensors launch the kernels; CPU tensors run their plain versions.
 import torch
 
 from ..ops.profiling import span
-from .engine import VX_FLOOR, MCEMConfig, noise_gain_state
+from .em_cost import em_cost
+from .engine import MCEMConfig, noise_gain_state
 from .mh_chain import (
     _check_matmul_dtype, bf16_weights, live_pairs, mh_chain, pack_for_chain,
     skips_dead_pairs, widths)
@@ -87,15 +91,6 @@ def _nmf_m_step_batched(X2, mask, W, H, g, Vs, s1=None, s2=None,
     return W, H, g
 
 
-def _masked_cost_batched(X2, mask, Vb, g, Vs):
-    """(B,) masked expected negative log-likelihood; Vs (B, R, N, F)."""
-    Vx = torch.clamp_min(g[:, None, :, None] * Vs + Vb[:, None], VX_FLOOR)
-    per = torch.log(Vx) + X2[:, None] / Vx
-    total = torch.sum(per * mask[:, None, :, None], dim=(1, 2, 3))
-    count = Vs.shape[1] * X2.shape[-1] * torch.sum(mask, dim=1)
-    return total / count
-
-
 @torch.no_grad()
 def mcem_batch_fused(model, X_abs2, mask, y, generator,
                      cfg: MCEMConfig = MCEMConfig(), update_nmf=True,
@@ -144,6 +139,7 @@ def mcem_batch_fused(model, X_abs2, mask, y, generator,
         raise ValueError("update_nmf=False needs Vb_fixed (B, F, N)")
     init = init or {}
     dev = X_abs2.device
+    mask = mask.to(torch.float32).contiguous()
     with span("gvnmf.engine", dev, niter=cfg.niter):
         with span("gvnmf.engine.init"):
             X2, ypre, Z, Vs, dec_w, Wt, H, Vbf, g, seeds = _start(
@@ -224,10 +220,9 @@ def mcem_batch_fused(model, X_abs2, mask, y, generator,
                 Vb2 = Vbf
             if compute_cost:
                 with span("gvnmf.em.cost"):
-                    if update_nmf:
-                        Vb2 = torch.einsum("bkf,bkn->bnf", Wt, H)
-                    costs.append(_masked_cost_batched(X2, mask, Vb2, g,
-                                                      samples))
+                    costs.append(em_cost(
+                        samples, (Wt, H) if update_nmf else None, g, X2,
+                        mask, Vb=None if update_nmf else Vb2))
 
         wf_kw = dict(nsamples=cfg.nsamples_WF, burnin=cfg.burnin_WF,
                      var_RW=cfg.var_RW, approx_recip=approx_recip,

@@ -16,9 +16,10 @@ unadjusted (no accept test) and only at valid frames; pad frames keep
 their Z. Per EM iteration: burnin_E_step + nsamples_E_step steps from the
 current Z, the last nsamples_E_step iterates' Vs kept as the (B, R, N, F)
 dumps of the fused engine's M-step (`fused_engine._nmf_m_step_batched`,
-with the K2 sums), then its cost pass. After the EM iterations the
-Wiener-filter chain runs burnin_WF + nsamples_WF steps and averages
-g Vs / Vx and Vb / Vx over its last nsamples_WF iterates.
+with the K2 sums), then the cost pass (`em_cost`, in the WH form). After
+the EM iterations the Wiener-filter chain runs burnin_WF + nsamples_WF
+steps and averages g Vs / Vx and Vb / Vx over its last nsamples_WF
+iterates.
 
 Draws: the NMF init and one seed an E chain plus one for the WF chain
 come from the batch's generator, as in the fused engine; a chain's eps
@@ -35,7 +36,8 @@ import torch
 from ..models.rvae import rvae_encode_mean, valid_lengths
 from ..ops.profiling import span
 from .engine import VX_FLOOR, MCEMConfig
-from .fused_engine import _masked_cost_batched, _nmf_m_step_batched
+from .em_cost import em_cost
+from .fused_engine import _nmf_m_step_batched
 from .lstm_sweep import (backward_sweep, forward_sweep, langevin_update,
                          lik_grad)
 
@@ -179,8 +181,8 @@ def mcem_batch_rvae(model, X_abs2, mask, generator, cfg=RVAEConfig(),
             with span("gvnmf.em.m_step"):
                 W, H, g = _nmf_m_step_batched(X2, mask, W, H, g, samples)
             with span("gvnmf.em.cost"):
-                costs.append(_masked_cost_batched(X2, mask, _noise_var(W, H),
-                                                  g, samples))
+                WH = (W.transpose(1, 2).contiguous(), H)
+                costs.append(em_cost(samples, WH, g, X2, mask))
         with span("gvnmf.rvae.wf_chain",
                   **counts(cfg.burnin_WF + cfg.nsamples_WF)):
             Z, fwd, (ws, wn) = langevin_chain(

@@ -21,7 +21,9 @@ the checkout's chain takes live flags, with its dead pairs skipped
 (`_flags`, no pair dead). Where the checkout has them, the RVAE's sweep
 kernels (`mcem.lstm_sweep`) run each alone at B=64, N=256 (the published
 widths, every frame valid), with their least time at the card's float32
-peak and HBM bandwidth, their share of it, and the plain loops' time.
+peak and HBM bandwidth, their share of it, and the plain loops' time; and
+the EM cost kernel (`mcem.em_cost`) beside K2's 'g' pass at the sweep and
+RVAE shapes (`chip_smoke.time_cost`).
 
 With --replay <cell> it times no kernel and instead replays one pass of a
 sweep cell of the checkout's benchmark (`gvbench/`: its traffic, batch
@@ -86,7 +88,7 @@ def main(argv=None):
     # ptxas lines, the anonymous namespace's hash (it follows the file's
     # path) taken out of the mangled names
     libs = ("mh_chain", "mh_chain_ext", "mh_chain_general", "nmf_sums",
-            "lstm_sweep")
+            "lstm_sweep", "em_cost")
     ptxas = {lib: {re.sub(r"(_GLOBAL__N__)[0-9a-f]{8}", r"\1", k): v
                    for k, v in cs.ptxas_report(_build.build_log(lib)).items()}
              for lib in libs if (_build.CSRC / f"{lib}.cu").exists()}
@@ -192,6 +194,8 @@ def main(argv=None):
                                 vb=vb, seed=1, form="general", **kw)))
     if (_build.CSRC / "lstm_sweep.cu").exists():
         out["rvae_sweeps"] = rvae_sweeps(torch, cs, dev, args.reps)
+    if hasattr(cs, "time_cost"):
+        out["em_cost"] = cs.time_cost(torch, dev, args.reps)
     if args.e2e:
         out["x_realtime"] = e2e(torch, cs, model, cfg, tree, dev, gpu)
     return write(out, args.out)

@@ -25,7 +25,10 @@ chain's extended cluster form, and K1g, its general form, for decoders the
 cluster form does not take, the wrapper's choice among the three forms,
 and K2 past rank 16 (its wide kernel); and the cluster form's dead tile
 pairs: the chain with live flags against the same call without them, and
-the fused engine's valid frames with and without dead pairs.
+the fused engine's valid frames with and without dead pairs; and the EM
+cost kernel (`mcem.em_cost`) at the sweep and RVAE cells' shapes against
+its plain version and float64, over bfloat16 dumps, a row alone against
+a padded batch, and the fused and RVAE engines with it.
 
 Every test here needs an NVIDIA GPU and skips without one. The file
 imports neither JAX nor the JAX package, so it also runs on a GPU machine
@@ -298,7 +301,8 @@ def test_fused_engine_var0_matches_cpu(cuda):
             init={k: t(v) for k, v in init.items()})
     assert nonzero(launch_counts()) == {
         "mh_chain": {"e_wh": 3, "wf_wh": 1},
-        "nmf_sums": {"h_wh": 3, "g_wh": 3}, "lstm_sweep": {}}
+        "nmf_sums": {"h_wh": 3, "g_wh": 3}, "lstm_sweep": {},
+        "em_cost": {"wh": 3}}
     for k in ("WFs", "WFn", "W", "H", "g", "Z", "cost"):
         assert_allclose(outs["cuda"][k].cpu().numpy(),
                         outs["cpu"][k].numpy(), rtol=1e-3, atol=1e-5,
@@ -404,7 +408,8 @@ def test_fixed_noise_engine_var0_matches_cpu(cuda, bands):
             update_nmf=False, Vb_fixed=t(Vb))
     assert nonzero(launch_counts()) == {
         "mh_chain": {"e_vb": 3, "wf_vb": 1},
-        "nmf_sums": {"h_vb": 3, "g_vb": 3}, "lstm_sweep": {}}
+        "nmf_sums": {"h_vb": 3, "g_vb": 3}, "lstm_sweep": {},
+        "em_cost": {"vb": 3}}
     for k in ("WFs", "WFn", "b", "g", "Z", "cost"):
         assert_allclose(outs["cuda"][k].cpu().numpy(),
                         outs["cpu"][k].numpy(), rtol=1e-3, atol=1e-5,
@@ -427,7 +432,7 @@ def test_fast_chain_kernel_matches_plain(cuda, mode, form, level):
                     **FAST[level])
     assert nonzero(launch_counts()) == {
         "mh_chain": {f"{mode}_{form}_{level}": 1}, "nmf_sums": {},
-        "lstm_sweep": {}}
+        "lstm_sweep": {}, "em_cost": {}}
     ref = run_chain(mh_chain_ref, c, mode, 4, 3, 0.01, vb=vb, noise=noise,
                     **FAST[level])
     torch.cuda.synchronize()
@@ -454,7 +459,7 @@ def test_fast_sums_kernel_matches_plain(cuda, mode, form):
                    approx_recip=True, **kw)
     assert nonzero(launch_counts()) == {
         "mh_chain": {}, "nmf_sums": {f"{mode}_{form}_fast": 1},
-        "lstm_sweep": {}}
+        "lstm_sweep": {}, "em_cost": {}}
     ref = nmf_sums_ref(samples, wh, c["g"], c["X2"], mode=mode, **kw)
     for a, b in zip(got, ref):
         _close(a, b)
@@ -488,7 +493,8 @@ def test_fast_engine_var0_matches_cpu(cuda, level):
             **FAST[level])
     assert nonzero(launch_counts()) == {
         "mh_chain": {f"e_wh_{level}": 3, f"wf_wh_{level}": 1},
-        "nmf_sums": {"h_wh_fast": 3, "g_wh_fast": 3}, "lstm_sweep": {}}
+        "nmf_sums": {"h_wh_fast": 3, "g_wh_fast": 3}, "lstm_sweep": {},
+        "em_cost": {}}
     for k in ("WFs", "WFn", "W", "H", "g", "Z"):
         assert_allclose(outs["cuda"][k].cpu().numpy(),
                         outs["cpu"][k].numpy(), rtol=2e-3, atol=1e-5,
@@ -536,7 +542,7 @@ def test_bf16mm_chain_kernel_matches_plain(cuda, mode, form, level):
     lv = "" if level == "exact" else f"_{level}"
     assert nonzero(launch_counts()) == {
         "mh_chain": {f"{mode}_{form}{lv}_mm16": 1}, "nmf_sums": {},
-        "lstm_sweep": {}}
+        "lstm_sweep": {}, "em_cost": {}}
     ref = run_chain(mh_chain_ref, c, mode, 4, 3, 0.01, vb=vb, noise=noise,
                     matmul_dtype=torch.bfloat16, **opts)
     f32 = run_chain(mh_chain, c, mode, 4, 3, 0.01, vb=vb, noise=noise,
@@ -575,7 +581,8 @@ def test_bf16mm_engine_var0_matches_cpu(cuda):
             matmul_dtype=torch.bfloat16, **FAST["fast"])
     assert nonzero(launch_counts()) == {
         "mh_chain": {"e_wh_fast_mm16": 3, "wf_wh_fast_mm16": 1},
-        "nmf_sums": {"h_wh_fast": 3, "g_wh_fast": 3}, "lstm_sweep": {}}
+        "nmf_sums": {"h_wh_fast": 3, "g_wh_fast": 3}, "lstm_sweep": {},
+        "em_cost": {}}
     for k in ("WFs", "WFn", "W", "H", "g", "Z"):
         assert_allclose(outs["cuda"][k].cpu().numpy(),
                         outs["cpu"][k].numpy(), rtol=2e-3, atol=1e-5,
@@ -614,13 +621,13 @@ def test_peem_and_hybrid_var0_match_cpu(cuda, fixed):
         reset_launch_counts()
         peem[str(dev)] = peem_m2_batch(*args, pcfg, **kw)
         assert nonzero(launch_counts()) == {
-            "mh_chain": {}, "nmf_sums": {}, "lstm_sweep": {}}
+            "mh_chain": {}, "nmf_sums": {}, "lstm_sweep": {}, "em_cost": {}}
         hyb[str(dev)] = peem_mcem_m2_batch(*args, pcfg, mcfg, **kw)
     form = "vb" if fixed else "wh"
     sums = {"g_vb": 2} if fixed else {"h_wh": 2, "g_wh": 2}
     assert nonzero(launch_counts()) == {
         "mh_chain": {f"e_{form}": 2, f"wf_{form}": 1}, "nmf_sums": sums,
-        "lstm_sweep": {}}
+        "lstm_sweep": {}, "em_cost": {form: 2}}
     for out in (peem, hyb):
         for k in ("WFs", "WFn", "W", "H", "g", "Z", "cost"):
             assert_allclose(out["cuda"][k].cpu().numpy(),
@@ -975,7 +982,7 @@ def test_eager_engine_matches_cpu(cuda, noise_model):
             Vb_fixed=None if noise_model == "nmf" else t(Vb),
             init_nmf=(t(W0), t(H0), t(g0)), noise=noise)
         assert nonzero(launch_counts()) == {
-            "mh_chain": {}, "nmf_sums": {}, "lstm_sweep": {}}
+            "mh_chain": {}, "nmf_sums": {}, "lstm_sweep": {}, "em_cost": {}}
     for k in ("WFs", "WFn", "W", "H", "g", "Z", "cost"):
         assert_allclose(outs["cuda"][k].cpu().numpy(),
                         outs["cpu"][k].numpy(), rtol=1e-3, atol=1e-5,
@@ -1275,8 +1282,8 @@ def test_cli_enhance_on_the_card(cuda, tmp_path):
         assert torch.equal(torch.from_numpy(got[0]),
                            torch.from_numpy(ref[0]))
     assert (counts["mh_chain"]["e_wh"], counts["mh_chain"]["wf_wh"],
-            counts["nmf_sums"]["h_wh"], counts["nmf_sums"]["g_wh"]) == (
-        100, 1, 100, 100)
+            counts["nmf_sums"]["h_wh"], counts["nmf_sums"]["g_wh"],
+            counts["em_cost"]["wh"]) == (100, 1, 100, 100, 100)
 
 
 @pytest.mark.cuda
@@ -1554,7 +1561,7 @@ def test_virtual_mesh_fused_shards_equal_their_rows(cuda):
     reset_launch_counts()
     out = sharded_mcem_fused(mesh, model, X, mask, y, seeds, cfg)
     per = {"mh_chain": {"e_wh": 3, "wf_wh": 1},
-           "nmf_sums": {"h_wh": 3, "g_wh": 3}}
+           "nmf_sums": {"h_wh": 3, "g_wh": 3}, "em_cost": {"wh": 3}}
     assert mesh.shard_launches == [per, per]
     for lo in (0, 2):
         s = slice(lo, lo + 2)
@@ -1710,7 +1717,8 @@ def test_bench_long_runs_repeat_on_the_card(cuda, tmp_path):
     assert row["frames"] == 7501 and row["backend"] == "cuda"
     assert nonzero(launch_counts()) == {
         "mh_chain": {"e_wh_fast": 200, "wf_wh_fast": 2},
-        "nmf_sums": {"h_wh_fast": 200, "g_wh_fast": 200}, "lstm_sweep": {}}
+        "nmf_sums": {"h_wh_fast": 200, "g_wh_fast": 200}, "lstm_sweep": {},
+        "em_cost": {}}
     base = os.path.splitext(bench_long.REL)[0]
     for tag in ("_s_est.wav", "_n_est.wav"):
         with open(os.path.join(work, "est", base + tag), "rb") as a, \
@@ -1763,7 +1771,7 @@ def _chain_matches_plain(cuda, widths, mode, form, level, form_, tag):
           "mm16": "_fast_mm16"}[level]
     assert nonzero(launch_counts()) == {
         "mh_chain": {f"{mode}_{form}{tag}{lv}": 1}, "nmf_sums": {},
-        "lstm_sweep": {}}
+        "lstm_sweep": {}, "em_cost": {}}
     ref = run_chain(mh_chain_ref, c, mode, 4, 3, 0.01, vb=vb, noise=noise,
                     **opts)
     torch.cuda.synchronize()
@@ -1899,7 +1907,7 @@ def _domain_mm16_matches_plain(cuda, widths, mode, form):
                     **opts)
     assert nonzero(launch_counts()) == {
         "mh_chain": {f"{mode}_{form}_gen_fast_mm16": 1}, "nmf_sums": {},
-        "lstm_sweep": {}}
+        "lstm_sweep": {}, "em_cost": {}}
     ref = run_chain(mh_chain_ref, c, mode, R, 3, 0.01, vb=vb, noise=noise,
                     **opts)
     cpu = run_chain(mh_chain_ref, _on_cpu(c), mode, R, 3, 0.01, vb=vb,
@@ -1998,7 +2006,8 @@ def test_wide_m2_enhances_on_the_card(cuda, h_dim):
             generator=torch.Generator(device=dev).manual_seed(0))
     assert nonzero(launch_counts()) == {
         "mh_chain": {"e_wh_gen": 3, "wf_wh_gen": 1},
-        "nmf_sums": {"h_wh": 3, "g_wh": 3}, "lstm_sweep": {}}
+        "nmf_sums": {"h_wh": 3, "g_wh": 3}, "lstm_sweep": {},
+        "em_cost": {"wh": 3}}
     card, cpu = outs["cuda"], outs["cpu"]
     assert bool(card[4].all()) and bool(cpu[4].all())
     for a, b in ((card[0], cpu[0]), (card[1], cpu[1])):
@@ -2023,7 +2032,7 @@ def test_wide_rank_sums_match_plain(cuda, mode, level, K):
     assert nonzero(launch_counts()) == {
         "mh_chain": {},
         "nmf_sums": {f"{mode}_wh_wide{'_fast' if fast else ''}": 1},
-        "lstm_sweep": {}}
+        "lstm_sweep": {}, "em_cost": {}}
     ref = nmf_sums_ref(samples, c["WH"], c["g"], c["X2"], mode=mode)
     for a, b in zip(got, ref):
         assert a.shape == b.shape
@@ -2099,7 +2108,8 @@ def test_fused_engine_domain_var0_matches_cpu(cuda, widths, rank):
     ext = "_ext" if len(set(widths)) > 1 else ""
     assert nonzero(launch_counts()) == {
         "mh_chain": {f"e_wh{ext}": 3, f"wf_wh{ext}": 1},
-        "nmf_sums": {f"h_wh{wide}": 3, f"g_wh{wide}": 3}, "lstm_sweep": {}}
+        "nmf_sums": {f"h_wh{wide}": 3, f"g_wh{wide}": 3}, "lstm_sweep": {},
+        "em_cost": {"wh": 3}}
     for k in ("WFs", "WFn", "W", "H", "g", "Z", "cost"):
         assert_allclose(outs["cuda"][k].cpu().numpy(),
                         outs["cpu"][k].numpy(), rtol=1e-3, atol=1e-5,
@@ -2338,3 +2348,210 @@ def test_engine_dead_pairs_leave_valid_frames_unchanged(cuda, noise_model):
             assert torch.equal(v[valid], w[valid]), k
         else:                                       # W, cost
             assert torch.equal(v, w), k
+
+
+# ---------------------------------------------------------------------------
+# The EM cost pass (`mcem.em_cost`)
+# ---------------------------------------------------------------------------
+
+# Its cost against the plain float32 version and against float64, relative:
+# both evaluate the same float32 terms (the kernel rounds g Vs, + Vb, the
+# log and the division as the plain version does) and differ only in the
+# order of the float32 sums over up to 42 M terms, about 40 roundings deep
+# in the kernel; at |terms| / |sum| of a few that bounds the gap near 1e-5,
+# and random rounding keeps it far below.
+COST_RTOL = 1e-5
+# (B, R, N, F, frames of each row): the sweep cells' batch shape with one
+# sweep batch's valid frames, the RVAE cell's, and a small ragged one
+COST_SHAPES = {
+    "sweep": (16, 10, 512, 513, (389, 392, 398, 401, 405, 416, 419, 432,
+                                 441, 446, 456, 468, 474, 481, 488, 505)),
+    "rvae": (64, 10, 256, 513, (256,) * 64),
+    "small": (3, 3, 37, 65, (37, 30, 9)),
+}
+
+
+def cost_case(device, seed, B, R, N, F, lens, K=10):
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def u(*shape, lo, hi):
+        return lo + (hi - lo) * torch.rand(shape, generator=g, device=device)
+
+    WH = (u(B, K, F, lo=0.05, hi=0.5), u(B, K, N, lo=0.05, hi=0.5))
+    return dict(
+        samples=u(B, R, N, F, lo=0.01, hi=2.0), WH=WH,
+        Vb=torch.einsum("bkn,bkf->bnf", WH[1], WH[0]).contiguous(),
+        g=u(B, N, lo=0.5, hi=1.5), X2=u(B, N, F, lo=0.05, hi=1.05),
+        mask=(torch.arange(N, device=device)[None] < torch.tensor(
+            lens, device=device)[:, None]).float())
+
+
+def run_cost(fn, c, form, samples=None):
+    s = c["samples"] if samples is None else samples
+    if form == "wh":
+        return fn(s, c["WH"], c["g"], c["X2"], c["mask"])
+    return fn(s, None, c["g"], c["X2"], c["mask"], Vb=c["Vb"])
+
+
+def rel_gap(a, b):
+    return float(((a.double() - b.double()) / b.double()).abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["wh", "vb"])
+@pytest.mark.parametrize("shape", sorted(COST_SHAPES))
+def test_cost_kernel_matches_plain_and_float64(cuda, shape, form):
+    """One launch under its key; the cost within COST_RTOL of the plain
+    float32 version and of float64 (the gaps printed)."""
+    from guided_vae_nmf_torch.mcem import em_cost, em_cost_ref
+
+    c = cost_case(cuda, 90, *COST_SHAPES[shape])
+    reset_launch_counts()
+    got = run_cost(em_cost, c, form)
+    assert nonzero(launch_counts())["em_cost"] == {form: 1}
+    plain = run_cost(em_cost_ref, c, form)
+    f64 = run_cost(em_cost_ref, {k: (tuple(t.double() for t in v)
+                                     if k == "WH" else v.double())
+                                 for k, v in c.items()}, form)
+    gaps = rel_gap(got, plain), rel_gap(got, f64)
+    print(f"em_cost {shape} {form}: gap to plain {gaps[0]:.3g}, to float64 "
+          f"{gaps[1]:.3g}")
+    assert got.shape == (c["g"].shape[0],) and bool(torch.isfinite(got).all())
+    assert max(gaps) < COST_RTOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["wh", "vb"])
+def test_cost_kernel_bf16_dumps_match_plain(cuda, form):
+    """bfloat16 dumps, read as K2 reads them, against the plain version
+    over the same rounded values; counted under "_fast"."""
+    from guided_vae_nmf_torch.mcem import em_cost, em_cost_ref
+
+    c = cost_case(cuda, 91, *COST_SHAPES["sweep"])
+    s16 = c["samples"].to(torch.bfloat16)
+    reset_launch_counts()
+    got = run_cost(em_cost, c, form, s16)
+    assert nonzero(launch_counts())["em_cost"] == {f"{form}_fast": 1}
+    assert rel_gap(got, run_cost(em_cost_ref, c, form, s16)) < COST_RTOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["wh", "vb"])
+def test_cost_kernel_row_alone_equals_padded_batch(cuda, form):
+    """A row of 203 frames alone equals the same row inside a batch of four
+    at N=512, whose other rows and pad frames (mask 0) hold other values,
+    bit for bit; two launches give equal costs."""
+    from guided_vae_nmf_torch.mcem import em_cost
+
+    c = cost_case(cuda, 92, 4, 10, 512, 513, (512, 203, 77, 400))
+    n = 203
+    alone = {"samples": c["samples"][1:2, :, :n], "Vb": c["Vb"][1:2, :n],
+             "WH": (c["WH"][0][1:2], c["WH"][1][1:2, :, :n]),
+             "g": c["g"][1:2, :n], "X2": c["X2"][1:2, :n],
+             "mask": c["mask"][1:2, :n]}
+    alone = {k: (tuple(t.contiguous() for t in v) if k == "WH"
+                 else v.contiguous()) for k, v in alone.items()}
+    got = run_cost(em_cost, c, form)
+    assert torch.equal(got, run_cost(em_cost, c, form))
+    assert torch.equal(got[1:2], run_cost(em_cost, alone, form))
+
+
+@pytest.mark.cuda
+def test_cost_wrapper_rejects_bad_input(cuda):
+    from guided_vae_nmf_torch.mcem import em_cost
+
+    c = cost_case(cuda, 93, *COST_SHAPES["small"])
+    bad = {"dtype": dict(X2=c["X2"].double()),
+           "strides": dict(X2=c["X2"].transpose(1, 2).contiguous()
+                           .transpose(1, 2)),
+           "device": dict(g=c["g"].cpu()),
+           "mask_dtype": dict(mask=c["mask"] > 0)}
+    for name, change in bad.items():
+        with pytest.raises(ValueError):
+            run_cost(em_cost, dict(c, **change), "wh")
+    wide = torch.zeros((1, 1, 1, 2049), device=cuda)
+    with pytest.raises(ValueError, match="F=2049"):
+        em_cost(wide, None, torch.ones((1, 1), device=cuda),
+                torch.ones((1, 1, 2049), device=cuda),
+                torch.ones((1, 1), device=cuda),
+                Vb=torch.ones((1, 1, 2049), device=cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("noise_model", ["nmf", "spp"])
+def test_engine_cost_pass_changes_no_other_output(cuda, noise_model):
+    """`mcem_batch_fused` on the card with compute_cost True twice and
+    False once, from one seed with a random walk: the two True calls are
+    equal (the engine is deterministic here), and WFs, WFn, W, H, g and Z
+    do not depend on the cost pass, bit for bit; one cost launch an EM
+    iteration."""
+    dims = dict(SMALL, B=3, N=96)
+    rng = np.random.RandomState(94)
+    tree = random_dgm(rng, dims["F"], dims["Y"], dims["L"], dims["H"])
+    B, F, N = dims["B"], dims["F"], dims["N"]
+    t = lambda a: torch.tensor(a, device=cuda)  # noqa: E731
+    mask = t((np.arange(N)[None] < np.array([[96], [60], [33]])).astype(
+        np.float32))
+    X = t(rng.uniform(0.05, 1.05, (B, F, N)).astype(np.float32))
+    y = t((rng.uniform(size=(B, dims["Y"], N)) > 0.5).astype(np.float32))
+    cfg = MCEMConfig(niter=4, nsamples_E_step=3, burnin_E_step=2,
+                     nsamples_WF=3, burnin_WF=2, nmf_rank=dims["K"])
+    kw = {}
+    if noise_model == "spp":
+        kw = dict(update_nmf=False, Vb_fixed=t(rng.uniform(
+            0.01, 0.3, (B, F, N)).astype(np.float32)))
+    model = module_from_params(tree, device=cuda)
+    outs = []
+    for cc in (True, True, False):
+        reset_launch_counts()
+        outs.append(mcem_batch_fused(
+            model, X, mask, y, torch.Generator(device=cuda).manual_seed(95),
+            cfg, compute_cost=cc, **kw))
+        form = "wh" if noise_model == "nmf" else "vb"
+        assert nonzero(launch_counts())["em_cost"] == (
+            {form: cfg.niter} if cc else {})
+    for k in ("WFs", "WFn", "W", "H", "g", "Z", "cost"):
+        assert torch.equal(outs[0][k], outs[1][k]), f"{k}: not repeatable"
+    for k in ("WFs", "WFn", "W", "H", "g", "Z"):
+        assert torch.equal(outs[0][k], outs[2][k]), k
+    assert bool(torch.isfinite(outs[0]["cost"]).all())
+
+
+@pytest.mark.cuda
+def test_rvae_engine_runs_the_cost_kernel(cuda):
+    """`mcem_batch_rvae` on the card: one cost launch an EM iteration, in
+    the WH form; the cost within COST_RTOL of the plain version over the
+    engine's own last dumps and factors."""
+    from guided_vae_nmf_torch.mcem import em_cost_ref
+    from guided_vae_nmf_torch.mcem import rvae_engine as re_
+    from guided_vae_nmf_torch.models.rvae import rvae_init
+
+    B, N, F = 4, 48, 513
+    m = rvae_init(torch.Generator().manual_seed(1910),
+                  [F, 16, 128, [128]]).to(cuda)
+    g = torch.Generator(device=cuda).manual_seed(96)
+    X = torch.rand((B, F, N), generator=g, device=cuda) * 10 + 0.1
+    mask = (torch.arange(N, device=cuda)[None] < torch.tensor(
+        [48, 40, 17, 48], device=cuda)[:, None]).float()
+    cfg = re_.RVAEConfig(niter=3, nsamples_E_step=2, burnin_E_step=3,
+                         nsamples_WF=2, burnin_WF=3, nmf_rank=5)
+    seen = []
+    real = re_.em_cost
+
+    def spy(*a, **k):
+        seen.append((a, k, real(*a, **k)))
+        return seen[-1][2]
+
+    reset_launch_counts()
+    re_.em_cost = spy
+    try:
+        out = re_.mcem_batch_rvae(m, X, mask,
+                                  torch.Generator(device=cuda).manual_seed(97),
+                                  cfg)
+    finally:
+        re_.em_cost = real
+    assert nonzero(launch_counts())["em_cost"] == {"wh": cfg.niter}
+    assert len(seen) == cfg.niter and bool(torch.isfinite(out["cost"]).all())
+    a, k, got = seen[-1]
+    assert a[1] is not None and torch.equal(out["cost"][:, -1], got)
+    assert rel_gap(got, em_cost_ref(*a, **k)) < COST_RTOL

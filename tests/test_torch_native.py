@@ -178,7 +178,7 @@ def test_the_kernel_build_takes_only_the_cuda_sources():
 
     assert nl.SOURCE.parent == _build.CSRC and nl.SOURCE.exists()
     assert sorted(p.name for p in _build.CSRC.glob("*.cu")) == [
-        "lstm_sweep.cu", "mh_chain.cu", "mh_chain_ext.cu",
+        "em_cost.cu", "lstm_sweep.cu", "mh_chain.cu", "mh_chain_ext.cu",
         "mh_chain_general.cu", "nmf_sums.cu"]
 
 
