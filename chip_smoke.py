@@ -768,10 +768,32 @@ VARIANTS = ([f"mh_chain_{v}" for v in CHAIN_VARIANTS
             + [f"nmf_sums_{v}" for v in WIDE_VARIANTS])
 
 
-def run_chain(c, fn, mode, nsamples, burnin, var_rw, vb=False, **kw):
+def planned(c, vb=False, form="auto", matmul_dtype=None):
+    """The decoder of the inputs `c` planned for a chain with the NMF
+    factors or, with `vb`, at the given noise variance
+    (`mh_chain.plan_chain`), as `mcem_batch_fused` plans it once a call:
+    made on first use for each noise form, product type and `form`, and
+    kept in c, so that a timed launch does no planning."""
+    import torch
+    from guided_vae_nmf_torch.mcem.mh_chain import plan_chain
+
+    mm = matmul_dtype or torch.float32
+    plans = c.setdefault("plans", {})
+    if (vb, mm, form) not in plans:
+        B, N, F = c["X2"].shape
+        plans[vb, mm, form] = plan_chain(
+            c["dec_w"], F, c["Z"].shape[-1], 0 if vb else c["WH"][0].shape[1],
+            N, c["X2"].device, mm, form)
+    return plans[vb, mm, form]
+
+
+def run_chain(c, fn, mode, nsamples, burnin, var_rw, vb=False, form="auto",
+              **kw):
     """One chain over the inputs `c`: with the NMF factors (K1a) or, with
-    `vb`, at the given noise variance (K1b)."""
-    return fn(c["dec_w"], c["X2"], None if vb else c["WH"], c["g"],
+    `vb`, at the given noise variance (K1b), on c's decoder planned in
+    `form` (:func:`planned`; the plain version reads only its parts)."""
+    return fn(planned(c, vb, form, kw.get("matmul_dtype")), c["X2"],
+              None if vb else c["WH"], c["g"],
               c["ypre"], c["Z"], c["Vs"], mode=mode, nsamples=nsamples,
               burnin=burnin, var_RW=var_rw,
               mask=c["mask"] if mode == "e" and not vb else None,
@@ -4479,7 +4501,7 @@ def phase_domain(torch, model, classifier, mean, std, batch, seed, dev, gpu):
     from guided_vae_nmf_torch.mcem import MCEMConfig, mh_chain, mh_chain_ref
     from guided_vae_nmf_torch.mcem.fused_engine import _dec_parts
     from guided_vae_nmf_torch.mcem.mh_chain import (
-        chain_form, cluster_takes, ext_geometry, general_geometry, widths)
+        chain_form, ext_geometry, general_geometry, widths)
     from guided_vae_nmf_torch.pipeline import _use_fused
 
     t0 = time.perf_counter()
@@ -4502,10 +4524,9 @@ def phase_domain(torch, model, classifier, mean, std, batch, seed, dev, gpu):
         wide = h_dim in WIDE_H_DIMS
         general = h_dim == GENERAL_H_DIM or wide
         form, cl = chain_form(513, 32, ws, cfg.nmf_rank, N)
-        check(not cluster_takes(513, 32, ws, cfg.nmf_rank, N),
-              f"the cluster form takes the decoder {ws}")
+        check(form != "cluster", f"the cluster form takes the decoder {ws}")
         check(form == ("general" if general else "ext"),
-              f"the wrapper picks {form} ({cl}) for the decoder {ws}")
+              f"the plan picks {form} ({cl}) for the decoder {ws}")
         check(_use_fused("auto", m, N), f"engine='auto' picks the eager "
               f"engine for the decoder {ws}")
         d = {"widths": list(ws)}
@@ -4569,7 +4590,7 @@ def phase_domain(torch, model, classifier, mean, std, batch, seed, dev, gpu):
         rec[str(ws)] = d
 
     wcfg = MCEMConfig(nmf_rank=DOMAIN_RANK)
-    check(cluster_takes(513, 32, (128, 128), DOMAIN_RANK, N),
+    check(chain_form(513, 32, (128, 128), DOMAIN_RANK, N)[0] == "cluster",
           f"the cluster form does not take rank {DOMAIN_RANK}")
     w = {"auto": keep(phase_main(
         torch, model, classifier, mean, std, wcfg, batch, seed, dev, gpu,
@@ -4614,8 +4635,7 @@ def times_domain(torch, model, cfg, B, N, dev, seed):
     (`form="general"`), beside K1e in the same call. Returns rows by
     variant with their shapes, and the K1g-against-K1e rows."""
     from guided_vae_nmf_torch.mcem import mh_chain, mh_chain_ref
-    from guided_vae_nmf_torch.mcem.mh_chain import (
-        pack_for_chain, pack_general, widths)
+    from guided_vae_nmf_torch.mcem.mh_chain import widths
 
     K, R = cfg.nmf_rank, cfg.nsamples_E_step
     timed, same = {}, {}
@@ -4628,9 +4648,6 @@ def times_domain(torch, model, cfg, B, N, dev, seed):
         m = domain_model(torch, h_dim, seed + off, dev)
         c = chain_inputs(torch, m, B, N, K, 7, dev)
         L, F, ws = c["L"], c["X2"].shape[-1], widths(c["dec_w"])
-        # the weights as mcem_batch_fused hands them to the kernel (and
-        # K1g's block, for K1g at K1e's shapes)
-        c["dec_w"] = pack_general(pack_for_chain(c["dec_w"], F, L, K, N))
         gen = torch.Generator(device=dev).manual_seed(0)
         for vb, nform in forms:
             for level in levels:
@@ -4990,14 +5007,8 @@ def phase_times(torch, model, cfg, B, N, dev, gpu, err, launches, k1d_past,
 
     K = cfg.nmf_rank
     R = cfg.nsamples_E_step
-    from guided_vae_nmf_torch.mcem.mh_chain import bf16_weights, pack_weights
-
     c = chain_inputs(torch, model, B, N, K, 7, dev)
     L, F, Hd = c["L"], c["X2"].shape[-1], c["ypre"].shape[-1]
-    # the weights as mcem_batch_fused hands them to the kernel: packed
-    # into the cluster's blocks once, rounded first for K1d
-    packed = {"": pack_weights(c["dec_w"]),
-              "mm16": pack_weights(bf16_weights(c["dec_w"]))}
     gen = torch.Generator(device=dev).manual_seed(0)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     clock = sm_clock_hz()
@@ -5025,11 +5036,9 @@ def phase_times(torch, model, cfg, B, N, dev, gpu, err, launches, k1d_past,
                     bound, by, flops, nbytes = chain_bound(
                         B, N, F, L, Hd, K, ns, ns + bi, mode, vb=vb,
                         sample_bytes=2 if level else 4)
-                ck = dict(c, dec_w=packed[
-                    "mm16" if level.endswith("_mm16") else ""])
                 timed[f"mh_chain_{mode}_{form}{level}"] = dict(
                     ms=time_cuda(lambda: run_chain(
-                        ck, mh_chain, mode, ns, bi, cfg.var_RW, vb=vb,
+                        c, mh_chain, mode, ns, bi, cfg.var_RW, vb=vb,
                         seed=1, live=c["live"], **kw)),
                     plain_ms=time_cuda(lambda: run_chain(
                         c, mh_chain_ref, mode, ns, bi, cfg.var_RW, vb=vb,
@@ -5044,7 +5053,6 @@ def phase_times(torch, model, cfg, B, N, dev, gpu, err, launches, k1d_past,
     domain, k1g_vs_k1e = times_domain(torch, model, cfg, B, N, dev, seed)
     timed.update(domain)
     cw = chain_inputs(torch, model, B, N, DOMAIN_RANK, 7, dev)
-    cw["dec_w"] = pack_weights(cw["dec_w"])
     # K1a E at that rank (its H tile and Vb at K=32)
     rank_bound = chain_bound(B, N, F, L, Hd, DOMAIN_RANK, R,
                              R + cfg.burnin_E_step, "e")
@@ -5111,10 +5119,8 @@ def times_bypass(torch, model, cfg, B, N, dev, gpu):
     flag set, in turns with the same launch without flags. Returns the
     rows by mode."""
     from guided_vae_nmf_torch.mcem import mh_chain
-    from guided_vae_nmf_torch.mcem.mh_chain import pack_weights
 
     c = chain_inputs(torch, model, B, N, cfg.nmf_rank, 7, dev)
-    c["dec_w"] = pack_weights(c["dec_w"])
     c["mask"] = torch.ones_like(c["mask"])
     live = torch.ones_like(c["live"])
     rows = {}
@@ -5218,12 +5224,10 @@ def phase_times_large(torch, model, cfg, dev, gpu):
     beside their bounds (no plain version: it takes seconds there), with
     the mask's live flags."""
     from guided_vae_nmf_torch.mcem import mh_chain
-    from guided_vae_nmf_torch.mcem.mh_chain import pack_weights
 
     B, N = LARGE_SHAPE
     K, R = cfg.nmf_rank, cfg.nsamples_E_step
     c = chain_inputs(torch, model, B, N, K, 8, dev)
-    c["dec_w"] = pack_weights(c["dec_w"])
     L, F, Hd = c["L"], c["X2"].shape[-1], c["ypre"].shape[-1]
     rows = {}
     for vb, form in ((False, "wh"), (True, "vb")):

@@ -26,9 +26,7 @@ import torch
 from ..ops.profiling import span
 from .em_cost import em_cost
 from .engine import MCEMConfig, noise_gain_state
-from .mh_chain import (
-    _check_matmul_dtype, bf16_weights, live_pairs, mh_chain, pack_for_chain,
-    skips_dead_pairs, widths)
+from .mh_chain import live_pairs, mh_chain, plan_chain
 from .nmf_sums import nmf_sums
 
 
@@ -44,16 +42,15 @@ def _dec_parts(decoder, L):
     }
 
 
-def _nmf_m_step_batched(X2, mask, W, H, g, Vs, s1=None, s2=None,
-                        update_nmf=True, Vb_fixed=None, approx_recip=False):
+def _nmf_m_step_batched(X2, mask, W, H, g, Vs, update_nmf=True,
+                        Vb_fixed=None, approx_recip=False):
     """Batched NMF M-step, frames-major (X2 (B, N, F), Vs (B, R, N, F),
     W (B, F, K), H (B, K, N), g (B, N)) in the reference order W -> H ->
-    L1 normalisation -> g. s1 / s2 (B, N, F), the W-update sums at the
-    chain's Vb, skip the first pass over the samples when given. Every
-    sample-buffer reduction runs on K2 with a given Vb: 'h' for the W and H
-    updates, 'g' for the gain. With update_nmf=False only g updates, at
-    Vb_fixed (B, N, F). Vs may be the chain's bfloat16 dumps; approx_recip
-    goes to every sums pass. Returns (W, H, g)."""
+    L1 normalisation -> g. Every sample-buffer reduction runs on K2 with a
+    given Vb: 'h' for the W and H updates, 'g' for the gain. With
+    update_nmf=False only g updates, at Vb_fixed (B, N, F). Vs may be the
+    chain's bfloat16 dumps; approx_recip goes to every sums pass. Returns
+    (W, H, g)."""
     m3 = mask[..., None]
 
     def vb():
@@ -68,8 +65,7 @@ def _nmf_m_step_batched(X2, mask, W, H, g, Vs, s1=None, s2=None,
 
     Vb = vb()
     if update_nmf:
-        if s1 is None:
-            s2, s1 = sums(Vb)
+        s2, s1 = sums(Vb)
         num = torch.einsum("bnf,bkn->bfk", X2 * s2 * m3, H)
         den = torch.einsum("bnf,bkn->bfk", s1 * m3, H)
         W = W * torch.sqrt(num / den)
@@ -130,7 +126,6 @@ def mcem_batch_fused(model, X_abs2, mask, y, generator,
     chains ran (`k1_live_pairs`: the live ones where the cluster form
     runs, every pair where another form or the CPU's plain version
     does)."""
-    _check_matmul_dtype(matmul_dtype)
     if cfg.noise_gain and update_nmf:
         raise ValueError(
             "MCEMConfig.noise_gain requires a fixed noise model "
@@ -150,12 +145,11 @@ def mcem_batch_fused(model, X_abs2, mask, y, generator,
             if cfg.noise_gain:
                 b, eff_vb, band_map = noise_gain_state(
                     F, N, cfg.noise_gain_bands, Vbf, batch=B)
-            # the cluster form skips the tile pairs that hold no valid
-            # frame; every other form runs them all
+            # the plan's form may skip the tile pairs that hold no valid
+            # frame
             live = live_pairs(mask)
             ran = live.numel()
-            if skips_dead_pairs(dev, F, Z.shape[-1], widths(dec_w),
-                                Wt.shape[1] if update_nmf else 0, N):
+            if dec_w["skips"]:
                 ran = lambda: torch.count_nonzero(live)  # noqa: E731
         chain_kw = dict(nsamples=cfg.nsamples_E_step,
                         burnin=cfg.burnin_E_step, var_RW=cfg.var_RW,
@@ -241,28 +235,54 @@ def mcem_batch_fused(model, X_abs2, mask, y, generator,
                 Z, Vs, (ws, wn) = mh_chain(dec_w, X2, None, g, ypre, Z, Vs,
                                            seeds[cfg.niter], mode="wf",
                                            Vb=Vb_wf, **wf_kw)
-        cost = (torch.stack(costs, dim=1) if costs
-                else torch.zeros((B, cfg.niter), device=dev))
-        out = {
-            "WFs": (ws / cfg.nsamples_WF).transpose(1, 2),
-            "WFn": (wn / cfg.nsamples_WF).transpose(1, 2),
-            "cost": cost,
-            "W": Wt.transpose(1, 2), "H": H, "g": g,
-            "Z": Z.transpose(1, 2),
-        }
+        out = em_result(cfg, ws, wn, costs, Wt.transpose(1, 2), H, g, Z)
         if cfg.noise_gain:
             out["b"] = b
         return out
+
+
+def em_draws(generator, B, F, N, cfg, device, nmf=True):
+    """The MCEM engines' draws from the batch's generator, in this order:
+    with `nmf`, the NMF init W (B, F, K) and then H (B, K, N), uniform and
+    floored at cfg.eps; then one chain seed an EM iteration and one for the
+    WF chain, fetched to the host in a single transfer. Returns (W, H,
+    seeds), W and H None without `nmf`."""
+    W = H = None
+    if nmf:
+        K = cfg.nmf_rank
+        W = torch.clamp_min(torch.rand((B, F, K), generator=generator,
+                                       device=device), cfg.eps)
+        H = torch.clamp_min(torch.rand((B, K, N), generator=generator,
+                                       device=device), cfg.eps)
+    seeds = torch.randint(0, 2**62, (cfg.niter + 1,), generator=generator,
+                          device=device).tolist()
+    return W, H, seeds
+
+
+def em_result(cfg, ws, wn, costs, W, H, g, Z):
+    """The MCEM engines' result: the Wiener filters "WFs", "WFn" (B, F, N),
+    the WF chain's sums `ws`, `wn` (B, N, F) over its nsamples_WF samples;
+    "cost" (B, niter), the iterations' costs stacked (zeros where none was
+    computed); "W" (B, F, K), "H", "g" as given and "Z" (B, L, N) from the
+    frames-major Z."""
+    B = g.shape[0]
+    return {
+        "WFs": (ws / cfg.nsamples_WF).transpose(1, 2),
+        "WFn": (wn / cfg.nsamples_WF).transpose(1, 2),
+        "cost": (torch.stack(costs, dim=1) if costs
+                 else torch.zeros((B, cfg.niter), device=g.device)),
+        "W": W, "H": H, "g": g, "Z": Z.transpose(1, 2),
+    }
 
 
 def _start(model, X_abs2, y, generator, cfg, update_nmf, Vb_fixed, init,
            matmul_dtype):
     """The engine's starting state: the frames-major mixture power X2
     (B, N, F), the label pre-activation ypre, the encoder's Z and its
-    decode Vs, the chain's packed decoder weights, the NMF init (Wt
-    (B, K, F), H), the fixed noise variance Vbf (frames-major, or None),
-    the gain g and the chain seeds, one per EM iteration and one for the
-    WF chain, fetched to the host in a single transfer."""
+    decode Vs, the decoder planned once for every chain of the call
+    (`mh_chain.plan_chain`), the NMF init (Wt (B, K, F), H), the fixed
+    noise variance Vbf (frames-major, or None), the gain g and the chain
+    seeds (:func:`em_draws`)."""
     enc, dec = model.encoder, model.decoder
     B, F, N = X_abs2.shape
     dev = X_abs2.device
@@ -289,30 +309,19 @@ def _start(model, X_abs2, y, generator, cfg, update_nmf, Vb_fixed, init,
     for w, b in dec_w["mid"]:
         h = torch.tanh(h @ w + b)
     Vs = torch.exp(h @ dec_w["wo"] + dec_w["bo"])            # decode(Z)
-    if matmul_dtype == torch.bfloat16:
-        dec_w = bf16_weights(dec_w)          # rounded once, not per launch
-    K = cfg.nmf_rank
+    W0, H0, seeds = em_draws(generator, B, F, N, cfg, dev,
+                             nmf=update_nmf and "W" not in init)
     if "W" in init:
         Wt = init["W"].transpose(1, 2).contiguous()          # (B, K, F)
         H = init["H"].contiguous()
     elif update_nmf:
-        W0 = torch.clamp_min(torch.rand((B, F, K), generator=generator,
-                                        device=dev), cfg.eps)
-        Wt = W0.transpose(1, 2).contiguous()
-        H = torch.clamp_min(torch.rand((B, K, N), generator=generator,
-                                       device=dev), cfg.eps)
+        Wt, H = W0.transpose(1, 2).contiguous(), H0
     else:
         Wt = torch.ones((B, 1, F), device=dev)
         H = torch.zeros((B, 1, N), device=dev)
-    if dev.type == "cuda":
-        # the weight blocks of the form that runs (the cluster form K1a-K1d,
-        # the extended one K1e, or the general form K1g), packed once for
-        # every chain of the call
-        dec_w = pack_for_chain(dec_w, F, L, Wt.shape[1] if update_nmf else 0,
-                               N)
+    dec_w = plan_chain(dec_w, F, L, Wt.shape[1] if update_nmf else 0, N, dev,
+                       matmul_dtype)
     Vbf = None if update_nmf else Vb_fixed.transpose(1, 2).contiguous()
     g = init["g"].contiguous() if "g" in init else torch.ones((B, N),
                                                              device=dev)
-    seeds = torch.randint(0, 2**62, (cfg.niter + 1,), generator=generator,
-                          device=dev).tolist()
     return X2, ypre, Z, Vs, dec_w, Wt, H, Vbf, g, seeds

@@ -27,12 +27,13 @@ has no such reciprocal and divides exactly, so there the two differ by at
 most 1 ulp per reciprocal.
 
 :func:`mh_chain` launches a kernel for CUDA tensors and runs the plain
-version for CPU tensors. The kernel has two forms. The cluster form
-(`csrc/mh_chain.cu`, K1a-K1d) runs on thread-block clusters of `CLUSTER`
-CTAs, each holding a column slice of the decoder's weights in shared
-memory; it takes decoders of one hidden width whose slices fit
-(:func:`cluster_takes`); :func:`pack_weights` lays the slices out (the
-wrapper packs per launch unless `dec_w` carries them), and
+version for CPU tensors. :func:`plan_chain` makes every decision about the
+kernel: which form runs, its CTAs a cluster, its weight block and whether
+it skips padding; the launch runs what the plan says. The kernel has three
+forms. The cluster form (`csrc/mh_chain.cu`, K1a-K1d) runs on thread-block
+clusters of `CLUSTER` CTAs, each holding a column slice of the decoder's
+weights in shared memory; it takes decoders of one hidden width whose
+slices fit; :func:`pack_weights` lays the slices out, and
 :func:`launch_geometry` reports the launch; given the live flags of
 :func:`live_pairs` it skips every tile pair that holds no valid frame.
 The extended cluster form (K1e, `csrc/mh_chain_ext.cu`) runs the same
@@ -45,7 +46,7 @@ The general form (K1g,
 layers, of any widths up to its shared-memory limit (:func:`general_tile`),
 at any F and NMF rank: one CTA a tile of 16, 8 or 4 frames, the weights
 streamed through shared memory by bulk copies from the block
-:func:`pack_general` lays out (:func:`general_geometry`). The wrapper
+:func:`pack_general` lays out (:func:`general_geometry`). The plan
 picks the first form that takes the shapes, in that order
 (:func:`chain_form`). Layouts are
 frames-major:
@@ -163,19 +164,17 @@ def _variant(mode, form, samples_dtype, approx_recip, approx_trans,
 
 
 def bf16_weights(dec_w):
-    """`dec_w` with the weights of the decoder's three products (w1, the
+    """The decoder's parts with the weights of its three products (w1, the
     hidden layers' w, wo) rounded to bfloat16 and held as float32, the
     operands K1d reads; the biases stay as they are. Rounding is
-    idempotent, so the plain version may take these too. A caller that
-    runs many bfloat16-product chains makes them once
-    (`mcem_batch_fused` does); the wrapper makes them per launch
-    otherwise."""
+    idempotent, so the plain version may take these too
+    (:func:`plan_chain` rounds them once a plan)."""
     def r(w):
         return w.to(torch.bfloat16).float()
 
     return {"w1": r(dec_w["w1"]),
             "mid": tuple((r(w), b) for w, b in dec_w["mid"]),
-            "wo": r(dec_w["wo"]), "bo": dec_w["bo"], "bf16": True}
+            "wo": r(dec_w["wo"]), "bo": dec_w["bo"]}
 
 
 def _cdiv(a, b):
@@ -196,31 +195,28 @@ def _slices(x, n, cluster):
     return torch.nn.functional.pad(x, (0, _round4(width) - width))
 
 
-def pack_weights(dec_w, cluster=None):
-    """`dec_w` with a kernel's per-rank weight blocks (C, P) float32: under
-    "packed" the cluster form's (C = CLUSTER), or with `cluster` under
-    "packed_ext" the extended cluster form's (C = `cluster`). Rank r of a
-    cluster owns the output bins [r Fsl, (r+1) Fsl), Fsl = ceil(F / C), and
-    of each hidden layer d the units [r Hsl_d, (r+1) Hsl_d), Hsl_d =
-    ceil(H_d / C) (the last ranks ragged or empty); its block holds,
-    zero-padded to rows of Fsp = Fsl and Hsp_d = Hsl_d rounded up to a
-    multiple of 4: wo [H_depth][Fsp], bo [Fsp], w1 [L][Hsp_1], then per
-    hidden layer d after the first its weights [H_d-1][Hsp_d] and bias
-    [Hsp_d]. At one hidden width the two layouts agree. The kernel copies
-    a rank's block into shared memory once a launch. A caller that runs
-    many chains packs once (`mcem_batch_fused` does); the wrapper packs per
-    launch otherwise. Bfloat16-rounded weights (:func:`bf16_weights`) are
-    packed as they are."""
-    c = CLUSTER if cluster is None else cluster
+def pack_weights(dec_w, cluster=CLUSTER):
+    """A cluster form's per-rank weight blocks (C, P) float32 for clusters
+    of C = `cluster` CTAs: the cluster form's at C = CLUSTER, the extended
+    cluster form's at its cluster size. Rank r of a cluster owns the output
+    bins [r Fsl, (r+1) Fsl), Fsl = ceil(F / C), and of each hidden layer d
+    the units [r Hsl_d, (r+1) Hsl_d), Hsl_d = ceil(H_d / C) (the last ranks
+    ragged or empty); its block holds, zero-padded to rows of Fsp = Fsl and
+    Hsp_d = Hsl_d rounded up to a multiple of 4: wo [H_depth][Fsp], bo
+    [Fsp], w1 [L][Hsp_1], then per hidden layer d after the first its
+    weights [H_d-1][Hsp_d] and bias [Hsp_d]. At one hidden width the two
+    forms' layouts agree. The kernel copies a rank's block into shared
+    memory once a launch. Bfloat16-rounded weights (:func:`bf16_weights`)
+    are packed as they are."""
     w1, wo = dec_w["w1"], dec_w["wo"]
     F = wo.shape[1]
-    parts = [_slices(wo, F, c), _slices(dec_w["bo"], F, c),
-             _slices(w1, w1.shape[1], c)]
+    parts = [_slices(wo, F, cluster), _slices(dec_w["bo"], F, cluster),
+             _slices(w1, w1.shape[1], cluster)]
     for w, b in dec_w["mid"]:
-        parts += [_slices(w, w.shape[1], c), _slices(b, b.shape[0], c)]
-    packed = torch.cat([p.reshape(c, -1) for p in parts], dim=1)
-    key = "packed" if cluster is None else "packed_ext"
-    return dict(dec_w, **{key: packed.contiguous()})
+        parts += [_slices(w, w.shape[1], cluster),
+                  _slices(b, b.shape[0], cluster)]
+    return torch.cat([p.reshape(cluster, -1) for p in parts],
+                     dim=1).contiguous()
 
 
 def _lib():
@@ -568,30 +564,27 @@ def general_packed(F, L, ws):
 
 
 def pack_general(dec_w):
-    """`dec_w` with the general form's weight block under "packed_gen": w1,
-    the hidden layers' weights after it and wo, layer after layer, each
-    [inputs][outputs rounded up to GEN_PAD] with its rows zero-padded, so
-    that every run the kernel copies (a k-tile of rows, or a row's column
-    chunk) is 16-byte aligned and an output item of up to 8 columns lies in
-    its row. The biases stay in `dec_w`. A caller that runs many chains
-    packs once (`mcem_batch_fused` does); the wrapper packs per launch
-    otherwise. Bfloat16-rounded weights (:func:`bf16_weights`) are packed
-    as they are."""
+    """The general form's weight block: w1, the hidden layers' weights
+    after it and wo, layer after layer, each [inputs][outputs rounded up to
+    GEN_PAD] with its rows zero-padded, so that every run the kernel copies
+    (a k-tile of rows, or a row's column chunk) is 16-byte aligned and an
+    output item of up to 8 columns lies in its row. The biases are read
+    from the decoder's parts. Bfloat16-rounded weights
+    (:func:`bf16_weights`) are packed as they are."""
     mats = [dec_w["w1"], *(w for w, _ in dec_w["mid"]), dec_w["wo"]]
-    packed = torch.cat([torch.nn.functional.pad(
+    return torch.cat([torch.nn.functional.pad(
         w, (0, _round_pad(w.shape[1]) - w.shape[1])).reshape(-1)
-        for w in mats])
-    return dict(dec_w, packed_gen=packed.contiguous())
+        for w in mats]).contiguous()
 
 
 def chain_form(F, L, ws, K, N, smem_max=SMEM_MAX):
     """The chain's form at these shapes (ws the hidden widths, K the NMF
-    rank, 0 for the Vb form), as the wrapper picks it: ("cluster",
-    CLUSTER) where the cluster form takes the decoder (one hidden width,
-    F <= 768, its CTA within `smem_max` bytes), else ("ext", C) where a
-    cluster of C CTAs of the extended form holds it (:func:`ext_cluster`),
-    else ("general", None), K1g. N must be a multiple of FRAME_TILE for
-    the cluster forms. A function of the shapes alone."""
+    rank, 0 for the Vb form), as the plan picks it: ("cluster", CLUSTER)
+    where the cluster form takes the decoder (one hidden width, F <= 768,
+    its CTA within `smem_max` bytes), else ("ext", C) where a cluster of C
+    CTAs of the extended form holds it (:func:`ext_cluster`), else
+    ("general", None), K1g. N must be a multiple of FRAME_TILE for the
+    cluster forms. A function of the shapes alone."""
     if N % FRAME_TILE == 0:
         if (len(set(ws)) == 1 and _block(F, CLUSTER) <= _MAX_BLOCK
                 and cluster_smem(F, L, ws[0], K, len(ws)) <= smem_max):
@@ -602,33 +595,70 @@ def chain_form(F, L, ws, K, N, smem_max=SMEM_MAX):
     return "general", None
 
 
-def pack_for_chain(dec_w, F, L, K, N):
-    """`dec_w` with the weight blocks of the form :func:`chain_form` picks
-    at these shapes ("packed" for the cluster form, "packed_ext" for the
-    extended one, "packed_gen" for the general form)."""
-    form, c = chain_form(F, L, widths(dec_w), K, N)
-    if form == "cluster":
-        return pack_weights(dec_w)
-    if form == "ext":
-        return pack_weights(dec_w, c)
-    return pack_general(dec_w)
+FORMS = ("auto", "cluster", "ext", "general")
 
 
-def cluster_takes(F, L, ws, K, N):
-    """Whether the cluster form launches at these shapes (ws the hidden
-    widths, K the NMF rank, 0 for the Vb form): hidden layers of one width,
-    N a multiple of its frame tile, at most 768 bins and each CTA's shared
-    memory within SMEM_MAX (:func:`chain_form`)."""
-    return chain_form(F, L, ws, K, N)[0] == "cluster"
+def plan_chain(dec_w, F, L, K, N, device, matmul_dtype=torch.float32,
+               form="auto"):
+    """The decoder as the chain reads it at these shapes (K the NMF rank,
+    0 for the Vb form) on a device of `device`'s type: its parts "w1",
+    "mid", "wo", "bo", rounded by :func:`bf16_weights` where
+    `matmul_dtype` is torch.bfloat16, and
 
+    - "form": the kernel that runs, "cluster" (K1a-K1d), "ext" (K1e) or
+      "general" (K1g) on CUDA, "plain" (:func:`mh_chain_ref`) elsewhere;
+    - "cluster": CTAs a cluster of the cluster forms, else None;
+    - "packed": the form's weight block (:func:`pack_weights` at that
+      cluster size, or :func:`pack_general`), on the parts' device; None
+      for the plain version;
+    - "skips": whether the form skips the tile pairs its live flags mark
+      dead (only the cluster form does);
+    - "at": what it was planned for, (F, L, K, N, device type,
+      matmul_dtype); :func:`mh_chain` refuses a plan made for another
+      launch.
 
-def skips_dead_pairs(device, F, L, ws, K, N):
-    """Whether a chain at these shapes on `device` skips the tile pairs
-    that its live flags mark dead: only the cluster form does
-    (:func:`cluster_takes`); K1e, K1g and the CPU's plain version compute
-    every frame."""
-    return torch.device(device).type == "cuda" and cluster_takes(
-        F, L, ws, K, N)
+    form: "auto" plans the form :func:`chain_form` picks; "cluster",
+    "ext" or "general" plan that form (to time or test one form where
+    another would run) and raise ValueError where it does not take the
+    shapes. Off CUDA the plain version runs whatever the form. All but the
+    weights is a function of the shapes, the device type, `matmul_dtype`
+    and `form`, so a plan of CPU tensors for device "cuda" shows what the
+    card runs. A caller that runs many chains plans once
+    (`mcem_batch_fused` does); :func:`mh_chain` plans bare parts itself."""
+    if form not in FORMS:
+        raise ValueError(f"form must be one of {FORMS}, got {form!r}")
+    _check_matmul_dtype(matmul_dtype)
+    parts = {k: dec_w[k] for k in ("w1", "mid", "wo", "bo")}
+    if matmul_dtype == torch.bfloat16:
+        parts = bf16_weights(parts)
+    kind = torch.device(device).type
+    plan = dict(parts, form="plain", cluster=None, packed=None, skips=False,
+                at=(F, L, K, N, kind, matmul_dtype))
+    if kind != "cuda":
+        return plan
+    ws = widths(parts)
+    if form == "auto":
+        form, cl = chain_form(F, L, ws, K, N)
+    elif form == "cluster":
+        cl = CLUSTER
+        if chain_form(F, L, ws, K, N)[0] != "cluster":
+            raise ValueError(f"the cluster form does not take the decoder "
+                             f"{tuple(ws)} at F={F}, L={L}, K={K}, N={N}")
+    elif form == "ext":
+        cl = ext_cluster(F, L, ws, K)
+        if cl is None or N % FRAME_TILE:
+            raise ValueError(f"the extended cluster form does not take the "
+                             f"decoder {tuple(ws)} at F={F}, L={L}, K={K}, "
+                             f"N={N}")
+    else:
+        cl = None
+    if form == "general":
+        _check_general(N, F, L, ws, K)
+        packed = pack_general(parts)
+    else:
+        packed = pack_weights(parts, cl)
+    return dict(plan, form=form, cluster=cl, packed=packed,
+                skips=form == "cluster")
 
 
 def general_geometry(F, L, ws, K, device=None):
@@ -690,7 +720,6 @@ def launch_geometry(F, L, Hd, K, depth, device=None):
             "registers": out[0], "max_active_clusters": out[1]}
 
 
-FORMS = ("auto", "cluster", "ext", "general")
 # Frames a tile pair, the cluster form's unit of work (one cluster each).
 PAIR = 2 * FRAME_TILE
 
@@ -710,8 +739,7 @@ def live_pairs(mask):
 def mh_chain(dec_w, X2, WH, g, ypre, Z, Vs, seed=0, mode="e", nsamples=10,
              burnin=30, var_RW=0.01, noise=None, mask=None, Vb=None,
              samples_dtype=torch.float32, approx_recip=False,
-             approx_trans=False, matmul_dtype=torch.float32, form="auto",
-             live=None):
+             approx_trans=False, matmul_dtype=torch.float32, live=None):
     """Run the chain over a frames-major batch (see :func:`mh_chain_ref`
     for the arguments and results). `Vs` must be decode(Z): the initial data
     term comes from it and the kernel re-derives Vs at the burn-in boundary.
@@ -720,14 +748,12 @@ def mh_chain(dec_w, X2, WH, g, ypre, Z, Vs, seed=0, mode="e", nsamples=10,
     ignores it, as the JAX kernel does). `matmul_dtype` is torch.float32 or
     torch.bfloat16 (K1d, the decoder's products on bfloat16 operands).
 
+    dec_w: the decoder's parts, or a plan of them (:func:`plan_chain`) for
+    this launch's shapes, device type and `matmul_dtype`; bare parts are
+    planned with the form the plan picks.
+
     seed: keys the in-kernel Philox stream on CUDA (the CPU path seeds a
     `torch.Generator` with it); ignored when `noise` is given.
-
-    form: the kernel on CUDA. "auto" launches the form :func:`chain_form`
-    picks; "cluster", "ext" or "general" launch that form (to time or test
-    one form where another would run) and raise ValueError where it does
-    not take the shapes. The CPU path is the plain version whatever the
-    form.
 
     live: optional (B, ceil(N / PAIR)) bool flags of :func:`live_pairs`.
     The cluster form runs no chain on a pair whose flag is False and
@@ -737,15 +763,16 @@ def mh_chain(dec_w, X2, WH, g, ypre, Z, Vs, seed=0, mode="e", nsamples=10,
     frame."""
     if mode not in ("e", "wf"):
         raise ValueError(f"mode must be 'e' or 'wf', got {mode!r}")
-    if form not in FORMS:
-        raise ValueError(f"form must be one of {FORMS}, got {form!r}")
     _one_of(WH, Vb)
     _check_dtype(samples_dtype)
     _check_matmul_dtype(matmul_dtype)
     if mode == "e" and WH is not None and mask is None:
         raise ValueError("E-mode with WH needs the frame mask")
+    B, N, F = X2.shape
+    L = Z.shape[-1]
+    Wt, H = WH if WH is not None else (None, None)
+    K = 0 if WH is None else Wt.shape[1]
     if live is not None:
-        B, N = X2.shape[:2]
         want = (B, -(-N // PAIR))
         if (live.dtype != torch.bool or tuple(live.shape) != want
                 or live.device != X2.device or not live.is_contiguous()):
@@ -753,6 +780,12 @@ def mh_chain(dec_w, X2, WH, g, ypre, Z, Vs, seed=0, mode="e", nsamples=10,
                              f"shape {want} on {X2.device}, got "
                              f"{live.dtype} {tuple(live.shape)} on "
                              f"{live.device}")
+    at = (F, L, K, N, X2.device.type, matmul_dtype)
+    if "form" not in dec_w:
+        dec_w = plan_chain(dec_w, *at)
+    elif dec_w["at"] != at:
+        raise ValueError(f"the decoder was planned for (F, L, K, N, device, "
+                         f"matmul_dtype) = {dec_w['at']}, not {at}")
     fast_kw = dict(samples_dtype=samples_dtype, approx_recip=approx_recip,
                    approx_trans=approx_trans, matmul_dtype=matmul_dtype)
     if X2.device.type == "cpu":
@@ -766,12 +799,6 @@ def mh_chain(dec_w, X2, WH, g, ypre, Z, Vs, seed=0, mode="e", nsamples=10,
     if X2.device.type != "cuda":
         raise ValueError(f"unsupported device {X2.device}")
     dev = X2.device
-    if matmul_dtype == torch.bfloat16 and not dec_w.get("bf16"):
-        dec_w = bf16_weights(dec_w)
-    B, N, F = X2.shape
-    L = Z.shape[-1]
-    Wt, H = WH if WH is not None else (None, None)
-    K = 0 if WH is None else Wt.shape[1]
     ws = widths(dec_w)
     n_steps = nsamples + burnin
     noise_in = (("Vb", Vb, (B, N, F)),) if WH is None else (
@@ -790,7 +817,7 @@ def mh_chain(dec_w, X2, WH, g, ypre, Z, Vs, seed=0, mode="e", nsamples=10,
         zn, u = noise
         _check("Zn", zn, (B, n_steps, N, L), dev)
         _check("U", u, (B, n_steps, N), dev)
-    kernel, cl = _pick_form(form, F, L, ws, K, N)
+    kernel, cl, packed = dec_w["form"], dec_w["cluster"], dec_w["packed"]
     tile = FRAME_TILE
     if kernel == "general":
         tile = _general_checked(F, L, ws, K)[0]
@@ -825,9 +852,6 @@ def mh_chain(dec_w, X2, WH, g, ypre, Z, Vs, seed=0, mode="e", nsamples=10,
     key = "wh" if WH is not None else "vb"
     if kernel == "cluster":
         lib = _lib()
-        packed = dec_w.get("packed")
-        if packed is None:
-            packed = pack_weights(dec_w)["packed"]
         _check("packed weights", packed,
                (CLUSTER, lib.gvnmf_mh_chain_packed(F, L, ws[0], len(ws))),
                dev)
@@ -837,9 +861,6 @@ def mh_chain(dec_w, X2, WH, g, ypre, Z, Vs, seed=0, mode="e", nsamples=10,
                 len(ws), n_steps, burnin, *opts)
         _build.check(status, "mh_chain kernel")
     elif kernel == "ext":
-        packed = dec_w.get("packed_ext")
-        if packed is None or packed.shape[0] != cl:
-            packed = pack_weights(dec_w, cl)["packed_ext"]
         _check("packed weights", packed, (cl, _ext_packed(F, L, ws, K, cl)),
                dev)
         with torch.cuda.device(dev):
@@ -849,9 +870,6 @@ def mh_chain(dec_w, X2, WH, g, ypre, Z, Vs, seed=0, mode="e", nsamples=10,
         _build.check(status, "mh_chain_ext kernel")
         key += "_ext"
     else:
-        packed = dec_w.get("packed_gen")
-        if packed is None:
-            packed = pack_general(dec_w)["packed_gen"]
         _check("packed weights", packed, (general_packed(F, L, ws),), dev)
         if packed.data_ptr() % 16:
             raise ValueError("the packed weights must be 16-byte aligned")
@@ -869,29 +887,6 @@ def mh_chain(dec_w, X2, WH, g, ypre, Z, Vs, seed=0, mode="e", nsamples=10,
     if mode == "wf":
         return z_out, vs_out, (out1, out2)
     return z_out, vs_out, (out1, out2, out3)
-
-
-def _pick_form(form, F, L, ws, K, N):
-    """(kernel, CTAs a cluster) for `form` at these shapes; ValueError
-    where the form asked for does not take them."""
-    if form == "auto":
-        kernel, cl = chain_form(F, L, ws, K, N)
-    elif form == "cluster":
-        if not cluster_takes(F, L, ws, K, N):
-            raise ValueError(f"the cluster form does not take the decoder "
-                             f"{tuple(ws)} at F={F}, L={L}, K={K}, N={N}")
-        kernel, cl = form, CLUSTER
-    elif form == "ext":
-        kernel, cl = form, ext_cluster(F, L, ws, K)
-        if cl is None or N % FRAME_TILE:
-            raise ValueError(f"the extended cluster form does not take the "
-                             f"decoder {tuple(ws)} at F={F}, L={L}, K={K}, "
-                             f"N={N}")
-    else:
-        kernel, cl = form, None
-    if kernel == "general":
-        _check_general(N, F, L, ws, K)
-    return kernel, cl
 
 
 def _ext_packed(F, L, ws, K, cl):

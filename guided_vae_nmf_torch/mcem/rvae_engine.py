@@ -22,7 +22,8 @@ steps and averages g Vs / Vx and Vb / Vx over its last nsamples_WF
 iterates.
 
 Draws: the NMF init and one seed an E chain plus one for the WF chain
-come from the batch's generator, as in the fused engine; a chain's eps
+come from the batch's generator as the fused engine draws them
+(`fused_engine.em_draws`); a chain's eps
 (steps, B, N, L) are `torch.randn` of a generator on the tensors' device
 seeded with the chain's seed (:func:`chain_noise`), so they can be drawn
 again from the seed alone.
@@ -37,7 +38,7 @@ from ..models.rvae import rvae_encode_mean, valid_lengths
 from ..ops.profiling import span
 from .engine import VX_FLOOR, MCEMConfig
 from .em_cost import em_cost
-from .fused_engine import _nmf_m_step_batched
+from .fused_engine import _nmf_m_step_batched, em_draws, em_result
 from .lstm_sweep import (backward_sweep, forward_sweep, langevin_update,
                          lik_grad)
 
@@ -158,14 +159,8 @@ def mcem_batch_rvae(model, X_abs2, mask, generator, cfg=RVAEConfig(),
             with span("gvnmf.rvae.encode"):
                 Z = rvae_encode_mean(model, X2, lengths).contiguous()
             fwd = forward_sweep(Z, lengths, *dec[:3])
-            K = cfg.nmf_rank
-            W = torch.clamp_min(torch.rand((B, F, K), generator=generator,
-                                           device=dev), cfg.eps)
-            H = torch.clamp_min(torch.rand((B, K, N), generator=generator,
-                                           device=dev), cfg.eps)
+            W, H, seeds = em_draws(generator, B, F, N, cfg, dev)
             g = torch.ones((B, N), device=dev)
-            seeds = torch.randint(0, 2**62, (cfg.niter + 1,),
-                                  generator=generator, device=dev).tolist()
 
         def counts(steps):
             return dict(steps=steps, rows=B, timesteps=steps * N * 2)
@@ -189,11 +184,4 @@ def mcem_batch_rvae(model, X_abs2, mask, generator, cfg=RVAEConfig(),
                 dec, X2, _noise_var(W, H), g, mask, lengths, Z, fwd,
                 seeds[cfg.niter], "wf", cfg.nsamples_WF, cfg.burnin_WF,
                 cfg.ld_step, noise)
-        cost = (torch.stack(costs, dim=1) if costs
-                else torch.zeros((B, cfg.niter), device=dev))
-        return {
-            "WFs": (ws / cfg.nsamples_WF).transpose(1, 2),
-            "WFn": (wn / cfg.nsamples_WF).transpose(1, 2),
-            "cost": cost, "W": W, "H": H, "g": g,
-            "Z": Z.transpose(1, 2),
-        }
+        return em_result(cfg, ws, wn, costs, W, H, g, Z)

@@ -2,28 +2,29 @@
 one run of the machine: K1a (the cluster chain, exact, NMF form) E and WF
 by CUDA events, and K2a / K2b / K2c 'h' and 'g' as device time after a K1
 E launch (`graph_ms`), at the main path's shapes (B=4, N=384, the shipped
-M2's decoder, MCEMConfig()); where the checkout has them, also the chain
-on the (256, 128) M2's decoder (K1g, and K1e where the checkout has it,
-the two at the same shapes), K2's wide kernel at rank 32, and K1g
-(`form="general"`) on the (512, 512) and (128, 256) decoders of
+M2's decoder, MCEMConfig()); also the chain on the (256, 128) M2's decoder
+(K1g and K1e at the same shapes), K2's wide kernel at rank 32, and K1g
+(a plan's `form="general"`) on the (512, 512) and (128, 256) decoders of
 `chip_smoke.py`'s seeded M2s (h_dim (512, 512) and (256, 128)): E and WF,
 NMF (`WH=`) and given-noise (`Vb=`) forms, exact and fast, with the
-weights packed as `mcem_batch_fused` hands them over. It times with the
-checkout's own `chip_smoke.py` helpers and kernels, and records the ptxas
-lines (registers and spills a kernel) of the chain's three libraries and
-K2's. With --e2e it also times the main batch (`chip_smoke.phase_main`,
-three runs) of the shipped M2 and of the (512, 512) M2 and records their
-x realtime. K1a E and WF also run at a padded sweep shape, B=16, N=512
-with the frame counts of one of the offline sweep's 512-frame batches
-(`SWEEP_512`), with every tile pair computed (`_b16n512_all`) and, where
-the checkout's chain takes live flags, with its dead pairs skipped
-(`_b16n512`); and at the main path's shapes with every pair's flag set
-(`_flags`, no pair dead). Where the checkout has them, the RVAE's sweep
-kernels (`mcem.lstm_sweep`) run each alone at B=64, N=256 (the published
-widths, every frame valid), with their least time at the card's float32
-peak and HBM bandwidth, their share of it, and the plain loops' time; and
-the EM cost kernel (`mcem.em_cost`) beside K2's 'g' pass at the sweep and
-RVAE shapes (`chip_smoke.time_cost`).
+decoder planned once as `mcem_batch_fused` plans it
+(`mh_chain.plan_chain`). It times with the checkout's own `chip_smoke.py`
+helpers and kernels, and records the ptxas lines (registers and spills a
+kernel) of the chain's three libraries, K2's, the RVAE's sweeps' and the
+cost kernel's. With --e2e it also times the main batch
+(`chip_smoke.phase_main`, three runs) of the shipped M2 and of the (512,
+512) M2 and records their x realtime. K1a E and WF also run at a padded
+sweep shape, B=16, N=512 with the frame counts of one of the offline
+sweep's 512-frame batches (`SWEEP_512`), with every tile pair computed
+(`_b16n512_all`) and with its dead pairs skipped (`_b16n512`); and at the
+main path's shapes with every pair's flag set (`_flags`, no pair dead).
+The RVAE's sweep kernels (`mcem.lstm_sweep`) run each alone at B=64,
+N=256 (the published widths, every frame valid), with their least time
+at the card's float32 peak and HBM bandwidth, their share of it, and the
+plain loops' time; and the EM cost kernel (`mcem.em_cost`) beside K2's
+'g' pass at the sweep and RVAE shapes (`chip_smoke.time_cost`). The
+checkout must plan its chain's decoder (`mh_chain.plan_chain`); an older
+checkout is timed by its own copy of this script.
 
 With --replay <cell> it times no kernel and instead replays one pass of a
 sweep cell of the checkout's benchmark (`gvbench/`: its traffic, batch
@@ -47,7 +48,6 @@ lines and the ms of each kernel over `--reps` timings.
 """
 
 import argparse
-import inspect
 import json
 import os
 import re
@@ -80,7 +80,7 @@ def main(argv=None):
     import chip_smoke as cs
     from guided_vae_nmf_torch import _build
     from guided_vae_nmf_torch.mcem import MCEMConfig, mh_chain
-    from guided_vae_nmf_torch.mcem.mh_chain import pack_weights
+    from guided_vae_nmf_torch.mcem.mh_chain import live_pairs, widths
     from guided_vae_nmf_torch.train import load_model
 
     dev = torch.device("cuda", 0)
@@ -91,7 +91,7 @@ def main(argv=None):
             "lstm_sweep", "em_cost")
     ptxas = {lib: {re.sub(r"(_GLOBAL__N__)[0-9a-f]{8}", r"\1", k): v
                    for k, v in cs.ptxas_report(_build.build_log(lib)).items()}
-             for lib in libs if (_build.CSRC / f"{lib}.cu").exists()}
+             for lib in libs}
     if args.replay:
         out = {"tree": tree, "gpu": cs.gpu_name_and_limit(),
                "build_s": build_s, "ptxas": ptxas,
@@ -102,44 +102,34 @@ def main(argv=None):
                        device=dev)
     cfg = MCEMConfig()
     B, N, R = 4, 384, cfg.nsamples_E_step
+    # chip_smoke's run_chain plans each input set's decoder once, as
+    # mcem_batch_fused does, so no timed launch plans or packs
     c = cs.chain_inputs(torch, model, B, N, cfg.nmf_rank, 7, dev)
-    c["dec_w"] = pack_weights(c["dec_w"])
     gpu = cs.gpu_name_and_limit()
     out = {"tree": tree, "gpu": gpu, "build_s": build_s, "ptxas": ptxas,
            "ms": {}}
-    forms = "form" in inspect.signature(mh_chain).parameters
-    flags = "live" in inspect.signature(mh_chain).parameters
     cp = cs.chain_inputs(torch, model, len(SWEEP_512), 512, cfg.nmf_rank, 7,
                          dev)
-    cp["dec_w"] = pack_weights(cp["dec_w"])
     cp["mask"] = (torch.arange(512, device=dev)[None] < torch.tensor(
         SWEEP_512, device=dev)[:, None]).float()
-    padded = {"_b16n512_all": (cp, {})}
-    if flags:
-        from guided_vae_nmf_torch.mcem.mh_chain import live_pairs
-
-        padded["_b16n512"] = (cp, dict(live=live_pairs(cp["mask"])))
-        padded["_flags"] = (c, dict(live=torch.ones(
-            (B, N // 32), dtype=torch.bool, device=dev)))
+    padded = {"_b16n512_all": (cp, {}),
+              "_b16n512": (cp, dict(live=live_pairs(cp["mask"]))),
+              "_flags": (c, dict(live=torch.ones(
+                  (B, N // 32), dtype=torch.bool, device=dev)))}
 
     def add(key, ms):
         out["ms"].setdefault(key, []).append(ms)
 
-    def k1g_inputs():
-        """K1g's inputs on the (512, 512) and (128, 256) decoders, seeded
-        as chip_smoke's times_domain seeds them, packed for K1g where the
-        checkout packs it."""
-        mc = sys.modules["guided_vae_nmf_torch.mcem.mh_chain"]
-        cases = {}
-        for h_dim, off in ((cs.GENERAL_H_DIM, 23), (cs.DOMAIN_H_DIMS[0], 20)):
-            m = cs.domain_model(torch, h_dim, off, dev)
-            c = cs.chain_inputs(torch, m, B, N, cfg.nmf_rank, 7, dev)
-            if hasattr(mc, "pack_general"):
-                c["dec_w"] = mc.pack_general(c["dec_w"])
-            cases[str(mc.widths(c["dec_w"]))] = c
-        return cases
-
-    k1g = (k1g_inputs() if forms and hasattr(cs, "GENERAL_H_DIM") else {})
+    # K1g's inputs on the (512, 512) and (128, 256) decoders, seeded as
+    # chip_smoke's times_domain seeds them
+    k1g = {}
+    for h_dim, off in ((cs.GENERAL_H_DIM, 23), (cs.DOMAIN_H_DIMS[0], 20)):
+        ck = cs.chain_inputs(torch, cs.domain_model(torch, h_dim, off, dev),
+                             B, N, cfg.nmf_rank, 7, dev)
+        k1g[str(widths(ck["dec_w"]))] = ck
+    cg = cs.chain_inputs(torch, cs.domain_model(
+        torch, cs.DOMAIN_H_DIMS[0], 20, dev), B, N, cfg.nmf_rank, 7, dev)
+    cw = cs.chain_inputs(torch, model, B, N, cs.DOMAIN_RANK, 7, dev)
     for _ in range(args.reps):
         for mode, ns, bi in (("e", R, cfg.burnin_E_step),
                              ("wf", cfg.nsamples_WF, cfg.burnin_WF)):
@@ -154,34 +144,18 @@ def main(argv=None):
                 for key, row in cs.time_sums(torch, c, vb, level, cfg,
                                              gpu).items():
                     add(key, row["ms"])
-        if hasattr(cs, "domain_model"):
-            m = cs.domain_model(torch, cs.DOMAIN_H_DIMS[0], 20, dev)
-            cg = cs.chain_inputs(torch, m, B, N, cfg.nmf_rank, 7, dev)
-            if forms:
-                from guided_vae_nmf_torch.mcem.mh_chain import \
-                    pack_for_chain
-
-                cg["dec_w"] = pack_for_chain(cg["dec_w"], 513, cg["L"],
-                                             cfg.nmf_rank, N)
-                mc = sys.modules["guided_vae_nmf_torch.mcem.mh_chain"]
-                if hasattr(mc, "pack_general"):
-                    cg["dec_w"] = mc.pack_general(cg["dec_w"])
-            for mode, ns, bi in (("e", R, cfg.burnin_E_step),
-                                 ("wf", cfg.nsamples_WF, cfg.burnin_WF)):
-                # K1g, and K1e at the same shapes where the checkout has it
-                for tag, kw in ((("_gen", dict(form="general")),
-                                 ("_ext", {})) if forms
-                                else (("_gen", {}),)):
-                    add(f"mh_chain_{mode}_wh{tag}", cs.time_cuda(
-                        lambda: cs.run_chain(cg, mh_chain, mode, ns, bi,
-                                             cfg.var_RW, seed=1, **kw)))
-            cw = cs.chain_inputs(torch, model, B, N, cs.DOMAIN_RANK, 7, dev)
-            cw["dec_w"] = pack_weights(cw["dec_w"])
-            for level in ("", "_fast"):
-                for key, row in cs.time_sums(torch, cw, False, level, cfg,
-                                             gpu).items():
-                    add(key, row["ms"])
-        for ws, c in k1g.items():
+        for mode, ns, bi in (("e", R, cfg.burnin_E_step),
+                             ("wf", cfg.nsamples_WF, cfg.burnin_WF)):
+            # K1g, and K1e at the same shapes
+            for tag, form in (("_gen", "general"), ("_ext", "auto")):
+                add(f"mh_chain_{mode}_wh{tag}", cs.time_cuda(
+                    lambda: cs.run_chain(cg, mh_chain, mode, ns, bi,
+                                         cfg.var_RW, seed=1, form=form)))
+        for level in ("", "_fast"):
+            for key, row in cs.time_sums(torch, cw, False, level, cfg,
+                                         gpu).items():
+                add(key, row["ms"])
+        for ws, ck in k1g.items():
             for vb, nform in ((False, "wh"), (True, "vb")):
                 for level in ("", "_fast"):
                     kw = cs.fast_kw(torch, level)
@@ -190,12 +164,10 @@ def main(argv=None):
                             ("wf", cfg.nsamples_WF, cfg.burnin_WF)):
                         add(f"k1g {ws} {mode}_{nform}{level}",
                             cs.time_cuda(lambda: cs.run_chain(
-                                c, mh_chain, mode, ns, bi, cfg.var_RW,
+                                ck, mh_chain, mode, ns, bi, cfg.var_RW,
                                 vb=vb, seed=1, form="general", **kw)))
-    if (_build.CSRC / "lstm_sweep.cu").exists():
-        out["rvae_sweeps"] = rvae_sweeps(torch, cs, dev, args.reps)
-    if hasattr(cs, "time_cost"):
-        out["em_cost"] = cs.time_cost(torch, dev, args.reps)
+    out["rvae_sweeps"] = rvae_sweeps(torch, cs, dev, args.reps)
+    out["em_cost"] = cs.time_cost(torch, dev, args.reps)
     if args.e2e:
         out["x_realtime"] = e2e(torch, cs, model, cfg, tree, dev, gpu)
     return write(out, args.out)

@@ -22,7 +22,9 @@ variant copies each undo one choice:
 and 128 x 4 on 8-CTA clusters, where 4 fit, needs no copy. Every variant
 is first held against the plain version (Z equal under decisive noise,
 the rest within atol 2e-5 / rtol 2e-4); times are CUDA-event ms a launch,
-two rounds in alternating order, beside K1g (`form="general"`). Last, the
+two rounds in alternating order, beside K1g (a plan's `form="general"`).
+Each run's decoder is planned (`mh_chain.plan_chain`) at the variant's
+clusters before its first launch, by `chip_smoke.run_chain`. Last, the
 shipped M2's decoder on K1e's 4-CTA clusters beside the cluster form
 (K1a) that runs it.
 
@@ -228,7 +230,7 @@ def main(argv=None):
             geo = mc.ext_geometry(513, 32, ws, K, dev)
             geo["waves"] = -(-B * (N // 32) // geo["max_active_clusters"])
             rec["geometry"][f"{name} {ws}"] = geo
-            c["dec_w"] = mc.pack_weights(c["dec_w"], geo["cluster"])
+            c.pop("plans", None)        # planned anew at these clusters
             for mode, (ns, bi) in chains.items():
                 noise = cs.decisive_noise(torch, 12, B, N, c["L"], ns + bi,
                                           dev)
@@ -259,15 +261,14 @@ def main(argv=None):
                     if only is not None and ws not in only:
                         continue
                     use(lib, clusters)
-                    c["dec_w"] = mc.pack_weights(
-                        c["dec_w"], mc.ext_cluster(513, 32, ws, K))
+                    c.pop("plans", None)
                     row.setdefault(name, []).append(time(form="ext"))
     use("stamp", own_clusters)
     stamps = libs["stamp"]
     stamps.gvnmf_ext_stamps.argtypes = [ctypes.c_void_p]
     for ws, c in cases.items():
         cl = mc.ext_cluster(513, 32, ws, K)
-        c["dec_w"] = mc.pack_weights(c["dec_w"], cl)
+        c.pop("plans", None)
         for mode, (ns, bi) in chains.items():
             stamps.gvnmf_ext_stamps_reset()
             cs.run_chain(c, mh_chain, mode, ns, bi, cfg.var_RW, seed=1,
@@ -288,7 +289,6 @@ def main(argv=None):
                              / "pretrained" / "M2_ibm"), kind="dgm",
                          y_dim=513, device=dev)
     c = cs.chain_inputs(torch, shipped, B, N, K, 7, dev)
-    c["dec_w"] = mc.pack_weights(mc.pack_weights(c["dec_w"]), 4)
     for rnd in range(2):
         for mode, (ns, bi) in chains.items():
             row = rec["ms"].setdefault(f"shipped {mode}", {})

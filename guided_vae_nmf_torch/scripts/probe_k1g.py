@@ -2,8 +2,8 @@
 card, by clock64() stamps, at the main path's B=4, N=384 with
 MCEMConfig()'s E chain (NMF form), on the (512, 512) decoder (the M2 of
 `dgm_init` h_dim (512, 512), which no cluster holds) and the (128, 256)
-one (h_dim (256, 128), forced onto K1g with `form="general"`), seeded as
-`chip_smoke.py` seeds them.
+one (h_dim (256, 128), forced onto K1g by a plan's `form="general"`),
+seeded as `chip_smoke.py` seeds them.
 
 The stamps run on a copy of a checkout's `csrc/mh_chain_general.cu` that
 this script writes into that checkout's build directory and builds with
@@ -328,7 +328,8 @@ def main(argv=None):
     for h_dim, off in DECODERS:
         m = cs.domain_model(torch, h_dim, off, dev)
         c = cs.chain_inputs(torch, m, B, N, K, 7, dev)
-        if streaming:
+        if streaming and not hasattr(mc, "plan_chain"):
+            # a checkout before the plan: K1g's block packed once here
             c["dec_w"] = mc.pack_general(c["dec_w"])
         cases[mc.widths(c["dec_w"])] = c
     # every copy against the plain version, E and WF

@@ -91,7 +91,7 @@ def test_bf16_weights_round_once():
                                       [F, Y, L, [H, H]])).decoder
     dec_w = _dec_parts(dec, L)
     r = bf16_weights(dec_w)
-    assert r["bf16"] and r["bo"] is dec_w["bo"]
+    assert set(r) == {"w1", "mid", "wo", "bo"} and r["bo"] is dec_w["bo"]
     for w, w0 in ((r["w1"], dec_w["w1"]), (r["mid"][0][0], dec_w["mid"][0][0]),
                   (r["wo"], dec_w["wo"])):
         assert w.dtype == torch.float32

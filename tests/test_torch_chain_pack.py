@@ -5,9 +5,9 @@ holds output bins [r Fsl, (r+1) Fsl) and hidden units [r Hsl, (r+1) Hsl)
 of every decoder weight in shared memory, copied there from one
 contiguous block per rank. These tests unpack the blocks on the CPU and
 hold every slice against the decoder it came from, at ragged widths; and
-they run the wrapper's CPU path with a packed decoder against the JAX
-Pallas chain (interpret mode), as test_torch_kernels.py does without one:
-the packing reaches only the kernel.
+they run the wrapper's CPU path with a planned decoder against the JAX
+Pallas chain (interpret mode), as test_torch_kernels.py does with bare
+parts: the plan's block reaches only the kernel.
 """
 
 import jax
@@ -29,6 +29,7 @@ from guided_vae_nmf_torch.mcem.mh_chain import (
     CLUSTER,
     bf16_weights,
     pack_weights,
+    plan_chain,
 )
 from guided_vae_nmf_torch.models import module_from_params
 
@@ -64,7 +65,7 @@ def test_pack_weights_layout(F, Hd, L, depth):
     rows of a multiple of 4 floats; ragged and empty last slices included
     (H=2 leaves ranks 2 and 3 without units)."""
     d = _dec_w(np.random.RandomState(F + Hd), F, Hd, L, depth)
-    packed = pack_weights(d)["packed"]
+    packed = pack_weights(d)
     assert packed.shape[0] == CLUSTER and packed.is_contiguous()
     assert packed.shape[1] % 4 == 0
     Fsl, Hsl = -(-F // CLUSTER), -(-Hd // CLUSTER)
@@ -84,16 +85,19 @@ def test_pack_weights_layout(F, Hd, L, depth):
 
 
 def test_pack_weights_keeps_the_decoder_and_rounding():
-    """Packing adds "packed" and leaves the rest; bfloat16-rounded weights
-    are packed as they are; re-rounding drops a stale block."""
+    """Packing leaves the decoder as it was; bfloat16-rounded weights are
+    packed as they are, and a bfloat16-product plan packs its rounded
+    weights; re-rounding a plan keeps only the parts, not its block."""
     d = _dec_w(np.random.RandomState(3), 65, 16, 8, 2)
-    p = pack_weights(d)
-    assert all(p[k] is d[k] for k in d)
+    before = dict(d)
+    pack_weights(d)
+    assert d.keys() == before.keys() and all(d[k] is before[k] for k in d)
     r = pack_weights(bf16_weights(d))
-    assert r["bf16"]
-    wo = _unpack(r["packed"][0], 65, 16, 8, 2)[0]
+    wo = _unpack(r[0], 65, 16, 8, 2)[0]
     assert torch.equal(wo[:, :17], d["wo"].to(torch.bfloat16).float()[:, :17])
-    assert "packed" not in bf16_weights(p)
+    p = plan_chain(d, 65, 8, 3, 128, "cuda", torch.bfloat16)
+    assert p["form"] == "cluster" and torch.equal(p["packed"], r)
+    assert set(bf16_weights(p)) == {"w1", "mid", "wo", "bo"}
 
 
 B, F, N, L, H, K, Y = 1, 65, 128, 8, 16, 3, 10
@@ -101,7 +105,7 @@ B, F, N, L, H, K, Y = 1, 65, 128, 8, 16, 3, 10
 
 @pytest.mark.parametrize("mode", ["e", "wf"])
 def test_packed_decoder_cpu_chain_matches_pallas(mode):
-    """The wrapper's CPU path with a packed decoder is the plain version,
+    """The wrapper's CPU path with a planned decoder is the plain version,
     and agrees with the JAX Pallas chain on the same inputs and noise."""
     rng = np.random.RandomState(5)
     dgm = dgm_init(jax.random.PRNGKey(5), [F, Y, L, [H, H]])
@@ -127,7 +131,8 @@ def test_packed_decoder_cpu_chain_matches_pallas(mode):
         burnin=burnin, var_RW=0.01, noise=(jnp.asarray(Zn), jnp.asarray(U)),
         WH=(jnp.asarray(Wt), jnp.asarray(Hf)),
         mask=jnp.asarray(mask) if mode == "e" else None)
-    dec_w = pack_weights(_dec_parts(module_from_params(dgm).decoder, L))
+    dec_w = plan_chain(_dec_parts(module_from_params(dgm).decoder, L), F,
+                       L, K, N, "cpu")
     t = torch.tensor
     p = mh_chain(dec_w, t(X2), (t(Wt), t(Hf)), t(g), t(ypre), t(Z), t(Vs),
                  mode=mode, nsamples=nsamples, burnin=burnin, var_RW=0.01,

@@ -59,7 +59,7 @@ from guided_vae_nmf_torch.mcem import (
     nmf_sums_ref,
 )
 from guided_vae_nmf_torch.mcem.fused_engine import _dec_parts
-from guided_vae_nmf_torch.mcem.mh_chain import philox_streams
+from guided_vae_nmf_torch.mcem.mh_chain import philox_streams, plan_chain
 from guided_vae_nmf_torch.models import module_from_params
 
 TOL = dict(atol=2e-5, rtol=2e-4)
@@ -136,8 +136,18 @@ def decisive_noise(device, seed, B, N, L, n_steps):
             torch.tensor(u.astype(np.float32), device=device))
 
 
-def run_chain(fn, c, mode, nsamples, burnin, var_rw, vb=False, **kw):
-    return fn(c["dec_w"], c["X2"], None if vb else c["WH"], c["g"],
+def run_chain(fn, c, mode, nsamples, burnin, var_rw, vb=False, form=None,
+              **kw):
+    """One chain over the case `c`; with `form`, on the decoder planned in
+    that form (`mh_chain.plan_chain`), else on its bare parts."""
+    dec_w = c["dec_w"]
+    if form is not None:
+        B, N, F = c["X2"].shape
+        dec_w = plan_chain(dec_w, F, c["Z"].shape[-1],
+                           0 if vb else c["WH"][0].shape[1], N,
+                           c["X2"].device,
+                           kw.get("matmul_dtype", torch.float32), form)
+    return fn(dec_w, c["X2"], None if vb else c["WH"], c["g"],
               c["ypre"], c["Z"], c["Vs"], mode=mode, nsamples=nsamples,
               burnin=burnin, var_RW=var_rw,
               mask=c["mask"] if mode == "e" and not vb else None,
@@ -1751,7 +1761,8 @@ def _wid(ws):
 def test_general_chain_matches_plain(cuda, widths, mode, form, level):
     """One K1g launch under the level's "_gen" key; every output against
     the plain version (bfloat16 dumps within one bfloat16 ulp of its);
-    `form="general"` keeps K1g where the wrapper would launch K1e."""
+    a plan with `form="general"` keeps K1g where the plan would otherwise
+    pick K1e."""
     _chain_matches_plain(cuda, widths, mode, form, level, "general", "_gen")
 
 
@@ -2180,9 +2191,9 @@ def test_ext_geometry_matches_the_wrapper(cuda):
 @pytest.mark.cuda
 def test_chain_dispatch_on_the_card(cuda):
     """The shipped decoder launches the cluster form (K1a), the (128, 256)
-    decoder K1e, the (512, 512) one K1g, which no cluster holds; `form=`
-    runs K1g or K1e where the wrapper would pick another, and refuses a
-    form that does not take the decoder."""
+    decoder K1e, the (512, 512) one K1g, which no cluster holds; a plan's
+    `form=` runs K1g or K1e where the plan would pick another, and the plan
+    refuses a form that does not take the decoder."""
     dims = dict(B=1, F=513, N=32, L=32, K=10, Y=20)
     for H, key in ((128, "e_wh"), ((128, 256), "e_wh_ext"),
                    ((512, 512), "e_wh_gen")):

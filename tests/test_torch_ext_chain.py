@@ -9,7 +9,8 @@ output bins [r Fsl, (r+1) Fsl) and of each hidden layer d the units
 rank (`pack_weights(dec_w, cluster)`). These tests unpack the blocks in
 numpy and hold every slice against the decoder it came from; hold the
 dispatch rule (`chain_form`, a function of the shapes and the shared
-memory a CTA may take) to each of its three outcomes; and run
+memory a CTA may take) to each of its three outcomes, and the plan
+(`plan_chain`) to the form and block it picks; and run
 `mcem_batch_fused` with decoders of unequal widths against JAX's
 `mcem_batch_fused` (its Pallas chain in interpret mode), both fed the same
 decisive streams (accept uniforms of 0 or inf, so no decision can flip on
@@ -41,8 +42,9 @@ from guided_vae_nmf_torch.mcem.mh_chain import (
     ext_sizes,
     mh_chain,
     mh_chain_ref,
-    pack_for_chain,
+    pack_general,
     pack_weights,
+    plan_chain,
     widths,
 )
 from guided_vae_nmf_torch.models import module_from_params
@@ -97,9 +99,7 @@ def test_pack_weights_per_layer(F, L, ws, cl):
     zero-padded to rows of a multiple of 4 floats (ragged and empty last
     slices included); the block's length is what the kernel carves."""
     d = _dec_w(np.random.RandomState(F + cl), F, L, ws)
-    p = pack_weights(d, cl)
-    assert all(p[k] is d[k] for k in d) and "packed" not in p
-    packed = p["packed_ext"]
+    packed = pack_weights(d, cl)
     assert packed.shape == (cl, ext_sizes(F, L, ws, 0, cl)[1])
     assert packed.is_contiguous() and packed.shape[1] % 4 == 0
     blocks = packed.numpy()
@@ -123,10 +123,14 @@ def test_pack_weights_per_layer(F, L, ws, cl):
 @pytest.mark.parametrize("F,L,H,depth", [(513, 32, 128, 2), (100, 7, 24, 3)])
 def test_pack_weights_one_width_is_the_cluster_forms(F, L, H, depth):
     """At one hidden width and 4 CTAs the per-layer blocks are the cluster
-    form's blocks, float for float."""
+    form's blocks, float for float: the plans of the two forms carry the
+    same block."""
     d = _dec_w(np.random.RandomState(H), F, L, (H,) * depth)
-    assert torch.equal(pack_weights(d)["packed"],
-                       pack_weights(d, CLUSTER)["packed_ext"])
+    cluster = plan_chain(d, F, L, 0, 128, "cuda")
+    ext = plan_chain(d, F, L, 0, 128, "cuda", form="ext")
+    assert (cluster["form"], ext["form"]) == ("cluster", "ext")
+    assert cluster["cluster"] == ext["cluster"] == CLUSTER
+    assert torch.equal(cluster["packed"], ext["packed"])
 
 
 # (F, L, widths, K, N, shared memory a CTA may take) -> the form
@@ -186,27 +190,29 @@ def test_shared_memory_of_the_shipped_and_domain_decoders():
     assert ext_cluster(513, 32, (512, 512), 10) is None
 
 
-@pytest.mark.parametrize("ws,K,key,rows", [
-    ((128, 128), 10, "packed", 4), ((24, 40), 3, "packed_ext", 4),
-    ((128, 256), 10, "packed_ext", 8), ((128,) * 4, 10, "packed_ext", 4),
-    ((512, 512), 10, "packed_gen", 32 * 512 + 512 * 512 + 512 * 520)])
-def test_pack_for_chain_packs_the_form_that_runs(ws, K, key, rows):
-    """`pack_for_chain` (what mcem_batch_fused calls once on the card)
-    adds the blocks of the form the wrapper launches at these shapes: the
-    cluster forms' per-rank blocks, or the general form's one block of
-    padded rows."""
+@pytest.mark.parametrize("ws,K,form,rows", [
+    ((128, 128), 10, "cluster", 4), ((24, 40), 3, "ext", 4),
+    ((128, 256), 10, "ext", 8), ((128,) * 4, 10, "ext", 4),
+    ((512, 512), 10, "general", 32 * 512 + 512 * 512 + 512 * 520)])
+def test_pack_for_chain_packs_the_form_that_runs(ws, K, form, rows):
+    """The plan (what mcem_batch_fused makes once a call) holds the one
+    block of the form the card launches at these shapes under "packed":
+    the cluster forms' per-rank blocks, or the general form's one block of
+    padded rows; the decoder's parts stay as they were."""
     F, L = (65, 8) if ws == (24, 40) else (513, 32)
     d = _dec_w(np.random.RandomState(7), F, L, ws)
-    p = pack_for_chain(d, F, L, K, 128)
-    added = set(p) - set(d)
-    assert added == (set() if key is None else {key})
-    if key:
-        assert p[key].shape[0] == rows
+    p = plan_chain(d, F, L, K, 128, "cuda")
+    assert (p["form"], p["cluster"]) == chain_form(F, L, ws, K, 128)
+    assert p["form"] == form and p["packed"].shape[0] == rows
+    assert all(p[k] is d[k] for k in d)
+    want = (pack_weights(d, p["cluster"]) if p["cluster"]
+            else pack_general(d))
+    assert torch.equal(p["packed"], want)
 
 
 def test_wrapper_forms_on_the_cpu():
-    """On CPU tensors every form is the plain version; an unknown form is
-    refused; the launch counters have K1e's keys."""
+    """On CPU tensors every form's plan is the plain version; an unknown
+    form is refused; the launch counters have K1e's keys."""
     rng = np.random.RandomState(9)
     B, F, N, L, K = 1, 65, 32, 8, 3
     d = _dec_w(rng, F, L, (24, 40))
@@ -225,11 +231,13 @@ def test_wrapper_forms_on_the_cpu():
     kw = dict(nsamples=3, burnin=2, noise=noise, mask=mask)
     ref = mh_chain_ref(*args, **kw)
     for form in ("auto", "cluster", "ext", "general"):
-        got = mh_chain(*args, form=form, **kw)
+        plan = plan_chain(d, F, L, K, N, X2.device, form=form)
+        assert plan["form"] == "plain" and not plan["skips"]
+        got = mh_chain(plan, *args[1:], **kw)
         assert all(torch.equal(a, b) for a, b in zip(
             (got[0], got[1]) + got[2], (ref[0], ref[1]) + ref[2]))
     with pytest.raises(ValueError, match="form"):
-        mh_chain(*args, form="wide", **kw)
+        plan_chain(d, F, L, K, N, X2.device, form="wide")
     assert {"e_wh_ext", "wf_vb_ext", "e_vb_ext_fast",
             "wf_wh_ext_trans_mm16"} <= set(mh_chain.launches)
 

@@ -48,8 +48,8 @@ from guided_vae_nmf_torch.mcem.mh_chain import (
     general_tile,
     mh_chain,
     mh_chain_ref,
-    pack_for_chain,
     pack_general,
+    plan_chain,
     widths,
 )
 from guided_vae_nmf_torch.models import module_from_params
@@ -162,13 +162,12 @@ def test_pack_general_layout(F, L, ws):
     """The block holds w1, each later layer's weights and wo, layer after
     layer, each [inputs][outputs rounded up to 8] with zero padding; its
     length is what the kernel carves; every layer starts on 16 bytes; the
-    biases and
-    the other entries stay as they were; `pack_for_chain` adds it where
-    the wrapper launches K1g."""
+    decoder stays as it was; the plan carries it where the card launches
+    K1g."""
     d = _dec_w(np.random.RandomState(F), F, L, ws)
-    p = pack_general(d)
-    assert all(p[k] is d[k] for k in d)
-    block = p["packed_gen"]
+    before = dict(d)
+    block = pack_general(d)
+    assert d.keys() == before.keys() and all(d[k] is before[k] for k in d)
     assert block.shape == (general_packed(F, L, ws),) and block.is_contiguous()
     flat = block.numpy()
     off = 0
@@ -181,7 +180,9 @@ def test_pack_general_layout(F, L, ws):
         off += kin * _r8(n)
     assert off == flat.size
     if chain_form(F, L, ws, 10, 128)[0] == "general":
-        assert "packed_gen" in pack_for_chain(d, F, L, 10, 128)
+        plan = plan_chain(d, F, L, 10, 128, "cuda")
+        assert plan["form"] == "general"
+        assert torch.equal(plan["packed"], block)
 
 
 # the wide decoder end to end: dgm_init h_dim (1200,) at a small F
@@ -241,11 +242,13 @@ def test_wide_decoder_chain_matches_pallas(mode, vb):
     assert ws == (1200,)
     assert chain_form(513, 32, ws, 0 if vb else 10, 384)[0] == "general"
     assert general_tile(513, 32, ws, 10) == 16
-    got = mh_chain(dec_w, _t(X2), None if vb else (_t(Wt), _t(Hf)), _t(g),
+    plan = plan_chain(dec_w, F, L, 0 if vb else K, N, "cpu",
+                      form="general")
+    got = mh_chain(plan, _t(X2), None if vb else (_t(Wt), _t(Hf)), _t(g),
                    _t(ypre), _t(Z), _t(Vs), mode=mode, nsamples=nsamples,
                    burnin=burnin, var_RW=0.01, noise=tuple(map(_t, noise)),
                    mask=_t(mask) if use_mask else None,
-                   Vb=_t(Vb) if vb else None, form="general")
+                   Vb=_t(Vb) if vb else None)
     for a, b in zip((got[0], got[1]) + got[2], (Zj, Vsj) + tuple(extra_j)):
         assert tuple(a.shape) == tuple(np.shape(b))
         assert_allclose(a.numpy(), np.asarray(b), **TOL)

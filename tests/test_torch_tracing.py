@@ -167,13 +167,14 @@ def test_wf_chain_counts_live_pairs(m2, monkeypatch, frames, n_pad, live,
     """`gvnmf.wf_chain` counts the chains' 32-frame tile pairs
     (`k1_pairs`, rows x ceil(n_pad / 32)) and those the chains ran
     (`k1_live_pairs`): where the form skips dead pairs (the cluster form
-    on the card, here by `skips_dead_pairs` patched) those that hold a
+    on the card, here by the plan's skip flag patched) those that hold a
     valid frame, a device count resolved when read; elsewhere (the CPU's
     plain version, K1e, K1g) every pair."""
     from guided_vae_nmf_torch.mcem import fused_engine
 
-    monkeypatch.setattr(fused_engine, "skips_dead_pairs",
-                        lambda *a: skips)
+    real = fused_engine.plan_chain
+    monkeypatch.setattr(fused_engine, "plan_chain",
+                        lambda *a, **k: dict(real(*a, **k), skips=skips))
     x, mask = _batch(frames=frames, n_pad=n_pad)
     _profiled(lambda: _enhance(m2, x, mask))
     wf, = [r for r in ops.span_records() if r["name"] == "gvnmf.wf_chain"]
